@@ -19,7 +19,15 @@ Phases (any failure exits non-zero without the final result line):
    points with the default aggregation backend (the ``mule_agg`` kernel).
    Kernel launch counts are zeroed just before the run and read just after;
    every eval must be finite. The same run is replayed with
-   ``agg_backend="ref"`` and the final weights of the two must agree.
+   ``agg_backend="ref"`` and the final weights of the two must agree;
+5. the peer path: ``gossip``, ``oppcl`` and ``mlmule+gossip`` on the
+   paper's random walk (P_cross = 0.1, Fig 6) at the same width and sizes,
+   with the default encounter backend (the ``encounter_mix`` kernel). Each
+   counted run must launch ``encounter_mix`` once per peer exchange (every
+   third step; none for ``oppcl``, which has no kernel) and ``mule_agg``
+   once per step for the hybrid only. ``gossip`` is replayed bitwise, with
+   ``enc_backend="ref"`` under a growth bound, and its mix is held to the
+   plain version in lockstep at every exchange.
 
 The second-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -52,8 +60,16 @@ PROFILE_STEPS = 5
 REPLAY_ATOL = 5e-2
 LOCKSTEP_ATOL = 1e-5
 
+# peer path (phase 5): Fig 6's random walk; gossip_step's radius
+PEER_METHODS = ("gossip", "oppcl", "mlmule+gossip")
+P_CROSS, RADIUS, PEER_EVERY = 0.1, 0.15, 3
+PEER_PROFILE_STEPS = 6
+# gossip's kernel run and its enc_backend="ref" replay differ by the mix's
+# fp32 summation order (~1e-7) and then by training's tie flips, as above
+PEER_REPLAY_ATOL = 5e-2
+
 # phase 3: the JAX package's kernel tolerances
-# (tests/test_kernels_mule_agg.py)
+# (tests/test_kernels_mule_agg.py, tests/test_kernels_encounter.py)
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # H100 SXM peaks (NVIDIA data sheet): memory rate, fp32 outside the
 # tensor cores (the kernel's FMAs)
@@ -100,7 +116,7 @@ def phase_build() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
-def phase_kernels() -> dict:
+def phase_mule_agg() -> dict:
     """mule_agg against its plain version; returns its JSON row."""
     import torch
     from repro_torch.kernels.mule_agg import mule_agg, mule_agg_plain
@@ -158,6 +174,126 @@ def phase_kernels() -> dict:
                 print(f"mule_agg timing F={f} M={m} D={d} bf16: kernel "
                       f"{bf_ms:.4f} ms, bound "
                       f"{2 * m * d / HBM_BYTES_PER_S * 1e3:.4f} ms (W bytes)")
+    return row
+
+
+def _walk_geometry(t: int):
+    """pos [M, 2], area [M] of step ``t`` of the peer path's random walk."""
+    import torch
+    from repro_torch.scenarios import walk_colocation
+    co = walk_colocation(SEED, N_MULES, N_STEPS, p_cross=P_CROSS)
+    return (torch.as_tensor(co["pos"][t], device="cuda"),
+            torch.as_tensor(co["area"], device="cuda"))
+
+
+def _dense_mix(models, pos, area, active):
+    """The mix of the retired dense path (``gossip_step_dense``): the
+    [M, M] encounter matrix, then the per-leaf group mean."""
+    from repro_torch.baselines.gossip import encounter_matrix
+    from repro_torch.core.aggregation import masked_group_mean
+    enc = encounter_matrix(pos, area, RADIUS, active).float()
+    return masked_group_mean(models, enc, backend="ref")
+
+
+def phase_encounter_mix() -> dict:
+    """encounter_mix against its plain version; returns its JSON row."""
+    import torch
+    from repro_torch.baselines.gossip import (encounter_matrix,
+                                              unflatten_population)
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.kernels.encounter_mix import (encounter_mix,
+                                                   encounter_mix_reference)
+    from repro_torch.models.cnn import init_cnn
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    d_main = 546_484     # the paper CNN's parameter count (CONFIG)
+    # (M, D, radius, p_active, positions): the main path's shape on the
+    # walk's first exchange step, tests/test_kernels_encounter.py's shapes,
+    # a ragged shape over many M-chunks, and a dense strip (all pos 0)
+    cases = [(N_MULES, d_main, RADIUS, 1.0, "walk")]
+    cases += [(m, d, 0.3, p, "uniform") for m, d in
+              ((20, 256), (33, 130), (64, 1024), (7, 5)) for p in (1.0, 0.6)]
+    cases += [(1100, 4099, 0.3, 0.8, "uniform"), (300, 2000, RADIUS, 1.0,
+                                                  "zero")]
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for m, d, radius, p, geo in cases:
+            if geo == "walk":
+                pos, area = _walk_geometry(PEER_EVERY - 1)
+            else:
+                pos = torch.rand(m, 2, device="cuda", generator=g)
+                if geo == "zero":
+                    pos.zero_()
+                area = torch.randint(0, 2, (m,), device="cuda", generator=g)
+            active = torch.rand(m, device="cuda", generator=g) < p
+            w = torch.randn(m, d, device="cuda", generator=g).to(dtype)
+            out, mass = encounter_mix(pos, area, active, w, radius=radius)
+            torch.cuda.synchronize()
+            ref, ref_mass = encounter_mix_reference(pos, area, active, w,
+                                                    radius=radius)
+            ref = ref.to(dtype)
+            err = (out.float() - ref.float()).abs().max().item() if d else 0.0
+            ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+            same_mass = torch.equal(mass, ref_mass)
+            nnz = int(ref_mass.sum().item())
+            print(f"encounter_mix M={m} D={d} r={radius} p_active={p} {geo} "
+                  f"{dtype}: max_abs_err={err:.3e} (tol {tol}), masses "
+                  f"{'equal' if same_mass else 'DIFFER'}, {nnz} encounters "
+                  f"{'ok' if ok and same_mass else 'MISMATCH'}")
+            if not (ok and same_mass):
+                raise AssertionError(f"encounter_mix disagrees with its plain "
+                                     f"version at M={m} D={d} {dtype}")
+            if geo == "walk" and dtype == torch.float32:
+                ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
+                                                      radius=radius))
+                plain_ms = _median_ms(lambda: encounter_mix_reference(
+                    pos, area, active, w, radius=radius))
+                e = encounter_matrix(pos, area, radius, active).float()
+                library_ms = _median_ms(lambda: torch.matmul(e, w))
+                # the same weights as the CNN's leaves, for the dense path
+                params = init_cnn(g, CONFIG)
+                keys = sorted(params)
+                models = unflatten_population(w, (
+                    keys, [params[k].shape for k in keys],
+                    [torch.float32] * len(keys)))
+                dense_ms = _median_ms(lambda: _dense_mix(models, pos, area,
+                                                         active))
+                # bytes: W read once, the mix and mass written once, the
+                # geometry (pos f32 x2, area int64, active bool) read once
+                n_bytes = 4 * m * d + 4 * m * d + 4 * m + 17 * m
+                # operations the data needs: one multiply-add per met pair
+                # and column; the dense strip the kernel walks does M*M*D
+                n_flop = 2 * nnz * d
+                dense_flop = 2 * m * m * d
+                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+                row = {
+                    "name": "encounter_mix", "route": "cuda",
+                    "source": "src/repro_torch/kernels/encounter_mix/csrc/"
+                              "encounter_mix.cu",
+                    "replaces": "src/repro/kernels/encounter_mix/kernel.py:79",
+                    "launches": None, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": library_ms,
+                }
+                print(f"encounter_mix timing M={m} D={d} f32 ({nnz} "
+                      f"encounters): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                      f"ms, torch.matmul on a dense e {library_ms:.4f} ms, "
+                      f"gossip_step_dense's mix {dense_ms:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                      f"{n_bytes} B, {n_flop} FLOP for the met pairs); the "
+                      f"dense strip's {dense_flop} FLOP take "
+                      f"{dense_flop / FP32_FLOP_PER_S * 1e3:.4f} ms")
+            elif geo == "walk":
+                bf_ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
+                                                         radius=radius))
+                print(f"encounter_mix timing M={m} D={d} bf16: kernel "
+                      f"{bf_ms:.4f} ms, bound "
+                      f"{4 * m * d / HBM_BYTES_PER_S * 1e3:.4f} ms (W and "
+                      f"mix bytes)")
     return row
 
 
@@ -296,13 +432,181 @@ def phase_main_path(card: str) -> dict:
     assign = torch.rand(spec.n_fixed, N_MULES, device="cuda", generator=gen)
     _group_mean_overhead(final["mule_models"], assign / assign.sum(1)[:, None])
     _profile_steps(lambda: run(pcfg, {k: co[k][:PROFILE_STEPS]
-                                      for k in ("fixed_id", "exchange")}))
+                                      for k in ("fixed_id", "exchange")}),
+                   PROFILE_STEPS, "mlmule")
     return {"mule_agg": launches}
 
 
-def _profile_steps(fn) -> None:
+def _encounters_per_mule(co) -> float:
+    """Mean peers met per mule at the exchange steps (the plain gate)."""
+    import torch
+    from repro_torch.kernels.encounter_mix import encounter_gate
+    from repro_torch.kernels.encounter_mix.ref import radius_sq
+    area = torch.as_tensor(co["area"], device="cuda")
+    counts = []
+    for t in range(PEER_EVERY - 1, N_STEPS, PEER_EVERY):
+        pos = torch.as_tensor(co["pos"][t], device="cuda")
+        d2, gate = encounter_gate(pos, area, None, 0, pos, area, None, 0)
+        met = (d2 <= radius_sq(RADIUS).cuda()) & gate
+        counts.append(met.sum(1).float().mean().item())
+    return sum(counts) / len(counts)
+
+
+def phase_peer_path(card: str) -> dict:
+    import torch
+    from repro_torch.baselines.gossip import flatten_population
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.experiment import (batch_sampler, cnn_model_fns,
+                                        image_data_mobile)
+    from repro_torch.kernels.encounter_mix import (encounter_mix,
+                                                   encounter_mix_reference)
+    from repro_torch.kernels.mule_agg import mule_agg
+    from repro_torch.scenarios import run_population, walk_colocation
+
+    # oppcl's peer is the first of tied nearest peers; the card's argmin
+    # must pick it as the CPU's does
+    ties = torch.full((3, 4099), 0.25, device="cuda")
+    ties[:, :5] = float("inf")
+    ties[1, 4000:] = 0.125
+    picked = torch.argmin(ties, dim=1).tolist()
+    print(f"argmin over ties on the card: {picked} (must be [5, 4000, 5])")
+    if picked != [5, 4000, 5]:
+        raise AssertionError("torch.argmin does not take the first of tied "
+                             "minima on the card")
+
+    co = walk_colocation(SEED, N_MULES, N_STEPS, p_cross=P_CROSS)
+    n_fixed = 4 * (int(co["area"].max()) + 1)           # 4 spaces per area
+    Xtr, Ytr, Xte, Yte = image_data_mobile(
+        SEED, N_MULES, n_fixed, co["init_space"], co["init_area"],
+        n_super=CONFIG.n_classes, image_size=CONFIG.image_size)
+    init_fn, train_fn, eval_fn = cnn_model_fns(CONFIG, LR)
+    pcfg = PopulationConfig(mode="mobile", n_fixed=n_fixed, n_mules=N_MULES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    pop0 = init_population(pcfg, init_fn, gen)
+    batch_fn = batch_sampler(Xtr, Ytr, BATCH)
+    met = _encounters_per_mule(co)
+    print(f"peer path: random walk P_cross={P_CROSS}, M={N_MULES}, "
+          f"F={n_fixed}, T={N_STEPS}; {met:.3f} peers met per mule at the "
+          f"exchange steps (radius {RADIUS})")
+    if not met > 0:
+        raise AssertionError("no mule meets a peer: the encounter path is "
+                             "not exercised")
+
+    def eval_hook(st, last):
+        return torch.func.vmap(eval_fn)(st["mule_models"], Xte[last],
+                                        Yte[last])
+
+    def run(method, cfg, colocation, state=pop0, key=SEED, evals=True):
+        return run_population(state, colocation, batch_fn, train_fn, cfg,
+                              key, eval_every=EVAL_EVERY if evals else None,
+                              eval_fn=eval_hook if evals else None,
+                              method=method)
+
+    def steps(lo, hi):
+        """Steps [lo, hi) of the walk; ``area`` is per mule, not per step."""
+        return {**{k: co[k][lo:hi] for k in ("fixed_id", "exchange", "pos")},
+                "area": co["area"]}
+
+    n_exchanges = N_STEPS // PEER_EVERY
+    launches = {}
+    for method in PEER_METHODS:
+        run(method, pcfg, steps(0, PEER_EVERY), evals=False)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        encounter_mix.launches = 0
+        mule_agg.launches = 0
+        t0 = time.perf_counter()
+        final, aux = run(method, pcfg, co)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"encounter_mix": encounter_mix.launches,
+               "mule_agg": mule_agg.launches}
+        peak = torch.cuda.max_memory_allocated()
+        want = {"encounter_mix": 0 if method == "oppcl" else n_exchanges,
+                "mule_agg": N_STEPS if method == "mlmule+gossip" else 0}
+        if got != want:
+            raise AssertionError(f"{method}: kernel launches {got}, expected "
+                                 f"{want}")
+        evals = aux["evals"]
+        if evals is None or tuple(evals.shape) != (N_STEPS // EVAL_EVERY,
+                                                   N_MULES):
+            raise AssertionError(f"{method}: evals of shape "
+                                 f"{None if evals is None else evals.shape}")
+        if not bool(torch.isfinite(evals).all()):
+            raise AssertionError(f"{method}: non-finite eval")
+        for k, v in {**final["mule_models"], **final["fixed_models"]}.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{method}: non-finite weights in {k}")
+        moved = sum(int((final["mule_models"][k] != pop0["mule_models"][k])
+                        .reshape(N_MULES, -1).any(1).sum())
+                    for k in final["mule_models"])
+        if moved == 0:
+            raise AssertionError(f"{method}: no mule model changed")
+        trace = [(int(s), float(a)) for s, a in
+                 zip(aux["eval_steps"], evals.mean(1).tolist())]
+        print(f"peer path: {method} mobile on random_walk, T={N_STEPS}: "
+              f"{N_STEPS / wall:.3f} steps/s ({wall:.3f} s), peak memory "
+              f"{peak} B, launches {got}, {met:.3f} peers met per mule at "
+              f"the exchange steps, accuracy trace {trace} [{card}]")
+        if method == "gossip":
+            launches["encounter_mix"] = got["encounter_mix"]
+            gossip_final = final
+
+    # gossip against itself and against its plain version (enc_backend="ref")
+    ref_cfg = dataclasses.replace(pcfg, enc_backend="ref")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    det_a, _ = run("gossip", pcfg, co)
+    det_b, _ = run("gossip", pcfg, co)
+    det_ref, _ = run("gossip", ref_cfg, co)
+    same = _max_diff(det_a, det_b, ("mule_models",))
+    print(f"gossip deterministic replay, kernel twice: max |final weight "
+          f"diff| = {same:.3e} (must be 0)")
+    if same != 0.0:
+        raise AssertionError("the gossip path is not deterministic")
+    diff = _max_diff(det_a, det_ref, ("mule_models",))
+    print(f"gossip replay with enc_backend='ref': max |final weight diff| = "
+          f"{diff:.3e} (tol {PEER_REPLAY_ATOL}); the counted run moved "
+          f"{_max_diff(gossip_final, pop0, ('mule_models',)):.3e} from init")
+    if not diff <= PEER_REPLAY_ATOL:
+        raise AssertionError("the gossip kernel run and its plain run "
+                             "disagree")
+    # lockstep: at each exchange step, the kernel's mix of the state the run
+    # holds there against the plain version's; the run advances one
+    # exchange period at a time through the kernel path
+    area = torch.as_tensor(co["area"], device="cuda")
+    st, worst = pop0, 0.0
+    for j in range(n_exchanges):
+        t = j * PEER_EVERY + PEER_EVERY - 1
+        flat, _ = flatten_population(st["mule_models"])
+        pos = torch.as_tensor(co["pos"][t], device="cuda")
+        mix_k, mass_k = encounter_mix(pos, area, None, flat, radius=RADIUS)
+        mix_r, mass_r = encounter_mix_reference(pos, area, None, flat,
+                                                radius=RADIUS)
+        if not torch.equal(mass_k, mass_r):
+            raise AssertionError(f"encounter_mix masses differ from the "
+                                 f"plain version's at step {t}")
+        worst = max(worst, (mix_k - mix_r).abs().max().item())
+        st, _ = run("gossip", pcfg, steps(t + 1 - PEER_EVERY, t + 1),
+                    state=st, key=SEED * N_STEPS + j, evals=False)
+    torch.backends.cudnn.deterministic = False
+    print(f"gossip lockstep over {n_exchanges} exchanges, kernel vs plain "
+          f"mix of the same state: max diff {worst:.3e} (tol "
+          f"{LOCKSTEP_ATOL}), masses equal")
+    if not worst <= LOCKSTEP_ATOL:
+        raise AssertionError("encounter_mix and the plain mix disagree on "
+                             "the peer path")
+    _profile_steps(lambda: run("gossip", pcfg, steps(0, PEER_PROFILE_STEPS),
+                               evals=False),
+                   PEER_PROFILE_STEPS, "gossip")
+    return launches
+
+
+def _profile_steps(fn, n_steps: int, label: str) -> None:
     """Device time by kernel, and the device's busy share, over one short
-    run of the main path (torch.profiler)."""
+    run of a path (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -333,7 +637,7 @@ def _profile_steps(fn) -> None:
     for s, e in spans:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    print(f"profile of {PROFILE_STEPS} steps: wall {wall_us / 1e3:.3f} ms, "
+    print(f"profile of {n_steps} {label} steps: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
           f"kernel time summed {summed / 1e3:.3f} ms")
     for us, key, count in rows[:12]:
@@ -360,9 +664,11 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernels"
-        rows = [phase_kernels()]
+        rows = [phase_mule_agg(), phase_encounter_mix()]
         phase = "main path"
         launches = phase_main_path(card)
+        phase = "peer path"
+        launches.update(phase_peer_path(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

@@ -52,6 +52,7 @@ class PopulationConfig:
     gamma: float = 0.5             # aggregation mixing weight
     freshness: FreshnessConfig = FreshnessConfig()
     agg_backend: str = "auto"      # auto (mule_agg kernel on CUDA) | ref
+    enc_backend: str = "auto"      # auto (encounter_mix kernel on CUDA) | ref
     aggregation: str = "weighted"  # weighted | prox (FedProx-style damping)
     prox_mu: float = 0.1
 

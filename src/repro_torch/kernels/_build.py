@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> source, relative to the package
 SOURCES: Dict[str, str] = {
     "mule_agg": "kernels/mule_agg/csrc/mule_agg.cu",
+    "encounter_mix": "kernels/encounter_mix/csrc/encounter_mix.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -10,4 +10,4 @@
 from repro_torch.scenarios.engine import run_population  # noqa: F401
 from repro_torch.scenarios.registry import (  # noqa: F401
     SCENARIOS, ChurnSpec, ScenarioSpec, SpaceSpec, get_scenario,
-    list_scenarios, register, trace_colocation)
+    list_scenarios, register, trace_colocation, walk_colocation)

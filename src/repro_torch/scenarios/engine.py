@@ -103,7 +103,10 @@ def run_population(state: Dict[str, Any], colocation: Dict[str, Any],
     batches:    callable ``(seed, t) -> {"fixed": ..., "mule": ...}``, or a
                 pytree of stacked ``[T, ...]`` tensors on ``device``.
     key:        integer seed of the run.
-    method:     ``"mlmule"`` or ``"local"`` (see ``method_program``).
+    method:     any of ``METHODS_MOBILE``: ``"mlmule"``, ``"gossip"``,
+                ``"oppcl"``, ``"local"`` or ``"mlmule+gossip"`` (see
+                ``method_program``). The peer-encounter methods read "pos"
+                and "area" and fire at ``t % 3 == 2``.
     eval_fn:    optional ``(state, last_fid [M]) -> metric`` run after every
                 ``eval_every`` steps (``last_fid`` is each mule's most
                 recent fixed device, 0 before any visit). A trailing partial

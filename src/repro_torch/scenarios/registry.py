@@ -18,9 +18,12 @@ of the mask generators (``register`` folds the mask into every build), and
 a tuple of ``SpaceSpec`` gives each space its own exchange tempo.
 
 The port registers the trace-built scenarios of ``repro.scenarios.registry``
-and builds bitwise the same arrays for the same seed. The other scenarios
-of the reference arrive with later items of ``ROADMAP.md``;
-``get_scenario`` names the item for each of them.
+and builds bitwise the same arrays for the same seed, and the paper's
+``random_walk``, whose draws come from a ``torch.Generator`` (the
+reference's ``jax.random`` bits cannot be reproduced; fed the same draws,
+``mobility.random_walk`` gives the same walk). The other scenarios of the
+reference arrive with later items of ``ROADMAP.md``; ``get_scenario`` names
+the item for each of them.
 """
 from __future__ import annotations
 
@@ -28,11 +31,15 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.mobility import (commuter_trace, dwell_exchange_flags,
-                                  event_crowd_trace, flash_churn_mask,
-                                  markov_churn_mask, shift_worker_trace,
-                                  synth_foursquare_trace, trace_to_colocation)
+from repro_torch.mobility import (MobilityConfig, commuter_trace,
+                                  dwell_exchange_flags, event_crowd_trace,
+                                  flash_churn_mask, init_mobility,
+                                  markov_churn_mask, sample_walk_draws,
+                                  shift_worker_trace, simulate_trajectories,
+                                  space_of, synth_foursquare_trace,
+                                  trace_to_colocation)
 
 Colocation = Dict[str, np.ndarray]
 
@@ -43,8 +50,6 @@ _CHURN_GENERATORS = {
 
 # scenarios of the reference that the port does not build yet
 _DEFERRED = {
-    "random_walk": "ROADMAP §1 item 7 (the jax.random walk, "
-                   "mobility/random_walk.py)",
     "streaming_commuter": "ROADMAP §1 item 12 (streaming colocation)",
     "multi_area_3city": "ROADMAP §1 item 7 (multi_area_trace)",
     "multi_area_migratory": "ROADMAP §1 item 7 (multi_area_trace and "
@@ -153,6 +158,31 @@ def list_scenarios():
 # ---------------------------------------------------------------------------
 
 
+def walk_colocation(seed: int, n_mules: int, n_steps: int,
+                    p_cross: float = 0.1) -> Colocation:
+    """Unroll the random-walk mobility model into [T, M] arrays.
+
+    The draws come from a CPU ``torch.Generator`` seeded with ``seed``;
+    like every schedule builder this one returns host (numpy) data.
+    """
+    mcfg = MobilityConfig(n_mules=n_mules, p_cross=p_cross)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    draws = sample_walk_draws(mcfg, n_steps, gen)
+    start = init_mobility(mcfg, draws.sid, draws.u)
+    infos = simulate_trajectories(mcfg, draws)
+    area = start["area"].numpy()                         # int32
+    return {
+        "fixed_id": infos["fixed_id"].numpy(),              # int32
+        "exchange": infos["exchange"].numpy(),
+        "pos": infos["pos"].numpy(),                        # float32
+        "area": area,
+        "init_space": space_of(start["pos"], mcfg.space_size)
+        .numpy().clip(0),
+        "init_area": area.copy(),
+    }
+
+
 def trace_colocation(visits: np.ndarray, n_mules: int,
                      n_steps: int) -> Colocation:
     """Expand a (user, place, t_in, t_out) visit log into engine tensors.
@@ -187,6 +217,12 @@ def _from_trace(gen: Callable[..., np.ndarray], n_places: int = 8, **gen_kw):
 # ---------------------------------------------------------------------------
 # built-in scenarios
 # ---------------------------------------------------------------------------
+
+register(ScenarioSpec(
+    name="random_walk", colocation=walk_colocation,
+    mode="fixed", dist="dir0.01",
+    description="Paper Sec 4.1/4.2: random walk with P_cross=0.1, smart-space "
+                "devices train on Dirichlet(0.01) partitions (Table 1)."))
 
 register(ScenarioSpec(
     name="foursquare_sparse",

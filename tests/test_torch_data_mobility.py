@@ -85,7 +85,10 @@ def test_trace_to_colocation_bitwise(cadence):
 
 
 PORTED = ["commuter", "commuter_churn", "event_crowd", "event_crowd_flash",
-          "foursquare_sparse", "mixed_cadence", "shift_worker"]
+          "foursquare_sparse", "mixed_cadence", "random_walk", "shift_worker"]
+# the random walk draws from a torch.Generator, not the reference's
+# jax.random keys (tests/test_torch_random_walk.py feeds it those draws)
+BITWISE = [name for name in PORTED if name != "random_walk"]
 
 
 def test_registry_holds_the_ported_scenarios():
@@ -97,7 +100,7 @@ def test_registry_holds_the_ported_scenarios():
         tsc.get_scenario("no_such_scenario")
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", BITWISE)
 def test_registry_colocation_bitwise(name):
     t, j = tsc.get_scenario(name), jsc.get_scenario(name)
     assert (t.mode, t.dist, t.task, t.n_fixed) == (j.mode, j.dist, j.task,

@@ -23,6 +23,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.mule_cnn import smoke_config as jax_smoke_config  # noqa: E402
+from repro.baselines.gossip import encounter_matrix as jax_encounter_matrix  # noqa: E402
 from repro.core import population as jpop  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro.scenarios import get_scenario as jax_get_scenario  # noqa: E402
@@ -145,11 +146,22 @@ def _torch_eval(x_test, y_test):
     return ev
 
 
-@pytest.mark.parametrize("method", ["mlmule", "local"])
-@pytest.mark.parametrize("scenario", ["commuter", "commuter_churn"])
+def _encounters(co):
+    """Peer encounters at the cadence steps t % 3 == 2 (radius 0.15)."""
+    act = co.get("active")
+    return sum(int(np.asarray(jax_encounter_matrix(
+        jnp.asarray(co["pos"][t]), jnp.asarray(co["area"]), 0.15,
+        None if act is None else jnp.asarray(act[t]))).sum())
+        for t in range(2, N_STEPS, 3))
+
+
+@pytest.mark.parametrize("method", jpop.METHODS_MOBILE)
+@pytest.mark.parametrize("scenario", ["commuter", "commuter_churn",
+                                      "random_walk"])
 def test_run_population_matches_jax(method, scenario):
     """Mobile mode, T=24 with an eval every 10 steps: two evals and an
-    unevaluated trailing chunk of 4 steps."""
+    unevaluated trailing chunk of 4 steps. ``random_walk`` is the
+    reference's ``jax.random`` schedule, injected as numpy."""
     pcfg, pop = _jax_population("mobile")
     co = jax_get_scenario(scenario).colocation(0, N_MULES, N_STEPS)
     delivers = co["exchange"] & (co["fixed_id"] >= 0)
@@ -157,6 +169,7 @@ def test_run_population_matches_jax(method, scenario):
         delivers &= co["active"]
         assert not co["active"].all()
     assert delivers.any(), "the schedule delivers nothing: parity is vacuous"
+    assert _encounters(co) > 0, "no peer encounter: parity is vacuous"
     x, y, xt, yt = _data(N_MULES, N_STEPS, seed=1)
 
     want, aux_j = jax_run_population(
@@ -234,11 +247,12 @@ def test_init_population_and_eval_population():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("method", ["gossip", "oppcl", "mlmule+gossip"])
-def test_unported_methods_name_their_roadmap_item(method):
+def test_unknown_method_names_the_five():
     _, pop = _jax_population("mobile")
     co = jax_get_scenario("commuter").colocation(0, N_MULES, 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unknown method") as err:
         run_population(population_from_numpy(pop, device="cpu"), co,
                        lambda s, t: None, _torch_train, _torch_cfg("mobile"),
-                       0, method=method, device="cpu")
+                       0, method="fedavg", device="cpu")
+    for m in jpop.METHODS_MOBILE:
+        assert repr(m) in str(err.value)

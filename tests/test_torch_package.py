@@ -12,6 +12,7 @@ from repro_torch.configs.mule_cnn import smoke_config  # noqa: E402
 from repro_torch.core.population import PopulationConfig, init_population  # noqa: E402
 from repro_torch.experiment import cnn_model_fns  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.encounter_mix import encounter_mix  # noqa: E402
 from repro_torch.kernels.mule_agg import mule_agg  # noqa: E402
 from repro_torch.scenarios import get_scenario, run_population  # noqa: E402
 
@@ -61,16 +62,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_path(monkeypatch):
     cfg, init_fn, train_fn = _tiny(monkeypatch)
-    before = mule_agg.launches
+    before = mule_agg.launches, encounter_mix.launches
     a, w = torch.rand(4, 6), torch.randn(6, 50)
     torch.testing.assert_close(mule_agg(a, w), a @ w)
     pop = init_population(cfg, init_fn, torch.Generator(), device="cpu")
     co = get_scenario("commuter").colocation(0, 3, 4)
     x = torch.randn(4, 3, 2, 16, 16, 3)
     y = torch.randint(0, 4, (4, 3, 2))
-    run_population(pop, co, {"fixed": None, "mule": (x, y)}, train_fn, cfg,
-                   0, device="cpu")
-    assert mule_agg.launches == before
+    for method in ("mlmule", "mlmule+gossip"):
+        run_population(pop, co, {"fixed": None, "mule": (x, y)}, train_fn,
+                       cfg, 0, method=method, device="cpu")
+    assert (mule_agg.launches, encounter_mix.launches) == before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -78,8 +80,10 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
-    with pytest.raises(RuntimeError, match="nvcc"):
-        _build.load("mule_agg")
+    assert sorted(_build.SOURCES) == ["encounter_mix", "mule_agg"]
+    for name in _build.SOURCES:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.load(name)
     assert not (tmp_path / "build").exists()
 
 
