@@ -27,7 +27,22 @@ Phases (any failure exits non-zero without the final result line):
    third step; none for ``oppcl``, which has no kernel) and ``mule_agg``
    once per step for the hybrid only. ``gossip`` is replayed bitwise, with
    ``enc_backend="ref"`` under a growth bound, and its mix is held to the
-   plain version in lockstep at every exchange.
+   plain version in lockstep at every exchange;
+6. the LM serve path: gemma3-4b at full width (34 layers, d_model 2560,
+   head_dim 256, vocab 262144; random f32 weights from a seed) through the
+   port's serving entry points. (a) ``make_prefill_step`` on 2 prompts of
+   4096 tokens in bf16, which must launch ``flash_attention`` exactly 34
+   times, with the q/k/v of one local and one global layer held to the
+   plain version; (b) ``serve.generate`` at the launcher's defaults (batch
+   4, prompt 16, gen 32), every logit finite; (c) an f32 copy of the config
+   whose 2 x 4096 prefill through the kernel must match the same prefill
+   through ``build_model(cfg, backend="ref")``, and whose ``forward``
+   logits must match the ``decode_step`` replay of 64 tokens.
+
+Phase 3 also holds ``flash_attention`` against its plain versions on the
+JAX tests' cases and at gemma3-4b's per-layer prefill shapes (in f32, and
+in bf16 against the fp32 oracle on the same inputs), and times it beside
+``F.scaled_dot_product_attention`` as the library yardstick.
 
 The second-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -72,9 +87,67 @@ PEER_REPLAY_ATOL = 5e-2
 # (tests/test_kernels_mule_agg.py, tests/test_kernels_encounter.py)
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # H100 SXM peaks (NVIDIA data sheet): memory rate, fp32 outside the
-# tensor cores (the kernel's FMAs)
+# tensor cores (the kernel's FMAs), dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
+
+# flash_attention (phase 3): tests/test_kernels_flash.py's cases (b, s, h,
+# kv, d, window, causal) and tolerances (test_kernels_flash.py:38), plus
+# windowed cases where a row's first visited 64-key block is fully masked
+# for that row, and the other head dims the kernel is built for
+FLASH_CASES = [
+    (2, 128, 4, 2, 32, None, True), (1, 200, 4, 4, 16, None, True),
+    (2, 256, 8, 2, 32, 64, True), (1, 128, 4, 2, 32, None, False),
+    (2, 96, 4, 1, 64, 48, True), (1, 64, 2, 2, 8, 16, True),
+    (1, 256, 2, 2, 8, 16, True), (2, 300, 4, 1, 64, 48, True),
+    (1, 200, 4, 2, 128, None, True), (1, 300, 2, 1, 256, 100, True)]
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+FLASH_MHA_TOL_F32 = 2e-5       # against mha_reference (test_kernels_flash.py)
+# bf16, (atol, rtol). The kernel and every plain version compute in fp32
+# and round once to bf16, so the kernel's bf16 output is within half a
+# bf16 ulp (2**-8 relative) of the fp32 oracle on the same inputs, and
+# within one ulp of a bf16 plain version; the bounds are twice that, and
+# atol covers fp32 sums that cancel to near zero. They hold every case
+# above and, with the f32 checks, gemma3-4b's layer shapes and the
+# prefill's own activations.
+BF16_ULP = 2.0 ** -7
+FLASH_BF16_VS_F32 = (1e-5, BF16_ULP)
+FLASH_BF16_VS_BF16 = (1e-5, 2 * BF16_ULP)
+
+# LM serve path (phase 6): gemma3-4b at full width
+LM_ARCH = "gemma3-4b"
+PREFILL_B, PREFILL_S = 2, 4096
+PREFILL_REPS = 3
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32   # serve.py's defaults
+# f32 forward vs decode replay at full width: the reference holds 2e-4 at
+# smoke size (tests/test_decode_consistency.py); 34 layers at width 2560
+# sum in another order on the two paths (GEMM vs matrix-vector), so 1e-3
+DECODE_B, DECODE_S, DECODE_TOL = 1, 64, 1e-3
+# f32 prefill through the kernel vs through the plain version
+# (backend="ref"), all 34 layers: the two share every GEMM and differ only
+# in the order of the attention sums, so the reference's own bound for two
+# orders of the same sums (2e-4, tests/test_decode_consistency.py)
+REF_PREFILL_TOL = 2e-4
+
+
+def _hold(label: str, out, want, atol: float, rtol: float) -> float:
+    """Raises unless |out - want| <= atol + rtol |want| everywhere; prints
+    the largest error beside the typical size of what it is compared with.
+    Returns the largest error."""
+    import torch
+    out, want = out.float(), want.float()
+    diff = (out - want).abs()
+    err = diff.max().item()
+    worst = (diff / (atol + rtol * want.abs())).max().item()
+    print(f"{label}: max_abs_err={err:.3e}, mean |want| "
+          f"{want.abs().mean().item():.3e}, max |want| "
+          f"{want.abs().max().item():.3e}, worst err / (atol + rtol |want|) "
+          f"{worst:.3f} (atol {atol:g}, rtol {rtol:g}) "
+          f"{'ok' if worst <= 1 else 'MISMATCH'}")
+    if not worst <= 1:
+        raise AssertionError(f"disagrees with its plain version: {label}")
+    return err
 
 
 def _median_ms(fn, reps: int = 30, warm: int = 5) -> float:
@@ -294,6 +367,149 @@ def phase_encounter_mix() -> dict:
                       f"{bf_ms:.4f} ms, bound "
                       f"{4 * m * d / HBM_BYTES_PER_S * 1e3:.4f} ms (W and "
                       f"mix bytes)")
+    return row
+
+
+def _unmasked_pairs(s: int, sk: int, window, causal: bool) -> int:
+    """(query, key) pairs the masks leave, for one batch row and head
+    (right-aligned queries)."""
+    import numpy as np
+    qpos = np.arange(s, dtype=np.int64) + (sk - s)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(s, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_flash_attention(card: str) -> dict:
+    """flash_attention against its plain versions; returns its JSON row
+    (timed at gemma3-4b's global-layer prefill shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_reference,
+                                                     mha_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+
+    def inputs(b, s, sk, h, kv, d, dtype):
+        return (torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype),
+                torch.randn(b, sk, kv, d, device="cuda", generator=g)
+                .to(dtype),
+                torch.randn(b, sk, kv, d, device="cuda", generator=g)
+                .to(dtype))
+
+    def check(label, out, want, tol) -> float:
+        return _hold(f"flash_attention {label}", out, want, tol, tol)
+
+    cases = [(b, s, s, h, kv, d, win, causal)
+             for b, s, h, kv, d, win, causal in FLASH_CASES]
+    cases.append((2, 4, 64, 4, 2, 16, None, True))   # right-aligned decode
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = FLASH_TOL[name]
+        for b, s, sk, h, kv, d, win, causal in cases:
+            q, k, v = inputs(b, s, sk, h, kv, d, dtype)
+            out = flash_attention(q, k, v, causal=causal, window=win)
+            torch.cuda.synchronize()
+            label = (f"b={b} s={s} sk={sk} h={h} kv={kv} d={d} window={win} "
+                     f"causal={causal} {name}")
+            check(label + " vs flash_reference", out,
+                  flash_reference(q, k, v, causal=causal, window=win,
+                                  block_q=64, block_k=64), tol)
+            check(label + " vs mha_reference", out,
+                  mha_reference(q, k, v, causal=causal, window=win),
+                  FLASH_MHA_TOL_F32 if dtype == torch.float32 else tol)
+            if dtype == torch.bfloat16:
+                _hold(f"flash_attention {label} vs fp32 mha_reference of "
+                      f"the same inputs", out,
+                      mha_reference(q.float(), k.float(), v.float(),
+                                    causal=causal, window=win),
+                      *FLASH_BF16_VS_F32)
+
+    # gemma3-4b's per-layer prefill shapes, in the served model's bf16,
+    # and in f32 on the same (bf16-valued) inputs
+    cfg = get_config(LM_ARCH)
+    b, s, h, kv, d = (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim)
+    q, k, v = inputs(b, s, s, h, kv, d, torch.bfloat16)
+    # SDPA's layout is [B, H, S, D]; the copies are made outside the timing
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    if not gqa:     # older PyTorch: SDPA on KV heads repeated to H
+        kh, vh = (t.repeat_interleave(h // kv, dim=1) for t in (kh, vh))
+    row, errs = None, []
+    for win in (None, cfg.sliding_window):
+        kind = "global" if win is None else f"local (window {win})"
+        label = f"gemma3-4b {kind} layer q {list(q.shape)} k/v {list(k.shape)}"
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        oracle = mha_reference(q32, k32, v32, causal=True, window=win)
+        out = flash_attention(q32, k32, v32, causal=True, window=win)
+        check(label + " f32 vs mha_reference", out, oracle,
+              FLASH_MHA_TOL_F32)
+        check(label + " f32 vs flash_reference", out,
+              flash_attention(q32, k32, v32, causal=True, window=win,
+                              backend="ref"), FLASH_TOL["float32"])
+        del q32, k32, v32
+        out = flash_attention(q, k, v, causal=True, window=win)
+        torch.cuda.synchronize()
+        _hold(f"flash_attention {label} bf16 vs fp32 mha_reference of the "
+              f"same inputs", out, oracle, *FLASH_BF16_VS_F32)
+        del oracle
+        errs.append(_hold(f"flash_attention {label} bf16 vs flash_reference",
+                          out, flash_attention(q, k, v, causal=True,
+                                               window=win, backend="ref"),
+                          *FLASH_BF16_VS_BF16))
+        _hold(f"flash_attention {label} bf16 vs mha_reference", out,
+              mha_reference(q, k, v, causal=True, window=win),
+              *FLASH_BF16_VS_BF16)
+        if win is None:
+            mask, note = None, "is_causal=True"
+        else:
+            qpos = torch.arange(s, device="cuda")[:, None]
+            kpos = torch.arange(s, device="cuda")[None, :]
+            mask = (kpos <= qpos) & (kpos > qpos - win)
+            note = "a boolean band mask"
+        kw = {"enable_gqa": True} if gqa else {}
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, is_causal=mask is None, **kw)
+
+        lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max()
+        del out
+        ms = _median_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                window=win), reps=10)
+        plain_ms = _median_ms(lambda: flash_attention(
+            q, k, v, causal=True, window=win, backend="ref"), reps=3, warm=1)
+        library_ms = _median_ms(lib, reps=10)
+        pairs = _unmasked_pairs(s, s, win, True) * b * h
+        n_flop = 4 * d * pairs
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # bf16 q,k,v,out
+        t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"flash_attention timing {label} bf16: kernel {ms:.4f} ms "
+              f"({n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"SDPA ({note}{', enable_gqa' if gqa else ', KV repeated'}) "
+              f"{library_ms:.4f} ms (max |SDPA - kernel| "
+              f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
+              f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
+              f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
+              f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
+        if win is None:
+            row = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:118",
+                "launches": None, "max_abs_err": None,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
+                "library_ms": library_ms,
+            }
+    row["max_abs_err"] = max(errs)
     return row
 
 
@@ -604,6 +820,158 @@ def phase_peer_path(card: str) -> dict:
     return launches
 
 
+def phase_lm_serve(card: str) -> dict:
+    """gemma3-4b at full width through the port's serving entry points."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_reference)
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"lm serve: {cfg.name} at full width, {cfg.n_layers} layers in "
+          f"{len(model.program)} stages, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}) x "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"window {cfg.sliding_window}: {n_params} f32 parameters "
+          f"initialised in {time.perf_counter() - t0:.2f} s")
+
+    # (a) prefill. The warm-up forward also keeps the q, k, v that the
+    # first local and the first global layer hand to the kernel.
+    windows = [st.window for st in model.program for _ in range(st.count)]
+    picked = (windows.index(cfg.sliding_window), windows.index(None))
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device="cuda", generator=gen)}
+    real, calls, kept = attn_lib.flash_attention, [], {}
+
+    def capture(q, k, v, **kw):
+        if len(calls) in picked:
+            kept[len(calls)] = (q, k, v, kw)
+        calls.append(kw["window"])
+        return real(q, k, v, **kw)
+
+    attn_lib.flash_attention = capture
+    try:
+        logits = prefill(params, batch)
+    finally:
+        attn_lib.flash_attention = real
+    del logits
+    if calls != windows:
+        raise AssertionError(f"the prefill's attention windows {calls} are "
+                             f"not the program's {windows}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched {launches} times in "
+                             f"one prefill, expected {cfg.n_layers}")
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) \
+            or logits.dtype != torch.float32:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    del logits
+    for _ in range(PREFILL_REPS - 1):
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del logits
+    wall = statistics.median(walls)
+    n_tok = PREFILL_B * PREFILL_S
+    print(f"lm serve prefill: {PREFILL_B} x {PREFILL_S} tokens, bf16: "
+          f"{n_tok / wall:.1f} tokens/s, {wall * 1e3:.3f} ms per prefill "
+          f"(median of {['%.3f' % (w * 1e3) for w in walls]} ms), peak "
+          f"memory {peak} B, flash_attention launches {launches} per "
+          f"prefill (must be {cfg.n_layers}) [{card}]")
+    for li, (q, k, v, kw) in sorted(kept.items()):
+        out = flash_attention(q, k, v, **kw)
+        label = (f"lm serve lockstep, layer {li} (window {kw['window']}) of "
+                 f"the prefill, kernel on its bf16 q/k/v")
+        _hold(label + " vs plain", out,
+              flash_attention(q, k, v, **{**kw, "backend": "ref"}),
+              *FLASH_BF16_VS_BF16)
+        _hold(label + " vs fp32 mha_reference", out,
+              mha_reference(q.float(), k.float(), v.float(),
+                            causal=kw["causal"], window=kw["window"]),
+              *FLASH_BF16_VS_F32)
+    del kept, q, k, v, out
+    _profile_steps(lambda: prefill(params, batch), 1, "gemma3-4b prefill")
+
+    # (b) decode through the serving loop at its defaults
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           device="cuda", generator=gen)
+    serve.generate(model, params, prompt[:, :2], 2)          # warm-up
+    out = serve.generate(model, params, prompt, SERVE_GEN)
+    toks = out["tokens"]
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN) or not out["finite"] \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"decode: tokens {tuple(toks.shape)}, every "
+                             f"logit finite: {out['finite']}")
+    print(f"lm serve decode: batch {SERVE_BATCH}, prompt {SERVE_PROMPT} "
+          f"replayed in {out['prefill_s']:.3f} s, {SERVE_GEN} tokens in "
+          f"{out['decode_s']:.3f} s: {SERVE_BATCH * SERVE_GEN / out['decode_s']:.2f}"
+          f" tokens/s ({out['decode_s'] / SERVE_GEN * 1e3:.3f} ms per step), "
+          f"every logit finite, tokens of row 0 {toks[0, :8].tolist()} "
+          f"[{card}]")
+    _profile_steps(lambda: serve.generate(model, params, prompt[:, :2], 2), 4,
+                   "gemma3-4b decode")
+
+    # (c) the f32 copy of the model: the whole prefill, all 34 layers,
+    # through the kernel against the same prefill through the plain
+    # version (backend="ref"); then decode against forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    with torch.no_grad():
+        got, _ = model32.forward(params, batch)
+        want, _ = build_model(cfg32, backend="ref").forward(params, batch)
+        err = (got - want).abs().max().item()
+    print(f"lm serve f32 prefill {PREFILL_B} x {PREFILL_S}, kernel vs "
+          f"backend='ref' over every logit: max diff {err:.3e} (tol "
+          f"{REF_PREFILL_TOL}; logits up to {want.abs().max().item():.3f})")
+    if not err <= REF_PREFILL_TOL:
+        raise AssertionError("the f32 prefill through the kernel and through "
+                             "the plain version disagree")
+    del got, want
+    toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_S), device="cuda",
+                         generator=gen)
+    with torch.no_grad():
+        full, _ = model32.forward(params, {"tokens": toks})
+        cache = model32.init_cache(DECODE_B, DECODE_S, dtype=torch.float32,
+                                   device="cuda")
+        errs = []
+        for t in range(DECODE_S):
+            lg, cache = model32.decode_step(params, cache, toks[:, t:t + 1], t)
+            errs.append((lg - full[:, t]).abs().max())
+    worst = torch.stack(errs).max().item()
+    print(f"lm serve decode consistency, f32, B={DECODE_B} S={DECODE_S}: max "
+          f"|decode_step - forward| over every logit {worst:.3e} (tol "
+          f"{DECODE_TOL}; logits up to {full.abs().max().item():.3f})")
+    if not worst <= DECODE_TOL:
+        raise AssertionError("decode_step and forward disagree at full width")
+    return {"flash_attention": launches}
+
+
 def _profile_steps(fn, n_steps: int, label: str) -> None:
     """Device time by kernel, and the device's busy share, over one short
     run of a path (torch.profiler)."""
@@ -664,11 +1032,14 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernels"
-        rows = [phase_mule_agg(), phase_encounter_mix()]
+        rows = [phase_mule_agg(), phase_encounter_mix(),
+                phase_flash_attention(card)]
         phase = "main path"
         launches = phase_main_path(card)
         phase = "peer path"
         launches.update(phase_peer_path(card))
+        phase = "lm serve"
+        launches.update(phase_lm_serve(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, str] = {
     "mule_agg": "kernels/mule_agg/csrc/mule_agg.cu",
     "encounter_mix": "kernels/encounter_mix/csrc/encounter_mix.cu",
+    "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,110 @@
+"""Wrapper of the ``flash_attention`` kernel: checks, dispatch, launch count.
+
+``flash_attention(q, k, v, causal=..., window=..., scale=...)`` computes
+``softmax(scale * q kᵀ + mask) v`` for q [B, S, H, D] and k, v
+[B, Sk, KV, D] and returns [B, S, H, D] in q's dtype (f32 or bf16). With
+``backend="auto"`` it launches the hand-written kernel
+(``csrc/flash_attention.cu``) on a CUDA tensor, or raises; on a CPU tensor
+it takes the plain chunked version (``ref.flash_reference``), with blocks
+of 256 as the reference's ``"ref"`` backend uses. ``backend="ref"`` asks
+for that plain version on any device. A causal call with S > Sk raises: its
+first S - Sk queries would see no key. ``flash_attention.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_reference
+
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)    # the kernel's templates
+REF_BLOCK = 256      # the reference's "ref" backend raises blocks to >= 256
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p]
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: Optional[int]) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention wants q [B,S,H,D] and k, v "
+                         f"[B,Sk,KV,D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)} in B or D")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"flash_attention: H={h} is not a multiple of "
+                         f"KV={k.shape[2]}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} is not one of "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
+                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    if causal and q.shape[1] > k.shape[1]:
+        # right-aligned, the first S - Sk queries would see no key at all
+        raise ValueError(f"flash_attention: a causal call needs S <= Sk, "
+                         f"got S={q.shape[1]}, Sk={k.shape[1]}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    backend: str = "auto") -> torch.Tensor:
+    """q [B,S,H,D], k/v [B,Sk,KV,D] -> [B,S,H,D]; queries right-aligned."""
+    _check(q, k, v, causal, window)
+    if backend not in ("auto", "ref"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "ref" or q.device.type == "cpu":
+        return flash_reference(q, k, v, causal=causal, window=window,
+                               block_q=REF_BLOCK, block_k=REF_BLOCK,
+                               scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention: the head_dim of q, k and v must "
+                         "be contiguous")
+    b, s, h, d = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0 or h == 0:
+        return out
+    if sk == 0:
+        raise ValueError("flash_attention: no keys (Sk = 0)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    fn = getattr(_build.load("flash_attention"), _ENTRY[q.dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, sk, h, n_kv, d, strides, ctypes.c_float(scale),
+                 int(causal), -1 if window is None else int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
+                           f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,249 @@
+"""Model API of the LM stack: ``Model`` with ``init / forward / loss /
+init_cache / decode_step``.
+
+Port of ``repro.models.api`` for the dense attention stack (stage kind
+``attn``). A config is compiled into the reference's stage program:
+consecutive layers of the same kind and attention window form one stage
+whose parameters are stacked ``[count, ...]``, as in the reference, so
+weights carry across leaf for leaf. The reference scans a stage with
+``lax.scan``; the port walks it with a Python loop (PyTorch runs eagerly).
+
+The other stage kinds (``moe``, ``mamba``, ``shared_attn``, ``xlstm_pair``)
+and the ``audio`` and ``vlm`` families wait for their ROADMAP items:
+``build_program`` gives their stage lists, ``build_model`` raises for them.
+The reference's sharding options (``mesh``, ``dp_axes``, ``head_axis``,
+``seq_axis``, ``moe_ep_axis``) and its dry-run helpers (``remat``,
+``unroll``, ``input_specs``) have no meaning on one card and are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.interop import tree_map
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import compute_dtype_of
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       init_mlp, init_norm)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    kind: str            # attn | moe | mamba | shared_attn | xlstm_pair
+    count: int           # number of layers folded into this stage
+    window: Optional[int] = None
+
+
+# stage kinds and families of the reference that the port does not run yet
+_DEFERRED_KINDS = {
+    "mamba": "ROADMAP §1 item 14.1 (zamba2: mamba2.py and the ssd_scan "
+             "kernel)",
+    "shared_attn": "ROADMAP §1 item 14.1 (zamba2's shared attention block)",
+    "xlstm_pair": "ROADMAP §1 item 14.2 (xlstm.py and the slstm_scan kernel)",
+    "moe": "ROADMAP §1 item 14.3 (moe.py)",
+}
+_DEFERRED_FAMILIES = {
+    "audio": "ROADMAP §1 item 14.4 (whisper.py and cross-attention)",
+    "vlm": "ROADMAP §1 item 14.5 (M-RoPE and the vision prefix)",
+}
+
+
+# ---------------------------------------------------------------------------
+# program construction
+# ---------------------------------------------------------------------------
+
+
+def build_program(cfg: ModelConfig) -> List[Stage]:
+    if cfg.family == "xlstm":
+        assert cfg.n_layers % 2 == 0, "xlstm program scans (mLSTM, sLSTM) pairs"
+        return [Stage("xlstm_pair", cfg.n_layers // 2)]
+
+    kinds: List[Tuple[str, Optional[int]]] = []
+    for layer in range(cfg.n_layers):
+        if cfg.family in ("ssm", "hybrid"):
+            if cfg.attn_layer_interval and (layer + 1) % cfg.attn_layer_interval == 0:
+                kinds.append(("shared_attn", None))
+            else:
+                kinds.append(("mamba", None))
+        else:
+            window = cfg.sliding_window
+            if window is not None and cfg.global_layer_interval:
+                if (layer + 1) % cfg.global_layer_interval == 0:
+                    window = None  # global layer
+            kind = "moe" if cfg.n_experts else "attn"
+            kinds.append((kind, window))
+
+    stages: List[Stage] = []
+    for kind, window in kinds:
+        if stages and stages[-1].kind == kind and stages[-1].window == window \
+                and kind != "shared_attn":
+            stages[-1] = Stage(kind, stages[-1].count + 1, window)
+        else:
+            stages.append(Stage(kind, 1, window))
+    return stages
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply (the ``attn`` kind)
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig):
+    return {"norm1": init_norm(cfg.norm, cfg.d_model, gen.device),
+            "attn": attn_lib.init_attention(gen, cfg),
+            "norm2": init_norm(cfg.norm, cfg.d_model, gen.device),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff)}
+
+
+def _apply_layer(params, x, positions, cfg: ModelConfig,
+                 window: Optional[int], backend: str):
+    """Full-sequence forward for one layer."""
+    h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
+    x = x + attn_lib.attn_forward(params["attn"], h, positions, cfg,
+                                  window=window, backend=backend)
+    h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + apply_mlp(params["mlp"], h, cfg.act, compute_dtype_of(cfg))
+
+
+def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig,
+                  window: Optional[int]):
+    """Single-token decode for one layer; writes its K/V into ``cache``."""
+    h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
+    out, _ = attn_lib.attn_decode(params["attn"], h, cache, pos, cfg,
+                                  window=window)
+    x = x + out
+    h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + apply_mlp(params["mlp"], h, cfg.act, compute_dtype_of(cfg))
+
+
+def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
+                      max_seq: int, dtype, device):
+    c = attn_lib.init_kv_cache(cfg, batch, max_seq, window=stage.window,
+                               dtype=dtype, device=device)
+    if stage.count > 1:   # stacked [count, ...], a buffer of its own each
+        c = tree_map(lambda l: l[None].repeat((stage.count,)
+                                              + (1,) * l.dim()), c)
+    return c
+
+
+def _layers(stage: Stage, tree):
+    """The per-layer slices (views) of a stage's stacked [count, ...] tree."""
+    if stage.count == 1:
+        return [tree]
+    return [tree_map(lambda l, _i=i: l[_i], tree) for i in range(stage.count)]
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    program: List[Stage]
+    backend: str = "auto"         # attention backend: auto | ref
+
+    def __post_init__(self):
+        if self.backend not in ("auto", "ref"):
+            raise ValueError(f"unknown attention backend {self.backend!r}: "
+                             f"'auto' (the kernel on the card) or 'ref' "
+                             f"(the plain version)")
+        if self.cfg.family in _DEFERRED_FAMILIES:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} ({self.cfg.name}) arrives with "
+                f"{_DEFERRED_FAMILIES[self.cfg.family]}")
+        for stage in self.program:
+            if stage.kind != "attn":
+                raise NotImplementedError(
+                    f"{self.cfg.name}: stage kind {stage.kind!r} arrives "
+                    f"with {_DEFERRED_KINDS[stage.kind]}")
+
+    # -- init ---------------------------------------------------------------
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random f32 parameters from ``gen``, on ``gen``'s device."""
+        cfg = self.cfg
+        params: Dict[str, Any] = {
+            "embed": dense_init(gen, (cfg.vocab, cfg.d_model)),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, gen.device),
+        }
+        if not cfg.tie_embeddings:
+            params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab))
+        stage_params = []
+        for stage in self.program:
+            layers = [_init_layer(gen, cfg) for _ in range(stage.count)]
+            if stage.count > 1:
+                stage_params.append(tree_map(lambda *ls: torch.stack(ls),
+                                             *layers))
+            else:
+                stage_params.append(layers[0])
+            del layers
+        params["stages"] = stage_params
+        return params
+
+    # -- embedding helpers ----------------------------------------------------
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens].to(compute_dtype_of(self.cfg))
+
+    def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return x.float() @ w.float()
+
+    def _positions(self, batch_size: int, seq: int, device) -> torch.Tensor:
+        return torch.arange(seq, dtype=torch.int32, device=device)[None] \
+            .expand(batch_size, seq)
+
+    # -- full-sequence forward ------------------------------------------------
+    def forward(self, params, batch: Dict[str, Any]):
+        """Returns (logits [B,S,V] f32, aux_loss). batch: {"tokens": [B,S]}.
+
+        The aux loss is the reference's MoE balance term, 0 for ``attn``."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        b, s, _ = x.shape
+        positions = self._positions(b, s, x.device)
+        for stage, sp in zip(self.program, params["stages"]):
+            for lp in _layers(stage, sp):
+                x = _apply_layer(lp, x, positions, cfg, stage.window,
+                                 self.backend)
+        x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        return self._unembed(params, x), torch.zeros((), device=x.device)
+
+    # -- loss -----------------------------------------------------------------
+    def loss(self, params, batch: Dict[str, Any]):
+        logits, aux = self.forward(params, batch)
+        tokens = batch["tokens"]
+        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        tgt = tokens[:, 1:].long()
+        nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+        loss = torch.mean(nll) + 0.01 * aux
+        return loss, {"nll": torch.mean(nll), "aux": aux}
+
+    # -- decode ----------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        dev = resolve_device(device)
+        return [_init_stage_cache(self.cfg, s, batch, max_seq, dtype, dev)
+                for s in self.program]
+
+    def decode_step(self, params, cache, token: torch.Tensor, pos: int):
+        """token: [B,1] int; pos: int. Returns (logits [B,V] f32, cache).
+
+        The cache is updated in place (see ``attention.attn_decode``)."""
+        cfg = self.cfg
+        pos = int(pos)
+        x = self._embed(params, token)
+        for stage, sp, sc in zip(self.program, params["stages"], cache):
+            for lp, lc in zip(_layers(stage, sp), _layers(stage, sc)):
+                x = _decode_layer(lp, x, lc, pos, cfg, stage.window)
+        x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        return self._unembed(params, x)[:, 0], cache
+
+
+def build_model(cfg: ModelConfig, *, backend: str = "auto") -> Model:
+    """The model of ``cfg``; raises for the kinds and families not ported."""
+    return Model(cfg=cfg, program=build_program(cfg), backend=backend)

@@ -1,0 +1,370 @@
+"""Port's dense-attention LM stack (configs, layers, model, serving) against
+the JAX package.
+
+The reference's ``Model.init`` weights are carried across with
+``tree_from_numpy``; tokens and layer inputs come from a numpy seed. The
+models run at smoke size (2 layers, d_model 128). Tolerances:
+
+- f32 layer functions 1e-6 (elementwise float32, sums in another order);
+  RoPE 1e-5 (angles up to 88 rad: an ulp of the angle is ~8e-6);
+- f32 forward and decode logits and caches against JAX 1e-4, and the
+  port's own decode against its forward 2e-4 (the reference's own bound,
+  tests/test_decode_consistency.py);
+- a bf16 forward 3e-2 against JAX's bf16 forward: each layer's output and
+  the final norm round to bf16, and the two frameworks accumulate bf16
+  products in another order, so one bf16 ulp of the residual stream
+  (1.6e-2 at |x| ~ 2) can move a logit by a few 1e-3 (measured ~5e-3).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import build_model as j_build_model  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro.models.api import build_program as j_build_program  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.interop import (to_numpy, tree_from_numpy,  # noqa: E402
+                                 tree_leaves)
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models.api import Stage, build_program  # noqa: E402
+
+torch.set_num_threads(1)
+
+ARCHS = ["gemma3-4b", "stablelm-1.6b"]
+
+
+def _port_cfg(jcfg):
+    return tconfigs.ModelConfig(**dataclasses.asdict(jcfg))
+
+
+_MODELS = {}
+
+
+def _models(arch, dtype="float32"):
+    """(JAX model, JAX params, port model, port params) at smoke size."""
+    key = (arch, dtype)
+    if key not in _MODELS:
+        jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
+                                   dtype=dtype)
+        jm = j_build_model(jcfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        tm = build_model(_port_cfg(jcfg))
+        tp = tree_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+        _MODELS[key] = (jm, jp, tm, tp)
+    return _MODELS[key]
+
+
+def _tokens(cfg, b, s, seed=5):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(to_numpy(got), np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# configs and programs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("size", ["full", "smoke"])
+def test_config_copies_match(arch, size):
+    get_j = jconfigs.get_config if size == "full" else jconfigs.get_smoke_config
+    get_t = tconfigs.get_config if size == "full" else tconfigs.get_smoke_config
+    jcfg, tcfg = get_j(arch), get_t(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
+    assert tcfg.supports_long_context == jcfg.supports_long_context
+
+
+def test_registry_ports_three_ids_and_names_the_rest():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert tconfigs.INPUT_SHAPES == {
+        k: tconfigs.InputShape(**dataclasses.asdict(v))
+        for k, v in jconfigs.INPUT_SHAPES.items()}
+    assert tconfigs.get_config("mule-cnn").name == "mule-cnn"
+    for arch in set(jconfigs.ARCH_IDS + ("mule-lstm-cnn",)) - set(ARCHS):
+        for get in (tconfigs.get_config, tconfigs.get_smoke_config):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get(arch)
+    with pytest.raises(KeyError):
+        tconfigs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_build_program_matches(arch):
+    for get in (jconfigs.get_config, jconfigs.get_smoke_config):
+        jcfg = get(arch)
+        want = [(s.kind, s.count, s.window) for s in j_build_program(jcfg)]
+        got = [(s.kind, s.count, s.window)
+               for s in build_program(_port_cfg(jcfg))]
+        assert got == want
+
+
+def test_gemma3_program_is_five_local_one_global():
+    prog = build_program(tconfigs.get_config("gemma3-4b"))
+    assert prog == [Stage("attn", 5, 1024), Stage("attn", 1, None)] * 5 \
+        + [Stage("attn", 4, 1024)]
+    assert sum(s.count for s in prog) == 34
+
+
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(ARCHS)
+                                        - {"granite-34b", "qwen2.5-32b"}))
+def test_build_model_raises_for_unported_kinds(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(_port_cfg(jconfigs.get_smoke_config(arch)))
+
+
+def test_build_model_backend_option():
+    """backend="ref" runs the plain attention on any device (on the CPU
+    that is also what "auto" runs); an unknown backend raises."""
+    _, _, tm, tp = _models("gemma3-4b")
+    toks = torch.from_numpy(_tokens(tm.cfg, 2, 12))
+    ref = build_model(tm.cfg, backend="ref")
+    assert ref.backend == "ref" and ref.program == tm.program
+    torch.testing.assert_close(ref.forward(tp, {"tokens": toks})[0],
+                               tm.forward(tp, {"tokens": toks})[0],
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="backend"):
+        build_model(tm.cfg, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_matches(kind, dtype):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 48)).astype(np.float32) * 3 + 0.5
+    p = {"scale": rng.normal(size=48).astype(np.float32),
+         "bias": rng.normal(size=48).astype(np.float32)}
+    if kind == "rmsnorm":
+        del p["bias"]
+    want = jl.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x, dtype), kind, 1e-5)
+    got = tl.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x).to(getattr(torch, dtype)), kind,
+                        1e-5)
+    assert got.dtype == getattr(torch, dtype)
+    # bf16: both compute in f32 and round once; allow one bf16 ulp
+    _close(got, want, 1e-6 if dtype == "float32" else 3e-2)
+    assert sorted(tl.init_norm(kind, 48)) == sorted(jl.init_norm(kind, 48))
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu"])
+def test_activation_matches(name):
+    x = np.linspace(-6, 6, 401, dtype=np.float32)
+    want = jl.activation(name)(jnp.asarray(x))
+    got = tl.activation(name)(torch.from_numpy(x))
+    _close(got, want, 1e-6)
+    if name == "gelu":   # the tanh approximation, not erf
+        exact = torch.nn.functional.gelu(torch.from_numpy(x))
+        assert (exact - got).abs().max() > 1e-4
+
+
+def test_rope_matches():
+    rng = np.random.default_rng(2)
+    pos = np.broadcast_to(np.arange(88, dtype=np.int32), (2, 88)).copy()
+    x = rng.normal(size=(2, 88, 3, 32)).astype(np.float32)
+    for theta in (10_000.0, 1_000_000.0):
+        np.testing.assert_array_equal(tl.rope_freqs(32, theta).numpy(),
+                                      np.asarray(jl.rope_freqs(32, theta)))
+        ja = jl.rope_angles(jnp.asarray(pos), 32, theta)
+        ta = tl.rope_angles(torch.from_numpy(pos), 32, theta)
+        _close(ta, ja, 1e-5)
+        _close(tl.apply_rope(torch.from_numpy(x), ta),
+               jl.apply_rope(jnp.asarray(x), ja), 1e-5)
+    with pytest.raises(NotImplementedError, match="14.5"):
+        tl.rope_angles(torch.zeros(3, 1, 4, dtype=torch.int32), 32, 1e4,
+                       (4, 6, 6))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_matches(act):
+    rng = np.random.default_rng(3)
+    p = {k: (0.1 * rng.normal(size=s)).astype(np.float32) for k, s in
+         (("wi_gate", (64, 96)), ("wi_up", (64, 96)), ("wo", (96, 64)))}
+    x = rng.normal(size=(2, 7, 64)).astype(np.float32)
+    want = jl.apply_mlp({k: jnp.asarray(v) for k, v in p.items()},
+                        jnp.asarray(x), act, jnp.float32)
+    got = tl.apply_mlp({k: torch.from_numpy(v) for k, v in p.items()},
+                       torch.from_numpy(x), act, torch.float32)
+    _close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the model at smoke size, on the reference's weights
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_jax(arch):
+    jm, jp, tm, tp = _models(arch)
+    toks = _tokens(jm.cfg, 2, 12)
+    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    before = flash_attention.launches
+    got, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert flash_attention.launches == before     # CPU: the plain version
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    _close(got, want, 1e-4)
+    logits = make_prefill_step(tm)(tp, {"tokens": torch.from_numpy(toks)})
+    torch.testing.assert_close(logits, got, atol=0, rtol=0)
+    jloss, _ = jm.loss(jp, {"tokens": jnp.asarray(toks)})
+    tloss, metrics = tm.loss(tp, {"tokens": torch.from_numpy(toks)})
+    _close(tloss, jloss, 1e-5)
+    _close(metrics["nll"], jloss, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_jax_and_own_forward(arch):
+    jm, jp, tm, tp = _models(arch)
+    b, s = 2, 12
+    toks = _tokens(jm.cfg, b, s)
+    jdecode = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(b, s, dtype=jnp.float32)
+    tcache = tm.init_cache(b, s, dtype=torch.float32, device="cpu")
+    full, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    step = make_serve_step(tm)
+    errs = []
+    for t in range(s):
+        jlg, jcache = jdecode(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                              jnp.int32(t))
+        tlg, tcache = step(tp, tcache, torch.from_numpy(toks[:, t:t + 1]), t)
+        _close(tlg, jlg, 1e-4)
+        for got, want in zip(tree_leaves(tcache), jax.tree.leaves(jcache)):
+            assert tuple(got.shape) == want.shape
+            _close(got, want, 1e-4)
+        errs.append(float((tlg - full[:, t]).abs().max()))
+    assert max(errs) < 2e-4, errs
+
+
+def test_sliding_window_cache_rolls():
+    """gemma3-style local layers: decode past the window uses the rolling
+    buffer and still matches the full-sequence forward (port and JAX)."""
+    jm, jp, tm, tp = _models("gemma3-4b")
+    cfg = tm.cfg
+    assert cfg.sliding_window and cfg.sliding_window < 128
+    b, s = 1, cfg.sliding_window + 24   # force wraparound
+    toks = _tokens(cfg, b, s)
+    full, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jfull, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    _close(full, jfull, 1e-4)
+    cache = tm.init_cache(b, s, dtype=torch.float32, device="cpu")
+    assert cache[0]["k"].shape[1] == cfg.sliding_window   # rolling buffer
+    errs = []
+    for t in range(s):
+        lg, cache = tm.decode_step(tp, cache, torch.from_numpy(
+            toks[:, t:t + 1]), t)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    assert max(errs) < 2e-4, max(errs)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_reference_loop(arch):
+    """Greedy tokens of the port's serve loop equal the reference loop's
+    (``repro.launch.serve.main``), in f32, on the same weights and prompt."""
+    jm, jp, tm, tp = _models(arch)
+    b, n_prompt, n_gen = 2, 6, 10
+    prompt = _tokens(jm.cfg, b, n_prompt, seed=9)
+    decode = jax.jit(jm.decode_step)
+    cache = jm.init_cache(b, n_prompt + n_gen, dtype=jnp.float32)
+    jprompt = jnp.asarray(prompt)
+    for t in range(n_prompt):
+        logits, cache = decode(jp, cache, jprompt[:, t:t + 1], jnp.int32(t))
+    generated = []
+    tok = jnp.argmax(logits, axis=-1)[:, None]
+    for t in range(n_prompt, n_prompt + n_gen):
+        generated.append(tok)
+        logits, cache = decode(jp, cache, tok, jnp.int32(t))
+        tok = jnp.argmax(logits, axis=-1)[:, None]
+    want = np.asarray(jnp.concatenate(generated, axis=1))
+    out = serve.generate(tm, tp, torch.from_numpy(prompt).long(), n_gen,
+                         cache_dtype=torch.float32)
+    np.testing.assert_array_equal(out["tokens"].numpy(), want)
+    _close(out["logits"], logits, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_forward_within_bound(arch):
+    jm, jp, tm, tp = _models(arch, "bfloat16")
+    toks = _tokens(jm.cfg, 2, 12)
+    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    _close(got, want, 3e-2)
+
+
+def test_serve_main_runs_on_cpu_and_needs_a_card_by_default(monkeypatch):
+    out = serve.main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "3", "--gen", "4"])
+    assert tuple(out["tokens"].shape) == (2, 4)
+    assert out["finite"] and bool(torch.isfinite(out["logits"]).all())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "gemma3-4b", "--smoke"])
+    tm = _models("stablelm-1.6b")[2]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.init_cache(1, 4)
+
+
+# ---------------------------------------------------------------------------
+# interop
+# ---------------------------------------------------------------------------
+
+
+def test_tree_from_numpy_keeps_nesting_and_jax_leaf_order():
+    rng = np.random.default_rng(4)
+    tree = {"z": rng.normal(size=3).astype(np.float32),
+            "stages": [{"w": np.full((2,), i, np.float32),
+                        "n": {"b": np.int32(i), "a": np.zeros(1, np.int64)}}
+                       for i in range(12)],
+            "a": np.asarray(rng.normal(size=(2, 2)), jnp.bfloat16)}
+    port = tree_from_numpy(tree, device="cpu")
+    assert isinstance(port["stages"], list) and len(port["stages"]) == 12
+    assert port["a"].dtype == torch.bfloat16
+    back = to_numpy(port)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    want = jax.tree.leaves(tree)
+    got = tree_leaves(port)
+    assert len(got) == len(want)
+    # "stages" leaves in list order 0, 1, .., 11 (not "stages.10" first)
+    for g, w in zip(got, want):
+        g = to_numpy(g)
+        np.testing.assert_array_equal(g, np.asarray(w).astype(g.dtype))
+    for g, w in zip(jax.tree.leaves(back), want):
+        np.testing.assert_array_equal(g, np.asarray(w).astype(g.dtype))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_params_round_trip(arch):
+    jm, jp, tm, tp = _models(arch)
+    jleaves, jdef = jax.tree.flatten(jp)
+    tleaves = tree_leaves(tp)
+    assert len(tleaves) == len(jleaves)
+    for g, w in zip(tleaves, jleaves):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert jax.tree.structure(to_numpy(tp)) == jdef
+    # the port's own init gives the reference's structure and shapes
+    own = tm.init(torch.Generator().manual_seed(0))
+    assert [tuple(t.shape) for t in tree_leaves(own)] == \
+        [w.shape for w in jleaves]

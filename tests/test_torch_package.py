@@ -28,7 +28,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules
                 if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
-print(len(names), leaked)
+print(" ".join(names), "|", leaked)
 """
 
 
@@ -37,8 +37,13 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_modules, leaked = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
+    names, leaked = out.stdout.split("|", 1)
+    names = names.split()
+    assert len(names) >= 30
+    for name in ("configs.gemma3_4b", "models.api", "models.attention",
+                 "kernels.flash_attention.ops", "launch.serve",
+                 "launch.steps"):
+        assert f"repro_torch.{name}" in names
     assert leaked.strip() == "[]"
 
 
@@ -80,7 +85,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
-    assert sorted(_build.SOURCES) == ["encounter_mix", "mule_agg"]
+    assert sorted(_build.SOURCES) == ["encounter_mix", "flash_attention",
+                                      "mule_agg"]
     for name in _build.SOURCES:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
