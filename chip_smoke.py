@@ -37,12 +37,25 @@ Phases (any failure exits non-zero without the final result line):
    4, prompt 16, gen 32), every logit finite; (c) an f32 copy of the config
    whose 2 x 4096 prefill through the kernel must match the same prefill
    through ``build_model(cfg, backend="ref")``, and whose ``forward``
-   logits must match the ``decode_step`` replay of 64 tokens.
+   logits must match the ``decode_step`` replay of 64 tokens;
+7. the hybrid serve path: zamba2-2.7b at full width (54 layers: 45 Mamba2
+   mixers with 80 SSM heads of 64 and state 64, and 9 applications of one
+   shared attention block of 32 heads x 80; 2,063,676,080 random f32
+   weights from a seed), through the same entry points as phase 6. Its
+   2 x 4096 bf16 prefill must launch ``ssd_scan`` exactly 45 times and
+   ``flash_attention`` exactly 9 times; the scan inputs of two Mamba2
+   layers and the q/k/v of one shared attention are held to the plain
+   versions; then ``serve.generate``, the f32 copy's prefill against
+   ``backend="ref"`` and decode against forward, as in phase 6.
 
 Phase 3 also holds ``flash_attention`` against its plain versions on the
-JAX tests' cases and at gemma3-4b's per-layer prefill shapes (in f32, and
-in bf16 against the fp32 oracle on the same inputs), and times it beside
-``F.scaled_dot_product_attention`` as the library yardstick.
+JAX tests' cases and at gemma3-4b's and zamba2-2.7b's per-layer prefill
+shapes (in f32, and in bf16 against the fp32 oracle on the same inputs),
+and times it beside ``F.scaled_dot_product_attention`` as the library
+yardstick; and ``ssd_scan`` against the sequential oracle and the chunked
+plain version on the JAX tests' cases and at zamba2-2.7b's prefill shape,
+where no single PyTorch call computes the scan (its ``library_ms`` is
+null).
 
 The second-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -101,7 +114,8 @@ FLASH_CASES = [
     (2, 256, 8, 2, 32, 64, True), (1, 128, 4, 2, 32, None, False),
     (2, 96, 4, 1, 64, 48, True), (1, 64, 2, 2, 8, 16, True),
     (1, 256, 2, 2, 8, 16, True), (2, 300, 4, 1, 64, 48, True),
-    (1, 200, 4, 2, 128, None, True), (1, 300, 2, 1, 256, 100, True)]
+    (1, 200, 4, 2, 128, None, True), (1, 300, 2, 1, 256, 100, True),
+    (2, 130, 4, 4, 80, None, True), (1, 200, 2, 1, 80, 70, True)]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 FLASH_MHA_TOL_F32 = 2e-5       # against mha_reference (test_kernels_flash.py)
 # bf16, (atol, rtol). The kernel and every plain version compute in fp32
@@ -130,6 +144,35 @@ DECODE_B, DECODE_S, DECODE_TOL = 1, 64, 1e-3
 # orders of the same sums (2e-4, tests/test_decode_consistency.py)
 REF_PREFILL_TOL = 2e-4
 
+# ssd_scan (phase 3): tests/test_kernels_ssm.py's cases (b, s, h, p, n,
+# chunk) and its bound for the TPU kernel against the sequential oracle
+SSD_CASES = [(2, 64, 3, 8, 16, 16), (1, 100, 2, 16, 8, 32),
+             (2, 128, 4, 32, 16, 64), (1, 33, 1, 4, 4, 8)]
+SSD_ORACLE_TOL = 2e-4
+# the kernel against the chunked plain version: the same fp32 function with
+# its sums in another order, so the error scales with the terms summed, not
+# with each output (outputs near 0 sit among terms of ~60). The bound is a
+# fraction of the largest |output| of the call, ~4.5x the largest reading
+# (8.8e-8 at the JAX tests' cases, 5.0e-8 at zamba2's shape, 2.5e-8 on the
+# prefill's own activations; NVIDIA H100). At zamba2's shape the kernel must
+# also be no farther than twice the plain version's own distance from an
+# f64 sequential oracle: there A = -(1 .. 80) sends cum to about -3,500
+# within a chunk, where the order of the cumsum decides the rounding of
+# exp(cum_i - cum_j) (see csrc/ssd_scan.cu).
+SSD_VS_CHUNKED_REL = 4e-7
+
+# the hybrid serve path (phase 7): zamba2-2.7b at full width, whose 45
+# Mamba2 layers run ssd_scan and whose 9 applications of the shared
+# attention block run flash_attention at head_dim 80
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_PARAMS = 2_063_676_080     # the reference's init (tests/test_torch_zamba2.py)
+HYBRID_SCANS, HYBRID_ATTNS = 45, 9
+# f32 prefill through the kernels vs backend="ref": the two share every
+# GEMM and differ in the order of the scan's and the attention's fp32 sums,
+# in all 54 layers. The bound is set from the readings, as gemma3-4b's:
+# 4.554e-5 in each sound run (NVIDIA H100 80GB HBM3, 700 W), ~4.4x below it
+HYBRID_REF_PREFILL_TOL = 2e-4
+
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
     """Raises unless |out - want| <= atol + rtol |want| everywhere; prints
@@ -147,6 +190,16 @@ def _hold(label: str, out, want, atol: float, rtol: float) -> float:
           f"{'ok' if worst <= 1 else 'MISMATCH'}")
     if not worst <= 1:
         raise AssertionError(f"disagrees with its plain version: {label}")
+    return err
+
+
+def _hold_scaled(label: str, out, want, rel: float) -> float:
+    """ssd_scan against its chunked plain version: raises unless
+    |out - want| <= rel max |want| everywhere. Returns the largest
+    error."""
+    scale = want.float().abs().max().item()
+    err = _hold(label, out, want, rel * scale, 0.0)
+    print(f"  max |err| / max |want| = {err / scale:.3e} (bound {rel:g})")
     return err
 
 
@@ -510,6 +563,171 @@ def phase_flash_attention(card: str) -> dict:
                 "library_ms": library_ms,
             }
     row["max_abs_err"] = max(errs)
+    row["second_shape"] = _flash_hybrid_shape(card, inputs, check)
+    return row
+
+
+def _flash_hybrid_shape(card: str, inputs, check) -> dict:
+    """flash_attention at zamba2-2.7b's shared attention (q, k, v
+    [2, 4096, 32, 80], causal, no window): held to its oracles, timed
+    beside SDPA; returns the numbers of row 4's second shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_reference)
+    cfg = get_config(HYBRID_ARCH)
+    b, s, h, d = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = inputs(b, s, s, h, cfg.n_kv_heads, d, torch.bfloat16)
+    label = f"{HYBRID_ARCH} shared attention q {list(q.shape)}"
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    oracle = mha_reference(q32, k32, v32, causal=True)
+    check(label + " f32 vs mha_reference",
+          flash_attention(q32, k32, v32, causal=True), oracle,
+          FLASH_MHA_TOL_F32)
+    check(label + " f32 vs flash_reference",
+          flash_attention(q32, k32, v32, causal=True),
+          flash_attention(q32, k32, v32, causal=True, backend="ref"),
+          FLASH_TOL["float32"])
+    del q32, k32, v32
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _hold(f"flash_attention {label} bf16 vs fp32 mha_reference of the same "
+          f"inputs", out, oracle, *FLASH_BF16_VS_F32)
+    del oracle
+    err = _hold(f"flash_attention {label} bf16 vs flash_reference", out,
+                flash_attention(q, k, v, causal=True, backend="ref"),
+                *FLASH_BF16_VS_BF16)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max()
+    del out
+    ms = _median_ms(lambda: flash_attention(q, k, v, causal=True), reps=10)
+    plain_ms = _median_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                  backend="ref"),
+                          reps=3, warm=1)
+    library_ms = _median_ms(lib, reps=10)
+    pairs = _unmasked_pairs(s, s, None, True) * b * h
+    n_flop = 4 * d * pairs
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"flash_attention timing {label} bf16: kernel {ms:.4f} ms "
+          f"({n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+          f"(is_causal=True) {library_ms:.4f} ms (max |SDPA - kernel| "
+          f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
+          f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
+          f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
+          f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
+    return {"shape": f"q, k, v {list(q.shape)} causal ({HYBRID_ARCH})",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _ssd_inputs(g, b, s, h, p, n, a=None):
+    """x, dt, A, B, C of the SSD scan, drawn as tests/test_kernels_ssm.py
+    draws them (A given, or -exp of a normal)."""
+    import torch
+    import torch.nn.functional as F
+
+    def normal(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    x, dt = normal(b, s, h, p), F.softplus(normal(b, s, h))
+    A = -torch.exp(normal(h)) if a is None else a
+    return x, dt, A, normal(b, s, n), normal(b, s, n)
+
+
+def _ssd_work(b, s, h, p, n):
+    """(bytes, fp32 operations) the scan needs: each input read once and y
+    written once; the least work of its forms, the recurrence's, where each
+    (batch row, head, step) takes one state update s = dA s + (dt x) Bᵀ and
+    one read-out y = C s, 2 P N FLOP each, and one exp for dA (the chunked
+    form the kernel runs does more)."""
+    n_ops = 4 * b * h * s * p * n + b * h * s
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
+    return n_bytes, n_ops
+
+
+def phase_ssd_scan(card: str) -> dict:
+    """ssd_scan against its plain versions; returns its JSON row (timed at
+    zamba2-2.7b's prefill shape)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import (ssd_chunked_reference,
+                                              ssd_reference, ssd_scan)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    for b, s, h, p, n, chunk in SSD_CASES:
+        args = _ssd_inputs(g, b, s, h, p, n)
+        y, state = ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if state is not None:
+            raise AssertionError("the kernel returned a final state")
+        label = f"ssd_scan b={b} s={s} h={h} p={p} n={n} chunk={chunk}"
+        _hold(label + " vs ssd_reference", y, ssd_reference(*args)[0],
+              SSD_ORACLE_TOL, 0.0)
+        _hold_scaled(label + " vs ssd_chunked_reference", y,
+                     ssd_chunked_reference(*args, chunk=chunk)[0],
+                     SSD_VS_CHUNKED_REL)
+
+    # zamba2-2.7b's prefill shape, with the model's A = -(1 .. 80), under
+    # which cum reaches about -3,500 within a chunk
+    cfg = get_config(HYBRID_ARCH)
+    d_in = cfg.ssm_expand * cfg.d_model
+    b, s, p, n, chunk = (PREFILL_B, PREFILL_S, cfg.ssm_head_dim,
+                         cfg.ssm_state, 64)
+    h = d_in // p
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    args = _ssd_inputs(g, b, s, h, p, n, a)
+    label = f"{HYBRID_ARCH} x {[b, s, h, p]} n={n} chunk={chunk}"
+    y, _ = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want = ssd_chunked_reference(*args, chunk=chunk)[0]
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"ssd_scan {label}: non-finite output")
+    err = _hold_scaled(f"ssd_scan {label} vs ssd_chunked_reference", y,
+                       want, SSD_VS_CHUNKED_REL)
+    oracle, _ = ssd_reference(*(t.double() for t in args))
+    to_oracle = [(t.double() - oracle).abs().max().item() for t in (y, want)]
+    print(f"ssd_scan {label}: distance from the f64 sequential oracle "
+          f"(max |y| {oracle.abs().max().item():.3e}): kernel "
+          f"{to_oracle[0]:.3e}, ssd_chunked_reference {to_oracle[1]:.3e} "
+          f"(the kernel's must be at most twice the plain version's)")
+    if not to_oracle[0] <= 2 * to_oracle[1]:
+        raise AssertionError(f"ssd_scan {label}: farther from the oracle "
+                             f"than the plain chunked version")
+    del y, want, oracle
+    ms = _median_ms(lambda: ssd_scan(*args, chunk=chunk), reps=10)
+    plain_ms = _median_ms(lambda: ssd_chunked_reference(*args, chunk=chunk),
+                          reps=3, warm=1)
+    n_bytes, n_ops = _ssd_work(b, s, h, p, n)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    row = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:95",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan",
+    }
+    print(f"ssd_scan timing {label} f32: kernel {ms:.4f} ms "
+          f"({n_ops / ms / 1e9:.2f} TFLOP/s of the least work), plain "
+          f"{plain_ms:.4f} ms, no library call, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {n_bytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {t_bytes:.4f} ms, {n_ops} "
+          f"operations, the recurrence's FLOP and exps, at "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32 = {t_ops:.4f} ms) "
+          f"[{card}]")
     return row
 
 
@@ -820,20 +1038,16 @@ def phase_peer_path(card: str) -> dict:
     return launches
 
 
-def phase_lm_serve(card: str) -> dict:
-    """gemma3-4b at full width through the port's serving entry points."""
+def _init_lm(arch: str):
+    """(cfg, model, params, generator, parameter count): ``arch`` at full
+    width, random f32 weights from the seed, on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import tree_leaves
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     mha_reference)
-    from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import attention as attn_lib
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -845,45 +1059,57 @@ def phase_lm_serve(card: str) -> dict:
           f"{len(model.program)} stages, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}) x "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-          f"window {cfg.sliding_window}: {n_params} f32 parameters "
-          f"initialised in {time.perf_counter() - t0:.2f} s")
+          f"window {cfg.sliding_window}, ssm state {cfg.ssm_state}: "
+          f"{n_params} f32 parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cfg, model, params, gen, n_params
 
-    # (a) prefill. The warm-up forward also keeps the q, k, v that the
-    # first local and the first global layer hand to the kernel.
-    windows = [st.window for st in model.program for _ in range(st.count)]
-    picked = (windows.index(cfg.sliding_window), windows.index(None))
-    prefill = make_prefill_step(model)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                                     device="cuda", generator=gen)}
-    real, calls, kept = attn_lib.flash_attention, [], {}
 
-    def capture(q, k, v, **kw):
-        if len(calls) in picked:
-            kept[len(calls)] = (q, k, v, kw)
-        calls.append(kw["window"])
-        return real(q, k, v, **kw)
+def _warm_prefill(prefill, params, batch, wrap: dict) -> dict:
+    """One warm-up prefill with each wrapper named in ``wrap`` ({name:
+    (module that calls it, call indices to keep)}) replaced by one that
+    records its calls. Returns {name: [(args or None, kw) per call]}: the
+    keywords of every call, the positional arguments of the kept ones."""
+    calls = {name: [] for name in wrap}
+    real = {name: getattr(mod, name) for name, (mod, _) in wrap.items()}
 
-    attn_lib.flash_attention = capture
+    def recorder(name, keep):
+        def record(*args, **kw):
+            calls[name].append((args if len(calls[name]) in keep else None,
+                                kw))
+            return real[name](*args, **kw)
+        return record
+
+    for name, (mod, keep) in wrap.items():
+        setattr(mod, name, recorder(name, keep))
     try:
-        logits = prefill(params, batch)
+        prefill(params, batch)          # the logits are dropped
     finally:
-        attn_lib.flash_attention = real
-    del logits
-    if calls != windows:
-        raise AssertionError(f"the prefill's attention windows {calls} are "
-                             f"not the program's {windows}")
+        for name, (mod, _) in wrap.items():
+            setattr(mod, name, real[name])
+    return calls
+
+
+def _counted_prefill(prefill, params, batch, cfg, expect: dict,
+                     card: str) -> dict:
+    """The prefill with every count in ``expect`` ({name: (wrapper, n)})
+    set to 0 just before and read just after; each must be n. Then the
+    median wall of PREFILL_REPS prefills, tokens/s and peak memory."""
+    import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    for fn, _ in expect.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    launches = flash_attention.launches
+    launches = {name: fn.launches for name, (fn, _) in expect.items()}
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched {launches} times in "
-                             f"one prefill, expected {cfg.n_layers}")
+    want = {name: n for name, (_, n) in expect.items()}
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: one prefill launched {launches}, "
+                             f"expected {want}")
     if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) \
             or logits.dtype != torch.float32:
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
@@ -899,26 +1125,18 @@ def phase_lm_serve(card: str) -> dict:
         del logits
     wall = statistics.median(walls)
     n_tok = PREFILL_B * PREFILL_S
-    print(f"lm serve prefill: {PREFILL_B} x {PREFILL_S} tokens, bf16: "
-          f"{n_tok / wall:.1f} tokens/s, {wall * 1e3:.3f} ms per prefill "
-          f"(median of {['%.3f' % (w * 1e3) for w in walls]} ms), peak "
-          f"memory {peak} B, flash_attention launches {launches} per "
-          f"prefill (must be {cfg.n_layers}) [{card}]")
-    for li, (q, k, v, kw) in sorted(kept.items()):
-        out = flash_attention(q, k, v, **kw)
-        label = (f"lm serve lockstep, layer {li} (window {kw['window']}) of "
-                 f"the prefill, kernel on its bf16 q/k/v")
-        _hold(label + " vs plain", out,
-              flash_attention(q, k, v, **{**kw, "backend": "ref"}),
-              *FLASH_BF16_VS_BF16)
-        _hold(label + " vs fp32 mha_reference", out,
-              mha_reference(q.float(), k.float(), v.float(),
-                            causal=kw["causal"], window=kw["window"]),
-              *FLASH_BF16_VS_F32)
-    del kept, q, k, v, out
-    _profile_steps(lambda: prefill(params, batch), 1, "gemma3-4b prefill")
+    print(f"lm serve prefill {cfg.name}: {PREFILL_B} x {PREFILL_S} tokens, "
+          f"bf16: {n_tok / wall:.1f} tokens/s, {wall * 1e3:.3f} ms per "
+          f"prefill (median of {['%.3f' % (w * 1e3) for w in walls]} ms), "
+          f"peak memory {peak} B, launches per prefill {launches} (must be "
+          f"{want}) [{card}]")
+    return launches
 
-    # (b) decode through the serving loop at its defaults
+
+def _serve_generate(model, params, cfg, gen, card: str) -> None:
+    """Decode through the serving loop at its defaults."""
+    import torch
+    from repro_torch.launch import serve
     prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                            device="cuda", generator=gen)
     serve.generate(model, params, prompt[:, :2], 2)          # warm-up
@@ -928,30 +1146,42 @@ def phase_lm_serve(card: str) -> dict:
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
         raise AssertionError(f"decode: tokens {tuple(toks.shape)}, every "
                              f"logit finite: {out['finite']}")
-    print(f"lm serve decode: batch {SERVE_BATCH}, prompt {SERVE_PROMPT} "
-          f"replayed in {out['prefill_s']:.3f} s, {SERVE_GEN} tokens in "
-          f"{out['decode_s']:.3f} s: {SERVE_BATCH * SERVE_GEN / out['decode_s']:.2f}"
-          f" tokens/s ({out['decode_s'] / SERVE_GEN * 1e3:.3f} ms per step), "
-          f"every logit finite, tokens of row 0 {toks[0, :8].tolist()} "
-          f"[{card}]")
+    print(f"lm serve decode {cfg.name}: batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT} replayed in {out['prefill_s']:.3f} s, {SERVE_GEN} "
+          f"tokens in {out['decode_s']:.3f} s: "
+          f"{SERVE_BATCH * SERVE_GEN / out['decode_s']:.2f} tokens/s "
+          f"({out['decode_s'] / SERVE_GEN * 1e3:.3f} ms per step), every "
+          f"logit finite, tokens of row 0 {toks[0, :8].tolist()} [{card}]")
     _profile_steps(lambda: serve.generate(model, params, prompt[:, :2], 2), 4,
-                   "gemma3-4b decode")
+                   f"{cfg.name} decode")
 
-    # (c) the f32 copy of the model: the whole prefill, all 34 layers,
-    # through the kernel against the same prefill through the plain
-    # version (backend="ref"); then decode against forward
+
+def _f32_checks(cfg, params, batch, gen, ref_tol: float,
+                expect: dict) -> None:
+    """The f32 copy of the model: the whole prefill through the kernels
+    (each count in ``expect`` must reach its n) against the same prefill
+    through the plain versions (backend="ref"); then decode against
+    forward."""
+    import torch
+    from repro_torch.models import build_model
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
+    for fn, _ in expect.values():
+        fn.launches = 0
     with torch.no_grad():
         got, _ = model32.forward(params, batch)
+        launches = {name: fn.launches for name, (fn, _) in expect.items()}
         want, _ = build_model(cfg32, backend="ref").forward(params, batch)
         err = (got - want).abs().max().item()
-    print(f"lm serve f32 prefill {PREFILL_B} x {PREFILL_S}, kernel vs "
-          f"backend='ref' over every logit: max diff {err:.3e} (tol "
-          f"{REF_PREFILL_TOL}; logits up to {want.abs().max().item():.3f})")
-    if not err <= REF_PREFILL_TOL:
-        raise AssertionError("the f32 prefill through the kernel and through "
-                             "the plain version disagree")
+    print(f"lm serve {cfg.name} f32 prefill {PREFILL_B} x {PREFILL_S}, "
+          f"through the kernels ({launches}) vs backend='ref' over every "
+          f"logit: max diff {err:.3e} (tol {ref_tol}; logits up to "
+          f"{want.abs().max().item():.3f})")
+    if launches != {name: n for name, (_, n) in expect.items()}:
+        raise AssertionError(f"the f32 prefill launched {launches}")
+    if not err <= ref_tol:
+        raise AssertionError("the f32 prefill through the kernels and "
+                             "through the plain versions disagree")
     del got, want
     toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_S), device="cuda",
                          generator=gen)
@@ -964,12 +1194,119 @@ def phase_lm_serve(card: str) -> dict:
             lg, cache = model32.decode_step(params, cache, toks[:, t:t + 1], t)
             errs.append((lg - full[:, t]).abs().max())
     worst = torch.stack(errs).max().item()
-    print(f"lm serve decode consistency, f32, B={DECODE_B} S={DECODE_S}: max "
-          f"|decode_step - forward| over every logit {worst:.3e} (tol "
-          f"{DECODE_TOL}; logits up to {full.abs().max().item():.3f})")
+    print(f"lm serve {cfg.name} decode consistency, f32, B={DECODE_B} "
+          f"S={DECODE_S}: max |decode_step - forward| over every logit "
+          f"{worst:.3e} (tol {DECODE_TOL}; logits up to "
+          f"{full.abs().max().item():.3f})")
     if not worst <= DECODE_TOL:
         raise AssertionError("decode_step and forward disagree at full width")
-    return {"flash_attention": launches}
+
+
+def phase_lm_serve(card: str) -> dict:
+    """gemma3-4b at full width through the port's serving entry points."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_reference)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn_lib
+
+    cfg, model, params, gen, _ = _init_lm(LM_ARCH)
+    # (a) prefill. The warm-up forward also keeps the q, k, v that the
+    # first local and the first global layer hand to the kernel.
+    windows = [st.window for st in model.program for _ in range(st.count)]
+    picked = (windows.index(cfg.sliding_window), windows.index(None))
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device="cuda", generator=gen)}
+    calls = _warm_prefill(prefill, params, batch, {
+        "flash_attention": (attn_lib, picked)})["flash_attention"]
+    if [kw["window"] for _, kw in calls] != windows:
+        raise AssertionError(f"the prefill's attention windows are not the "
+                             f"program's {windows}")
+    launches = _counted_prefill(
+        prefill, params, batch, cfg,
+        {"flash_attention": (flash_attention, cfg.n_layers)}, card)
+    for li in sorted(picked):
+        (q, k, v), kw = calls[li]
+        out = flash_attention(q, k, v, **kw)
+        label = (f"lm serve lockstep, layer {li} (window {kw['window']}) of "
+                 f"the prefill, kernel on its bf16 q/k/v")
+        _hold(label + " vs plain", out,
+              flash_attention(q, k, v, **{**kw, "backend": "ref"}),
+              *FLASH_BF16_VS_BF16)
+        _hold(label + " vs fp32 mha_reference", out,
+              mha_reference(q.float(), k.float(), v.float(),
+                            causal=kw["causal"], window=kw["window"]),
+              *FLASH_BF16_VS_F32)
+    del calls, q, k, v, out
+    _profile_steps(lambda: prefill(params, batch), 1, "gemma3-4b prefill")
+    # (b) decode through the serving loop; (c) the f32 copy, all 34 layers
+    _serve_generate(model, params, cfg, gen, card)
+    _f32_checks(cfg, params, batch, gen, REF_PREFILL_TOL,
+                {"flash_attention": (flash_attention, cfg.n_layers)})
+    return launches
+
+
+def phase_hybrid_serve(card: str) -> dict:
+    """zamba2-2.7b at full width through the port's serving entry points:
+    its prefill runs ssd_scan in each of the 45 Mamba2 layers and
+    flash_attention (head_dim 80) in each of the 9 applications of the
+    shared attention block."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_reference)
+    from repro_torch.kernels.ssm_scan import ssd_chunked_reference, ssd_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import mamba2 as mamba_lib
+
+    cfg, model, params, gen, n_params = _init_lm(HYBRID_ARCH)
+    if n_params != HYBRID_PARAMS:
+        raise AssertionError(f"{cfg.name} has {n_params} parameters, the "
+                             f"reference's {HYBRID_PARAMS}")
+    kinds = [st.kind for st in model.program for _ in range(st.count)]
+    if (kinds.count("mamba"), kinds.count("shared_attn")) != \
+            (HYBRID_SCANS, HYBRID_ATTNS):
+        raise AssertionError(f"{cfg.name}'s program {model.program}")
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device="cuda", generator=gen)}
+    # (a) the warm-up prefill also keeps the scan inputs of the first and
+    # the last Mamba2 layer and the first shared attention's q, k, v
+    calls = _warm_prefill(prefill, params, batch, {
+        "ssd_scan": (mamba_lib, (0, HYBRID_SCANS - 1)),
+        "flash_attention": (attn_lib, (0,))})
+    scans, attns = calls["ssd_scan"], calls["flash_attention"]
+    if (len(scans), len(attns)) != (HYBRID_SCANS, HYBRID_ATTNS):
+        raise AssertionError(f"the prefill made {len(scans)} scans and "
+                             f"{len(attns)} attention calls")
+    expect = {"ssd_scan": (ssd_scan, HYBRID_SCANS),
+              "flash_attention": (flash_attention, HYBRID_ATTNS)}
+    launches = _counted_prefill(prefill, params, batch, cfg, expect, card)
+    for li in (0, HYBRID_SCANS - 1):
+        args, kw = scans[li]
+        y, _ = ssd_scan(*args, **kw)
+        _hold_scaled(f"lm serve lockstep, Mamba2 layer {li} of the "
+                     f"{cfg.name} prefill, ssd_scan on its x "
+                     f"{list(args[0].shape)} vs ssd_chunked_reference", y,
+                     ssd_chunked_reference(*args, chunk=kw["chunk"])[0],
+                     SSD_VS_CHUNKED_REL)
+    (q, k, v), kw = attns[0]
+    out = flash_attention(q, k, v, **kw)
+    label = (f"lm serve lockstep, shared attention 0 of the {cfg.name} "
+             f"prefill, kernel on its bf16 q/k/v {list(q.shape)}")
+    _hold(label + " vs plain", out,
+          flash_attention(q, k, v, **{**kw, "backend": "ref"}),
+          *FLASH_BF16_VS_BF16)
+    _hold(label + " vs fp32 mha_reference", out,
+          mha_reference(q.float(), k.float(), v.float(), causal=kw["causal"],
+                        window=kw["window"]), *FLASH_BF16_VS_F32)
+    del calls, scans, attns, args, y, q, k, v, out
+    _profile_steps(lambda: prefill(params, batch), 1, f"{cfg.name} prefill")
+    # (b) decode through the serving loop; (c) the f32 copy, all 54 layers
+    _serve_generate(model, params, cfg, gen, card)
+    _f32_checks(cfg, params, batch, gen, HYBRID_REF_PREFILL_TOL, expect)
+    return launches
 
 
 def _profile_steps(fn, n_steps: int, label: str) -> None:
@@ -1033,22 +1370,36 @@ def main() -> int:
         phase_build()
         phase = "kernels"
         rows = [phase_mule_agg(), phase_encounter_mix(),
-                phase_flash_attention(card)]
+                phase_flash_attention(card), phase_ssd_scan(card)]
+        # each path: {kernel: launches in its counted run}
+        paths = {}
         phase = "main path"
-        launches = phase_main_path(card)
+        paths["mlmule on commuter"] = phase_main_path(card)
         phase = "peer path"
-        launches.update(phase_peer_path(card))
+        paths["gossip on random_walk"] = phase_peer_path(card)
         phase = "lm serve"
-        launches.update(phase_lm_serve(card))
+        paths[f"{LM_ARCH} prefill"] = phase_lm_serve(card)
+        phase = "hybrid serve"
+        paths[f"{HYBRID_ARCH} prefill"] = phase_hybrid_serve(card)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)
         return 1
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        by_path = {p: c[row["name"]] for p, c in paths.items()
+                   if row["name"] in c}
+        # the count of the path whose shape the row is timed at
+        row["launches"] = next(iter(by_path.values()))
+        if len(by_path) > 1:
+            row["launches_by_path"] = by_path
+        # no single PyTorch call computes the SSD scan: its row alone may
+        # have library_ms null, and then says why under "library"
+        no_library = row["name"] == "ssd_scan" and row.get("library")
+        needed = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")
+        if not (no_library and row["library_ms"] is None):
+            needed += ("library_ms",)
         if not all(isinstance(row[k], (int, float)) and math.isfinite(row[k])
-                   for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                             "bound_ms", "library_ms")):
+                   for k in needed):
             print(f"incomplete kernel row {row}", file=sys.stderr)
             return 1
     print(json.dumps({"kernels": rows}))

@@ -5,9 +5,9 @@ config moves between the two packages as ``dataclasses.asdict``. Each
 architecture the port runs has a module here defining ``CONFIG`` (the
 full-scale config) and ``smoke_config()`` (a reduced variant of the same
 family for CPU tests). ``get_config`` and ``get_smoke_config`` return them
-for ``gemma3-4b``, ``stablelm-1.6b`` and the paper's ``mule-cnn``; for the
-reference's other ids they raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+for ``gemma3-4b``, ``stablelm-1.6b``, ``zamba2-2.7b`` and the paper's
+``mule-cnn``; for the reference's other ids they raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -164,14 +164,13 @@ ARCH_IDS = (
 _MODULE_FOR: dict[str, str] = {
     "stablelm-1.6b": "stablelm_1p6b",
     "gemma3-4b": "gemma3_4b",
+    "zamba2-2.7b": "zamba2_2p7b",
     # the paper's own model
     "mule-cnn": "mule_cnn",
 }
 
 # architectures of the reference that the port does not run yet
 _DEFERRED = {
-    "zamba2-2.7b": "ROADMAP §1 item 14.1 (zamba2: mamba2.py and the "
-                   "ssd_scan kernel)",
     "xlstm-350m": "ROADMAP §1 item 14.2 (xlstm.py and the slstm_scan "
                   "kernel)",
     "qwen3-moe-235b-a22b": "ROADMAP §1 item 14.3 (moe.py)",

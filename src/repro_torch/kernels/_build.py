@@ -34,6 +34,7 @@ SOURCES: Dict[str, str] = {
     "mule_agg": "kernels/mule_agg/csrc/mule_agg.cu",
     "encounter_mix": "kernels/encounter_mix/csrc/encounter_mix.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
+    "ssd_scan": "kernels/ssm_scan/csrc/ssd_scan.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

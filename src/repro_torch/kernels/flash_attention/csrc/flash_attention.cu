@@ -29,7 +29,11 @@
 //   thread reads four queries and four keys as two float4 per step of d and
 //   keeps a 4 x 4 tile of scores; v is staged row-major and each thread
 //   owns four query rows x D / 16 output columns of the fp32 accumulator,
-//   which stays in registers for the whole loop.
+//   which stays in registers for the whole loop. D is a template: the
+//   powers of two from 8 to 256, and 80 (zamba2's shared attention), whose
+//   80 columns are a 64-wide strip read as float4 plus a 16-wide rest read
+//   one column a thread, so the 16 threads of a row cover [0, 80) exactly
+//   (q, k, v are not padded to 128).
 // - The running max and sum of each row live in shared memory; four
 //   threads reduce each row with warp shuffles.
 // - Masked scores are -1e30, not -inf. A row whose first visited block is
@@ -38,7 +42,7 @@
 //   wipes out; with -inf that correction would be NaN. The final division
 //   is by max(l, 1e-30), as in the Pallas kernel.
 // - Shared memory is 4 (2 * 68 D + 64 D + 64 * 68 + 192) bytes: 217.75 KB
-//   at D = 256, one block per SM, allowed by
+//   at D = 256 (80.25 KB at D = 80), one block per SM at D = 256, allowed by
 //   cudaFuncAttributeMaxDynamicSharedMemorySize.
 // - The launch allocates nothing and returns cudaGetLastError().
 
@@ -101,11 +105,16 @@ __device__ __forceinline__ void load_rows(float* dst, const T* base,
   }
 }
 
-// Column j of a thread's accumulator: four float4 groups of a 64-wide strip
-// for D >= 64, else a stride-16 column (idle where it passes D).
+// Column j of a thread's accumulator. For D >= 64: four columns of each
+// 64-wide strip (float4 reads of v), then, where D is not a multiple of 64
+// (D = 80), one stride-16 column of each 16-wide rest; for D < 64 a
+// stride-16 column (idle where it passes D).
 template <int D>
 __device__ __forceinline__ int acc_col(int j, int tx) {
-  return D >= 64 ? (j / 4) * 64 + tx * 4 + (j % 4) : tx + 16 * j;
+  constexpr int J4 = 4 * (D / 64);   // columns in the 64-wide strips
+  if (D < 64) return tx + 16 * j;
+  return j < J4 ? (j / 4) * 64 + tx * 4 + (j % 4)
+                : (D / 64) * 64 + tx + 16 * (j - J4);
 }
 
 template <int D, typename T>
@@ -257,6 +266,13 @@ __global__ void __launch_bounds__(kThreads)
             for (int c = 0; c < 4; ++c)
               acc[r][j4 * 4 + c] = fmaf(p[r], vv[c], acc[r][j4 * 4 + c]);
         }
+#pragma unroll
+        for (int jr = 0; jr < (D % 64) / 16; ++jr) {
+          const int j = 4 * (D / 64) + jr;
+          const float x = vs[kk * D + acc_col<D>(j, tx)];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(p[r], x, acc[r][j]);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
@@ -327,6 +343,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
                              causal, window, s);
     case 64:
       return launch_d<64, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
+                             causal, window, s);
+    case 80:
+      return launch_d<80, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
                              causal, window, s);
     case 128:
       return launch_d<128, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,

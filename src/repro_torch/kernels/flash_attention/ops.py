@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_reference
 
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)    # the kernel's templates
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)    # the kernel's templates
 REF_BLOCK = 256      # the reference's "ref" backend raises blocks to >= 256
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [

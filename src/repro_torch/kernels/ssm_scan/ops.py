@@ -1,0 +1,99 @@
+"""Wrapper of the ``ssd_scan`` kernel: checks, dispatch, launch count.
+
+``ssd_scan(x, dt, A, Bmat, Cmat, chunk=..., init_state=...)`` runs the
+chunked Mamba2/SSD scan of x [B, S, H, P] with dt [B, S, H], A [H] and
+B, C [B, S, N], all float32, and returns ``(y [B, S, H, P], final_state)``.
+With ``backend="auto"`` a CUDA tensor launches the hand-written kernel
+(``csrc/ssd_scan.cu``), which is prefill-only as the TPU kernel is: it
+raises for an ``init_state`` and returns ``final_state`` None. A CPU tensor
+takes the plain chunked version (``ref.ssd_chunked_reference``), which
+takes an ``init_state`` and returns the final state [B, H, P, N];
+``backend="ref"`` asks for that plain version on any device.
+``ssd_scan.launches`` counts kernel launches.
+
+The kernel takes P and N up to 64 and a chunk of 1 to 64 steps (zamba2:
+P 64, N 64, chunk 64); other sizes and other dtypes raise on every route.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssm_scan.ref import ssd_chunked_reference
+
+MAX_DIM = 64        # the largest P, N and chunk the kernel takes
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+
+
+def _check(x, dt, A, Bmat, Cmat, chunk: int) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bmat.dim() != 3 \
+            or Cmat.shape != Bmat.shape:
+        raise ValueError(f"ssd_scan wants x [B,S,H,P], dt [B,S,H], A [H] and "
+                         f"B, C [B,S,N], got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(Bmat.shape)}, {tuple(Cmat.shape)}")
+    b, s, h, p = x.shape
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) \
+            or tuple(Bmat.shape[:2]) != (b, s):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)} or B {tuple(Bmat.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    n = Bmat.shape[2]
+    if not (1 <= p <= MAX_DIM and 1 <= n <= MAX_DIM):
+        raise ValueError(f"ssd_scan: P={p} and N={n} must lie in "
+                         f"[1, {MAX_DIM}]")
+    if not 1 <= chunk <= MAX_DIM:
+        raise ValueError(f"ssd_scan: chunk {chunk} must lie in "
+                         f"[1, {MAX_DIM}]")
+    ts = (x, dt, A, Bmat, Cmat)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"ssd_scan: x, dt, A, B and C must be float32, got "
+                        f"{[str(t.dtype) for t in ts]}")
+    if any(t.device != x.device for t in ts):
+        raise ValueError(f"ssd_scan: inputs on {[str(t.device) for t in ts]}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor, *, chunk: int = 64,
+             init_state: Optional[torch.Tensor] = None,
+             backend: str = "auto"):
+    """x [B,S,H,P]; dt [B,S,H]; A [H]; Bmat/Cmat [B,S,N] -> (y, final_state)."""
+    _check(x, dt, A, Bmat, Cmat, chunk)
+    if backend not in ("auto", "ref"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "ref" or x.device.type == "cpu":
+        return ssd_chunked_reference(x, dt, A, Bmat, Cmat, chunk=chunk,
+                                     init_state=init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    if init_state is not None:
+        raise ValueError("ssd_scan: the kernel is prefill-from-scratch and "
+                         "takes no init_state (the plain version does: "
+                         "backend='ref')")
+    b, s, h, p = x.shape
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    A = A.contiguous()
+    strides = (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(),
+                                       *Bmat.stride(), *Cmat.stride())
+    fn = _build.load("ssd_scan").ssd_scan_f32
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+                 Cmat.data_ptr(), y.data_ptr(), b, s, h, p, Bmat.shape[2],
+                 chunk, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, N {Bmat.shape[2]}, chunk "
+                           f"{chunk})")
+    ssd_scan.launches += 1
+    return y, None
+
+
+ssd_scan.launches = 0

@@ -1,16 +1,20 @@
 """Model API of the LM stack: ``Model`` with ``init / forward / loss /
 init_cache / decode_step``.
 
-Port of ``repro.models.api`` for the dense attention stack (stage kind
-``attn``). A config is compiled into the reference's stage program:
-consecutive layers of the same kind and attention window form one stage
-whose parameters are stacked ``[count, ...]``, as in the reference, so
-weights carry across leaf for leaf. The reference scans a stage with
-``lax.scan``; the port walks it with a Python loop (PyTorch runs eagerly).
+Port of ``repro.models.api`` for the stage kinds ``attn`` (GQA attention +
+gated MLP), ``mamba`` (the Mamba2/SSD mixer) and ``shared_attn`` (zamba2's
+attention block, one set of weights stored once as
+``params["shared_attn"]`` and applied at every such stage, whose slot in
+``params["stages"]`` is ``{}``). A config is compiled into the
+reference's stage program: consecutive layers of the same kind and
+attention window form one stage whose parameters are stacked
+``[count, ...]``, as in the reference, so weights carry across leaf for
+leaf. The reference scans a stage with ``lax.scan``; the port walks it
+with a Python loop (PyTorch runs eagerly).
 
-The other stage kinds (``moe``, ``mamba``, ``shared_attn``, ``xlstm_pair``)
-and the ``audio`` and ``vlm`` families wait for their ROADMAP items:
-``build_program`` gives their stage lists, ``build_model`` raises for them.
+The other stage kinds (``moe``, ``xlstm_pair``) and the ``audio`` and
+``vlm`` families wait for their ROADMAP items: ``build_program`` gives
+their stage lists, ``build_model`` raises for them.
 The reference's sharding options (``mesh``, ``dp_axes``, ``head_axis``,
 ``seq_axis``, ``moe_ep_axis``) and its dry-run helpers (``remat``,
 ``unroll``, ``input_specs``) have no meaning on one card and are not ported.
@@ -26,6 +30,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        init_mlp, init_norm)
@@ -40,9 +45,6 @@ class Stage:
 
 # stage kinds and families of the reference that the port does not run yet
 _DEFERRED_KINDS = {
-    "mamba": "ROADMAP §1 item 14.1 (zamba2: mamba2.py and the ssd_scan "
-             "kernel)",
-    "shared_attn": "ROADMAP §1 item 14.1 (zamba2's shared attention block)",
     "xlstm_pair": "ROADMAP §1 item 14.2 (xlstm.py and the slstm_scan kernel)",
     "moe": "ROADMAP §1 item 14.3 (moe.py)",
 }
@@ -88,42 +90,59 @@ def build_program(cfg: ModelConfig) -> List[Stage]:
 
 
 # ---------------------------------------------------------------------------
-# per-layer init / apply (the ``attn`` kind)
+# per-layer init / apply
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig):
-    return {"norm1": init_norm(cfg.norm, cfg.d_model, gen.device),
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
+    dev = gen.device
+    if kind == "mamba":
+        return {"norm": init_norm(cfg.norm, cfg.d_model, device=dev),
+                "mixer": mamba_lib.init_mamba2(gen, cfg)}
+    return {"norm1": init_norm(cfg.norm, cfg.d_model, device=dev),
             "attn": attn_lib.init_attention(gen, cfg),
-            "norm2": init_norm(cfg.norm, cfg.d_model, gen.device),
+            "norm2": init_norm(cfg.norm, cfg.d_model, device=dev),
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff)}
 
 
-def _apply_layer(params, x, positions, cfg: ModelConfig,
-                 window: Optional[int], backend: str):
+def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
+                 window: Optional[int], backend: str, shared=None):
     """Full-sequence forward for one layer."""
-    h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
-    x = x + attn_lib.attn_forward(params["attn"], h, positions, cfg,
+    if kind == "mamba":
+        h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
+        return x + mamba_lib.mamba2_forward(params["mixer"], h, cfg,
+                                            backend=backend)
+    p = shared if kind == "shared_attn" else params
+    h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+    x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
                                   window=window, backend=backend)
-    h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], h, cfg.act, compute_dtype_of(cfg))
+    h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg))
 
 
-def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig,
-                  window: Optional[int]):
-    """Single-token decode for one layer; writes its K/V into ``cache``."""
-    h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
-    out, _ = attn_lib.attn_decode(params["attn"], h, cache, pos, cfg,
+def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
+                  window: Optional[int], shared=None):
+    """Single-token decode for one layer; updates ``cache`` in place."""
+    if kind == "mamba":
+        h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
+        out, _ = mamba_lib.mamba2_decode(params["mixer"], h, cache, cfg)
+        return x + out
+    p = shared if kind == "shared_attn" else params
+    h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+    out, _ = attn_lib.attn_decode(p["attn"], h, cache, pos, cfg,
                                   window=window)
     x = x + out
-    h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], h, cfg.act, compute_dtype_of(cfg))
+    h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg))
 
 
 def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
                       max_seq: int, dtype, device):
-    c = attn_lib.init_kv_cache(cfg, batch, max_seq, window=stage.window,
-                               dtype=dtype, device=device)
+    if stage.kind == "mamba":     # f32 whatever ``dtype``, as the reference
+        c = mamba_lib.init_mamba2_cache(cfg, batch, device=device)
+    else:
+        c = attn_lib.init_kv_cache(cfg, batch, max_seq, window=stage.window,
+                                   dtype=dtype, device=device)
     if stage.count > 1:   # stacked [count, ...], a buffer of its own each
         c = tree_map(lambda l: l[None].repeat((stage.count,)
                                               + (1,) * l.dim()), c)
@@ -146,11 +165,11 @@ def _layers(stage: Stage, tree):
 class Model:
     cfg: ModelConfig
     program: List[Stage]
-    backend: str = "auto"         # attention backend: auto | ref
+    backend: str = "auto"         # attention/ssm backend: auto | ref
 
     def __post_init__(self):
         if self.backend not in ("auto", "ref"):
-            raise ValueError(f"unknown attention backend {self.backend!r}: "
+            raise ValueError(f"unknown kernel backend {self.backend!r}: "
                              f"'auto' (the kernel on the card) or 'ref' "
                              f"(the plain version)")
         if self.cfg.family in _DEFERRED_FAMILIES:
@@ -158,7 +177,7 @@ class Model:
                 f"family {self.cfg.family!r} ({self.cfg.name}) arrives with "
                 f"{_DEFERRED_FAMILIES[self.cfg.family]}")
         for stage in self.program:
-            if stage.kind != "attn":
+            if stage.kind in _DEFERRED_KINDS:
                 raise NotImplementedError(
                     f"{self.cfg.name}: stage kind {stage.kind!r} arrives "
                     f"with {_DEFERRED_KINDS[stage.kind]}")
@@ -169,13 +188,19 @@ class Model:
         cfg = self.cfg
         params: Dict[str, Any] = {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model)),
-            "final_norm": init_norm(cfg.norm, cfg.d_model, gen.device),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, device=gen.device),
         }
         if not cfg.tie_embeddings:
             params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab))
+        if any(s.kind == "shared_attn" for s in self.program):
+            params["shared_attn"] = _init_layer(gen, cfg, "shared_attn")
         stage_params = []
         for stage in self.program:
-            layers = [_init_layer(gen, cfg) for _ in range(stage.count)]
+            if stage.kind == "shared_attn":
+                stage_params.append({})  # weights in params["shared_attn"]
+                continue
+            layers = [_init_layer(gen, cfg, stage.kind)
+                      for _ in range(stage.count)]
             if stage.count > 1:
                 stage_params.append(tree_map(lambda *ls: torch.stack(ls),
                                              *layers))
@@ -201,15 +226,17 @@ class Model:
     def forward(self, params, batch: Dict[str, Any]):
         """Returns (logits [B,S,V] f32, aux_loss). batch: {"tokens": [B,S]}.
 
-        The aux loss is the reference's MoE balance term, 0 for ``attn``."""
+        The aux loss is the reference's MoE balance term, 0 for the kinds
+        ported."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         b, s, _ = x.shape
         positions = self._positions(b, s, x.device)
+        shared = params.get("shared_attn")
         for stage, sp in zip(self.program, params["stages"]):
             for lp in _layers(stage, sp):
-                x = _apply_layer(lp, x, positions, cfg, stage.window,
-                                 self.backend)
+                x = _apply_layer(lp, x, positions, cfg, stage.kind,
+                                 stage.window, self.backend, shared)
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self._unembed(params, x), torch.zeros((), device=x.device)
 
@@ -233,13 +260,16 @@ class Model:
     def decode_step(self, params, cache, token: torch.Tensor, pos: int):
         """token: [B,1] int; pos: int. Returns (logits [B,V] f32, cache).
 
-        The cache is updated in place (see ``attention.attn_decode``)."""
+        The cache is updated in place (see ``attention.attn_decode`` and
+        ``mamba2.mamba2_decode``)."""
         cfg = self.cfg
         pos = int(pos)
         x = self._embed(params, token)
+        shared = params.get("shared_attn")
         for stage, sp, sc in zip(self.program, params["stages"], cache):
             for lp, lc in zip(_layers(stage, sp), _layers(stage, sc)):
-                x = _decode_layer(lp, x, lc, pos, cfg, stage.window)
+                x = _decode_layer(lp, x, lc, pos, cfg, stage.kind,
+                                  stage.window, shared)
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self._unembed(params, x)[:, 0], cache
 

@@ -88,8 +88,8 @@ def attn_forward(params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                  window: Optional[int] = None, dtype=torch.bfloat16,
-                  device="cpu"):
+                  window: Optional[int] = None, dtype=torch.bfloat16, *,
+                  device):
     """Cache for ONE attention layer. Rolling buffer when windowed."""
     hd = cfg.resolved_head_dim
     slots = min(window, max_seq) if window is not None else max_seq

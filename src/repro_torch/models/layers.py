@@ -19,9 +19,10 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape) -> torch.Tensor:
-    """Normal(0, 0.02) f32 weights drawn from ``gen``, on ``gen``'s device."""
-    return 0.02 * torch.randn(tuple(shape), generator=gen, device=gen.device)
+def dense_init(gen: torch.Generator, shape, scale: float = 0.02
+               ) -> torch.Tensor:
+    """Normal(0, scale) f32 weights drawn from ``gen``, on ``gen``'s device."""
+    return scale * torch.randn(tuple(shape), generator=gen, device=gen.device)
 
 
 # ---------------------------------------------------------------------------
@@ -29,7 +30,7 @@ def dense_init(gen: torch.Generator, shape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_norm(kind: str, dim: int, device="cpu"):
+def init_norm(kind: str, dim: int, *, device):
     if kind == "rmsnorm":
         return {"scale": torch.ones((dim,), device=device)}
     return {"scale": torch.ones((dim,), device=device),
@@ -61,7 +62,7 @@ def activation(name: str):
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, *, device) -> torch.Tensor:
     """Inverse frequencies, shape [head_dim // 2], float32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
@@ -76,7 +77,7 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
         raise NotImplementedError(
             "M-RoPE is not ported yet; it arrives with ROADMAP §1 item 14.5 "
             "(qwen2-vl)")
-    inv = rope_freqs(head_dim, theta, positions.device)
+    inv = rope_freqs(head_dim, theta, device=positions.device)
     return positions[..., None].float() * inv
 
 

@@ -156,7 +156,7 @@ def test_causal_call_with_more_queries_than_keys_raises():
 def test_kernel_matches_plain_on_card(cuda_device, dtype):
     """The CUDA kernel against the oracle on the cases above, the decode
     alignment case, two windowed cases where a row's first visited key
-    block (64 keys) is fully masked for that row, the head dims 128 and
+    block (64 keys) is fully masked for that row, the head dims 80, 128 and
     256, and non-contiguous (sliced) q, k, v."""
     _, tdt, tol = DTYPES[dtype]
     shapes = [(b, s, h, kv, d, s, win, causal)
@@ -165,6 +165,8 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
                (1, 256, 2, 2, 8, 256, 16, True),
                (2, 300, 4, 1, 64, 300, 48, True),
                (1, 200, 4, 2, 128, 200, None, True),
+               (2, 130, 4, 4, 80, 130, None, True),
+               (1, 200, 2, 1, 80, 200, 70, True),
                (1, 300, 2, 1, 256, 300, 100, True)]
     for b, s, h, kv, d, sk, win, causal in shapes:
         q, k, v = (torch.from_numpy(a).to(cuda_device, tdt)

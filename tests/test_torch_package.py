@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(names) >= 30
     for name in ("configs.gemma3_4b", "models.api", "models.attention",
                  "kernels.flash_attention.ops", "launch.serve",
-                 "launch.steps"):
+                 "launch.steps", "configs.zamba2_2p7b", "models.mamba2",
+                 "kernels.ssm_scan.ops"):
         assert f"repro_torch.{name}" in names
     assert leaked.strip() == "[]"
 
@@ -86,7 +87,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
     assert sorted(_build.SOURCES) == ["encounter_mix", "flash_attention",
-                                      "mule_agg"]
+                                      "mule_agg", "ssd_scan"]
     for name in _build.SOURCES:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
