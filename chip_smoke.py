@@ -46,7 +46,16 @@ Phases (any failure exits non-zero without the final result line):
    ``flash_attention`` exactly 9 times; the scan inputs of two Mamba2
    layers and the q/k/v of one shared attention are held to the plain
    versions; then ``serve.generate``, the f32 copy's prefill against
-   ``backend="ref"`` and decode against forward, as in phase 6.
+   ``backend="ref"`` and decode against forward, as in phase 6;
+8. the xlstm serve path: xlstm-350m at full width (12 pairs of an mLSTM
+   block, 4 heads of 512, and an sLSTM block, 4 heads of 256; d_model
+   1024, vocab 50304; 468,260,864 random f32 weights from a seed), through
+   the same entry points. Its 2 x 4096 bf16 prefill must launch
+   ``slstm_scan`` exactly 12 times; the scan inputs of the first and the
+   last sLSTM block are held to the plain version; then
+   ``serve.generate``, the f32 copy's prefill against ``backend="ref"``
+   and against a copy whose sLSTM runs in float64 (the kernel no farther
+   from it than twice the plain version), and decode against forward.
 
 Phase 3 also holds ``flash_attention`` against its plain versions on the
 JAX tests' cases and at gemma3-4b's and zamba2-2.7b's per-layer prefill
@@ -55,7 +64,10 @@ and times it beside ``F.scaled_dot_product_attention`` as the library
 yardstick; and ``ssd_scan`` against the sequential oracle and the chunked
 plain version on the JAX tests' cases and at zamba2-2.7b's prefill shape,
 where no single PyTorch call computes the scan (its ``library_ms`` is
-null).
+null); and ``slstm_scan`` against its plain version on the JAX tests'
+cases, a ragged P, one step and xlstm-350m's prefill shape (there also
+against a float64 run of the plain version), timed with its µs per time
+step; no PyTorch call computes the sLSTM cell (``library_ms`` null).
 
 The second-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -172,6 +184,33 @@ HYBRID_SCANS, HYBRID_ATTNS = 45, 9
 # in all 54 layers. The bound is set from the readings, as gemma3-4b's:
 # 4.554e-5 in each sound run (NVIDIA H100 80GB HBM3, 700 W), ~4.4x below it
 HYBRID_REF_PREFILL_TOL = 2e-4
+
+# slstm_scan (phase 3): tests/test_kernels_slstm.py's cases (b, s, h, p),
+# a ragged P, one step, and its tolerance for the TPU kernel against the
+# plain version; the full shape is xlstm-350m's prefill
+SLSTM_CASES = [(2, 24, 3, 8), (1, 7, 1, 4), (2, 33, 4, 16), (2, 50, 2, 100),
+               (3, 1, 4, 256)]
+SLSTM_TOL = 2e-6
+# the scales of the prefill's inputs: pre = LN(x) @ w_in at init scale 0.02
+# and width 1024 has std 0.64; r is drawn at 0.02 (models/xlstm.py)
+SLSTM_PRE_STD, SLSTM_R_STD = 0.64, 0.02
+
+# the xlstm serve path (phase 8): xlstm-350m at full width, 12 (mLSTM,
+# sLSTM) pairs, whose sLSTM blocks run slstm_scan
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_PARAMS = 468_260_864        # the reference's init (tests/test_torch_xlstm.py)
+XLSTM_PAIRS = 12
+# f32 prefill through the kernel vs backend="ref": the two share every
+# GEMM and the mLSTM, and differ in the order of the sLSTM's fp32 sums in
+# 12 layers. The mLSTM amplifies such differences: it takes exp of
+# differences of cumulative log-forget sums that reach ~2,800 at 4096
+# tokens, where an f32 ulp is 2.4e-4. A run whose sLSTM is exact (float64,
+# rounded once) is as far from the f32 plain run as the kernel's (NVIDIA
+# H100 80GB HBM3, 700 W: kernel 5.593e-3, f64 sLSTM 6.920e-3). The bound,
+# written as 1e-3 before the first run, is set from those readings; the
+# kernel must also be no farther from the f64-sLSTM run than twice the
+# plain version's distance.
+XLSTM_REF_PREFILL_TOL = 2e-2
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -731,6 +770,81 @@ def phase_ssd_scan(card: str) -> dict:
     return row
 
 
+def _slstm_inputs(g, b, s, h, p, pre_std=1.0, r_std=0.1):
+    """pre [B, S, 4, H, P] and r [4, H, P, P], normal at the given scales
+    (the defaults are tests/test_kernels_slstm.py's)."""
+    import torch
+    return (pre_std * torch.randn(b, s, 4, h, p, device="cuda", generator=g),
+            r_std * torch.randn(4, h, p, p, device="cuda", generator=g))
+
+
+def phase_slstm_scan(card: str) -> dict:
+    """slstm_scan against its plain version; returns its JSON row (timed
+    at xlstm-350m's prefill shape)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.slstm_fused import slstm_reference, slstm_scan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    for b, s, h, p in SLSTM_CASES:
+        pre, r = _slstm_inputs(g, b, s, h, p)
+        out = slstm_scan(pre, r)
+        torch.cuda.synchronize()
+        _hold(f"slstm_scan b={b} s={s} h={h} p={p} vs slstm_reference", out,
+              slstm_reference(pre, r)[0], SLSTM_TOL, 0.0)
+
+    cfg = get_config(XLSTM_ARCH)
+    b, s, h = PREFILL_B, PREFILL_S, cfg.n_heads
+    p = cfg.d_model // h
+    pre, r = _slstm_inputs(g, b, s, h, p, SLSTM_PRE_STD, SLSTM_R_STD)
+    label = f"{XLSTM_ARCH} pre {[b, s, 4, h, p]}"
+    out = slstm_scan(pre, r)
+    torch.cuda.synchronize()
+    want = slstm_reference(pre, r)[0]
+    err = _hold(f"slstm_scan {label} vs slstm_reference", out, want,
+                SLSTM_TOL, 0.0)        # fails on a NaN too
+    oracle = slstm_reference(pre.double(), r.double())[0]
+    to_oracle = [(t.double() - oracle).abs().max().item() for t in (out, want)]
+    print(f"slstm_scan {label}: distance from the f64 plain version (max "
+          f"|h| {oracle.abs().max().item():.3e}): kernel {to_oracle[0]:.3e}, "
+          f"f32 slstm_reference {to_oracle[1]:.3e} (the kernel's must be at "
+          f"most twice the plain version's)")
+    if not to_oracle[0] <= 2 * to_oracle[1]:
+        raise AssertionError(f"slstm_scan {label}: farther from the f64 "
+                             f"oracle than twice the plain version")
+    del out, want, oracle
+    ms = _median_ms(lambda: slstm_scan(pre, r), reps=10)
+    plain_ms = _median_ms(lambda: slstm_reference(pre, r), reps=3, warm=1)
+    # the products h_{t-1} @ r of every step, and each input and output
+    # moved once
+    n_flop = 2 * b * s * 4 * h * p * p
+    n_bytes = 4 * (pre.numel() + b * s * h * p + r.numel())
+    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": "slstm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/slstm_fused/csrc/slstm_scan.cu",
+        "replaces": "src/repro/kernels/slstm_fused/kernel.py:75",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "library": "none: no PyTorch call computes the sLSTM cell "
+                   "(torch.nn.LSTM and cuDNN have sigmoid gates, no m "
+                   "stabiliser and a dense, not head-wise, recurrent matrix)",
+        "us_per_step": ms * 1e3 / s,
+    }
+    print(f"slstm_scan timing {label} f32: kernel {ms:.4f} ms "
+          f"({row['us_per_step']:.3f} us per time step, "
+          f"{n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, no "
+          f"library call, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+          f"{n_flop} FLOP at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32 = "
+          f"{t_ops:.4f} ms, {n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"= {t_bytes:.4f} ms) [{card}]")
+    return row
+
+
 def _max_diff(a: dict, b: dict, sides) -> float:
     """Largest |a - b| over the float tensors of the named state parts."""
     return max((a[s][k].float() - b[s][k].float()).abs().max().item()
@@ -1156,12 +1270,14 @@ def _serve_generate(model, params, cfg, gen, card: str) -> None:
                    f"{cfg.name} decode")
 
 
-def _f32_checks(cfg, params, batch, gen, ref_tol: float,
-                expect: dict) -> None:
+def _f32_checks(cfg, params, batch, gen, ref_tol: float, expect: dict,
+                oracle=None) -> None:
     """The f32 copy of the model: the whole prefill through the kernels
     (each count in ``expect`` must reach its n) against the same prefill
-    through the plain versions (backend="ref"); then decode against
-    forward."""
+    through the plain versions (backend="ref"); with an ``oracle`` ((cfg,
+    params, batch) -> logits of a more exact model), the kernels' logits no
+    farther from the oracle's than twice the plain versions'; then decode
+    against forward."""
     import torch
     from repro_torch.models import build_model
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1182,6 +1298,18 @@ def _f32_checks(cfg, params, batch, gen, ref_tol: float,
     if not err <= ref_tol:
         raise AssertionError("the f32 prefill through the kernels and "
                              "through the plain versions disagree")
+    if oracle is not None:
+        exact = oracle(cfg32, params, batch)
+        to_exact = [(t - exact).abs().max().item() for t in (got, want)]
+        print(f"lm serve {cfg.name} f32 prefill, distance from the more "
+              f"exact model's logits: through the kernels {to_exact[0]:.3e}, "
+              f"backend='ref' {to_exact[1]:.3e} (the kernels' must be at "
+              f"most twice the plain versions')")
+        if not to_exact[0] <= 2 * to_exact[1]:
+            raise AssertionError("the f32 prefill through the kernels is "
+                                 "farther from the oracle than twice the "
+                                 "plain versions")
+        del exact
     del got, want
     toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_S), device="cuda",
                          generator=gen)
@@ -1309,6 +1437,67 @@ def phase_hybrid_serve(card: str) -> dict:
     return launches
 
 
+def phase_xlstm_serve(card: str) -> dict:
+    """xlstm-350m at full width through the port's serving entry points:
+    its prefill runs slstm_scan in each of the 12 sLSTM blocks."""
+    import torch
+    from repro_torch.kernels.slstm_fused import slstm_reference, slstm_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.models.api import Stage
+
+    cfg, model, params, gen, n_params = _init_lm(XLSTM_ARCH)
+    if n_params != XLSTM_PARAMS:
+        raise AssertionError(f"{cfg.name} has {n_params} parameters, the "
+                             f"reference's {XLSTM_PARAMS}")
+    if model.program != [Stage("xlstm_pair", XLSTM_PAIRS)]:
+        raise AssertionError(f"{cfg.name}'s program {model.program}")
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device="cuda", generator=gen)}
+    # (a) the warm-up prefill also keeps the scan inputs of the first and
+    # the last sLSTM block
+    scans = _warm_prefill(prefill, params, batch, {
+        "slstm_scan": (xlstm_lib, (0, XLSTM_PAIRS - 1))})["slstm_scan"]
+    if len(scans) != XLSTM_PAIRS:
+        raise AssertionError(f"the prefill made {len(scans)} sLSTM scans")
+    expect = {"slstm_scan": (slstm_scan, XLSTM_PAIRS)}
+    launches = _counted_prefill(prefill, params, batch, cfg, expect, card)
+    for li in (0, XLSTM_PAIRS - 1):
+        args, kw = scans[li]
+        _hold(f"lm serve lockstep, sLSTM block {li} of the {cfg.name} "
+              f"prefill, slstm_scan on its pre {list(args[0].shape)} vs "
+              f"slstm_reference", slstm_scan(*args, **kw),
+              slstm_reference(*args)[0], SLSTM_TOL, 0.0)
+    del scans, args
+    _profile_steps(lambda: prefill(params, batch), 1, f"{cfg.name} prefill")
+    # (b) decode through the serving loop; (c) the f32 copy, all 24 blocks
+    _serve_generate(model, params, cfg, gen, card)
+    _f32_checks(cfg, params, batch, gen, XLSTM_REF_PREFILL_TOL, expect,
+                oracle=_f64_slstm_logits)
+    return launches
+
+
+def _f64_slstm_logits(cfg32, params, batch):
+    """Logits of the f32 model whose sLSTM recurrences run in float64 (the
+    plain version on float64 inputs, rounded to f32 once)."""
+    import torch
+    from repro_torch.kernels.slstm_fused import slstm_reference
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm as xlstm_lib
+
+    def exact_scan(pre, r, **kw):
+        return slstm_reference(pre.double(), r.double())[0].float()
+
+    real = xlstm_lib.slstm_scan
+    xlstm_lib.slstm_scan = exact_scan
+    try:
+        with torch.no_grad():
+            return build_model(cfg32, backend="ref").forward(params, batch)[0]
+    finally:
+        xlstm_lib.slstm_scan = real
+
+
 def _profile_steps(fn, n_steps: int, label: str) -> None:
     """Device time by kernel, and the device's busy share, over one short
     run of a path (torch.profiler)."""
@@ -1370,7 +1559,8 @@ def main() -> int:
         phase_build()
         phase = "kernels"
         rows = [phase_mule_agg(), phase_encounter_mix(),
-                phase_flash_attention(card), phase_ssd_scan(card)]
+                phase_flash_attention(card), phase_ssd_scan(card),
+                phase_slstm_scan(card)]
         # each path: {kernel: launches in its counted run}
         paths = {}
         phase = "main path"
@@ -1381,6 +1571,8 @@ def main() -> int:
         paths[f"{LM_ARCH} prefill"] = phase_lm_serve(card)
         phase = "hybrid serve"
         paths[f"{HYBRID_ARCH} prefill"] = phase_hybrid_serve(card)
+        phase = "xlstm serve"
+        paths[f"{XLSTM_ARCH} prefill"] = phase_xlstm_serve(card)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)
@@ -1392,11 +1584,10 @@ def main() -> int:
         row["launches"] = next(iter(by_path.values()))
         if len(by_path) > 1:
             row["launches_by_path"] = by_path
-        # no single PyTorch call computes the SSD scan: its row alone may
-        # have library_ms null, and then says why under "library"
-        no_library = row["name"] == "ssd_scan" and row.get("library")
+        # a row whose function no single PyTorch call computes may have
+        # library_ms null, and then says why under "library"
         needed = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")
-        if not (no_library and row["library_ms"] is None):
+        if not (row.get("library") and row["library_ms"] is None):
             needed += ("library_ms",)
         if not all(isinstance(row[k], (int, float)) and math.isfinite(row[k])
                    for k in needed):

@@ -5,8 +5,8 @@ config moves between the two packages as ``dataclasses.asdict``. Each
 architecture the port runs has a module here defining ``CONFIG`` (the
 full-scale config) and ``smoke_config()`` (a reduced variant of the same
 family for CPU tests). ``get_config`` and ``get_smoke_config`` return them
-for ``gemma3-4b``, ``stablelm-1.6b``, ``zamba2-2.7b`` and the paper's
-``mule-cnn``; for the reference's other ids they raise
+for ``gemma3-4b``, ``stablelm-1.6b``, ``zamba2-2.7b``, ``xlstm-350m`` and
+the paper's ``mule-cnn``; for the reference's other ids they raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -165,14 +165,13 @@ _MODULE_FOR: dict[str, str] = {
     "stablelm-1.6b": "stablelm_1p6b",
     "gemma3-4b": "gemma3_4b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "xlstm-350m": "xlstm_350m",
     # the paper's own model
     "mule-cnn": "mule_cnn",
 }
 
 # architectures of the reference that the port does not run yet
 _DEFERRED = {
-    "xlstm-350m": "ROADMAP §1 item 14.2 (xlstm.py and the slstm_scan "
-                  "kernel)",
     "qwen3-moe-235b-a22b": "ROADMAP §1 item 14.3 (moe.py)",
     "granite-moe-1b-a400m": "ROADMAP §1 item 14.3 (moe.py)",
     "whisper-base": "ROADMAP §1 item 14.4 (whisper.py and cross-attention)",

@@ -35,6 +35,7 @@ SOURCES: Dict[str, str] = {
     "encounter_mix": "kernels/encounter_mix/csrc/encounter_mix.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
     "ssd_scan": "kernels/ssm_scan/csrc/ssd_scan.cu",
+    "slstm_scan": "kernels/slstm_fused/csrc/slstm_scan.cu",
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

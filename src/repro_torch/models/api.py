@@ -2,19 +2,20 @@
 init_cache / decode_step``.
 
 Port of ``repro.models.api`` for the stage kinds ``attn`` (GQA attention +
-gated MLP), ``mamba`` (the Mamba2/SSD mixer) and ``shared_attn`` (zamba2's
+gated MLP), ``mamba`` (the Mamba2/SSD mixer), ``shared_attn`` (zamba2's
 attention block, one set of weights stored once as
 ``params["shared_attn"]`` and applied at every such stage, whose slot in
-``params["stages"]`` is ``{}``). A config is compiled into the
+``params["stages"]`` is ``{}``) and ``xlstm_pair`` (an mLSTM block, then an
+sLSTM block). A config is compiled into the
 reference's stage program: consecutive layers of the same kind and
 attention window form one stage whose parameters are stacked
 ``[count, ...]``, as in the reference, so weights carry across leaf for
 leaf. The reference scans a stage with ``lax.scan``; the port walks it
 with a Python loop (PyTorch runs eagerly).
 
-The other stage kinds (``moe``, ``xlstm_pair``) and the ``audio`` and
-``vlm`` families wait for their ROADMAP items: ``build_program`` gives
-their stage lists, ``build_model`` raises for them.
+The ``moe`` stage kind and the ``audio`` and ``vlm`` families wait for
+their ROADMAP items: ``build_program`` gives their stage lists,
+``build_model`` raises for them.
 The reference's sharding options (``mesh``, ``dp_axes``, ``head_axis``,
 ``seq_axis``, ``moe_ep_axis``) and its dry-run helpers (``remat``,
 ``unroll``, ``input_specs``) have no meaning on one card and are not ported.
@@ -31,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.interop import tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        init_mlp, init_norm)
@@ -45,7 +47,6 @@ class Stage:
 
 # stage kinds and families of the reference that the port does not run yet
 _DEFERRED_KINDS = {
-    "xlstm_pair": "ROADMAP §1 item 14.2 (xlstm.py and the slstm_scan kernel)",
     "moe": "ROADMAP §1 item 14.3 (moe.py)",
 }
 _DEFERRED_FAMILIES = {
@@ -99,6 +100,9 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
     if kind == "mamba":
         return {"norm": init_norm(cfg.norm, cfg.d_model, device=dev),
                 "mixer": mamba_lib.init_mamba2(gen, cfg)}
+    if kind == "xlstm_pair":
+        return {"mlstm": xlstm_lib.init_mlstm(gen, cfg),
+                "slstm": xlstm_lib.init_slstm(gen, cfg)}
     return {"norm1": init_norm(cfg.norm, cfg.d_model, device=dev),
             "attn": attn_lib.init_attention(gen, cfg),
             "norm2": init_norm(cfg.norm, cfg.d_model, device=dev),
@@ -112,6 +116,10 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
         return x + mamba_lib.mamba2_forward(params["mixer"], h, cfg,
                                             backend=backend)
+    if kind == "xlstm_pair":
+        x = xlstm_lib.mlstm_forward(params["mlstm"], x, cfg)
+        return xlstm_lib.slstm_forward(params["slstm"], x, cfg,
+                                       backend=backend)
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
@@ -127,6 +135,10 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
         out, _ = mamba_lib.mamba2_decode(params["mixer"], h, cache, cfg)
         return x + out
+    if kind == "xlstm_pair":
+        x, _ = xlstm_lib.mlstm_decode(params["mlstm"], x, cache["mlstm"], cfg)
+        x, _ = xlstm_lib.slstm_decode(params["slstm"], x, cache["slstm"], cfg)
+        return x
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     out, _ = attn_lib.attn_decode(p["attn"], h, cache, pos, cfg,
@@ -140,6 +152,9 @@ def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
                       max_seq: int, dtype, device):
     if stage.kind == "mamba":     # f32 whatever ``dtype``, as the reference
         c = mamba_lib.init_mamba2_cache(cfg, batch, device=device)
+    elif stage.kind == "xlstm_pair":     # f32 too
+        c = {"mlstm": xlstm_lib.init_mlstm_cache(cfg, batch, device=device),
+             "slstm": xlstm_lib.init_slstm_cache(cfg, batch, device=device)}
     else:
         c = attn_lib.init_kv_cache(cfg, batch, max_seq, window=stage.window,
                                    dtype=dtype, device=device)
@@ -165,7 +180,7 @@ def _layers(stage: Stage, tree):
 class Model:
     cfg: ModelConfig
     program: List[Stage]
-    backend: str = "auto"         # attention/ssm backend: auto | ref
+    backend: str = "auto"         # kernel backend: auto | ref
 
     def __post_init__(self):
         if self.backend not in ("auto", "ref"):
@@ -260,8 +275,8 @@ class Model:
     def decode_step(self, params, cache, token: torch.Tensor, pos: int):
         """token: [B,1] int; pos: int. Returns (logits [B,V] f32, cache).
 
-        The cache is updated in place (see ``attention.attn_decode`` and
-        ``mamba2.mamba2_decode``)."""
+        The cache is updated in place (see ``attention.attn_decode``,
+        ``mamba2.mamba2_decode`` and ``xlstm``'s decodes)."""
         cfg = self.cfg
         pos = int(pos)
         x = self._embed(params, token)

@@ -41,7 +41,7 @@ from repro_torch.models.api import Stage, build_program  # noqa: E402
 
 torch.set_num_threads(1)
 
-ARCHS = ["gemma3-4b", "stablelm-1.6b", "zamba2-2.7b"]
+ARCHS = ["gemma3-4b", "stablelm-1.6b", "zamba2-2.7b", "xlstm-350m"]
 
 
 def _port_cfg(jcfg):

@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_repro():
     for name in ("configs.gemma3_4b", "models.api", "models.attention",
                  "kernels.flash_attention.ops", "launch.serve",
                  "launch.steps", "configs.zamba2_2p7b", "models.mamba2",
-                 "kernels.ssm_scan.ops"):
+                 "kernels.ssm_scan.ops", "configs.xlstm_350m",
+                 "models.xlstm", "kernels.slstm_fused.ops"):
         assert f"repro_torch.{name}" in names
     assert leaked.strip() == "[]"
 
@@ -87,7 +88,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
     assert sorted(_build.SOURCES) == ["encounter_mix", "flash_attention",
-                                      "mule_agg", "ssd_scan"]
+                                      "mule_agg", "slstm_scan", "ssd_scan"]
     for name in _build.SOURCES:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
