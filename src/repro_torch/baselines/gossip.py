@@ -11,25 +11,227 @@ mix — on a CUDA tensor the hand-written kernel. The former dense path
 (``encounter_matrix`` + per-leaf ``masked_group_mean``) survives below only
 as the baseline it was replaced by.
 
-The port runs the single-host step; the reference's sharded ring
-(``RingSpec``, ``ring_encounter_mix``) arrives with ROADMAP §1 item 13.
+Sharded populations: with a ``RingSpec`` each rank of a
+``torch.distributed`` process group holds one equal block of the
+population, and the mix runs as a ring (``ring_encounter_mix``). Hop ``s``
+sends the rank's original (pos, area, active, flattened models) block
+straight to rank ``(i + s) % n`` and receives rank ``(i - s) % n``'s with
+one ``all_to_all_single`` per tensor (``shift_perm``); each hop's
+unnormalized ``encounter_block_hop`` partial (the hop kernel on a CUDA
+tensor) is added in hop order and the rows are normalized once at the end,
+so no rank ever holds the full [M, M] matrix. The ring is locality-aware:
+each rank publishes a 32- or 64-bit area-set summary (one tiny
+``all_reduce`` per exchange, so every rank holds the same hop mask), and
+every remote hop whose source and destination area sets cannot intersect
+skips both its transfer and its compute. A pruned hop would have added
+exactly zero, so pruned and unpruned rings agree bitwise, and since the
+mask is replicated every rank skips the same collectives. The next hop's
+transfer is issued (``async_op=True``) before the block in hand is
+consumed, so transfers overlap the compute.
+
+Mules should be ordered by spatial bucket for the pruning to bite
+(``repro_torch.core.distributed.bucket_mule_order``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.aggregation import batched_mix, masked_group_mean
 from repro_torch.core.seeds import split
-from repro_torch.kernels.encounter_mix import (encounter_gate, encounter_mix,
-                                               encounter_mix_reference)
+from repro_torch.interop import tree_map
+from repro_torch.kernels.encounter_mix import (encounter_block_hop,
+                                               encounter_gate, encounter_mix,
+                                               encounter_mix_reference,
+                                               normalize_mix)
 from repro_torch.kernels.encounter_mix.ref import radius_sq
 
 Params = Dict[str, torch.Tensor]
 # sorted leaf keys, per-leaf shapes (without the population axis), dtypes
 FlatSpec = Tuple[List[str], List[torch.Size], List[torch.dtype]]
+
+N_AREA_BITS = 32
+
+# What the rings of this process did, summed over calls: "hops" computed
+# (the local hop included), remote hops "pruned", and "sent_bytes" handed
+# to the transport. Telemetry for chip_smoke.py's ring phase and the ring
+# tests; the ring itself never reads it.
+RING_COUNTS = {"hops": 0, "pruned": 0, "sent_bytes": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class RingSpec:
+    """The ring of ranks for cross-rank encounter search.
+
+    ``axis_size`` is the number of ranks of ``group``, a
+    ``torch.distributed`` process group (``None``: the default group); each
+    rank holds one equal block of the population, rank ``i`` the rows from
+    ``i * m_loc``. ``prune`` enables the area-bitmask hop pruning (exact, so
+    on by default). ``n_bits`` is the area-summary width: area ids fold
+    with ``% n_bits``, so more than ``n_bits`` distinct areas alias bits
+    and lose pruning power, never soundness.
+    """
+    axis_size: int
+    group: Any = None
+    prune: bool = True
+    n_bits: int = N_AREA_BITS
+
+    def perm(self) -> List[Tuple[int, int]]:
+        return [(s, (s + 1) % self.axis_size) for s in range(self.axis_size)]
+
+    def shift_perm(self, s: int) -> List[Tuple[int, int]]:
+        """Pairs (source, destination) delivering rank j's block to rank
+        (j + s) % n — after the shift every rank i holds rank (i - s) % n's
+        block."""
+        return [(j, (j + s) % self.axis_size)
+                for j in range(self.axis_size)]
+
+    def rank(self) -> int:
+        """This process's index on the ring; checks the group's size."""
+        size = dist.get_world_size(self.group)
+        if size != self.axis_size:
+            raise ValueError(f"RingSpec.axis_size is {self.axis_size}, its "
+                             f"process group has {size} ranks")
+        return dist.get_rank(self.group)
+
+
+def area_bits(area: torch.Tensor, active: Optional[torch.Tensor] = None,
+              n_bits: int = N_AREA_BITS) -> torch.Tensor:
+    """[m] int areas (+ optional [m] active mask) -> [n_bits] bool summary.
+
+    Bit ``b`` is set iff some active row has ``area % n_bits == b``. Hash
+    collisions (areas ``n_bits`` apart) can only add bits, so a predicate
+    built on these summaries may keep a skippable hop but never prunes a
+    hop whose blocks truly share an area.
+    """
+    hit = ((area[:, None] % n_bits)
+           == torch.arange(n_bits, device=area.device)[None, :])
+    if active is not None:
+        hit = hit & active[:, None]
+    return hit.any(dim=0)
+
+
+def hops_needed(all_bits: torch.Tensor) -> torch.Tensor:
+    """[n_ranks, n_bits] per-rank area summaries -> [n_ranks] bool.
+
+    Entry ``s`` answers: does any rank's area set intersect that of its
+    shift-``s`` source ``(i - s) % n``? Entry 0, the local block, is True
+    whenever any rank has an active mule.
+    """
+    n = all_bits.shape[0]
+    return torch.stack([(all_bits & torch.roll(all_bits, s, dims=0)).any()
+                        for s in range(n)])
+
+
+def ring_hop_mask(area, active, n_shards: int,
+                  n_bits: int = N_AREA_BITS) -> torch.Tensor:
+    """Host-side mirror of the in-ring pruning predicate.
+
+    Splits the global ``area``/``active`` rows (numpy or tensors) into
+    ``n_shards`` equal blocks, the ring's layout, and returns the
+    [n_shards] bool hop mask the pruned ring computes.
+    """
+    area = torch.as_tensor(area)
+    active = None if active is None else torch.as_tensor(active)
+    m_loc = area.shape[0] // n_shards
+    blocks = []
+    for k in range(n_shards):
+        sl = slice(k * m_loc, (k + 1) * m_loc)
+        blocks.append(area_bits(area[sl],
+                                None if active is None else active[sl],
+                                n_bits=n_bits))
+    return hops_needed(torch.stack(blocks))
+
+
+def area_bit_collision_rate(area, n_bits: int = N_AREA_BITS) -> float:
+    """Fraction of distinct area ids that share their summary bit with
+    another distinct id under the ``% n_bits`` fold (0.0: the bitmask
+    separates every area). Telemetry: aliased areas can only keep hops."""
+    u = np.unique(np.asarray(area))
+    if u.size == 0:
+        return 0.0
+    bits = u % n_bits
+    _, counts = np.unique(bits, return_counts=True)
+    collided = int(counts[counts > 1].sum())
+    return float(collided) / float(u.size)
+
+
+def _ring_need(area: torch.Tensor, act: torch.Tensor,
+               ring: RingSpec) -> List[bool]:
+    """The replicated [axis_size] hop mask, on the host.
+
+    Each rank writes its area summary into its row of an [n, n_bits]
+    table; one ``all_reduce(SUM)`` gives every rank the same table, so
+    every rank prunes the same hops and issues the same collectives.
+    """
+    n = ring.axis_size
+    table = torch.zeros((n, ring.n_bits), dtype=torch.int64)
+    table[ring.rank()] = area_bits(area, act, n_bits=ring.n_bits).cpu()
+    dist.all_reduce(table, op=dist.ReduceOp.SUM, group=ring.group)
+    return hops_needed(table > 0).tolist()
+
+
+class _Shift:
+    """A ring shift in flight: ``wait()`` returns the received block."""
+
+    def __init__(self, received: Any, works: list):
+        self.received, self.works = received, works
+
+    def wait(self) -> Any:
+        for w in self.works:
+            w.wait()
+        return self.received
+
+
+def _ring_shift(orig: Any, s: int, ring: RingSpec) -> _Shift:
+    """Send every tensor of ``orig`` to rank ``(i + s) % n`` and receive
+    rank ``(i - s) % n``'s, one asynchronous ``all_to_all_single`` per
+    tensor (``bool`` travels as ``uint8``). Every rank holds a block of
+    the same shapes."""
+    n = ring.axis_size
+    i = ring.rank()
+    works = []
+
+    def send(t: torch.Tensor) -> torch.Tensor:
+        src = t.contiguous()
+        wire = src.view(torch.uint8) if src.dtype == torch.bool else src
+        buf = torch.empty_like(wire)
+        rows = wire.shape[0]
+        send_to = [rows if j == (i + s) % n else 0 for j in range(n)]
+        recv_from = [rows if j == (i - s) % n else 0 for j in range(n)]
+        works.append(dist.all_to_all_single(buf, wire, recv_from, send_to,
+                                            group=ring.group, async_op=True))
+        RING_COUNTS["sent_bytes"] += wire.numel() * wire.element_size()
+        return buf.view(torch.bool) if src.dtype == torch.bool else buf
+
+    return _Shift(tree_map(send, orig), works)
+
+
+def _ring_shifts(orig: Any, ring: RingSpec, need: Optional[List[bool]]):
+    """(source rank, visiting block) of hops s = 1 .. n-1 in order,
+    skipping pruned hops; hop s+1's transfer is issued before hop s's
+    block is handed out (double buffering)."""
+    n = ring.axis_size
+    i = ring.rank()
+
+    def issue(s):
+        if need is not None and not need[s]:
+            RING_COUNTS["pruned"] += 1
+            return None
+        return _ring_shift(orig, s, ring)
+
+    nxt = issue(1)
+    for s in range(1, n):
+        blk = nxt
+        if s + 1 < n:       # issue the next transfer before consuming
+            nxt = issue(s + 1)
+        if blk is not None:
+            yield (i - s) % n, blk.wait()
 
 
 def flatten_population(models: Params) -> Tuple[torch.Tensor, FlatSpec]:
@@ -75,24 +277,74 @@ def _neighbor_mix(flat, pos, area, active, radius, backend):
                      "'auto' or 'ref'")
 
 
+def ring_encounter_mix(pos: torch.Tensor, area: torch.Tensor,
+                       active: Optional[torch.Tensor], flat: torch.Tensor, *,
+                       radius: float, ring: RingSpec, backend: str = "auto"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise ``encounter_mix`` across the ring of ranks.
+
+    Every argument is this rank's block ([m_loc, ...], the same m_loc on
+    every rank). Hop 0 matches the local rows against the local block; hop
+    ``s`` against the block received from rank ``(i - s) % n``, whose
+    global rows start at ``((i - s) % n) * m_loc``. The unnormalized
+    partials (``encounter_block_hop``, with ``backend``) are summed in hop
+    order, ``acc = acc + p_acc`` for s = 1 .. n-1, into the local hop's
+    buffers, and normalized once. With ``ring.prune`` a hop the replicated
+    area mask rules out skips its transfer and its compute. Returns the
+    local rows' (mix [m_loc, D], mass [m_loc]).
+    """
+    m_loc = flat.shape[0]
+    row0 = ring.rank() * m_loc
+    act = (torch.ones((m_loc,), dtype=torch.bool, device=pos.device)
+           if active is None else active)
+    orig = (pos, area, act, flat)
+
+    def hop(visiting, col0):
+        pos_v, area_v, act_v, flat_v = visiting
+        RING_COUNTS["hops"] += 1
+        return encounter_block_hop(pos, area, act, row0, pos_v, area_v,
+                                   act_v, col0, flat_v, radius,
+                                   backend=backend)
+
+    acc, mass = hop(orig, row0)                     # shift 0: local block
+    if ring.axis_size > 1:
+        need = _ring_need(area, act, ring) if ring.prune else None
+        for src, blk in _ring_shifts(orig, ring, need):
+            p_acc, p_mass = hop(blk, src * m_loc)
+            acc.add_(p_acc)
+            mass.add_(p_mass)
+    return normalize_mix(acc, mass), mass
+
+
 def gossip_step(models: Params, pos: torch.Tensor, area: torch.Tensor,
                 batches: Any, train_fn: Callable, key: int, *,
                 radius: float = 0.15, gamma: float = 0.5,
                 active: Optional[torch.Tensor] = None,
-                backend: str = "auto") -> Params:
+                backend: str = "auto", ring: Optional[RingSpec] = None,
+                keys: Optional[torch.Tensor] = None) -> Params:
     """One gossip exchange-aggregate-train step over the population.
 
     ``backend="auto"`` mixes with ``encounter_mix`` (the CUDA kernel on a
     CUDA tensor, the plain version on a CPU tensor); ``"ref"`` always runs
-    the plain version. Each mule trains with its own seed of
-    ``split(key, M)``; only mules that met a peer take the result.
+    the plain version. With a ``RingSpec`` every argument is this rank's
+    block and neighbors stream around the ring (``ring_encounter_mix``;
+    ``backend`` then selects the hop's kernel or plain version). Each mule
+    trains with its own seed of ``split(key, M)``, or of ``keys`` [M] when
+    given (a rank passes its slice of the global split, so its draws match
+    single host row for row); only mules that met a peer take the result.
     """
     flat, spec = flatten_population(models)
-    mixed, mass = _neighbor_mix(flat, pos, area, active, radius, backend)
+    if ring is None:
+        mixed, mass = _neighbor_mix(flat, pos, area, active, radius, backend)
+    else:
+        mixed, mass = ring_encounter_mix(pos, area, active, flat,
+                                         radius=radius, ring=ring,
+                                         backend=backend)
     neigh_mean = unflatten_population(mixed, spec)
     met = (mass > 0).float()
     models = batched_mix(models, neigh_mean, gamma * met)           # aggregate
-    keys = split(key, mass.shape[0], mass.device)
+    if keys is None:
+        keys = split(key, mass.shape[0], mass.device)
     trained = torch.func.vmap(train_fn)(models, batches, keys)      # train
     return batched_mix(models, trained, met)                # only on encounter
 

@@ -1,4 +1,6 @@
-"""encounter_mix: the fused peer-encounter mix (CUDA kernel, plain version)."""
-from repro_torch.kernels.encounter_mix.ops import encounter_mix  # noqa: F401
+"""encounter_mix: the fused peer-encounter mix and its ring hop (CUDA
+kernels, plain versions)."""
+from repro_torch.kernels.encounter_mix.ops import (  # noqa: F401
+    encounter_block_hop, encounter_mix)
 from repro_torch.kernels.encounter_mix.ref import (  # noqa: F401
     encounter_block, encounter_gate, encounter_mix_reference, normalize_mix)

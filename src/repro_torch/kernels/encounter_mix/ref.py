@@ -7,8 +7,9 @@ neighbor sums and per-row neighbor counts. ``encounter_mix_reference`` is
 one call with the whole population as both blocks, row-normalized.
 
 These run on any device. The CPU path of ``ops.encounter_mix`` is
-``encounter_mix_reference``; on the card it is the yardstick the CUDA
-kernel (``csrc/encounter_mix.cu``) is held to.
+``encounter_mix_reference``, and that of ``ops.encounter_block_hop`` (one
+ring hop) is ``encounter_block``; on the card they are the yardsticks the
+CUDA kernels (``csrc/encounter_mix.cu``) are held to.
 
 The gate is bitwise the kernel's: ``d2 = dx*dx + dy*dy`` in float32 with no
 fused multiply-add (eager PyTorch runs each op on its own), compared with

@@ -30,8 +30,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.kernels.slstm_fused import slstm_scan
 from repro_torch.kernels.slstm_fused.ref import cell_step
 from repro_torch.models.attention import compute_dtype_of
-from repro_torch.models.layers import (activation, apply_norm, dense_init,
-                                       init_norm)
+from repro_torch.models.layers import apply_norm, dense_init, init_norm
 
 
 def _dims(cfg: ModelConfig):
@@ -260,10 +259,11 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, *, device):
 
 def _slstm_out(params, hv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Group norm of the cell output hv [..., H, P], then the gated
-    up/down projection."""
+    up/down projection. The gate is always GELU (tanh form), whatever
+    ``cfg.act`` says, as in the reference's sLSTM block."""
     cd = compute_dtype_of(cfg)
     hv = _group_norm(hv, params["gn_scale"]).to(cd)
-    up = activation(cfg.act)(hv @ params["w_up_gate"].to(cd)) \
+    up = F.gelu(hv @ params["w_up_gate"].to(cd), approximate="tanh") \
         * (hv @ params["w_up"].to(cd))
     return up @ params["w_down"].to(cd)
 

@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "kernels.flash_attention.ops", "launch.serve",
                  "launch.steps", "configs.zamba2_2p7b", "models.mamba2",
                  "kernels.ssm_scan.ops", "configs.xlstm_350m",
-                 "models.xlstm", "kernels.slstm_fused.ops"):
+                 "models.xlstm", "kernels.slstm_fused.ops",
+                 "core.distributed", "launch.multiprocess"):
         assert f"repro_torch.{name}" in names
     assert leaked.strip() == "[]"
 

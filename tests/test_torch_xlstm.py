@@ -135,6 +135,28 @@ def test_slstm_forward_matches():
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("act", ["silu", "relu"])
+def test_slstm_block_gate_is_gelu_whatever_act(act):
+    """The reference's sLSTM block gates its up projection with GELU (tanh
+    form) whatever ``cfg.act`` says; the port's prefill and decode follow
+    it (a port that used ``cfg.act`` was 3.38e-3 off with "silu")."""
+    cfg = _smoke(dtype="float32", act=act)
+    tcfg = _port_cfg(cfg)
+    jp, tp = _block("slstm", cfg, seed=5)
+    b, s = 2, 12
+    x = _x((b, s, cfg.d_model), seed=6)
+    _close(tx.slstm_forward(tp, torch.from_numpy(x), tcfg),
+           jx.slstm_forward(jp, jnp.asarray(x), cfg), 1e-5)
+    jcache = jx.init_slstm_cache(cfg, b)
+    tcache = tx.init_slstm_cache(tcfg, b, device="cpu")
+    for t in range(s):
+        jy, jcache = jx.slstm_decode(jp, jnp.asarray(x[:, t:t + 1]), jcache,
+                                     cfg)
+        ty, tcache = tx.slstm_decode(tp, torch.from_numpy(x[:, t:t + 1]),
+                                     tcache, tcfg)
+        _close(ty, jy, 1e-5)
+
+
 @pytest.mark.parametrize("kind", ["mlstm", "slstm"])
 def test_decode_matches_jax_and_forward(kind):
     """Each block's recurrent step against JAX's (outputs and caches) and
