@@ -32,20 +32,23 @@ Phases (any failure exits non-zero without the final result line):
    head_dim 256, vocab 262144; random f32 weights from a seed) through the
    port's serving entry points. (a) ``make_prefill_step`` on 2 prompts of
    4096 tokens in bf16, which must launch ``flash_attention`` exactly 34
-   times, with the q/k/v of one local and one global layer held to the
-   plain version; (b) ``serve.generate`` at the launcher's defaults (batch
-   4, prompt 16, gen 32), every logit finite; (c) an f32 copy of the config
+   times, all 34 on its tensor-core route (``tc_launches``), with the
+   q/k/v of one local and one global layer held to the plain version, and
+   attention's share of a profiled prefill printed; (b) ``serve.generate``
+   at the launcher's defaults (batch 4, prompt 16, gen 32), every logit
+   finite; (c) an f32 copy of the config
    whose 2 x 4096 prefill through the kernel must match the same prefill
-   through ``build_model(cfg, backend="ref")``, and whose ``forward``
-   logits must match the ``decode_step`` replay of 64 tokens;
+   through ``build_model(cfg, backend="ref")`` (its attention on the SIMT
+   route, no tensor-core launch), and whose ``forward`` logits must match
+   the ``decode_step`` replay of 64 tokens;
 7. the hybrid serve path: zamba2-2.7b at full width (54 layers: 45 Mamba2
    mixers with 80 SSM heads of 64 and state 64, and 9 applications of one
    shared attention block of 32 heads x 80; 2,063,676,080 random f32
    weights from a seed), through the same entry points as phase 6. Its
    2 x 4096 bf16 prefill must launch ``ssd_scan`` exactly 45 times and
-   ``flash_attention`` exactly 9 times; the scan inputs of two Mamba2
-   layers and the q/k/v of one shared attention are held to the plain
-   versions; then ``serve.generate``, the f32 copy's prefill against
+   ``flash_attention`` exactly 9 times, all 9 on the tensor-core route;
+   the scan inputs of two Mamba2 layers and the q/k/v of one shared
+   attention are held to the plain versions; then ``serve.generate``, the f32 copy's prefill against
    ``backend="ref"`` and decode against forward, as in phase 6;
 8. the xlstm serve path: xlstm-350m at full width (12 pairs of an mLSTM
    block, 4 heads of 512, and an sLSTM block, 4 heads of 256; d_model
@@ -73,11 +76,16 @@ Phases (any failure exits non-zero without the final result line):
    steps/s, the bytes the ranks sent and the hops they pruned.
 
 Phase 3 also holds ``flash_attention`` against its plain versions on the
-JAX tests' cases and at gemma3-4b's and zamba2-2.7b's per-layer prefill
-shapes (in f32, and in bf16 against the fp32 oracle on the same inputs),
-and times it beside ``F.scaled_dot_product_attention`` as the library
-yardstick; and ``ssd_scan`` against the sequential oracle and the chunked
-plain version on the JAX tests' cases and at zamba2-2.7b's prefill shape,
+JAX tests' cases, on tensor-core cases (decode, ragged Sk, bidirectional,
+a fully masked first block at gemma3's GQA group) and at gemma3-4b's and
+zamba2-2.7b's per-layer prefill shapes (in f32, and in bf16 against the
+fp32 oracle on the same inputs), checks every call's route (bf16 at head
+dims 64, 80, 128 and 256 on the tensor-core kernel, the rest on the SIMT
+one), counts the ``HGMMA`` instructions of the built tensor-core library
+(``cuobjdump -sass``; none fails), and times the tensor-core kernel beside
+``F.scaled_dot_product_attention`` as the library yardstick; and
+``ssd_scan`` against the sequential oracle and the chunked plain version
+on the JAX tests' cases and at zamba2-2.7b's prefill shape,
 where no single PyTorch call computes the scan (its ``library_ms`` is
 null); and ``slstm_scan`` against its plain version on the JAX tests'
 cases, a ragged P, one step and xlstm-350m's prefill shape (there also
@@ -98,12 +106,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -149,7 +160,17 @@ FLASH_CASES = [
     (1, 256, 2, 2, 8, 16, True), (2, 300, 4, 1, 64, 48, True),
     (1, 200, 4, 2, 128, None, True), (1, 300, 2, 1, 256, 100, True),
     (2, 130, 4, 4, 80, None, True), (1, 200, 2, 1, 80, 70, True)]
+# The tensor-core route (bf16, head dims 64, 80, 128, 256) also at the
+# right-aligned decode shape, a ragged Sk with S < Sk, a bidirectional call
+# and gemma3-4b's GQA group with a window whose first visited block is fully
+# masked for some rows: (b, s, sk, h, kv, d, window, causal)
+FLASH_TC_CASES = [
+    (2, 4, 64, 4, 2, 64, None, True), (1, 4, 300, 8, 4, 256, None, True),
+    (1, 100, 300, 4, 4, 80, None, True), (1, 128, 128, 4, 2, 128, None, False),
+    (2, 200, 200, 8, 4, 256, 64, True)]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# the prefill profiles' attention line: every flash_attention kernel
+FLASH_PROFILE = {"attention": "flash_attention"}
 FLASH_MHA_TOL_F32 = 2e-5       # against mha_reference (test_kernels_flash.py)
 # bf16, (atol, rtol). The kernel and every plain version compute in fp32
 # and round once to bf16, so the kernel's bf16 output is within half a
@@ -318,9 +339,13 @@ def phase_build() -> None:
     print(f"build: {len(logs)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line:
-                print(f"  {name}: {line.strip()}")
+            if name == "flash_attention_tc" and "Compiling entry" in line:
+                entry = "D=" + re.search(r"ILi(\d+)E", line).group(1) + " "
+            if "registers" in line or (name == "flash_attention_tc"
+                                       and "spill" in line):
+                print(f"  {name}: {entry}{line.strip()}")
 
 
 def phase_mule_agg() -> dict:
@@ -674,6 +699,37 @@ def _unmasked_pairs(s: int, sk: int, window, causal: bool) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _sass_count(kernel: str, opcode: str) -> int:
+    """How many times ``opcode`` appears in the SASS of a built kernel
+    library (cuobjdump from the toolkit that built it)."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(kernel))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
+
+
+def _flash_routed(q, k, v, **kw):
+    """flash_attention on the card, holding the route it took: bf16 at a
+    tensor-core head dim launches the tensor-core kernel, every other call
+    the SIMT one, once."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import TC_HEAD_DIMS
+    before = (flash_attention.launches, flash_attention.tc_launches)
+    out = flash_attention(q, k, v, **kw)
+    tc = q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+    took = (flash_attention.launches - before[0],
+            flash_attention.tc_launches - before[1])
+    if took != (1, int(tc)):
+        raise AssertionError(f"flash_attention {q.dtype} head_dim "
+                             f"{q.shape[-1]}: (launches, tensor-core "
+                             f"launches) {took}, expected {(1, int(tc))}")
+    return out
+
+
 def phase_flash_attention(card: str) -> dict:
     """flash_attention against its plain versions; returns its JSON row
     (timed at gemma3-4b's global-layer prefill shape)."""
@@ -684,6 +740,11 @@ def phase_flash_attention(card: str) -> dict:
                                                      flash_reference,
                                                      mha_reference)
     torch.backends.cuda.matmul.allow_tf32 = False
+    hgmma = _sass_count("flash_attention_tc", "HGMMA")
+    print(f"flash_attention_tc: {hgmma} HGMMA instructions in the built "
+          f"library (cuobjdump -sass)")
+    if hgmma == 0:
+        raise AssertionError("the tensor-core flash library has no HGMMA")
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 2)
 
@@ -700,12 +761,13 @@ def phase_flash_attention(card: str) -> dict:
     cases = [(b, s, s, h, kv, d, win, causal)
              for b, s, h, kv, d, win, causal in FLASH_CASES]
     cases.append((2, 4, 64, 4, 2, 16, None, True))   # right-aligned decode
+    cases += FLASH_TC_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tol = FLASH_TOL[name]
         for b, s, sk, h, kv, d, win, causal in cases:
             q, k, v = inputs(b, s, sk, h, kv, d, dtype)
-            out = flash_attention(q, k, v, causal=causal, window=win)
+            out = _flash_routed(q, k, v, causal=causal, window=win)
             torch.cuda.synchronize()
             label = (f"b={b} s={s} sk={sk} h={h} kv={kv} d={d} window={win} "
                      f"causal={causal} {name}")
@@ -739,14 +801,14 @@ def phase_flash_attention(card: str) -> dict:
         label = f"gemma3-4b {kind} layer q {list(q.shape)} k/v {list(k.shape)}"
         q32, k32, v32 = q.float(), k.float(), v.float()
         oracle = mha_reference(q32, k32, v32, causal=True, window=win)
-        out = flash_attention(q32, k32, v32, causal=True, window=win)
+        out = _flash_routed(q32, k32, v32, causal=True, window=win)
         check(label + " f32 vs mha_reference", out, oracle,
               FLASH_MHA_TOL_F32)
         check(label + " f32 vs flash_reference", out,
               flash_attention(q32, k32, v32, causal=True, window=win,
                               backend="ref"), FLASH_TOL["float32"])
         del q32, k32, v32
-        out = flash_attention(q, k, v, causal=True, window=win)
+        out = _flash_routed(q, k, v, causal=True, window=win)
         torch.cuda.synchronize()
         _hold(f"flash_attention {label} bf16 vs fp32 mha_reference of the "
               f"same inputs", out, oracle, *FLASH_BF16_VS_F32)
@@ -784,25 +846,34 @@ def phase_flash_attention(card: str) -> dict:
         t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"flash_attention timing {label} bf16: kernel {ms:.4f} ms "
-              f"({n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        print(f"flash_attention timing {label} bf16: tensor-core kernel "
+              f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
+              f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p "
+              f"split), plain {plain_ms:.4f} ms, "
               f"SDPA ({note}{', enable_gqa' if gqa else ', KV repeated'}) "
               f"{library_ms:.4f} ms (max |SDPA - kernel| "
               f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
               f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
               f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
               f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
+        timed = {"ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
+                 "library_ms": library_ms}
         if win is None:
             row = {
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                          "flash_attention.cu",
+                          "flash_attention_tc.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:118",
-                "launches": None, "max_abs_err": None,
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
-                "library_ms": library_ms,
+                "launches": None, "max_abs_err": None, **timed,
+                "simt_source": "src/repro_torch/kernels/flash_attention/"
+                               "csrc/flash_attention.cu (float32, and bf16 "
+                               "at head dims 8, 16, 32)",
+                "hgmma": hgmma,
             }
+        else:
+            row["local_layer"] = {"window": win, "max_abs_err": errs[-1],
+                                  **timed}
     row["max_abs_err"] = max(errs)
     row["second_shape"] = _flash_hybrid_shape(card, inputs, check)
     return row
@@ -824,14 +895,14 @@ def _flash_hybrid_shape(card: str, inputs, check) -> dict:
     q32, k32, v32 = q.float(), k.float(), v.float()
     oracle = mha_reference(q32, k32, v32, causal=True)
     check(label + " f32 vs mha_reference",
-          flash_attention(q32, k32, v32, causal=True), oracle,
+          _flash_routed(q32, k32, v32, causal=True), oracle,
           FLASH_MHA_TOL_F32)
     check(label + " f32 vs flash_reference",
-          flash_attention(q32, k32, v32, causal=True),
+          _flash_routed(q32, k32, v32, causal=True),
           flash_attention(q32, k32, v32, causal=True, backend="ref"),
           FLASH_TOL["float32"])
     del q32, k32, v32
-    out = flash_attention(q, k, v, causal=True)
+    out = _flash_routed(q, k, v, causal=True)
     torch.cuda.synchronize()
     _hold(f"flash_attention {label} bf16 vs fp32 mha_reference of the same "
           f"inputs", out, oracle, *FLASH_BF16_VS_F32)
@@ -857,8 +928,10 @@ def _flash_hybrid_shape(card: str, inputs, check) -> dict:
     t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"flash_attention timing {label} bf16: kernel {ms:.4f} ms "
-          f"({n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+    print(f"flash_attention timing {label} bf16: tensor-core kernel "
+          f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
+          f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p split), "
+          f"plain {plain_ms:.4f} ms, SDPA "
           f"(is_causal=True) {library_ms:.4f} ms (max |SDPA - kernel| "
           f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
           f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
@@ -1406,23 +1479,43 @@ def _warm_prefill(prefill, params, batch, wrap: dict) -> dict:
     return calls
 
 
+def _zero_counts(expect: dict) -> None:
+    """Sets every count of ``expect`` ({name: (wrapper, attribute, n)}) to
+    0."""
+    for fn, attr, _ in expect.values():
+        setattr(fn, attr, 0)
+
+
+def _counts(expect: dict) -> dict:
+    """{name: the count} of every entry of ``expect``."""
+    return {name: getattr(fn, attr) for name, (fn, attr, _) in expect.items()}
+
+
+def _flash_counts(n: int, n_tc: int) -> dict:
+    """The expect entries of flash_attention: n launches, n_tc of them on
+    the tensor-core route."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"flash_attention": (flash_attention, "launches", n),
+            "flash_attention tc": (flash_attention, "tc_launches", n_tc)}
+
+
 def _counted_prefill(prefill, params, batch, cfg, expect: dict,
                      card: str) -> dict:
-    """The prefill with every count in ``expect`` ({name: (wrapper, n)})
-    set to 0 just before and read just after; each must be n. Then the
-    median wall of PREFILL_REPS prefills, tokens/s and peak memory."""
+    """The prefill with every count in ``expect`` ({name: (wrapper,
+    attribute, n)}) set to 0 just before and read just after; each must be
+    n. Then the median wall of PREFILL_REPS prefills, tokens/s and peak
+    memory."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn, _ in expect.values():
-        fn.launches = 0
+    _zero_counts(expect)
     t0 = time.perf_counter()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    launches = {name: fn.launches for name, (fn, _) in expect.items()}
+    launches = _counts(expect)
     peak = torch.cuda.max_memory_allocated()
-    want = {name: n for name, (_, n) in expect.items()}
+    want = {name: n for name, (_, _, n) in expect.items()}
     if launches != want:
         raise AssertionError(f"{cfg.name}: one prefill launched {launches}, "
                              f"expected {want}")
@@ -1484,18 +1577,17 @@ def _f32_checks(cfg, params, batch, gen, ref_tol: float, expect: dict,
     from repro_torch.models import build_model
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
-    for fn, _ in expect.values():
-        fn.launches = 0
+    _zero_counts(expect)
     with torch.no_grad():
         got, _ = model32.forward(params, batch)
-        launches = {name: fn.launches for name, (fn, _) in expect.items()}
+        launches = _counts(expect)
         want, _ = build_model(cfg32, backend="ref").forward(params, batch)
         err = (got - want).abs().max().item()
     print(f"lm serve {cfg.name} f32 prefill {PREFILL_B} x {PREFILL_S}, "
           f"through the kernels ({launches}) vs backend='ref' over every "
           f"logit: max diff {err:.3e} (tol {ref_tol}; logits up to "
           f"{want.abs().max().item():.3f})")
-    if launches != {name: n for name, (_, n) in expect.items()}:
+    if launches != {name: n for name, (_, _, n) in expect.items()}:
         raise AssertionError(f"the f32 prefill launched {launches}")
     if not err <= ref_tol:
         raise AssertionError("the f32 prefill through the kernels and "
@@ -1553,12 +1645,13 @@ def phase_lm_serve(card: str) -> dict:
     if [kw["window"] for _, kw in calls] != windows:
         raise AssertionError(f"the prefill's attention windows are not the "
                              f"program's {windows}")
-    launches = _counted_prefill(
-        prefill, params, batch, cfg,
-        {"flash_attention": (flash_attention, cfg.n_layers)}, card)
+    # every layer's attention on the tensor-core route
+    launches = _counted_prefill(prefill, params, batch, cfg,
+                                _flash_counts(cfg.n_layers, cfg.n_layers),
+                                card)
     for li in sorted(picked):
         (q, k, v), kw = calls[li]
-        out = flash_attention(q, k, v, **kw)
+        out = _flash_routed(q, k, v, **kw)
         label = (f"lm serve lockstep, layer {li} (window {kw['window']}) of "
                  f"the prefill, kernel on its bf16 q/k/v")
         _hold(label + " vs plain", out,
@@ -1569,11 +1662,13 @@ def phase_lm_serve(card: str) -> dict:
                             causal=kw["causal"], window=kw["window"]),
               *FLASH_BF16_VS_F32)
     del calls, q, k, v, out
-    _profile_steps(lambda: prefill(params, batch), 1, "gemma3-4b prefill")
-    # (b) decode through the serving loop; (c) the f32 copy, all 34 layers
+    _profile_steps(lambda: prefill(params, batch), 1, "gemma3-4b prefill",
+                   FLASH_PROFILE)
+    # (b) decode through the serving loop; (c) the f32 copy, all 34 layers,
+    # whose attention takes the SIMT kernel
     _serve_generate(model, params, cfg, gen, card)
     _f32_checks(cfg, params, batch, gen, REF_PREFILL_TOL,
-                {"flash_attention": (flash_attention, cfg.n_layers)})
+                _flash_counts(cfg.n_layers, 0))
     return launches
 
 
@@ -1610,8 +1705,8 @@ def phase_hybrid_serve(card: str) -> dict:
     if (len(scans), len(attns)) != (HYBRID_SCANS, HYBRID_ATTNS):
         raise AssertionError(f"the prefill made {len(scans)} scans and "
                              f"{len(attns)} attention calls")
-    expect = {"ssd_scan": (ssd_scan, HYBRID_SCANS),
-              "flash_attention": (flash_attention, HYBRID_ATTNS)}
+    expect = {"ssd_scan": (ssd_scan, "launches", HYBRID_SCANS),
+              **_flash_counts(HYBRID_ATTNS, HYBRID_ATTNS)}
     launches = _counted_prefill(prefill, params, batch, cfg, expect, card)
     for li in (0, HYBRID_SCANS - 1):
         args, kw = scans[li]
@@ -1622,7 +1717,7 @@ def phase_hybrid_serve(card: str) -> dict:
                      ssd_chunked_reference(*args, chunk=kw["chunk"])[0],
                      SSD_VS_CHUNKED_REL)
     (q, k, v), kw = attns[0]
-    out = flash_attention(q, k, v, **kw)
+    out = _flash_routed(q, k, v, **kw)
     label = (f"lm serve lockstep, shared attention 0 of the {cfg.name} "
              f"prefill, kernel on its bf16 q/k/v {list(q.shape)}")
     _hold(label + " vs plain", out,
@@ -1632,10 +1727,13 @@ def phase_hybrid_serve(card: str) -> dict:
           mha_reference(q.float(), k.float(), v.float(), causal=kw["causal"],
                         window=kw["window"]), *FLASH_BF16_VS_F32)
     del calls, scans, attns, args, y, q, k, v, out
-    _profile_steps(lambda: prefill(params, batch), 1, f"{cfg.name} prefill")
-    # (b) decode through the serving loop; (c) the f32 copy, all 54 layers
+    _profile_steps(lambda: prefill(params, batch), 1, f"{cfg.name} prefill",
+                   FLASH_PROFILE)
+    # (b) decode through the serving loop; (c) the f32 copy, all 54 layers,
+    # whose attention takes the SIMT kernel
     _serve_generate(model, params, cfg, gen, card)
-    _f32_checks(cfg, params, batch, gen, HYBRID_REF_PREFILL_TOL, expect)
+    _f32_checks(cfg, params, batch, gen, HYBRID_REF_PREFILL_TOL,
+                {**expect, **_flash_counts(HYBRID_ATTNS, 0)})
     return launches
 
 
@@ -1663,7 +1761,7 @@ def phase_xlstm_serve(card: str) -> dict:
         "slstm_scan": (xlstm_lib, (0, XLSTM_PAIRS - 1))})["slstm_scan"]
     if len(scans) != XLSTM_PAIRS:
         raise AssertionError(f"the prefill made {len(scans)} sLSTM scans")
-    expect = {"slstm_scan": (slstm_scan, XLSTM_PAIRS)}
+    expect = {"slstm_scan": (slstm_scan, "launches", XLSTM_PAIRS)}
     launches = _counted_prefill(prefill, params, batch, cfg, expect, card)
     for li in (0, XLSTM_PAIRS - 1):
         args, kw = scans[li]
@@ -1975,9 +2073,11 @@ def phase_ring_path(card: str) -> dict:
     return {"encounter_hop": total}
 
 
-def _profile_steps(fn, n_steps: int, label: str) -> None:
+def _profile_steps(fn, n_steps: int, label: str,
+                   parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
-    run of a path (torch.profiler)."""
+    run of a path (torch.profiler); with ``parts`` ({label: substring of
+    kernel names}), the summed time of the kernels each part names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2014,6 +2114,12 @@ def _profile_steps(fn, n_steps: int, label: str) -> None:
     for us, key, count in rows[:12]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / summed:5.1f}%  x{count:<5d} "
               f"{key[:90]}")
+    for part, needle in (parts or {}).items():
+        mine = [r for r in rows if needle in r[1]]
+        us = sum(r[0] for r in mine)
+        print(f"  {part} ({sum(r[2] for r in mine)} launches of kernels "
+              f"named *{needle}*): {us / 1e3:.3f} ms, "
+              f"{100 * us / summed:.1f}% of the kernel time")
 
 
 def main() -> int:
@@ -2067,6 +2173,10 @@ def main() -> int:
         row["launches"] = next(iter(by_path.values()))
         if len(by_path) > 1:
             row["launches_by_path"] = by_path
+        tc = {p: c[row["name"] + " tc"] for p, c in paths.items()
+              if row["name"] + " tc" in c}
+        if tc:      # the launches that took the tensor-core route
+            row["tc_launches_by_path"] = tc
         # a row whose function no single PyTorch call computes may have
         # library_ms null, and then says why under "library"
         needed = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")

@@ -11,6 +11,12 @@ Nothing here runs at import: ``import repro_torch`` works without ``nvcc``,
 and a build starts only when a CUDA tensor first reaches a kernel (or when
 ``build_all`` is called). A build that fails raises with the compiler's
 output; there is no fallback.
+
+Every library links the CUDA runtime (nvcc's static ``cudart``) and nothing
+else. ``flash_attention_tc`` needs the driver's ``cuTensorMapEncodeTiled``
+for its TMA descriptors; it takes it at run time through the runtime's
+``cudaGetDriverEntryPointByVersion`` (``cudaGetDriverEntryPoint`` before
+CUDA 12.5), so no ``-lcuda`` is added.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ SOURCES: Dict[str, str] = {
     "mule_agg": "kernels/mule_agg/csrc/mule_agg.cu",
     "encounter_mix": "kernels/encounter_mix/csrc/encounter_mix.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_attention_tc": "kernels/flash_attention/csrc/flash_attention_tc.cu",
     "ssd_scan": "kernels/ssm_scan/csrc/ssd_scan.cu",
     "slstm_scan": "kernels/slstm_fused/csrc/slstm_scan.cu",
 }

@@ -13,8 +13,10 @@
 // What bounds it: operations. A (q, k) pair costs 4 D operations (q.k and
 // p.v) against a few bytes of q, k, v and out per pair, so at the model's
 // shapes the least time is the unmasked pairs' operations over the card's
-// peak. This first version runs them on the CUDA cores in fp32 (no tensor
-// cores yet), which puts it far from that bound.
+// peak. This kernel runs them on the CUDA cores in fp32, far from that
+// bound. It serves float32 (every head dim) and bf16 at head dims 8, 16
+// and 32; bf16 at 64, 80, 128 and 256, every served model's prefill, runs
+// on the tensor cores (flash_attention_tc.cu).
 //
 // Design (simple and right first):
 // - One block of 256 threads per (b * H + h, tile of 64 queries); the
@@ -49,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -341,20 +345,29 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     case 32:
       return launch_d<32, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
                              causal, window, s);
-    case 64:
-      return launch_d<64, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
-                             causal, window, s);
-    case 80:
-      return launch_d<80, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
-                             causal, window, s);
-    case 128:
-      return launch_d<128, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
-                              causal, window, s);
-    case 256:
-      return launch_d<256, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
-                              causal, window, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
+  }
+  // the wide head dims in bf16 take the tensor-core kernel
+  if constexpr (!std::is_same<T, float>::value) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    switch (D) {
+      case 64:
+        return launch_d<64, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
+                               causal, window, s);
+      case 80:
+        return launch_d<80, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
+                               causal, window, s);
+      case 128:
+        return launch_d<128, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
+                                causal, window, s);
+      case 256:
+        return launch_d<256, T>(qq, kk, vv, o, B, S, Sk, H, KV, st, scale,
+                                causal, window, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

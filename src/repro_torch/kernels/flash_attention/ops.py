@@ -1,15 +1,25 @@
-"""Wrapper of the ``flash_attention`` kernel: checks, dispatch, launch count.
+"""Wrapper of the ``flash_attention`` kernels: checks, route, launch counts.
 
 ``flash_attention(q, k, v, causal=..., window=..., scale=...)`` computes
 ``softmax(scale * q kᵀ + mask) v`` for q [B, S, H, D] and k, v
 [B, Sk, KV, D] and returns [B, S, H, D] in q's dtype (f32 or bf16). With
-``backend="auto"`` it launches the hand-written kernel
-(``csrc/flash_attention.cu``) on a CUDA tensor, or raises; on a CPU tensor
-it takes the plain chunked version (``ref.flash_reference``), with blocks
-of 256 as the reference's ``"ref"`` backend uses. ``backend="ref"`` asks
-for that plain version on any device. A causal call with S > Sk raises: its
-first S - Sk queries would see no key. ``flash_attention.launches`` counts
-kernel launches.
+``backend="auto"`` a CUDA tensor goes to one of two hand-written kernels,
+picked by ``tc_route`` from the dtype, the head dim and the layout, never by
+failure:
+
+- bf16 with D in ``TC_HEAD_DIMS`` (64, 80, 128, 256): the tensor-core kernel
+  (``csrc/flash_attention_tc.cu``: TMA loads, wgmma, p split into bf16 hi +
+  lo). Its loads need 16-byte-aligned bases and strides that are multiples
+  of 16 bytes; a call that breaks this raises before the launch.
+- float32 (every D) and bf16 at D = 8, 16, 32: the SIMT kernel
+  (``csrc/flash_attention.cu``, fp32 FMAs on the CUDA cores).
+
+On a CPU tensor it takes the plain chunked version (``ref.flash_reference``),
+with blocks of 256 as the reference's ``"ref"`` backend uses.
+``backend="ref"`` asks for that plain version on any device. A causal call
+with S > Sk raises: its first S - Sk queries would see no key.
+``flash_attention.launches`` counts kernel launches of both routes;
+``flash_attention.tc_launches`` counts those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +32,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_reference
 
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)    # the kernel's templates
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)   # the head dims of both routes
+TC_HEAD_DIMS = (64, 80, 128, 256)           # the tensor-core kernel's
+TC_ALIGN = 16        # bytes: TMA's base and stride alignment
 REF_BLOCK = 256      # the reference's "ref" backend raises blocks to >= 256
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
@@ -30,6 +42,26 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_int, ctypes.c_void_p]
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_TC_ENTRY = "flash_attention_bf16_tc"
+
+
+def tc_route(dtype: torch.dtype, d: int, ptrs, strides) -> bool:
+    """Whether a CUDA call takes the tensor-core kernel: bf16 with ``d`` in
+    ``TC_HEAD_DIMS``. ``ptrs`` are the data pointers of q, k, v (bytes) and
+    ``strides`` their (b, s, h) strides (elements). Raises ValueError where
+    that kernel is due but a base or a stride is not a multiple of 16
+    bytes: the call does not go quietly to the SIMT kernel instead."""
+    if dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
+        return False
+    bad = [f"base {p} B" for p in ptrs if p % TC_ALIGN] + [
+        f"stride {st} x 2 B" for st in strides if (st * 2) % TC_ALIGN]
+    if bad:
+        raise ValueError(
+            f"flash_attention: the tensor-core kernel (bf16, head_dim {d}) "
+            f"reads q, k, v with TMA, which needs {TC_ALIGN}-byte-aligned "
+            f"bases and (b, s, h) strides that are multiples of {TC_ALIGN} "
+            f"bytes; got {', '.join(bad)} (make the tensors contiguous)")
+    return True
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,9 +121,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
-    fn = getattr(_build.load("flash_attention"), _ENTRY[q.dtype])
+    st = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    tc = tc_route(q.dtype, d, (q.data_ptr(), k.data_ptr(), v.data_ptr()), st)
+    strides = (ctypes.c_longlong * 9)(*st)
+    fn = (getattr(_build.load("flash_attention_tc"), _TC_ENTRY) if tc else
+          getattr(_build.load("flash_attention"), _ENTRY[q.dtype]))
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
@@ -100,11 +134,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  b, s, sk, h, n_kv, d, strides, ctypes.c_float(scale),
                  int(causal), -1 if window is None else int(window), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                           f"{q.dtype})")
+        raise RuntimeError(f"flash_attention {'tensor-core' if tc else 'SIMT'}"
+                           f" kernel launch failed: error {err} (q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     flash_attention.launches += 1
+    if tc:
+        flash_attention.tc_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

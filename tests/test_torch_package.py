@@ -89,7 +89,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LOADED", {})
     assert sorted(_build.SOURCES) == ["encounter_mix", "flash_attention",
-                                      "mule_agg", "slstm_scan", "ssd_scan"]
+                                      "flash_attention_tc", "mule_agg",
+                                      "slstm_scan", "ssd_scan"]
     for name in _build.SOURCES:
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
