@@ -90,7 +90,13 @@ where no single PyTorch call computes the scan (its ``library_ms`` is
 null); and ``slstm_scan`` against its plain version on the JAX tests'
 cases, a ragged P, one step and xlstm-350m's prefill shape (there also
 against a float64 run of the plain version), timed with its µs per time
-step; no PyTorch call computes the sLSTM cell (``library_ms`` null). It
+step; no PyTorch call computes the sLSTM cell (``library_ms`` null). The
+``encounter_mix`` cases include a dense strip at the main path's shape
+(pos 0, two areas, as the trace scenarios give the peer step), timed
+beside the walk and the bf16 mix; at every case and hop the pairs
+kernel's words and masses must equal their plain version, and the walk
+and the dense strip must give the same bits with every strip summed
+densely, none, and the default switch. It
 also holds ``encounter_hop``, one ring hop, against ``encounter_block`` on
 every pair of the 4 blocks of phase 9's population at its first exchange
 (and their ring-order sum, normalised, against ``encounter_mix``), on
@@ -427,6 +433,53 @@ def _dense_mix(models, pos, area, active):
     return masked_group_mean(models, enc, backend="ref")
 
 
+def _dense_strip_geometry(g):
+    """pos [M, 2] all zero and area [M] of two areas, as the trace
+    scenarios give the peer step: every same-area pair meets."""
+    import torch
+    return (torch.zeros(N_MULES, 2, device="cuda"),
+            torch.randint(0, 2, (N_MULES,), device="cuda", generator=g))
+
+
+def _check_pairs(label, pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
+                 col0, radius) -> None:
+    """The pairs kernel against its plain version: words and masses
+    exactly equal."""
+    import torch
+    from repro_torch.kernels.encounter_mix import (encounter_pairs,
+                                                   encounter_pairs_reference)
+    args = (pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0, radius)
+    words, mass = encounter_pairs(*args)
+    torch.cuda.synchronize()
+    want_words, want_mass = encounter_pairs_reference(*args)
+    if not (torch.equal(words, want_words) and torch.equal(mass, want_mass)):
+        raise AssertionError(f"encounter_pairs {label}: the pair words or "
+                             f"masses differ from the plain version")
+
+
+def _same_bits_across_modes(label, fn) -> None:
+    """``fn()`` -> (out, mass) with every strip summed densely, with none,
+    and with the default switch: the same bits each time."""
+    import torch
+    from repro_torch.kernels.encounter_mix import ops
+    default = ops.DENSE_PAIRS_PER_ROW
+    outs = {}
+    try:
+        for dense_min in (default, 0, 33):
+            ops.DENSE_PAIRS_PER_ROW = dense_min
+            outs[dense_min] = fn()
+    finally:
+        ops.DENSE_PAIRS_PER_ROW = default
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, outs[default][0])
+               and torch.equal(m, outs[default][1]) for o, m in outs.values())
+    print(f"{label}: every strip dense, none dense and the default switch "
+          f"({default} pairs a row) give "
+          f"{'the same bits' if same else 'DIFFERENT results'}")
+    if not same:
+        raise AssertionError(f"{label}: the sparse and dense modes disagree")
+
+
 def phase_encounter_mix() -> dict:
     """encounter_mix against its plain version; returns its JSON row."""
     import torch
@@ -441,18 +494,23 @@ def phase_encounter_mix() -> dict:
     d_main = 546_484     # the paper CNN's parameter count (CONFIG)
     # (M, D, radius, p_active, positions): the main path's shape on the
     # walk's first exchange step, tests/test_kernels_encounter.py's shapes,
-    # a ragged shape over many M-chunks, and a dense strip (all pos 0)
+    # a ragged shape over many M-chunks, a dense strip (all pos 0), and the
+    # main path's shape with pos 0 and two areas (the trace scenarios'
+    # dense regime)
     cases = [(N_MULES, d_main, RADIUS, 1.0, "walk")]
     cases += [(m, d, 0.3, p, "uniform") for m, d in
               ((20, 256), (33, 130), (64, 1024), (7, 5)) for p in (1.0, 0.6)]
     cases += [(1100, 4099, 0.3, 0.8, "uniform"), (300, 2000, RADIUS, 1.0,
-                                                  "zero")]
-    row = None
+                                                  "zero"),
+              (N_MULES, d_main, RADIUS, 1.0, "dense strip")]
+    row, dense = None, {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
         for m, d, radius, p, geo in cases:
             if geo == "walk":
                 pos, area = _walk_geometry(PEER_EVERY - 1)
+            elif geo == "dense strip":
+                pos, area = _dense_strip_geometry(g)
             else:
                 pos = torch.rand(m, 2, device="cuda", generator=g)
                 if geo == "zero":
@@ -469,13 +527,22 @@ def phase_encounter_mix() -> dict:
             ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
             same_mass = torch.equal(mass, ref_mass)
             nnz = int(ref_mass.sum().item())
+            del ref
+            if dtype == torch.float32:
+                _check_pairs(f"M={m} {geo}", pos, area, active, 0, pos, area,
+                             active, 0, radius)
             print(f"encounter_mix M={m} D={d} r={radius} p_active={p} {geo} "
                   f"{dtype}: max_abs_err={err:.3e} (tol {tol}), masses "
-                  f"{'equal' if same_mass else 'DIFFER'}, {nnz} encounters "
+                  f"{'equal' if same_mass else 'DIFFER'}, {nnz} encounters"
+                  f"{', pair words equal' if dtype == torch.float32 else ''} "
                   f"{'ok' if ok and same_mass else 'MISMATCH'}")
             if not (ok and same_mass):
                 raise AssertionError(f"encounter_mix disagrees with its plain "
                                      f"version at M={m} D={d} {dtype}")
+            if d == d_main and dtype == torch.float32:
+                _same_bits_across_modes(
+                    f"encounter_mix {geo} f32", lambda: encounter_mix(
+                        pos, area, active, w, radius=radius))
             if geo == "walk" and dtype == torch.float32:
                 ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
                                                       radius=radius))
@@ -491,11 +558,12 @@ def phase_encounter_mix() -> dict:
                     [torch.float32] * len(keys)))
                 dense_ms = _median_ms(lambda: _dense_mix(models, pos, area,
                                                          active))
+                del models
                 # bytes: W read once, the mix and mass written once, the
                 # geometry (pos f32 x2, area int64, active bool) read once
                 n_bytes = 4 * m * d + 4 * m * d + 4 * m + 17 * m
                 # operations the data needs: one multiply-add per met pair
-                # and column; the dense strip the kernel walks does M*M*D
+                # and column; a dense strip would do M*M*D
                 n_flop = 2 * nnz * d
                 dense_flop = 2 * m * m * d
                 t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -522,10 +590,37 @@ def phase_encounter_mix() -> dict:
             elif geo == "walk":
                 bf_ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
                                                          radius=radius))
+                bf_bound = 4 * m * d / HBM_BYTES_PER_S * 1e3
+                row["bf16"] = {"ms": bf_ms, "bound_ms": bf_bound,
+                               "bound_by": "bytes", "max_abs_err": err}
                 print(f"encounter_mix timing M={m} D={d} bf16: kernel "
-                      f"{bf_ms:.4f} ms, bound "
-                      f"{4 * m * d / HBM_BYTES_PER_S * 1e3:.4f} ms (W and "
+                      f"{bf_ms:.4f} ms, bound {bf_bound:.4f} ms (W and "
                       f"mix bytes)")
+            elif geo == "dense strip" and dtype == torch.float32:
+                ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
+                                                      radius=radius))
+                plain_ms = _median_ms(lambda: encounter_mix_reference(
+                    pos, area, active, w, radius=radius))
+                e = encounter_matrix(pos, area, radius, active).float()
+                library_ms = _median_ms(lambda: torch.matmul(e, w))
+                n_flop = 2 * nnz * d
+                t_bytes = (8 * m * d + 21 * m) / HBM_BYTES_PER_S * 1e3
+                t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+                dense = {"shape": f"M={m}, D={d}, pos 0, two areas "
+                                  f"({nnz} met pairs)",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": ("bytes" if t_bytes >= t_ops
+                                      else "operations"),
+                         "library_ms": library_ms}
+                print(f"encounter_mix timing M={m} D={d} f32, dense strip "
+                      f"(pos 0, two areas; {nnz} encounters): kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+                      f"on a dense e {library_ms:.4f} ms, bound "
+                      f"{dense['bound_ms']:.4f} ms ({dense['bound_by']}; "
+                      f"{n_flop} FLOP for the met pairs)")
+            del out, w
+    row["dense_strip"] = dense
     return row
 
 
@@ -568,6 +663,7 @@ def _hop_ring(label, pos, area, active, w, sizes, radius, need=None):
                     blk(j, w), radius)
             got, got_mass = encounter_block_hop(*args)
             torch.cuda.synchronize()
+            _check_pairs(f"{label} hop ({i}, {j})", *args[:8], radius)
             want, want_mass = encounter_block(*args)
             if not torch.equal(got_mass, want_mass):
                 raise AssertionError(f"encounter_hop {label} hop ({i}, {j}):"
@@ -592,7 +688,8 @@ def _hop_ring(label, pos, area, active, w, sizes, radius, need=None):
     same = torch.equal(mass, want_mass)
     err = (mix - want).abs().max().item() if w.shape[1] else 0.0
     print(f"encounter_hop {label}: {len(pairs)} hops over blocks {sizes}, "
-          f"each against encounter_block: masses equal, max_abs_err "
+          f"pair words equal, each against encounter_block: masses equal, "
+          f"max_abs_err "
           f"{worst:.3e} (tol {TOL['float32']}); {sum(pairs.values())} "
           f"encounters; the ring-order sum, normalised, vs encounter_mix: "
           f"masses {'equal' if same else 'DIFFER'}, max_abs_err {err:.3e} "
@@ -602,6 +699,25 @@ def _hop_ring(label, pos, area, active, w, sizes, radius, need=None):
         raise AssertionError(f"encounter_hop {label}: the ring-order sum "
                              f"disagrees with encounter_mix")
     return pairs, worst
+
+
+def _busiest_remote_hop(pos, area, w):
+    """(args of encounter_block_hop, met pairs, (i, j)): the remote hop of
+    the ring path's blocks (rows i, visiting j != i, in the ring's order)
+    with the most met pairs, all active."""
+    from repro_torch.kernels.encounter_mix import encounter_pairs_reference
+    m_loc = N_MULES // RING_RANKS
+    best = None
+    for i in range(RING_RANKS):
+        for s in range(1, RING_RANKS):
+            j = (i - s) % RING_RANKS
+            sl_r, sl_v = (slice(k * m_loc, (k + 1) * m_loc) for k in (i, j))
+            args = (pos[sl_r], area[sl_r], None, i * m_loc, pos[sl_v],
+                    area[sl_v], None, j * m_loc, w[sl_v], RADIUS)
+            nnz = int(encounter_pairs_reference(*args[:8], RADIUS)[1].sum())
+            if best is None or nnz > best[1]:
+                best = (args, nnz, (i, j))
+    return best
 
 
 def phase_encounter_hop(card: str) -> dict:
@@ -651,16 +767,14 @@ def phase_encounter_hop(card: str) -> dict:
                              "kept hops")
 
     # timing: the remote hop of (a) with the most encounters
-    i, j = max((p for p in pairs if p[0] != p[1]), key=lambda p: pairs[p])
-    sl_r, sl_v = (slice(k * m_loc, (k + 1) * m_loc) for k in (i, j))
-    args = (pos[sl_r], area[sl_r], None, i * m_loc, pos[sl_v], area[sl_v],
-            None, j * m_loc, w[sl_v], RADIUS)
+    args, nnz, (i, j) = _busiest_remote_hop(pos, area, w)
+    if nnz != pairs[(i, j)]:
+        raise AssertionError("the busiest hop's pairs disagree")
     ms = _median_ms(lambda: encounter_block_hop(*args))
     plain_ms = _median_ms(lambda: encounter_block(*args))
     d2, gate = encounter_gate(*args[:8])
     e = ((d2 <= radius_sq(RADIUS).cuda()) & gate).float()
-    library_ms = _median_ms(lambda: torch.matmul(e, w[sl_v]))
-    nnz = pairs[(i, j)]
+    library_ms = _median_ms(lambda: torch.matmul(e, args[8]))
     # bytes: W_v read once, acc and mass written once, the two blocks'
     # geometry (pos f32 x2, area int64, active bool) read once
     n_bytes = 4 * m_loc * d_main * 2 + 4 * m_loc + 2 * 17 * m_loc

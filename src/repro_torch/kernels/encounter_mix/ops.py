@@ -4,20 +4,34 @@
 ``(mix [M, D], mass [M])``: each row the mean of the weights of the peers
 it met (same area, within ``radius``, both active, not itself), zero where
 it met none, in ``weights``' dtype; ``mass`` the number of peers, float32.
-On a CUDA tensor it launches the hand-written kernel
+On a CUDA tensor it launches the hand-written kernels
 (``csrc/encounter_mix.cu``) or raises; on a CPU tensor it takes the plain
 version (``ref.encounter_mix_reference``), which is what the CPU tests run.
-``encounter_mix.launches`` counts kernel launches.
+``encounter_mix.launches`` counts calls that launched: each makes two CUDA
+launches, the pairs (the meet masks, into int32 scratch allocated here)
+and the sums over them.
 
 ``encounter_block_hop(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
 col0, weights_v, radius)`` is one hop of the ring (``baselines.gossip:
 ring_encounter_mix``): local rows against a visiting block, global ids
 ``row0 + i`` and ``col0 + j``, returning the unnormalized ``(acc [R, D],
 mass [R])`` of ``ref.encounter_block``, float32 only. ``backend="auto"``
-launches the hop kernel (``encounter_hop_f32`` in the same source) on a
-CUDA tensor and takes ``encounter_block`` on a CPU tensor; ``"ref"`` is
-``encounter_block`` everywhere. ``encounter_block_hop.launches`` counts its
-launches.
+launches the hop kernels (``encounter_hop_f32`` in the same source: pairs,
+then sums, two CUDA launches) on a CUDA tensor and takes
+``encounter_block`` on a CPU tensor; ``"ref"`` is ``encounter_block``
+everywhere. ``encounter_block_hop.launches`` counts its calls that
+launched.
+
+``encounter_pairs(...)`` (the hop's arguments without weights) is the
+pairs kernel alone: ``(words [R, ceil(V / 32)] int32, mass [R] f32)``,
+bit ``b`` of ``words[i, w]`` set where row ``i`` meets visiting mule ``32 w
++ b``; on a CPU tensor ``ref.encounter_pairs_reference``.
+``encounter_pairs.launches`` counts its launches.
+
+``DENSE_PAIRS_PER_ROW`` sets where the sums kernel switches a strip (a
+warp's rows x 32 visiting mules) from gathering the met rows to a dense
+register-tiled loop: at that many met pairs per row of the strip. Both
+modes give the same bits; 0 makes every strip dense and 33 none.
 """
 from __future__ import annotations
 
@@ -28,18 +42,48 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.encounter_mix.ref import (encounter_block,
-                                                  encounter_mix_reference)
+                                                  encounter_mix_reference,
+                                                  encounter_pairs_reference,
+                                                  n_words)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_float, ctypes.c_void_p]
+# The sums kernel's switch from sparse to dense strips, in met pairs per
+# row of a 32-mule strip: a gathered pair costs a 512-byte shared-memory
+# read per warp, about four times a dense (row, mule) step's FMAs, so dense
+# pays from a quarter full. tools/ab_encounter_mix.py sweeps it (PERF.md).
+DENSE_PAIRS_PER_ROW = 8
+
+# pos, area, active, W, out, mass, words, M, D, r2, dense_min, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
 _ENTRY = {torch.float32: "encounter_mix_f32",
           torch.bfloat16: "encounter_mix_bf16"}
-# pos_r, area_r, act_r, R, row0, pos_v, area_v, act_v, V, col0, W_v, acc,
-# mass, D, r2, stream
-_HOP_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_float,
-                                            ctypes.c_void_p])
+# pos_r, area_r, act_r, R, row0, pos_v, area_v, act_v, V, col0
+_SIDES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+          + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong])
+# ..., W_v, acc, mass, words, D, r2, dense_min, stream
+_HOP_ARGTYPES = _SIDES + [ctypes.c_void_p] * 4 + [
+    ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# ..., r2, words, mass, stream
+_PAIRS_ARGTYPES = _SIDES + [ctypes.c_float] + [ctypes.c_void_p] * 3
+
+
+def _entry(name: str, argtypes):
+    fn = getattr(_build.load("encounter_mix"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _side(area: torch.Tensor, act: Optional[torch.Tensor]):
+    """One side's area as int64 and activity as bool, contiguous, as the
+    kernels read them; activity stays None (a null pointer: all active)."""
+    return (area.to(torch.int64).contiguous(),
+            None if act is None else act.contiguous())
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _check(pos: torch.Tensor, area: torch.Tensor,
@@ -98,17 +142,15 @@ def encounter_mix(pos: torch.Tensor, area: torch.Tensor,
     mass = torch.empty((m,), dtype=torch.float32, device=dev)
     if m == 0:
         return out, mass
-    area64 = area.to(torch.int64).contiguous()
-    on = (torch.ones((m,), dtype=torch.bool, device=dev) if active is None
-          else active.contiguous())
-    fn = getattr(_build.load("encounter_mix"), _ENTRY[weights.dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    area64, on = _side(area, active)
+    words = torch.empty((m, n_words(m)), dtype=torch.int32, device=dev)
+    fn = _entry(_ENTRY[weights.dtype], _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pos.data_ptr(), area64.data_ptr(), on.data_ptr(),
-                 weights.data_ptr(), out.data_ptr(), mass.data_ptr(), m, d,
-                 ctypes.c_float(radius ** 2), stream)
+        err = fn(pos.data_ptr(), area64.data_ptr(), _ptr(on),
+                 weights.data_ptr(), out.data_ptr(), mass.data_ptr(),
+                 words.data_ptr(), m, d, ctypes.c_float(radius ** 2),
+                 DENSE_PAIRS_PER_ROW, stream)
     if err != 0:
         raise RuntimeError(f"encounter_mix kernel launch failed: CUDA error "
                            f"{err} (M={m}, D={d}, {weights.dtype})")
@@ -120,28 +162,46 @@ encounter_mix.launches = 0
 
 
 def _check_block(name: str, pos: torch.Tensor, area: torch.Tensor,
-                 act: Optional[torch.Tensor], n: int, dev) -> None:
-    """One side of a hop: pos [n, 2] f32, area [n] int, act [n] bool."""
+                 act: Optional[torch.Tensor], n: int, dev,
+                 op: str = "encounter_block_hop") -> None:
+    """One side of a hop or of the pairs: pos [n, 2] f32, area [n] int, act
+    [n] bool, on ``dev``."""
     if tuple(pos.shape) != (n, 2) or tuple(area.shape) != (n,) or (
             act is not None and tuple(act.shape) != (n,)):
         raise ValueError(
-            f"encounter_block_hop wants pos_{name} [{n}, 2], area_{name} and "
+            f"{op} wants pos_{name} [{n}, 2], area_{name} and "
             f"act_{name} [{n}], got {tuple(pos.shape)}, {tuple(area.shape)}, "
             f"{None if act is None else tuple(act.shape)}")
     if pos.dtype != torch.float32:
-        raise TypeError(f"encounter_block_hop: pos_{name} must be float32, "
+        raise TypeError(f"{op}: pos_{name} must be float32, "
                         f"got {pos.dtype}")
     if area.dtype.is_floating_point or area.dtype.is_complex \
             or area.dtype == torch.bool:
-        raise TypeError(f"encounter_block_hop: area_{name} must be integer, "
+        raise TypeError(f"{op}: area_{name} must be integer, "
                         f"got {area.dtype}")
     if act is not None and act.dtype != torch.bool:
-        raise TypeError(f"encounter_block_hop: act_{name} must be bool, got "
+        raise TypeError(f"{op}: act_{name} must be bool, got "
                         f"{act.dtype}")
     if any(t.device != dev for t in (pos, area) + (() if act is None
                                                     else (act,))):
-        raise ValueError(f"encounter_block_hop: the {name} block's geometry "
-                         f"is not on the weights' device {dev}")
+        raise ValueError(f"{op}: the {name} block's geometry "
+                         f"is not on {dev}")
+
+
+def _sides(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0):
+    """(args, keep): the kernels' first ten arguments (each side's pos,
+    area as int64 and activity as bool or null, its size and global offset)
+    and the tensors they point to, which the caller holds until the
+    launch."""
+    args, keep = [], []
+    for pos, area, act, start in ((pos_r, area_r, act_r, row0),
+                                  (pos_v, area_v, act_v, col0)):
+        pos = pos.contiguous()                          # [n, 2]: small
+        area64, on = _side(area, act)
+        keep += [pos, area64, on]
+        args += [pos.data_ptr(), area64.data_ptr(), _ptr(on), pos.shape[0],
+                 int(start)]
+    return args, keep
 
 
 def encounter_block_hop(pos_r: torch.Tensor, area_r: torch.Tensor,
@@ -177,29 +237,19 @@ def encounter_block_hop(pos_r: torch.Tensor, area_r: torch.Tensor,
                          f"{dev}")
     if not weights_v.is_contiguous():
         raise ValueError("encounter_block_hop: weights_v must be contiguous")
-    pos_r, pos_v = pos_r.contiguous(), pos_v.contiguous()   # [n, 2]: small
     acc = torch.empty((r, d), dtype=torch.float32, device=dev)
     mass = torch.empty((r,), dtype=torch.float32, device=dev)
     if r == 0:
         return acc, mass
-
-    def side(area, act, n):
-        on = (torch.ones((n,), dtype=torch.bool, device=dev) if act is None
-              else act.contiguous())
-        return area.to(torch.int64).contiguous(), on
-
-    area_r64, on_r = side(area_r, act_r, r)
-    area_v64, on_v = side(area_v, act_v, v)
-    fn = _build.load("encounter_mix").encounter_hop_f32
-    fn.argtypes = _HOP_ARGTYPES
-    fn.restype = ctypes.c_int
+    words = torch.empty((r, n_words(v)), dtype=torch.int32, device=dev)
+    args, _keep = _sides(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
+                         col0)
+    fn = _entry("encounter_hop_f32", _HOP_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pos_r.data_ptr(), area_r64.data_ptr(), on_r.data_ptr(), r,
-                 int(row0), pos_v.data_ptr(), area_v64.data_ptr(),
-                 on_v.data_ptr(), v, int(col0), weights_v.data_ptr(),
-                 acc.data_ptr(), mass.data_ptr(), d,
-                 ctypes.c_float(radius ** 2), stream)
+        err = fn(*args, weights_v.data_ptr(), acc.data_ptr(),
+                 mass.data_ptr(), words.data_ptr(), d,
+                 ctypes.c_float(radius ** 2), DENSE_PAIRS_PER_ROW, stream)
     if err != 0:
         raise RuntimeError(f"encounter_hop kernel launch failed: CUDA error "
                            f"{err} (R={r}, V={v}, D={d})")
@@ -208,3 +258,41 @@ def encounter_block_hop(pos_r: torch.Tensor, area_r: torch.Tensor,
 
 
 encounter_block_hop.launches = 0
+
+
+def encounter_pairs(pos_r: torch.Tensor, area_r: torch.Tensor,
+                    act_r: Optional[torch.Tensor], row0: int,
+                    pos_v: torch.Tensor, area_v: torch.Tensor,
+                    act_v: Optional[torch.Tensor], col0: int,
+                    radius: float = 0.15) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hop's geometry -> (words [R, ceil(V / 32)] int32, mass [R] f32):
+    bit b of words[i, w] is e[i, 32 w + b]. The pairs kernel on a CUDA
+    tensor, ``ref.encounter_pairs_reference`` on a CPU tensor."""
+    r, v = pos_r.shape[0], pos_v.shape[0]
+    dev = pos_r.device
+    _check_block("r", pos_r, area_r, act_r, r, dev, "encounter_pairs")
+    _check_block("v", pos_v, area_v, act_v, v, dev, "encounter_pairs")
+    if dev.type == "cpu":
+        return encounter_pairs_reference(pos_r, area_r, act_r, row0, pos_v,
+                                         area_v, act_v, col0, radius)
+    if dev.type != "cuda":
+        raise ValueError(f"encounter_pairs runs on cuda or cpu, not {dev}")
+    words = torch.empty((r, n_words(v)), dtype=torch.int32, device=dev)
+    mass = torch.empty((r,), dtype=torch.float32, device=dev)
+    if r == 0:
+        return words, mass
+    args, _keep = _sides(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
+                         col0)
+    fn = _entry("encounter_pairs", _PAIRS_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, ctypes.c_float(radius ** 2), words.data_ptr(),
+                 mass.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"encounter_pairs kernel launch failed: CUDA "
+                           f"error {err} (R={r}, V={v})")
+    encounter_pairs.launches += 1
+    return words, mass
+
+
+encounter_pairs.launches = 0

@@ -6,10 +6,17 @@ of one (row block x visiting block) pair, returning the unnormalized
 neighbor sums and per-row neighbor counts. ``encounter_mix_reference`` is
 one call with the whole population as both blocks, row-normalized.
 
+``encounter_pairs_reference`` is the pairs of one block pair as the CUDA
+pairs kernel writes them: each row's meet mask in 32-bit words, bit ``b``
+of word ``w`` for visiting mule ``32 w + b`` (so the set bits list the met
+mules in ascending order), and the count. ``unpack_pairs`` turns the words
+back into the [R, V] gate.
+
 These run on any device. The CPU path of ``ops.encounter_mix`` is
-``encounter_mix_reference``, and that of ``ops.encounter_block_hop`` (one
-ring hop) is ``encounter_block``; on the card they are the yardsticks the
-CUDA kernels (``csrc/encounter_mix.cu``) are held to.
+``encounter_mix_reference``, that of ``ops.encounter_block_hop`` (one ring
+hop) is ``encounter_block``, and that of ``ops.encounter_pairs`` is
+``encounter_pairs_reference``; on the card they are the yardsticks the CUDA
+kernels (``csrc/encounter_mix.cu``) are held to.
 
 The gate is bitwise the kernel's: ``d2 = dx*dx + dy*dy`` in float32 with no
 fused multiply-add (eager PyTorch runs each op on its own), compared with
@@ -71,6 +78,45 @@ def encounter_block(pos_r: torch.Tensor, area_r: torch.Tensor,
                               pos_v, area_v, act_v, col0)
     e = ((d2 <= radius_sq(radius).to(d2.device)) & gate).float()
     return e @ weights_v.float(), e.sum(1)
+
+
+def n_words(v: int) -> int:
+    """32-bit mask words a row of ``v`` visiting mules takes (at least
+    one)."""
+    return max(1, (v + 31) // 32)
+
+
+def encounter_pairs_reference(pos_r: torch.Tensor, area_r: torch.Tensor,
+                              act_r: Optional[torch.Tensor], row0: int,
+                              pos_v: torch.Tensor, area_v: torch.Tensor,
+                              act_v: Optional[torch.Tensor], col0: int,
+                              radius: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encounter_gate`` arguments plus radius -> (words [R, n_words(V)]
+    int32, mass [R] f32): bit b of words[i, w] is e[i, 32 w + b] (bits past
+    V are 0), mass[i] the number of set bits."""
+    d2, gate = encounter_gate(pos_r, area_r, act_r, row0,
+                              pos_v, area_v, act_v, col0)
+    e = (d2 <= radius_sq(radius).to(d2.device)) & gate
+    r, v = e.shape
+    nw = n_words(v)
+    bits = torch.zeros((r, nw * 32), dtype=torch.int64, device=e.device)
+    bits[:, :v] = e.to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=e.device)
+    words = (bits.view(r, nw, 32) << shift).sum(-1)    # in [0, 2**32)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32), e.sum(1).to(torch.float32)
+
+
+def unpack_pairs(words: torch.Tensor, v: int) -> torch.Tensor:
+    """words [R, n_words(v)] int32 -> the gate e [R, v] bool; raises if a
+    bit past ``v`` is set."""
+    shift = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> shift) & 1
+    bits = bits.reshape(words.shape[0], -1)
+    if bits[:, v:].any():
+        raise ValueError("a pair mask has a bit set past the visiting block")
+    return bits[:, :v].bool()
 
 
 def normalize_mix(acc: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,13 @@ against ``radius**2`` rounded to float32, integer areas, global indices) is
 bitwise the reference's. The mix is held to atol/rtol 1e-5 in float32: fp32
 sums in another order, and the Pallas interpret path is itself not bitwise
 across tiles (ROADMAP §3). bf16 weights are held to 5e-2, one bf16 ulp.
+
+The CUDA kernels work per met pair: a pairs kernel writes each row's meet
+mask as 32-bit words (``encounter_pairs``; its plain version is
+``encounter_pairs_reference``), and the sums kernel adds the listed W rows
+in ascending order. The pair lists are held to the JAX gate exactly, and
+that order of summation, emulated here in plain float32 adds, to the JAX
+mix and block sums.
 """
 import numpy as np
 import pytest
@@ -18,7 +25,11 @@ from repro.kernels.encounter_mix.kernel import encounter_mix_pallas  # noqa: E40
 from repro_torch.kernels.encounter_mix import (encounter_block,  # noqa: E402
                                                encounter_gate, encounter_mix,
                                                encounter_mix_reference,
-                                               normalize_mix)
+                                               encounter_pairs,
+                                               encounter_pairs_reference,
+                                               normalize_mix, unpack_pairs)
+from repro_torch.kernels.encounter_mix import ops  # noqa: E402
+from repro_torch.kernels.encounter_mix.ref import n_words  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -203,6 +214,195 @@ def test_cpu_run_launches_no_kernel():
                                               radius=0.3)
     assert torch.equal(got, want) and torch.equal(mass, want_mass)
     assert encounter_mix.launches == before
+
+
+def _jax_gate(pr, ar, actr, row0, pv, av, actv, col0, radius):
+    """The reference's e [R, V] (bool) for numpy inputs."""
+    jd2, jgate = jref.encounter_gate(
+        jnp.asarray(pr), jnp.asarray(ar), None if actr is None
+        else jnp.asarray(actr), row0, jnp.asarray(pv), jnp.asarray(av),
+        None if actv is None else jnp.asarray(actv), col0)
+    return np.asarray((jd2 <= np.float32(radius) ** 2) & jgate)
+
+
+def _pairs_vs_jax(pr, ar, actr, row0, pv, av, actv, col0, radius):
+    """The port's pair words and masses against the JAX gate: the unpacked
+    gate, each row's ascending list of met mules and the counts exactly
+    equal. Returns the lists."""
+    t = [None if a is None else torch.tensor(a)
+         for a in (pr, ar, actr, pv, av, actv)]
+    words, mass = encounter_pairs(t[0], t[1], t[2], row0, t[3], t[4], t[5],
+                                  col0, radius)
+    assert words.dtype == torch.int32 and mass.dtype == torch.float32
+    assert tuple(words.shape) == (len(pr), n_words(len(pv)))
+    want = _jax_gate(pr, ar, actr, row0, pv, av, actv, col0, radius)
+    got = unpack_pairs(words, len(pv)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(mass.numpy(), want.sum(1))
+    lists = [np.flatnonzero(row) for row in got]
+    for row, lst in zip(want, lists):
+        np.testing.assert_array_equal(lst, np.flatnonzero(row))
+    return lists
+
+
+@pytest.mark.parametrize("m,d,block_m,block_d", SHAPES)
+@pytest.mark.parametrize("p_active", [1.0, 0.6])
+def test_pairs_match_jax_gate(m, d, block_m, block_d, p_active):
+    pos, area, active, _ = _setup(m, d, p_active=p_active)
+    lists = _pairs_vs_jax(pos, area, active, 0, pos, area, active, 0, 0.3)
+    assert sum(len(lst) for lst in lists) > 0 or m < 8
+
+
+@pytest.mark.parametrize("row0,col0", [(0, 0), (5, 0), (0, 9), (13, 13),
+                                       (40, 3)])
+def test_pairs_with_offsets_match_jax(row0, col0):
+    """Rows against a visiting block at global offsets, with coincident
+    points that only the global ids separate, over two mask words."""
+    rng = np.random.default_rng(row0 * 31 + col0 + 7)
+    r, v = 9, 45
+    pr = rng.uniform(size=(r, 2)).astype(np.float32)
+    pv = rng.uniform(size=(v, 2)).astype(np.float32)
+    pv[:4] = pr[:4]
+    ar, av = rng.integers(0, 2, r), rng.integers(0, 2, v)
+    ar[:4] = av[:4]
+    actr, actv = rng.uniform(size=r) < 0.8, rng.uniform(size=v) < 0.8
+    _pairs_vs_jax(pr, ar, actr, row0, pv, av, actv, col0, 0.5)
+    _pairs_vs_jax(pr, ar, None, row0, pv, av, None, col0, 0.5)
+
+
+def test_pairs_zero_positions_and_isolated_rows():
+    """pos = 0 (every same-area pair meets, as on the trace scenarios), a
+    row alone in its area, an inactive row, and a visiting block of 0, 32
+    and 33 mules (a word's edge)."""
+    pos, area, active, _ = _setup(40, 8, zero_pos=True)
+    area[7] = 5                                 # alone in its area
+    active[11] = False
+    lists = _pairs_vs_jax(pos, area, active, 0, pos, area, active, 0, 0.15)
+    assert len(lists[7]) == 0 and len(lists[11]) == 0
+    assert all(len(lst) > 10 for i, lst in enumerate(lists)
+               if i not in (7, 11))
+    for v in (0, 32, 33):
+        lists = _pairs_vs_jax(pos[:5], area[:5], None, 0, pos[:v],
+                              area[:v], None, 0, 0.15)
+        assert all(len(lst) <= max(v - 1, 0) for lst in lists)
+
+
+def _pair_order_sums(lists, w):
+    """The sums kernel's arithmetic in plain float32: each row adds its
+    listed W rows one at a time, ascending, from +0."""
+    w = torch.tensor(w)
+    acc = torch.zeros((len(lists), w.shape[1]), dtype=torch.float32)
+    for i, lst in enumerate(lists):
+        for j in lst:
+            acc[i] = acc[i] + w[j]
+    return acc
+
+
+@pytest.mark.parametrize("m,d,block_m,block_d", SHAPES)
+@pytest.mark.parametrize("geo", ["uniform", "churn", "zero"])
+def test_pair_order_sums_match_jax_mix(m, d, block_m, block_d, geo):
+    """The kernel's order of summation against the JAX mix: masses exact,
+    mix within 1e-5; the division where the mass is 0 skipped, as the
+    kernel skips it (its sums are +0 there)."""
+    pos, area, active, w = _setup(m, d, p_active=0.6 if geo == "churn"
+                                  else 1.0, zero_pos=geo == "zero")
+    lists = _pairs_vs_jax(pos, area, active, 0, pos, area, active, 0, 0.3)
+    acc = _pair_order_sums(lists, w)
+    mass = torch.tensor([float(len(lst)) for lst in lists])
+    mix = torch.where(mass[:, None] > 0, acc / mass.clamp(min=1)[:, None],
+                      acc)
+    want, want_mass = jref.encounter_mix_reference(
+        *[jnp.asarray(a) for a in (pos, area, active, w)], radius=0.3)
+    np.testing.assert_array_equal(mass.numpy(), np.asarray(want_mass))
+    np.testing.assert_allclose(mix.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_array_equal(mix.numpy(),
+                                  normalize_mix(acc, mass).numpy())
+
+
+@pytest.mark.parametrize("r,v,d,row0,col0", [(9, 45, 17, 0, 9),
+                                             (64, 64, 40, 128, 192),
+                                             (20, 33, 130, 33, 0)])
+def test_pair_order_sums_match_jax_block(r, v, d, row0, col0):
+    """The hop's sums (unnormalised) in the kernel's order against the JAX
+    ``encounter_block``."""
+    rng = np.random.default_rng(r + v + d)
+    pr = rng.uniform(size=(r, 2)).astype(np.float32)
+    pv = rng.uniform(size=(v, 2)).astype(np.float32)
+    ar, av = rng.integers(0, 2, r), rng.integers(0, 2, v)
+    actv = rng.uniform(size=v) < 0.8
+    wv = rng.normal(size=(v, d)).astype(np.float32)
+    lists = _pairs_vs_jax(pr, ar, None, row0, pv, av, actv, col0, 0.3)
+    acc = _pair_order_sums(lists, wv)
+    jacc, jmass = jref.encounter_block(
+        jnp.asarray(pr), jnp.asarray(ar), None, row0, jnp.asarray(pv),
+        jnp.asarray(av), jnp.asarray(actv), col0, jnp.asarray(wv), 0.3)
+    np.testing.assert_array_equal([len(lst) for lst in lists],
+                                  np.asarray(jmass))
+    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_pair_words_pack_and_unpack():
+    """Bit b of word w is mule 32 w + b, bit 31 included; bits past V are
+    0; a set bit past V is refused."""
+    pos = np.zeros((3, 2), np.float32)
+    pv = np.zeros((70, 2), np.float32)
+    av = np.zeros(70, np.int64)
+    av[[0, 31, 32, 63, 69]] = 1
+    words, mass = encounter_pairs_reference(
+        torch.tensor(pos), torch.ones(3, dtype=torch.int64), None, 100,
+        torch.tensor(pv), torch.tensor(av), None, 0, 0.1)
+    assert words.tolist()[0] == [1 | -2 ** 31, 1 | -2 ** 31, 1 << 5]
+    assert mass.tolist() == [5.0] * 3
+    assert n_words(0) == 1 and n_words(32) == 1 and n_words(33) == 2
+    with pytest.raises(ValueError):
+        unpack_pairs(words, 68)
+
+
+def test_encounter_pairs_cpu_and_checks():
+    pos, area, _, _ = _setup(10, 4)
+    tp, ta = torch.tensor(pos), torch.tensor(area)
+    before = encounter_pairs.launches
+    got = encounter_pairs(tp, ta, None, 0, tp, ta, None, 0, 0.3)
+    want = encounter_pairs_reference(tp, ta, None, 0, tp, ta, None, 0, 0.3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert encounter_pairs.launches == before           # CPU: plain version
+    with pytest.raises(ValueError):
+        encounter_pairs(tp[:4], ta, None, 0, tp, ta, None, 0, 0.3)
+    with pytest.raises(TypeError):
+        encounter_pairs(tp.double(), ta, None, 0, tp, ta, None, 0, 0.3)
+    with pytest.raises(TypeError):
+        encounter_pairs(tp, ta.float(), None, 0, tp, ta, None, 0, 0.3)
+    with pytest.raises(TypeError):
+        encounter_pairs(tp, ta, torch.ones(10), 0, tp, ta, None, 0, 0.3)
+    assert 0 <= ops.DENSE_PAIRS_PER_ROW <= 33
+
+
+@pytest.mark.cuda
+def test_pairs_and_modes_on_card(cuda_device):
+    """The pairs kernel equals its plain version; the sums give the same
+    bits with every strip dense, none dense and the default switch."""
+    for m, d, zero in ((300, 2000, True), (1100, 4099, False),
+                       (64, 1024, False), (7, 5, False)):
+        pos, area, active, w = (torch.tensor(a).to(cuda_device) for a in
+                                _setup(m, d, p_active=0.8, zero_pos=zero))
+        got = encounter_pairs(pos, area, active, 0, pos, area, active, 0,
+                              0.3)
+        want = encounter_pairs_reference(pos, area, active, 0, pos, area,
+                                         active, 0, 0.3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        default = ops.DENSE_PAIRS_PER_ROW
+        outs = []
+        try:
+            for dense_min in (0, default, 33):
+                ops.DENSE_PAIRS_PER_ROW = dense_min
+                outs.append(encounter_mix(pos, area, active, w, radius=0.3))
+        finally:
+            ops.DENSE_PAIRS_PER_ROW = default
+        for out, mass in outs[1:]:
+            assert torch.equal(out, outs[0][0])
+            assert torch.equal(mass, outs[0][1])
 
 
 @pytest.mark.cuda
