@@ -87,10 +87,15 @@ one), counts the ``HGMMA`` instructions of the built tensor-core library
 ``ssd_scan`` against the sequential oracle and the chunked plain version
 on the JAX tests' cases and at zamba2-2.7b's prefill shape,
 where no single PyTorch call computes the scan (its ``library_ms`` is
-null); and ``slstm_scan`` against its plain version on the JAX tests'
-cases, a ragged P, one step and xlstm-350m's prefill shape (there also
-against a float64 run of the plain version), timed with its µs per time
-step; no PyTorch call computes the sLSTM cell (``library_ms`` null). The
+null), and at edge shapes of its slicing and chunking (S not a multiple
+of the chunk, P 40 and N 24, chunk 1, B 3); and ``slstm_scan`` against its
+plain version on the JAX tests' cases, a ragged P, one step, more batch
+rows than a cluster takes (B = 5), one row, one head and xlstm-350m's
+prefill shape (there also against a float64 run of the plain version),
+timed with its µs per time step and beside its step floor (the h exchange
+alone, through the kernel's mbarriers and through a cluster barrier a
+step); no PyTorch call computes the sLSTM cell (``library_ms`` null). Both
+scan rows carry the build's registers and spill bytes (``build``). The
 ``encounter_mix`` cases include a dense strip at the main path's shape
 (pos 0, two areas, as the trace scenarios give the peer step), timed
 beside the walk and the bf16 mix; at every case and hop the pairs
@@ -209,6 +214,10 @@ REF_PREFILL_TOL = 2e-4
 SSD_CASES = [(2, 64, 3, 8, 16, 16), (1, 100, 2, 16, 8, 32),
              (2, 128, 4, 32, 16, 64), (1, 33, 1, 4, 4, 8)]
 SSD_ORACLE_TOL = 2e-4
+# edge shapes of the kernel's slicing and chunking: S not a multiple of the
+# chunk, P and N not multiples of a slice of state columns, chunk 1, B = 3
+SSD_EDGE = [(2, 150, 3, 40, 24, 64), (3, 37, 2, 40, 24, 1),
+            (3, 77, 5, 24, 12, 16)]
 # the kernel against the chunked plain version: the same fp32 function with
 # its sums in another order, so the error scales with the terms summed, not
 # with each output (outputs near 0 sit among terms of ~60). The bound is a
@@ -239,6 +248,9 @@ HYBRID_REF_PREFILL_TOL = 2e-4
 SLSTM_CASES = [(2, 24, 3, 8), (1, 7, 1, 4), (2, 33, 4, 16), (2, 50, 2, 100),
                (3, 1, 4, 256)]
 SLSTM_TOL = 2e-6
+# edge shapes of the kernel's grid: more batch rows than one cluster takes
+# (B = 5: two groups), one row, one head, ragged and full head widths
+SLSTM_EDGE = [(5, 24, 2, 100), (1, 40, 1, 256), (5, 12, 1, 256)]
 # the scales of the prefill's inputs: pre = LN(x) @ w_in at init scale 0.02
 # and width 1024 has std 0.64; r is drawn at 0.02 (models/xlstm.py)
 SLSTM_PRE_STD, SLSTM_R_STD = 0.64, 0.02
@@ -352,6 +364,35 @@ def phase_build() -> None:
             if "registers" in line or (name == "flash_attention_tc"
                                        and "spill" in line):
                 print(f"  {name}: {entry}{line.strip()}")
+
+
+def _ptxas_usage(name: str, entries: dict) -> dict:
+    """{label: {"registers": n, "spill_bytes": stores + loads}} of the
+    kernels of library ``name`` whose mangled names contain ``entries``'
+    values, from ptxas's report kept beside the library."""
+    from repro_torch.kernels import _build
+    log = _build.library_path(name).with_suffix(".log").read_text()
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = next((k for k, v in entries.items() if v in m.group(1)),
+                         None)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.setdefault(entry, {})["spill_bytes"] = \
+                int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(entry, {})["registers"] = int(m.group(1))
+    missing = set(entries) - set(usage)
+    if missing:
+        raise AssertionError(f"{name}: no ptxas report for {sorted(missing)}")
+    return usage
 
 
 def phase_mule_agg() -> dict:
@@ -1089,10 +1130,11 @@ def phase_ssd_scan(card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssm_scan import (ssd_chunked_reference,
                                               ssd_reference, ssd_scan)
+    from repro_torch.kernels.ssm_scan.ops import SLICE
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
-    for b, s, h, p, n, chunk in SSD_CASES:
+    for b, s, h, p, n, chunk in SSD_CASES + SSD_EDGE:
         args = _ssd_inputs(g, b, s, h, p, n)
         y, state = ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
@@ -1147,6 +1189,13 @@ def phase_ssd_scan(card: str) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
+        "kernels_per_call": 2,
+        "launches_count": "wrapper calls; each launches ssd_prep_kernel, "
+                          "then ssd_scan_kernel",
+        "slice": SLICE,
+        "build": _ptxas_usage("ssd_scan", {
+            "ssd_prep_kernel": "ssd_prep_kernel",
+            "ssd_scan_kernel<full>": "ssd_scan_kernelILb1E"}),
     }
     print(f"ssd_scan timing {label} f32: kernel {ms:.4f} ms "
           f"({n_ops / ms / 1e9:.2f} TFLOP/s of the least work), plain "
@@ -1156,6 +1205,7 @@ def phase_ssd_scan(card: str) -> dict:
           f"operations, the recurrence's FLOP and exps, at "
           f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32 = {t_ops:.4f} ms) "
           f"[{card}]")
+    print(f"ssd_scan build (slice {SLICE}): {row['build']} [{card}]")
     return row
 
 
@@ -1173,10 +1223,12 @@ def phase_slstm_scan(card: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.slstm_fused import slstm_reference, slstm_scan
+    from repro_torch.kernels.slstm_fused.ops import (CLUSTER, slstm_geometry,
+                                                     slstm_step_floor)
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 4)
-    for b, s, h, p in SLSTM_CASES:
+    for b, s, h, p in SLSTM_CASES + SLSTM_EDGE:
         pre, r = _slstm_inputs(g, b, s, h, p)
         out = slstm_scan(pre, r)
         torch.cuda.synchronize()
@@ -1224,6 +1276,24 @@ def phase_slstm_scan(card: str) -> dict:
                    "stabiliser and a dense, not head-wise, recurrent matrix)",
         "us_per_step": ms * 1e3 / s,
     }
+    # the step floor: the kernel's h exchange alone over the same grid and
+    # steps, through st.async and mbarriers (the kernel's) and through
+    # DSMEM stores and a cluster barrier a step (the previous design's)
+    floor = {}
+    for sync in ("mbarrier", "cluster"):
+        last = slstm_step_floor(b, s, h, p, sync=sync)[:, s - 1]
+        if not bool((last == float(s)).all()):
+            raise AssertionError(f"slstm step floor ({sync}) lost steps")
+        floor[sync] = _median_ms(
+            lambda: slstm_step_floor(b, s, h, p, sync=sync), reps=5) \
+            * 1e3 / s
+    rows = slstm_geometry(b, h, p)["rows"]
+    row.update({
+        "step_floor_us": floor, "cluster": CLUSTER,
+        "build": _ptxas_usage("slstm_scan", {
+            f"slstm_scan_kernel<{rows} rows>":
+                f"slstm_scan_kernelILi{rows}ELi0E"}),
+    })
     print(f"slstm_scan timing {label} f32: kernel {ms:.4f} ms "
           f"({row['us_per_step']:.3f} us per time step, "
           f"{n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, no "
@@ -1231,6 +1301,10 @@ def phase_slstm_scan(card: str) -> dict:
           f"{n_flop} FLOP at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32 = "
           f"{t_ops:.4f} ms, {n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
           f"= {t_bytes:.4f} ms) [{card}]")
+    print(f"slstm_scan step floor at {label} ({CLUSTER}-block clusters): "
+          f"{floor['mbarrier']:.3f} us a step through st.async and "
+          f"mbarriers, {floor['cluster']:.3f} through DSMEM stores and "
+          f"cluster.sync(); build {row['build']} [{card}]")
     return row
 
 

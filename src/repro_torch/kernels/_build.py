@@ -73,7 +73,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named kernel whose library is missing, all in parallel.
 
     Returns ``{name: compiler output}`` for the kernels built by this call
-    (``-Xptxas=-v`` makes it list registers and shared memory per kernel).
+    (``-Xptxas=-v`` makes it list registers and shared memory per kernel);
+    the output is also kept beside each library, as ``<library>.log``.
     """
     todo = [n for n in (SOURCES if names is None else names)
             if not library_path(n).is_file()]
@@ -93,6 +94,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         out, _ = proc.communicate()
         logs[name] = out
         if proc.returncode == 0:
+            library_path(name).with_suffix(".log").write_text(out)
             os.replace(tmp, library_path(name))   # atomic: no half-written .so
         else:
             os.unlink(tmp)

@@ -10,9 +10,12 @@ the plain version (``ref.slstm_reference``), which also takes a ``state``
 to continue from; ``backend="ref"`` asks for that plain version on any
 device. ``slstm_scan.launches`` counts kernel launches.
 
-The kernel keeps a cluster's slice of ``r`` in shared memory, so it takes
-P up to 256 (xlstm-350m: P 256); larger P and other dtypes raise on every
-route.
+The kernel keeps a cluster's slice of ``r`` in registers, so it takes P up
+to 256 (xlstm-350m: P 256); larger P and other dtypes raise on every
+route. One cluster of ``CLUSTER`` blocks runs each head for a group of up
+to ``MAX_ROWS`` batch rows (``slstm_geometry``); a cluster that the card
+cannot hold raises. ``slstm_step_floor`` times the kernel's h exchange
+alone (no products, no cell) and launches nothing that ``launches`` counts.
 """
 from __future__ import annotations
 
@@ -24,11 +27,41 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.slstm_fused.ref import slstm_reference
 
-MAX_P = 256         # the largest head width the kernel's shared memory takes
+MAX_P = 256         # the largest head width the kernel's registers take
+MAX_ROWS = 4        # batch rows one cluster takes
+CLUSTER = 16        # blocks a cluster (the kernel's kC; PERF.md)
+FLOOR_MODES = {"mbarrier": 1, "cluster": 2}
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-_FITS: Dict[tuple, int] = {}     # (device index, P) -> co-resident clusters
+_FITS: Dict[tuple, int] = {}     # (device index, rows, P) -> clusters
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def slstm_geometry(b: int, h: int, p: int) -> dict:
+    """The kernel's grid, as ``csrc/slstm_scan.cu`` lays it out.
+
+    The batch rows split into ``groups`` of at most ``MAX_ROWS``, each of
+    ``rows`` rows but the last (``row_groups``); cluster ``k`` runs head
+    ``k % h`` for row group ``k // h``. Block ``j`` of a cluster owns the
+    head columns ``columns[j]`` (``per`` of them, a multiple of 4, or fewer
+    at the edge; none past P).
+    """
+    groups = _ceil_div(b, MAX_ROWS)
+    rows = _ceil_div(b, groups)
+    per = _ceil_div(_ceil_div(p, CLUSTER), 4) * 4
+    return {
+        "rows": rows, "groups": groups,
+        "clusters": h * groups,
+        "row_groups": [(g * rows, min(b, (g + 1) * rows))
+                       for g in range(groups)],
+        "per": per,
+        "columns": [(min(p, j * per), min(p, (j + 1) * per))
+                    for j in range(CLUSTER)],
+    }
 
 
 def _check(pre: torch.Tensor, r: torch.Tensor) -> None:
@@ -49,20 +82,22 @@ def _check(pre: torch.Tensor, r: torch.Tensor) -> None:
         raise ValueError(f"slstm_scan: pre on {pre.device}, r on {r.device}")
 
 
-def _clusters_fit(lib, p: int, device: torch.device) -> int:
-    """How many of the kernel's 8-CTA clusters the card holds at once."""
-    key = (device.index, p)
+def _require_fit(lib, b: int, p: int, device: torch.device) -> None:
+    """Raises unless one of the kernel's clusters fits the card."""
+    key = (device.index, slstm_geometry(b, 1, p)["rows"], p)
     if key not in _FITS:
         n = ctypes.c_int(0)
         fn = lib.slstm_scan_max_clusters
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        err = fn(p, ctypes.byref(n))
+        err = fn(b, p, ctypes.byref(n))
         if err != 0:
             raise RuntimeError(f"slstm_scan: the occupancy query failed: "
                                f"CUDA error {err}")
         _FITS[key] = n.value
-    return _FITS[key]
+    if _FITS[key] < 1:
+        raise RuntimeError(f"slstm_scan: no cluster of {CLUSTER} blocks at "
+                           f"P={p} fits this card at once")
 
 
 def slstm_scan(pre: torch.Tensor, r: torch.Tensor, *,
@@ -83,9 +118,7 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, *,
     b, s, _, h, p = pre.shape
     lib = _build.load("slstm_scan")
     with torch.cuda.device(pre.device):
-        if _clusters_fit(lib, p, pre.device) < 1:
-            raise RuntimeError(f"slstm_scan: no cluster of 8 blocks at P={p} "
-                               f"fits this card at once")
+        _require_fit(lib, b, p, pre.device)
         out = torch.empty((b, s, h, p), dtype=torch.float32,
                           device=pre.device)
         strides = (ctypes.c_longlong * 9)(*pre.stride(), *r.stride())
@@ -103,3 +136,32 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, *,
 
 
 slstm_scan.launches = 0
+
+
+def slstm_step_floor(b: int, s: int, h: int, p: int, *, sync: str,
+                     device="cuda") -> torch.Tensor:
+    """S steps of the kernel's h exchange alone, at its grid for
+    ``[b, s, 4, h, p]``: each owner sends h + 1 to every block of its
+    cluster, through st.async and the mbarriers (``sync="mbarrier"``, the
+    kernel's) or DSMEM stores and a cluster barrier a step
+    (``sync="cluster"``, the previous design's). Returns the h buffer, whose
+    step ``s - 1`` holds ``s`` everywhere; for timing the floor of a step."""
+    if sync not in FLOOR_MODES:
+        raise ValueError(f"slstm_step_floor: sync {sync!r} must be one of "
+                         f"{sorted(FLOOR_MODES)}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"slstm_step_floor runs on cuda, not {device}")
+    lib = _build.load("slstm_scan")
+    with torch.cuda.device(device):
+        _require_fit(lib, b, p, device)
+        out = torch.zeros((b, s, h, p), dtype=torch.float32, device=device)
+        fn = lib.slstm_step_floor_f32
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(out.data_ptr(), b, s, h, p, FLOOR_MODES[sync], stream)
+    if err != 0:
+        raise RuntimeError(f"slstm_step_floor failed: CUDA error {err}")
+    return out

@@ -9,7 +9,9 @@ raises for an ``init_state`` and returns ``final_state`` None. A CPU tensor
 takes the plain chunked version (``ref.ssd_chunked_reference``), which
 takes an ``init_state`` and returns the final state [B, H, P, N];
 ``backend="ref"`` asks for that plain version on any device.
-``ssd_scan.launches`` counts kernel launches.
+``ssd_scan.launches`` counts calls that reach the kernel: each launches two
+CUDA kernels, a per-chunk preparation and the scan (``csrc/ssd_scan.cu``),
+into scratch the wrapper allocates (``ssd_geometry``).
 
 The kernel takes P and N up to 64 and a chunk of 1 to 64 steps (zamba2:
 P 64, N 64, chunk 64); other sizes and other dtypes raise on every route.
@@ -25,9 +27,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan.ref import ssd_chunked_reference
 
 MAX_DIM = 64        # the largest P, N and chunk the kernel takes
+SLICE = 32          # state columns a scan block takes (the kernel's kPW)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+
+
+def ssd_geometry(b: int, s: int, h: int, p: int, chunk: int) -> dict:
+    """The kernel's grids and scratch, as ``csrc/ssd_scan.cu`` lays them out.
+
+    The preparation runs one block per (chunk, batch row) and writes
+    ``tiles`` (G transposed, C transposed and B, 64 x 64 each, per row and
+    chunk) and ``vecs`` (dt, cum, exp(cum) and exp(last - cum), 64 each,
+    per row, chunk and head). The scan runs one block per (b, h, slice):
+    block ``k`` takes row ``k // (h slices)``, head ``(k // slices) % h``
+    and the state columns ``columns[k % slices]``.
+    """
+    n_chunks = -(-s // chunk)
+    slices = -(-p // SLICE)
+    return {
+        "n_chunks": n_chunks, "slices": slices,
+        "tiles": (b, n_chunks, 3, MAX_DIM, MAX_DIM),
+        "vecs": (b, n_chunks, h, 4, MAX_DIM),
+        "prep_grid": (n_chunks, b), "grid": b * h * slices,
+        "threads": 4 * SLICE,
+        "columns": [(k * SLICE, min(p, (k + 1) * SLICE))
+                    for k in range(slices)],
+    }
 
 
 def _check(x, dt, A, Bmat, Cmat, chunk: int) -> None:
@@ -76,7 +102,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "takes no init_state (the plain version does: "
                          "backend='ref')")
     b, s, h, p = x.shape
+    geo = ssd_geometry(b, s, h, p, chunk)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    tiles = torch.empty(geo["tiles"], dtype=torch.float32, device=x.device)
+    vecs = torch.empty(geo["vecs"], dtype=torch.float32, device=x.device)
     A = A.contiguous()
     strides = (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(),
                                        *Bmat.stride(), *Cmat.stride())
@@ -86,8 +115,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
-                 Cmat.data_ptr(), y.data_ptr(), b, s, h, p, Bmat.shape[2],
-                 chunk, strides, stream)
+                 Cmat.data_ptr(), y.data_ptr(), tiles.data_ptr(),
+                 vecs.data_ptr(), b, s, h, p, Bmat.shape[2], chunk,
+                 strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, N {Bmat.shape[2]}, chunk "

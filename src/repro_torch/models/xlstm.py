@@ -277,7 +277,7 @@ def _slstm_pre(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                   backend: str = "auto") -> torch.Tensor:
     """x: [B,S,D] -> x + sLSTM block(x): the true sequential recurrence,
-    through ``slstm_scan`` (the recurrent weights stay in shared memory
+    through ``slstm_scan`` (the recurrent weights stay in registers
     across the sweep: see kernels/slstm_fused)."""
     h = cfg.n_heads
     bsz, s, d = x.shape

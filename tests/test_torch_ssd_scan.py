@@ -16,6 +16,10 @@ chunk 64, and one whose A spans zamba2's (-1 .. -80) and sends cum to about
   in interpret mode 2e-4, the JAX package's bound for that kernel;
 - ``init_state`` carry and the split-scan handoff 1e-4, the JAX test's.
 
+The kernel's grids and scratch (``ssd_geometry``) are checked on the CPU:
+every (batch row, head, state column) belongs to exactly one block of the
+scan, as the kernel's own index arithmetic (emulated here) assigns them.
+
 ``cuda``-marked tests hold the kernel to its plain versions on the card and
 skip without one.
 """
@@ -31,6 +35,7 @@ from repro.kernels.ssm_scan.ref import ssd_reference as j_seq  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ssm_scan import (ssd_chunked_reference,  # noqa: E402
                                           ssd_reference, ssd_scan)
+from repro_torch.kernels.ssm_scan.ops import SLICE, ssd_geometry  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -41,6 +46,8 @@ CASES = [
     (2, 128, 4, 32, 16, 64),
     (1, 33, 1, 4, 4, 8),
     (1, 77, 2, 64, 64, 64),     # zamba2's P, N and chunk, ragged
+    (2, 150, 3, 40, 24, 64),    # ragged S; P and N not multiples of a slice
+    (3, 77, 5, 24, 12, 16),     # B = 3, ragged
 ]
 
 
@@ -181,13 +188,45 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert _build.SOURCES["ssd_scan"] == "kernels/ssm_scan/csrc/ssd_scan.cu"
 
 
+@pytest.mark.parametrize("b,s,h,p,chunk", [(1, 1, 1, 1, 1), (2, 4096, 80,
+                                           64, 64), (3, 150, 3, 40, 64),
+                                           (2, 37, 2, 24, 1),
+                                           (1, 100, 5, 33, 16),
+                                           (4, 64, 2, 32, 64),
+                                           (2, 65, 7, 63, 8),
+                                           (1, 129, 1, 16, 64)])
+def test_geometry_covers_every_state_column_once(b, s, h, p, chunk):
+    """Block k of the scan takes slice k % slices of head (k // slices) % h
+    of row k // (h slices), as csrc/ssd_scan.cu decodes blockIdx; every
+    (b, h, p) falls in exactly one block."""
+    geo = ssd_geometry(b, s, h, p, chunk)
+    assert geo["slices"] == -(-p // SLICE)
+    assert geo["grid"] == b * h * geo["slices"]
+    assert geo["threads"] == 16 * (SLICE // 4)
+    n_chunks = -(-s // chunk)
+    assert geo["n_chunks"] == n_chunks and geo["prep_grid"] == (n_chunks, b)
+    assert geo["tiles"] == (b, n_chunks, 3, 64, 64)
+    assert geo["vecs"] == (b, n_chunks, h, 4, 64)
+    seen = {}
+    for k in range(geo["grid"]):
+        sl, bh = k % geo["slices"], k // geo["slices"]
+        row, head = bh // h, bh % h
+        lo, hi = geo["columns"][sl]
+        assert lo == sl * SLICE and hi - lo <= SLICE
+        for col in range(lo, hi):
+            assert (row, head, col) not in seen
+            seen[(row, head, col)] = k
+    assert set(seen) == {(i, j, c) for i in range(b) for j in range(h)
+                         for c in range(p)}
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     """The CUDA kernel against the sequential oracle and the chunked plain
     version (2e-4, the JAX test's bound for the TPU kernel) on the cases
     above and on strided (non-contiguous) inputs, and its refusal of an
     init_state."""
-    for b, s, h, p, n, chunk in CASES:
+    for b, s, h, p, n, chunk in CASES + [(3, 37, 2, 40, 24, 1)]:
         ts = [t.to(cuda_device) for t in _t(_mk(b, s, h, p, n))]
         before = ssd_scan.launches
         y, state = ssd_scan(*ts, chunk=chunk)
