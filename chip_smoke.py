@@ -73,7 +73,33 @@ Phases (any failure exits non-zero without the final result line):
    ``encounter_mix`` (masses equal, mix within 2e-5), and the final weights
    against the single-host run (within the growth bound of phase 5);
    OppCL's peers must equal the single-host argmin bitwise. It prints
-   steps/s, the bytes the ranks sent and the hops they pruned.
+   steps/s, the bytes the ranks sent and the hops they pruned;
+10. the Table 1 fixed path: the five ``METHODS_FIXED`` (``mlmule``,
+   ``fedavg``, ``cfl``, ``fedas``, ``local``) through
+   ``experiment.run_with_models`` (``run_experiment``'s body) handed the
+   paper CNN at full width, in fixed mode: F = 8 fixed devices, M = 20
+   mules on the walk (P_cross = 0.1), ``dir0.01`` data, batch 16, lr 0.05,
+   120 pretraining steps, T = 60 (6 federated rounds of 2 local steps), an
+   eval every 20 steps. ``mule_agg`` must launch 60 times for ``mlmule``
+   and never for the other four; every accuracy finite and in [0, 1],
+   every weight finite. ``mlmule`` is replayed bitwise, with
+   ``agg_backend="ref"`` under phase 4's growth bound, and its exchange
+   and aggregation are held in lockstep (training off) to fp32 order;
+   FedAS's server model keeps its personal leaves bitwise; CFL's clusters
+   partition the 8 clients and each client holds its cluster's model
+   bitwise. Then ``run_experiment`` at the harness's reduced defaults for
+   each method, T = 20;
+11. the HAR path (Fig 8): ``mlmule`` and ``gossip`` on ``har_commuter``
+   through ``run_with_models`` handed the LSTM-CNN at full width (window
+   128, 6 channels, conv 32/64, LSTM 64, 4 classes), M = 256, F = 8, batch
+   12, lr 0.03, T = 60, an eval every 20 steps. ``mule_agg`` must launch
+   60 times for ``mlmule``; ``encounter_mix`` 20 times and ``mule_agg``
+   never for ``gossip``. Both are replayed bitwise and against their plain
+   backend under the growth bound of phases 4 and 5, ``mlmule``'s
+   aggregation and ``gossip``'s mix held in lockstep; each prints steps/s,
+   peak memory, its accuracy trace and a profile. Then
+   ``run_experiment(task="har")`` at its defaults for the five
+   ``METHODS_MOBILE``, T = 20.
 
 Phase 3 also holds ``flash_attention`` against its plain versions on the
 JAX tests' cases, on tensor-core cases (decode, ragged Sk, bidirectional,
@@ -292,6 +318,14 @@ XLSTM_SHORT_PREFILL_TOL = 4e-3
 RING_RANKS, RING_STEPS = 4, 30
 RING_MIX_TOL = 2e-5
 RING_TIMEOUT = 600
+# Table 1 fixed path (phase 10): the paper's 8 fixed devices and 20 mules,
+# 120 pretraining steps a device, T = 60 (6 federated rounds of 2 local
+# steps); the batch, lr, eval cadence, walk and CNN of phases 4 and 5
+FIXED_MULES, FIXED_STEPS, FIXED_PRETRAIN = 20, 60, 120
+# HAR path (phase 11): Fig 8's batch and lr (examples/har_mobile_training.py)
+HAR_BATCH, HAR_LR = 12, 0.03
+# run_experiment at the harness's own defaults, T cut to this
+SHORT_STEPS = 20
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -1402,43 +1436,13 @@ def phase_main_path(card: str) -> dict:
           f"{peak} B, mule_agg launches {launches}, receipts {receipts}, "
           f"accuracy trace {trace} [{card}]")
 
-    # the whole path against its plain version (agg_backend="ref"), with
-    # cuDNN's deterministic algorithms so that the runs differ only where
-    # the two backends do
-    ref_cfg = dataclasses.replace(pcfg, agg_backend="ref")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    det_a, _ = run(pcfg, co)
-    det_b, _ = run(pcfg, co)
-    det_ref, _ = run(ref_cfg, co)
-    same = _max_diff(det_a, det_b, ("mule_models", "fixed_models"))
-    print(f"deterministic replay, kernel twice: max |final weight diff| = "
-          f"{same:.3e} (must be 0)")
-    if same != 0.0:
-        raise AssertionError("the port's path is not deterministic")
-    diff = _max_diff(det_a, det_ref, ("mule_models", "fixed_models"))
-    print(f"replay with agg_backend='ref': max |final weight diff| = "
-          f"{diff:.3e} (tol {REPLAY_ATOL})")
-    if not diff <= REPLAY_ATOL:
-        raise AssertionError("the kernel run and the plain run disagree")
-    # lockstep: each step from the same state through both backends; the
-    # aggregation side (fixed models, freshness) must agree to fp32 order
-    st, agg_worst, mule_worst = pop0, 0.0, 0.0
-    for t in range(N_STEPS):
-        one = {k: co[k][t:t + 1] for k in ("fixed_id", "exchange")}
-        k_t = SEED * N_STEPS + t
-        a, _ = run_population(st, one, batch_fn, train_fn, pcfg, k_t)
-        b, _ = run_population(st, one, batch_fn, train_fn, ref_cfg, k_t)
-        agg_worst = max(agg_worst, _max_diff(a, b, ("fixed_models", "fresh")))
-        mule_worst = max(mule_worst, _max_diff(a, b, ("mule_models",)))
-        st = a
-    torch.backends.cudnn.deterministic = False
-    print(f"lockstep over {N_STEPS} steps, kernel vs ref from the same "
-          f"state: aggregation side max diff {agg_worst:.3e} (tol "
-          f"{LOCKSTEP_ATOL}), trained mule side max diff {mule_worst:.3e}")
-    if not agg_worst <= LOCKSTEP_ATOL:
-        raise AssertionError("mule_agg and the plain aggregation disagree "
-                             "on the main path")
+    # the whole path against its plain version (agg_backend="ref"), and
+    # its exchange and aggregation step by step in lockstep
+    run_kw = dict(state=pop0, colocation=co, batches=batch_fn,
+                  train_fn=train_fn, cfg=pcfg, key=SEED,
+                  eval_every=EVAL_EVERY, eval_fn=eval_hook)
+    _replays("main path mlmule", run_kw, "agg_backend", REPLAY_ATOL)
+    _aggregation_lockstep("main path mlmule", run_kw, N_STEPS)
 
     assign = torch.rand(spec.n_fixed, N_MULES, device="cuda", generator=gen)
     _group_mean_overhead(final["mule_models"], assign / assign.sum(1)[:, None])
@@ -1465,13 +1469,11 @@ def _encounters_per_mule(co) -> float:
 
 def phase_peer_path(card: str) -> dict:
     import torch
-    from repro_torch.baselines.gossip import flatten_population
     from repro_torch.configs.mule_cnn import CONFIG
     from repro_torch.core.population import PopulationConfig, init_population
     from repro_torch.experiment import (batch_sampler, cnn_model_fns,
                                         image_data_mobile)
-    from repro_torch.kernels.encounter_mix import (encounter_mix,
-                                                   encounter_mix_reference)
+    from repro_torch.kernels.encounter_mix import encounter_mix
     from repro_torch.kernels.mule_agg import mule_agg
     from repro_torch.scenarios import run_population, walk_colocation
 
@@ -1563,52 +1565,14 @@ def phase_peer_path(card: str) -> dict:
               f"the exchange steps, accuracy trace {trace} [{card}]")
         if method == "gossip":
             launches["encounter_mix"] = got["encounter_mix"]
-            gossip_final = final
 
-    # gossip against itself and against its plain version (enc_backend="ref")
-    ref_cfg = dataclasses.replace(pcfg, enc_backend="ref")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    det_a, _ = run("gossip", pcfg, co)
-    det_b, _ = run("gossip", pcfg, co)
-    det_ref, _ = run("gossip", ref_cfg, co)
-    same = _max_diff(det_a, det_b, ("mule_models",))
-    print(f"gossip deterministic replay, kernel twice: max |final weight "
-          f"diff| = {same:.3e} (must be 0)")
-    if same != 0.0:
-        raise AssertionError("the gossip path is not deterministic")
-    diff = _max_diff(det_a, det_ref, ("mule_models",))
-    print(f"gossip replay with enc_backend='ref': max |final weight diff| = "
-          f"{diff:.3e} (tol {PEER_REPLAY_ATOL}); the counted run moved "
-          f"{_max_diff(gossip_final, pop0, ('mule_models',)):.3e} from init")
-    if not diff <= PEER_REPLAY_ATOL:
-        raise AssertionError("the gossip kernel run and its plain run "
-                             "disagree")
-    # lockstep: at each exchange step, the kernel's mix of the state the run
-    # holds there against the plain version's; the run advances one
-    # exchange period at a time through the kernel path
-    area = torch.as_tensor(co["area"], device="cuda")
-    st, worst = pop0, 0.0
-    for j in range(n_exchanges):
-        t = j * PEER_EVERY + PEER_EVERY - 1
-        flat, _ = flatten_population(st["mule_models"])
-        pos = torch.as_tensor(co["pos"][t], device="cuda")
-        mix_k, mass_k = encounter_mix(pos, area, None, flat, radius=RADIUS)
-        mix_r, mass_r = encounter_mix_reference(pos, area, None, flat,
-                                                radius=RADIUS)
-        if not torch.equal(mass_k, mass_r):
-            raise AssertionError(f"encounter_mix masses differ from the "
-                                 f"plain version's at step {t}")
-        worst = max(worst, (mix_k - mix_r).abs().max().item())
-        st, _ = run("gossip", pcfg, steps(t + 1 - PEER_EVERY, t + 1),
-                    state=st, key=SEED * N_STEPS + j, evals=False)
-    torch.backends.cudnn.deterministic = False
-    print(f"gossip lockstep over {n_exchanges} exchanges, kernel vs plain "
-          f"mix of the same state: max diff {worst:.3e} (tol "
-          f"{LOCKSTEP_ATOL}), masses equal")
-    if not worst <= LOCKSTEP_ATOL:
-        raise AssertionError("encounter_mix and the plain mix disagree on "
-                             "the peer path")
+    # gossip against itself and against its plain version (enc_backend="ref"),
+    # and its mix at every exchange in lockstep
+    run_kw = dict(state=pop0, colocation=co, batches=batch_fn,
+                  train_fn=train_fn, cfg=pcfg, key=SEED,
+                  eval_every=EVAL_EVERY, eval_fn=eval_hook, method="gossip")
+    _replays("peer path gossip", run_kw, "enc_backend", PEER_REPLAY_ATOL)
+    _mix_lockstep("peer path gossip", run_kw, N_STEPS)
     _profile_steps(lambda: run("gossip", pcfg, steps(0, PEER_PROFILE_STEPS),
                                evals=False),
                    PEER_PROFILE_STEPS, "gossip")
@@ -2261,6 +2225,356 @@ def phase_ring_path(card: str) -> dict:
     return {"encounter_hop": total}
 
 
+def _steps(co: dict, lo: int, hi: int) -> dict:
+    """Steps [lo, hi) of a colocation as a schedule of their own (an
+    ``area`` per mule stays whole)."""
+    part = {k: co[k][lo:hi] for k in ("fixed_id", "exchange", "pos",
+                                      "active") if k in co}
+    area = co.get("area")
+    if area is not None:
+        part["area"] = area[lo:hi] if area.ndim == 2 else area
+    return part
+
+
+def _replays(label: str, run: dict, field: str, atol: float) -> None:
+    """``run`` (``run_population``'s keyword arguments) replayed with
+    cuDNN's deterministic algorithms: twice through the kernels, which
+    must agree bitwise, and once with ``cfg.<field> = "ref"``, within the
+    growth bound ``atol``."""
+    import torch
+    from repro_torch.scenarios import run_population
+    sides = ("mule_models", "fixed_models")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        det_a, _ = run_population(**run)
+        det_b, _ = run_population(**run)
+        det_ref, _ = run_population(**{**run, "cfg": dataclasses.replace(
+            run["cfg"], **{field: "ref"})})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = _max_diff(det_a, det_b, sides)
+    diff = _max_diff(det_a, det_ref, sides)
+    print(f"{label}: deterministic replay, kernel twice: max |final weight "
+          f"diff| = {same:.3e} (must be 0); replay with {field}='ref': "
+          f"{diff:.3e} (tol {atol}); the run moved "
+          f"{_max_diff(det_a, run['state'], sides):.3e} from its start")
+    if same != 0.0:
+        raise AssertionError(f"{label}: the path is not deterministic")
+    if not diff <= atol:
+        raise AssertionError(f"{label}: the kernel run and the plain run "
+                             f"disagree")
+
+
+def _aggregation_lockstep(label: str, run: dict, n_steps: int) -> None:
+    """Each step from the state the run holds there, with training switched
+    off (so only the exchange and the aggregation act), through the
+    ``mule_agg`` kernel and through ``agg_backend="ref"``: every part of
+    the state must agree to fp32 order. The run advances through the
+    kernel with training on."""
+    from repro_torch.scenarios import run_population
+    ref_cfg = dataclasses.replace(run["cfg"], agg_backend="ref")
+    st, worst = run["state"], 0.0
+
+    def keep(params, batch, key):
+        return params
+
+    for t in range(n_steps):
+        kw = {**run, "colocation": _steps(run["colocation"], t, t + 1),
+              "key": t, "eval_every": None, "eval_fn": None}
+        a, _ = run_population(**{**kw, "state": st, "train_fn": keep})
+        b, _ = run_population(**{**kw, "state": st, "train_fn": keep,
+                                 "cfg": ref_cfg})
+        worst = max(worst, _max_diff(a, b, ("mule_models", "fixed_models",
+                                            "fresh")))
+        st, _ = run_population(**{**kw, "state": st})
+    print(f"{label}: lockstep over {n_steps} steps, mule_agg vs "
+          f"agg_backend='ref' from the same state, training off: max diff "
+          f"{worst:.3e} (tol {LOCKSTEP_ATOL})")
+    if not worst <= LOCKSTEP_ATOL:
+        raise AssertionError(f"{label}: mule_agg and the plain aggregation "
+                             f"disagree")
+
+
+def _mix_lockstep(label: str, run: dict, n_steps: int) -> None:
+    """At each peer exchange, ``encounter_mix`` of the state the run holds
+    there against its plain version (masses equal, mix within
+    LOCKSTEP_ATOL); the run advances one exchange period at a time through
+    the kernel."""
+    import torch
+    from repro_torch.baselines.gossip import flatten_population
+    from repro_torch.kernels.encounter_mix import (encounter_mix,
+                                                   encounter_mix_reference)
+    from repro_torch.scenarios import run_population
+    co = run["colocation"]
+    area = torch.as_tensor(co["area"], device="cuda")
+    st, worst = run["state"], 0.0
+    for j in range(n_steps // PEER_EVERY):
+        t = j * PEER_EVERY + PEER_EVERY - 1
+        flat, _ = flatten_population(st["mule_models"])
+        pos = torch.as_tensor(co["pos"][t], device="cuda")
+        mix_k, mass_k = encounter_mix(pos, area, None, flat, radius=RADIUS)
+        mix_r, mass_r = encounter_mix_reference(pos, area, None, flat,
+                                                radius=RADIUS)
+        if not torch.equal(mass_k, mass_r):
+            raise AssertionError(f"{label}: encounter_mix masses differ from "
+                                 f"the plain version's at step {t}")
+        worst = max(worst, (mix_k - mix_r).abs().max().item())
+        st, _ = run_population(**{**run, "state": st, "key": j,
+                                  "colocation": _steps(co, t + 1 - PEER_EVERY,
+                                                       t + 1),
+                                  "eval_every": None, "eval_fn": None})
+    print(f"{label}: lockstep over {n_steps // PEER_EVERY} exchanges, "
+          f"encounter_mix vs its plain version on the same state: max diff "
+          f"{worst:.3e} (tol {LOCKSTEP_ATOL}), masses equal")
+    if not worst <= LOCKSTEP_ATOL:
+        raise AssertionError(f"{label}: encounter_mix and the plain mix "
+                             f"disagree")
+
+
+def _check_result(label: str, result: dict, want_steps) -> None:
+    """A run's accuracies finite and in [0, 1], its trace at
+    ``want_steps``."""
+    steps = [s for s, _ in result["trace"]]
+    accs = [a for _, a in result["trace"]] + [result["pre_local_acc"],
+                                               result["post_local_acc"]]
+    if steps != list(want_steps):
+        raise AssertionError(f"{label}: trace at steps {steps}, expected "
+                             f"{list(want_steps)}")
+    if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"{label}: accuracy outside [0, 1]: {accs}")
+
+
+def _trace_steps(method: str, steps: int, eval_every: int) -> list:
+    """Where ``run_experiment`` logs its evals: federated round ``r``
+    covers steps [10 r, 10 (r + 1)) and evaluates every
+    ``max(eval_every // 10, 1)`` rounds; the engine after every
+    ``eval_every`` steps."""
+    from repro_torch.experiment import FEDERATED
+    if method in FEDERATED:
+        every = max(eval_every // 10, 1)
+        return [(r + 1) * 10 - 1 for r in range(steps // 10)
+                if (r + 1) % every == 0]
+    return [(i + 1) * eval_every - 1 for i in range(steps // eval_every)]
+
+
+def _check_finite(label: str, models: dict) -> None:
+    import torch
+    for k, v in models.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: non-finite weights in {k}")
+
+
+def _count_run(fn):
+    """``fn()`` with every kernel count zeroed just before and read just
+    after; returns (its value, {kernel: launches}, peak bytes)."""
+    import torch
+    from repro_torch.kernels.encounter_mix import encounter_mix
+    from repro_torch.kernels.mule_agg import mule_agg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mule_agg.launches = 0
+    encounter_mix.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"mule_agg": mule_agg.launches,
+                 "encounter_mix": encounter_mix.launches}, \
+        torch.cuda.max_memory_allocated()
+
+
+def _short_defaults(label: str, task: str, mode: str, methods) -> None:
+    """``run_experiment`` at the harness's own reduced defaults on the card
+    for each method, with a short T and an eval every 10 steps."""
+    from repro_torch.experiment import ExperimentConfig, run_experiment
+    for method in methods:
+        cfg = ExperimentConfig(task=task, mode=mode, method=method,
+                               steps=SHORT_STEPS, eval_every=10)
+        t0 = time.perf_counter()
+        result = run_experiment(cfg, device="cuda")
+        _check_result(f"{label} {method}", result,
+                      _trace_steps(method, SHORT_STEPS, 10))
+        print(f"{label}: run_experiment(task={task!r}, mode={mode!r}, "
+              f"method={method!r}, steps={SHORT_STEPS}) at the harness's "
+              f"defaults (M={cfg.n_mules}, F={cfg.n_fixed}, "
+              f"{cfg.pretrain_steps} pretraining steps): pre-local "
+              f"{result['pre_local_acc']:.4f}, post-local "
+              f"{result['post_local_acc']:.4f}, trace {result['trace']}, "
+              f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_fixed_path(card: str) -> dict:
+    """Table 1's fixed-device path at the paper CNN's full width: the five
+    ``METHODS_FIXED`` through ``run_with_models`` (``run_experiment``'s
+    body), then ``run_experiment`` at its defaults. Returns
+    {"mule_agg": launches of mlmule's run}."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.baselines.cfl import cfl_client_models
+    from repro_torch.baselines.fedas import _split, default_shared_predicate
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.experiment import (FEDERATED, METHODS_FIXED,
+                                        ExperimentConfig, cnn_model_fns,
+                                        run_with_models)
+    from repro_torch.scenarios import run_population
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = ExperimentConfig(
+        mode="fixed", dist="dir0.01", pattern=str(P_CROSS), steps=FIXED_STEPS,
+        eval_every=EVAL_EVERY, n_mules=FIXED_MULES, n_fixed=N_FIXED,
+        batch=BATCH, lr=LR, pretrain_steps=FIXED_PRETRAIN,
+        image_size=CONFIG.image_size, n_super=CONFIG.n_classes, seed=SEED)
+    fns = cnn_model_fns(CONFIG, LR)
+    counts = {}
+    for method in METHODS_FIXED:
+        cfg = dataclasses.replace(base, method=method)
+        (result, st), got, peak = _count_run(
+            lambda: run_with_models(cfg, fns, device="cuda"))
+        want = {"mule_agg": FIXED_STEPS if method == "mlmule" else 0,
+                "encounter_mix": 0}
+        if got != want:
+            raise AssertionError(f"Table 1 {method}: kernel launches {got}, "
+                                 f"expected {want}")
+        counts[method] = got
+        _check_result(f"Table 1 {method}", result,
+                      _trace_steps(method, FIXED_STEPS, EVAL_EVERY))
+        _check_finite(f"Table 1 {method}", st["final_models"])
+        d_params = sum(v[0].numel() for v in st["final_models"].values())
+        if method in FEDERATED:
+            n_rounds = FIXED_STEPS // 10
+            rate = f"{n_rounds / st['run_s']:.3f} rounds/s ({n_rounds} rounds"
+        else:
+            rate = f"{FIXED_STEPS / st['run_s']:.3f} steps/s ({FIXED_STEPS} steps"
+        print(f"Table 1 fixed path: {method}, dir0.01, walk P_cross="
+              f"{P_CROSS}, F={N_FIXED}, M={FIXED_MULES}, D={d_params}: "
+              f"{rate} in {st['run_s']:.3f} s), pretraining "
+              f"{st['pretrain_s']:.3f} s ({FIXED_PRETRAIN} steps), peak "
+              f"memory {peak} B, launches {got}, pre-local "
+              f"{result['pre_local_acc']:.4f}, post-local "
+              f"{result['post_local_acc']:.4f}, trace {result['trace']} "
+              f"[{card}]")
+        if method == "mlmule":
+            _check_finite("Table 1 mlmule mules",
+                          st["population"]["mule_models"])
+            receipts = int(st["population"]["fresh"]["count"].sum())
+            if receipts == 0:
+                raise AssertionError("Table 1 mlmule: no mule delivered to a "
+                                     "fixed device")
+            run = st["run"]
+            _replays("Table 1 mlmule", run, "agg_backend", REPLAY_ATOL)
+            _aggregation_lockstep("Table 1 mlmule", run, FIXED_STEPS)
+            _profile_steps(lambda: run_population(**{
+                **run, "colocation": _steps(run["colocation"], 0,
+                                            PROFILE_STEPS),
+                "eval_every": None, "eval_fn": None}), PROFILE_STEPS,
+                "Table 1 mlmule")
+        if method == "fedas":
+            mask = _split(st["global"], default_shared_predicate)
+            personal = [k for k, m in mask.items() if not bool(m.any())]
+            same = all(torch.equal(st["global"][k], st["global0"][k])
+                       for k in personal)
+            moved = any(not torch.equal(st["global"][k], st["global0"][k])
+                        for k in mask if k not in personal)
+            print(f"Table 1 fedas: personal leaves {personal} of the global "
+                  f"model equal the first round's bitwise: {same}; shared "
+                  f"leaves moved: {moved}")
+            if not (personal and same and moved):
+                raise AssertionError("Table 1 fedas: the server model's "
+                                     "personal leaves changed, or nothing "
+                                     "shared moved")
+        if method == "cfl":
+            state = st["cfl"]
+            members = np.sort(np.concatenate(state.clusters))
+            if not np.array_equal(members, np.arange(N_FIXED)):
+                raise AssertionError(f"Table 1 cfl: clusters "
+                                     f"{[c.tolist() for c in state.clusters]}"
+                                     f" do not partition the clients")
+            stacked = cfl_client_models(state, N_FIXED)
+            for ci, idx in enumerate(state.clusters):
+                for c in idx:
+                    if not all(torch.equal(stacked[k][c], state.models[ci][k])
+                               for k in stacked):
+                        raise AssertionError(f"Table 1 cfl: client {c} "
+                                             f"does not hold cluster {ci}'s "
+                                             f"model")
+            print(f"Table 1 cfl: clusters "
+                  f"{[c.tolist() for c in state.clusters]} partition the "
+                  f"{N_FIXED} clients; each client holds its cluster's "
+                  f"model bitwise")
+    _short_defaults("Table 1 defaults", "image", "fixed", METHODS_FIXED)
+    print(f"Table 1 fixed path: phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"mule_agg": counts["mlmule"]["mule_agg"]}
+
+
+def phase_har_path(card: str) -> dict:
+    """Fig 8's HAR path at the LSTM-CNN's full width on ``har_commuter``:
+    ``mlmule`` and ``gossip`` through ``run_with_models``, then
+    ``run_experiment(task="har")`` at its defaults for the five mobile
+    methods. Returns {"mule_agg": mlmule's launches, "encounter_mix":
+    gossip's}."""
+    import gc
+    import torch
+    from repro_torch.configs.mule_lstm_cnn import CONFIG
+    from repro_torch.core import METHODS_MOBILE
+    from repro_torch.experiment import (ExperimentConfig, lstm_cnn_model_fns,
+                                        run_with_models)
+    from repro_torch.scenarios import run_population
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = ExperimentConfig(scenario="har_commuter", steps=N_STEPS,
+                            eval_every=EVAL_EVERY, n_mules=N_MULES,
+                            batch=HAR_BATCH, lr=HAR_LR, seed=SEED)
+    fns = lstm_cnn_model_fns(CONFIG, HAR_LR)
+    n_exchanges = N_STEPS // PEER_EVERY
+    counts = {}
+    for method in ("mlmule", "gossip"):
+        cfg = dataclasses.replace(base, method=method)
+        (result, st), got, peak = _count_run(
+            lambda: run_with_models(cfg, fns, device="cuda"))
+        want = ({"mule_agg": N_STEPS, "encounter_mix": 0}
+                if method == "mlmule" else
+                {"mule_agg": 0, "encounter_mix": n_exchanges})
+        if got != want:
+            raise AssertionError(f"HAR {method}: kernel launches {got}, "
+                                 f"expected {want}")
+        counts[method] = got
+        _check_result(f"HAR {method}", result,
+                      _trace_steps(method, N_STEPS, EVAL_EVERY))
+        pop = st["population"]
+        _check_finite(f"HAR {method}", {**pop["mule_models"],
+                                        **pop["fixed_models"]})
+        d_params = sum(v[0].numel() for v in pop["mule_models"].values())
+        print(f"HAR path: {method} mobile on har_commuter, M={N_MULES}, "
+              f"F={result['config']['n_fixed']}, D={d_params} "
+              f"({CONFIG.name}), batch {HAR_BATCH}, T={N_STEPS}: "
+              f"{N_STEPS / st['run_s']:.3f} steps/s ({st['run_s']:.3f} s), "
+              f"pretraining {st['pretrain_s']:.3f} s "
+              f"({base.pretrain_steps} steps), peak memory {peak} B, "
+              f"launches {got}, accuracy trace {result['trace']} [{card}]")
+        run = st["run"]
+        if method == "mlmule":
+            if int(pop["fresh"]["count"].sum()) == 0:
+                raise AssertionError("HAR mlmule: no mule delivered to a "
+                                     "fixed device")
+            _replays("HAR mlmule", run, "agg_backend", REPLAY_ATOL)
+            _aggregation_lockstep("HAR mlmule", run, N_STEPS)
+        else:
+            _replays("HAR gossip", run, "enc_backend", PEER_REPLAY_ATOL)
+            _mix_lockstep("HAR gossip", run, N_STEPS)
+        _profile_steps(lambda: run_population(**{
+            **run, "colocation": _steps(run["colocation"], 0,
+                                        PROFILE_STEPS),
+            "eval_every": None, "eval_fn": None}), PROFILE_STEPS,
+            f"HAR {method}")
+    _short_defaults("HAR defaults", "har", "mobile", METHODS_MOBILE)
+    print(f"HAR path: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"mule_agg": counts["mlmule"]["mule_agg"],
+            "encounter_mix": counts["gossip"]["encounter_mix"]}
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -2298,7 +2612,8 @@ def _profile_steps(fn, n_steps: int, label: str,
         end = max(end, e)
     print(f"profile of {n_steps} {label} steps: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
-          f"kernel time summed {summed / 1e3:.3f} ms")
+          f"kernel time summed {summed / 1e3:.3f} ms, "
+          f"{sum(r[2] for r in rows)} kernel launches")
     for us, key, count in rows[:12]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / summed:5.1f}%  x{count:<5d} "
               f"{key[:90]}")
@@ -2327,6 +2642,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     phase = "card"
+    t_start = time.perf_counter()
     try:
         card = phase_card()
         phase = "build"
@@ -2350,6 +2666,10 @@ def main() -> int:
         phase = "ring path"
         paths[f"gossip on the {RING_RANKS}-rank ring"] = \
             phase_ring_path(card)
+        phase = "Table 1 fixed path"
+        paths["Table 1 fixed path"] = phase_fixed_path(card)
+        phase = "HAR path"
+        paths["HAR on har_commuter"] = phase_har_path(card)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)
@@ -2374,6 +2694,8 @@ def main() -> int:
                    for k in needed):
             print(f"incomplete kernel row {row}", file=sys.stderr)
             return 1
+    print(f"chip_smoke.py: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ architecture the port runs has a module here defining ``CONFIG`` (the
 full-scale config) and ``smoke_config()`` (a reduced variant of the same
 family for CPU tests). ``get_config`` and ``get_smoke_config`` return them
 for ``gemma3-4b``, ``stablelm-1.6b``, ``zamba2-2.7b``, ``xlstm-350m`` and
-the paper's ``mule-cnn``; for the reference's other ids they raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+the paper's ``mule-cnn`` and ``mule-lstm-cnn``; for the reference's other
+ids they raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -166,8 +167,9 @@ _MODULE_FOR: dict[str, str] = {
     "gemma3-4b": "gemma3_4b",
     "zamba2-2.7b": "zamba2_2p7b",
     "xlstm-350m": "xlstm_350m",
-    # the paper's own model
+    # the paper's own models
     "mule-cnn": "mule_cnn",
+    "mule-lstm-cnn": "mule_lstm_cnn",
 }
 
 # architectures of the reference that the port does not run yet
@@ -178,7 +180,6 @@ _DEFERRED = {
     "qwen2-vl-72b": "ROADMAP §1 item 14.5 (M-RoPE and the vision prefix)",
     "granite-34b": "ROADMAP §1 item 14.7 (the other dense configs)",
     "qwen2.5-32b": "ROADMAP §1 item 14.7 (the other dense configs)",
-    "mule-lstm-cnn": "ROADMAP §1 item 4 (lstm_cnn_forward and the IMU data)",
 }
 
 

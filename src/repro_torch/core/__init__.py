@@ -4,6 +4,10 @@
                        CUDA kernel underneath).
 - ``freshness``      — the dynamic staleness threshold
                        T <- (1-a)T + a(median(L) + b*MAD(L)), exact ring.
+- ``protocol``       — the In-House phase cycles of one (mule, fixed
+                       device) pair (fixed-device training:
+                       share-aggregate-train-share; mobile-device
+                       training: share-aggregate-share-train).
 - ``population``     — vectorized multi-device step (stacked dicts of
                        tensors, ``torch.func.vmap`` training).
 - ``method_program`` — the method table the engine dispatches on.

@@ -1,22 +1,110 @@
-"""Harness pieces of the mobile-device image experiment (paper Fig 6).
+"""The paper's experiment harness (counterpart of ``benchmarks/common.py``).
 
-The torch counterpart of ``benchmarks/common.py``'s mobile image path:
-Shards data laid out per mule (``image_data_mobile``, bitwise the
-reference's index draws), the CNN's train/eval functions
-(``cnn_model_fns``) and a minibatch sampler for the engine's callable
-``batches`` (``batch_sampler``). ``run_population`` replays the schedule.
+One entry point, ``run_experiment``, reproduces at configurable scale:
+
+- Table 1  — fixed-device training, CIFAR-like, {IID, Dir(a), shards} x
+  ``METHODS_FIXED``;
+- Fig 6/7  — mobile-device training, CIFAR-like Shards, vs Gossip/OppCL/Local;
+- Fig 8/9  — mobile-device training, IMU HAR (the LSTM-CNN);
+
+under the random-walk mobility model (P_cross), synthetic 4Q traces or a
+registered scenario. The pieces are public so that a caller can assemble
+its own run: the data layouts (``image_data_fixed``, ``image_data_mobile``,
+``har_data_mobile``; numpy draws bitwise the reference's), the models'
+train/eval functions (``model_fns``, ``cnn_model_fns``,
+``lstm_cnn_model_fns``), minibatch draws (``sample_batches``,
+``batch_sampler``), per-device pretraining (``make_pretrain``) and the
+schedule (``mobility_tensors``). ``run_with_models`` is the body of
+``run_experiment`` with the model functions handed in, and also returns
+what the run holds at its end.
+
+Seeds: torch cannot reproduce ``jax.random``, so the harness draws from
+integer seeds (``core/seeds.py``) in the reference's places. Model ``c``
+is the ``c``-th draw of a ``torch.Generator`` seeded with ``cfg.seed``.
+Pretraining step ``i`` draws batches with ``fold_in(k_i, 0)`` and trains
+with ``fold_in(k_i, 1)``, where ``k_i = fold_in(cfg.seed + 7, i)``.
+Federated round ``r`` does the same from ``fold_in(cfg.seed + 100, r)``,
+and the engine runs from the key ``cfg.seed + 100`` (its step ``t``
+folds in ``t``). The post-local epoch ``e`` starts from
+``fold_in(fold_in(cfg.seed + 100, -1), e)``.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.baselines.cfl import CFLState, cfl_client_models, cfl_round
+from repro_torch.baselines.fedas import fedas_round
+from repro_torch.baselines.fedavg import broadcast, fedavg_round
 from repro_torch.configs.mule_cnn import CNNConfig
-from repro_torch.data import make_image_dataset, shards_partition
+from repro_torch.configs.mule_lstm_cnn import LSTMCNNConfig
+from repro_torch.core.aggregation import weighted_average
+from repro_torch.core.freshness import FreshnessConfig
+from repro_torch.core.population import (PopulationConfig, _stack,
+                                         init_population)
+from repro_torch.core.seeds import fold_in, split
+from repro_torch.data import (dirichlet_partition, iid_partition,
+                              make_image_dataset, make_imu_dataset,
+                              shards_partition, train_test_split)
 from repro_torch.device import resolve_device
-from repro_torch.models.cnn import accuracy, cnn_forward, init_cnn, xent_loss
+from repro_torch.mobility import synth_foursquare_trace
+from repro_torch.models.cnn import (accuracy, cnn_forward, init_cnn,
+                                    init_lstm_cnn, lstm_cnn_forward,
+                                    xent_loss)
+from repro_torch.scenarios import (get_scenario, run_population,
+                                   trace_colocation, walk_colocation)
+
+METHODS_FIXED = ("mlmule", "fedavg", "cfl", "fedas", "local")
+FEDERATED = ("fedavg", "cfl", "fedas")
+
+# fields of the reference's config whose engines the port does not have yet
+_NOT_PORTED = {
+    "distributed": "ROADMAP §1 item 13b (the distributed engine)",
+    "stream": "ROADMAP §1 item 12 (streaming colocation)",
+}
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    task: str = "image"            # image | har
+    mode: str = "fixed"            # fixed | mobile
+    method: str = "mlmule"
+    dist: str = "dir0.01"          # iid | dir<alpha> | shards
+    pattern: str = "0.1"           # P_cross value as str, or "4q"
+    steps: int = 300
+    eval_every: int = 50
+    n_mules: int = 12
+    n_fixed: int = 8
+    batch: int = 16
+    lr: float = 0.05
+    seed: int = 0
+    image_size: int = 16
+    n_super: int = 20
+    n_sub: int = 5
+    n_per_sub: int = 16
+    noise: float = 3.0
+    train_per_device: int = 32   # local-overfitting regime (paper operating point)
+    post_local_epochs: int = 1     # Table 1 "Post-Local" fine-tune
+    pretrain_steps: int = 120      # per-device local pretraining to the
+                                   # paper's 'accuracy stops improving' point
+    freshness_off: bool = False    # ablation: disable the staleness filter
+    gamma: float = 0.3
+    scenario: str = ""             # registry scenario name; overrides
+                                   # mode/dist/task/pattern when set
+    distributed: bool = False      # the mule-sharded engine (not ported)
+    stream: bool = False           # the streamed replay (not ported)
+    stream_chunk: int = 0          # steps per streamed chunk
+    rebucket_every: int = 0        # distributed runs: re-bucketing cadence
+    rebucket_threshold: float = 0.25   # drift fraction that triggers a swap
+
+
+# ---------------------------------------------------------------------------
+# data assembly
+# ---------------------------------------------------------------------------
 
 
 def _pad_to(idx_list: List[np.ndarray], rng) -> np.ndarray:
@@ -27,6 +115,40 @@ def _pad_to(idx_list: List[np.ndarray], rng) -> np.ndarray:
             i = np.concatenate([i, rng.choice(i, n - len(i))])
         out.append(i)
     return np.stack(out)
+
+
+def _on(dev: torch.device, *arrays) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+
+def image_data_fixed(cfg: ExperimentConfig, device="cuda"
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Per-fixed-device train/test arrays for the Table 1 setting.
+
+    Returns ``(Xtr [F, N, H, W, 3], Ytr [F, N], Xte [F, Nt, H, W, 3],
+    Yte [F, Nt])`` on ``device``, bitwise the reference's for ``cfg``.
+    """
+    dev = resolve_device(device)
+    x, sup, sub = make_image_dataset(cfg.seed, cfg.n_per_sub, cfg.n_super,
+                                     cfg.n_sub, cfg.image_size, cfg.noise)
+    rng = np.random.default_rng(cfg.seed)
+    if cfg.dist == "iid":
+        parts = iid_partition(sup, cfg.n_fixed, cfg.seed)
+    elif cfg.dist.startswith("dir"):
+        parts = dirichlet_partition(sup, cfg.n_fixed, float(cfg.dist[3:]),
+                                    cfg.seed, min_per_part=24)
+    elif cfg.dist == "shards":
+        n_areas = max(-(-cfg.n_fixed // 4), 2)     # ceil, 4 spaces per area
+        sh = shards_partition(sup, sub, n_areas=n_areas, seed=cfg.seed)
+        parts = [np.concatenate([sh["space_idx"][(a, s)],
+                                 sh["general_idx"][(a, s)]])
+                 for a in range(n_areas) for s in range(4)]
+    else:
+        raise ValueError(cfg.dist)
+    tr, te = zip(*[train_test_split(p, 0.2, cfg.seed) for p in parts])
+    tr = [t[: cfg.train_per_device] for t in tr]
+    tr, te = _pad_to(list(tr), rng), _pad_to(list(te), rng)
+    return _on(dev, x[tr], sup[tr], x[te], sup[te])
 
 
 def image_data_mobile(seed: int, n_mules: int, n_fixed: int,
@@ -59,38 +181,352 @@ def image_data_mobile(seed: int, n_mules: int, n_fixed: int,
     tr = _pad_to(tr_list, rng)
     te_idx = _pad_to([sh["space_idx"][(a, s)] for a in range(n_areas)
                       for s in range(4)], rng)
-    return tuple(torch.as_tensor(a, device=dev)
-                 for a in (x[tr], sup[tr], x[te_idx], sup[te_idx]))
+    return _on(dev, x[tr], sup[tr], x[te_idx], sup[te_idx])
+
+
+def har_data_mobile(cfg: ExperimentConfig, mule_space: np.ndarray,
+                    mule_area: np.ndarray, device="cuda"
+                    ) -> Tuple[torch.Tensor, ...]:
+    """IMU data per location; spaces map to EgoExo4D-like locations.
+
+    Returns ``(Xtr [M, N, T, C], Ytr [M, N], Xte [8, Nt, T, C], Yte [8, Nt])``
+    on ``device``, bitwise the reference's for ``cfg``.
+    """
+    dev = resolve_device(device)
+    x, y, loc = make_imu_dataset(cfg.seed, n_per_cell=cfg.n_per_sub)
+    rng = np.random.default_rng(cfg.seed + 2)
+    space_loc = rng.permutation(8)          # each space -> a location
+    tr_list = []
+    for m in range(cfg.n_mules):
+        sl = space_loc[int(mule_area[m]) * 4 + int(mule_space[m])]
+        idx = np.where(loc == sl)[0]
+        tr_list.append(rng.choice(idx, min(len(idx), 120), replace=False))
+    tr = _pad_to(tr_list, rng)
+    te_idx = _pad_to([np.where(loc == space_loc[f])[0][:60] for f in range(8)],
+                     rng)
+    return _on(dev, x[tr], y[tr], x[te_idx], y[te_idx])
+
+
+# ---------------------------------------------------------------------------
+# model / train / eval
+# ---------------------------------------------------------------------------
+
+
+def _sgd_fns(init: Callable, forward: Callable, lr: float
+             ) -> Tuple[Callable, ...]:
+    def train_fn(params, batch, key):
+        xb, yb = batch
+        g = torch.func.grad(lambda p: xent_loss(forward(p, xb), yb))(params)
+        return {k: p - lr * g[k] for k, p in params.items()}
+
+    def eval_fn(params, xd, yd):
+        return accuracy(forward(params, xd), yd)
+
+    return init, train_fn, eval_fn
 
 
 def cnn_model_fns(cfg: CNNConfig, lr: float) -> Tuple[Callable, ...]:
     """``(init_fn(generator), train_fn(params, batch, key),
     eval_fn(params, x, y))`` — one SGD step on the cross-entropy."""
-    def init_fn(generator):
-        return init_cnn(generator, cfg)
+    return _sgd_fns(lambda generator: init_cnn(generator, cfg), cnn_forward,
+                    lr)
 
-    def train_fn(params, batch, key):
-        xb, yb = batch
-        g = torch.func.grad(lambda p: xent_loss(cnn_forward(p, xb), yb))(params)
-        return {k: p - lr * g[k] for k, p in params.items()}
 
-    def eval_fn(params, xd, yd):
-        return accuracy(cnn_forward(params, xd), yd)
+def lstm_cnn_model_fns(cfg: LSTMCNNConfig, lr: float
+                       ) -> Tuple[Callable, ...]:
+    """The LSTM-CNN's ``(init_fn, train_fn, eval_fn)``, as ``cnn_model_fns``."""
+    return _sgd_fns(lambda generator: init_lstm_cnn(generator, cfg),
+                    lstm_cnn_forward, lr)
 
-    return init_fn, train_fn, eval_fn
+
+def model_fns(cfg: ExperimentConfig) -> Tuple[Callable, ...]:
+    """The harness's reduced models: the CNN at conv 8/16, hidden 64, or the
+    LSTM-CNN at conv 16/32, LSTM 32."""
+    if cfg.task == "image":
+        return cnn_model_fns(CNNConfig(image_size=cfg.image_size,
+                                       conv_features=(8, 16), hidden=64,
+                                       n_classes=cfg.n_super), cfg.lr)
+    return lstm_cnn_model_fns(LSTMCNNConfig(conv_features=(16, 32),
+                                            lstm_hidden=32, n_classes=4),
+                              cfg.lr)
+
+
+def sample_batches(seed: int, X: torch.Tensor, Y: torch.Tensor, batch: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """X: [P, N, ...] -> uniform minibatches [P, B, ...] of each row, drawn
+    on ``X``'s device from a generator seeded with ``seed``."""
+    g = torch.Generator(device=X.device)
+    g.manual_seed(seed)
+    idx = torch.randint(0, X.shape[1], (X.shape[0], batch), generator=g,
+                        device=X.device)
+    rows = torch.arange(X.shape[0], device=X.device)[:, None]
+    return X[rows, idx], Y[rows, idx]
 
 
 def batch_sampler(X: torch.Tensor, Y: torch.Tensor, batch: int) -> Callable:
     """Mobile-mode ``(seed, t) -> {"fixed": None, "mule": (xb [M, B, ...],
-    yb [M, B])}``: uniform minibatches of each mule's data, drawn on
-    ``X``'s device from a generator seeded with ``seed``."""
-    rows = torch.arange(X.shape[0], device=X.device)[:, None]
-
+    yb [M, B])}`` for the engine's callable ``batches``."""
     def batch_fn(seed, t):
-        g = torch.Generator(device=X.device)
-        g.manual_seed(seed)
-        idx = torch.randint(0, X.shape[1], (X.shape[0], batch), generator=g,
-                            device=X.device)
-        return {"fixed": None, "mule": (X[rows, idx], Y[rows, idx])}
+        return {"fixed": None, "mule": sample_batches(seed, X, Y, batch)}
 
     return batch_fn
+
+
+def make_pretrain(train_fn: Callable, cfg: ExperimentConfig, n_clients: int,
+                  sampler: Callable) -> Callable:
+    """Per-device local pretraining: ``(models, seed) -> models``.
+
+    A loop over ``cfg.pretrain_steps`` vmapped ``train_fn`` calls. Step
+    ``i`` takes its batches from ``sampler(fold_in(k_i, 0), i)`` and trains
+    with the seeds ``split(fold_in(k_i, 1), n_clients)``, where
+    ``k_i = fold_in(seed, i)``.
+    """
+    def pretrain(models, seed):
+        dev = next(iter(models.values())).device
+        for i in range(cfg.pretrain_steps):
+            k = fold_in(seed, i)
+            keys = split(fold_in(k, 1), n_clients, dev)
+            models = torch.func.vmap(train_fn)(models, sampler(fold_in(k, 0),
+                                                               i), keys)
+        return models
+
+    return pretrain
+
+
+# ---------------------------------------------------------------------------
+# mobility stream
+# ---------------------------------------------------------------------------
+
+
+def mobility_tensors(cfg: ExperimentConfig):
+    """Precomputed co-location schedule (see ``scenarios.registry``).
+
+    Returns (colocation dict with fixed_id/exchange [T, M], pos [T, M, 2],
+    area [M]; plus init_space/init_area), mule_space [M], mule_area [M].
+    """
+    if cfg.scenario:
+        co = get_scenario(cfg.scenario).colocation(cfg.seed, cfg.n_mules,
+                                                   cfg.steps)
+    elif cfg.pattern == "4q":
+        visits = synth_foursquare_trace(cfg.seed, n_users=cfg.n_mules,
+                                        n_places=8, n_steps=cfg.steps)
+        co = trace_colocation(visits, cfg.n_mules, cfg.steps)
+    else:
+        co = walk_colocation(cfg.seed, cfg.n_mules, cfg.steps,
+                             p_cross=float(cfg.pattern))
+    return co, co["init_space"], co["init_area"]
+
+
+# ---------------------------------------------------------------------------
+# the experiment entry point
+# ---------------------------------------------------------------------------
+
+
+def with_scenario(cfg: ExperimentConfig) -> ExperimentConfig:
+    """``cfg`` with a named scenario's mode, dist, task and n_fixed."""
+    if not cfg.scenario:
+        return cfg
+    spec = get_scenario(cfg.scenario)
+    return dataclasses.replace(cfg, mode=spec.mode, dist=spec.dist,
+                               task=spec.task, n_fixed=spec.n_fixed)
+
+
+def _clock(dev: torch.device) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def run_experiment(cfg: ExperimentConfig, device="cuda") -> Dict:
+    """Run one method of one experiment; returns ``{"config", "trace",
+    "pre_local_acc", "post_local_acc", "wall_s"}``, the reference's keys.
+
+    ``trace`` holds ``(step, mean accuracy)`` pairs: federated round ``r``
+    covers steps ``[10 r, 10 (r + 1))`` and is logged at ``10 (r + 1) - 1``,
+    every ``max(eval_every // 10, 1)`` rounds; the engine's methods log
+    after step ``(i + 1) eval_every - 1``.
+    """
+    return run_with_models(cfg, model_fns(with_scenario(cfg)), device)[0]
+
+
+def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
+                    device="cuda") -> Tuple[Dict, Dict[str, Any]]:
+    """``run_experiment``'s body with ``fns = (init_fn, train_fn, eval_fn)``
+    handed in. Returns ``(result, state)``; ``state`` holds
+    ``pre_models`` and ``final_models`` (stacked), ``pretrain_s`` and
+    ``run_s`` (seconds, the device synchronised), and
+
+    - for ``fedavg`` and ``fedas``: ``global0`` and ``global``, the server
+      model before the first round and after the last; for ``cfl``: the
+      ``CFLState`` as ``cfl``;
+    - for the engine's methods: ``run``, the keyword arguments handed to
+      ``run_population`` (its initial population included), and its
+      ``population`` and ``aux`` at the end.
+    """
+    t_start = time.time()
+    for field, item in _NOT_PORTED.items():
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"ExperimentConfig.{field} is not ported yet; it arrives "
+                f"with {item}")
+    dev = resolve_device(device)
+    cfg = with_scenario(cfg)
+    federated = cfg.method in FEDERATED
+    if federated and cfg.steps < 10:
+        raise ValueError(f"{cfg.method} runs steps // 10 rounds: steps="
+                         f"{cfg.steps} runs none")
+    init, train_fn, eval_fn = fns
+    colocation, mule_space, mule_area = mobility_tensors(cfg)
+
+    if cfg.mode == "fixed":
+        Xtr, Ytr, Xte, Yte = image_data_fixed(cfg, dev)
+        n_clients = cfg.n_fixed
+    else:
+        if cfg.task == "image":
+            Xtr, Ytr, Xte, Yte = image_data_mobile(
+                cfg.seed, cfg.n_mules, cfg.n_fixed, mule_space, mule_area,
+                n_per_sub=cfg.n_per_sub, n_super=cfg.n_super,
+                n_sub=cfg.n_sub, image_size=cfg.image_size, noise=cfg.noise,
+                train_per_device=cfg.train_per_device, device=dev)
+        else:
+            Xtr, Ytr, Xte, Yte = har_data_mobile(cfg, mule_space, mule_area,
+                                                 dev)
+        n_clients = cfg.n_mules
+
+    key = cfg.seed + 100
+    eval_v = torch.func.vmap(eval_fn)
+
+    def sampler(seed, i=None):
+        return sample_batches(seed, Xtr, Ytr, cfg.batch)
+
+    # -- per-device local pretraining (paper Sec 4.2.1 / 4.3.1) --------------
+    t0 = _clock(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    pre_models = make_pretrain(train_fn, cfg, n_clients, sampler)(
+        _stack([init(gen) for _ in range(n_clients)]), cfg.seed + 7)
+    t1 = _clock(dev)
+    state: Dict[str, Any] = {"pre_models": pre_models, "pretrain_s": t1 - t0}
+
+    def eval_fixed_models(models):
+        """Evaluate stacked fixed-device models on their space test sets."""
+        return eval_v(models, Xte, Yte).cpu().numpy()
+
+    def eval_mobile_models(models, cur_fid):
+        """Each mule evaluated on the test set of its current/last space."""
+        fid = torch.as_tensor(cur_fid, device=dev).clamp(min=0)
+        return eval_v(models, Xte[fid], Yte[fid]).cpu().numpy()
+
+    traces = []
+    sizes = torch.full((n_clients,), float(Xtr.shape[1]), device=dev)
+
+    # ---------------- federated baselines (round-based, no mobility) --------
+    if federated:
+        n_rounds = cfg.steps // 10
+        model = weighted_average(pre_models, sizes)
+        state["global0"] = model
+        if cfg.method == "cfl":
+            st = CFLState(clusters=[np.arange(n_clients)], models=[model],
+                          eps1=0.5, eps2=0.05)
+        if cfg.method == "fedas":
+            clients = pre_models
+        for r in range(n_rounds):
+            kr = fold_in(key, r)
+            batches, kt = sampler(fold_in(kr, 0)), fold_in(kr, 1)
+            if cfg.method == "fedavg":
+                model = fedavg_round(model, batches, sizes, train_fn, kt,
+                                     local_steps=2)
+                stacked = broadcast(model, n_clients)
+            elif cfg.method == "cfl":
+                st = cfl_round(st, batches, sizes, train_fn, kt,
+                               local_steps=2)
+                stacked = cfl_client_models(st, n_clients)
+            else:
+                model, clients = fedas_round(model, clients, batches, sizes,
+                                             train_fn, kt)
+                stacked = clients
+            if (r + 1) % max(cfg.eval_every // 10, 1) == 0:
+                acc = (eval_fixed_models(stacked) if cfg.mode == "fixed" else
+                       eval_mobile_models(stacked,
+                                          np.arange(n_clients) % cfg.n_fixed))
+                # log the post-step index (round r covers steps
+                # [r*10, (r+1)*10)), matching the mobility methods' x-axis
+                traces.append(((r + 1) * 10 - 1, float(acc.mean())))
+        final_models = stacked
+        if cfg.method == "cfl":
+            state["cfl"] = st
+        else:
+            state["global"] = model
+
+    # ---------------- mobility-coupled methods (the scenario engine) --------
+    else:
+        fresh = (FreshnessConfig(init_threshold=1e9, warmup=10**9)
+                 if cfg.freshness_off else FreshnessConfig())
+        pcfg = PopulationConfig(mode=cfg.mode, n_fixed=cfg.n_fixed,
+                                n_mules=cfg.n_mules, gamma=cfg.gamma,
+                                freshness=fresh)
+        gen.manual_seed(cfg.seed)
+        pop = init_population(pcfg, init, gen, device=dev)
+        if cfg.mode == "fixed":
+            # fixed devices hold the pretrained models; each mule starts with
+            # a snapshot from its initial space (its user's 'home' space)
+            pop["fixed_models"] = pre_models
+            home = torch.as_tensor(np.asarray(mule_area) * 4
+                                   + np.asarray(mule_space), device=dev)
+            pop["mule_models"] = {k: v[home] for k, v in pre_models.items()}
+        else:
+            pop["mule_models"] = pre_models
+
+        def batch_fn(seed, t):
+            sampled = sampler(seed)
+            if cfg.mode == "fixed":
+                return {"fixed": sampled, "mule": None}
+            return {"fixed": None, "mule": sampled}
+
+        if cfg.mode == "fixed":
+            def eval_hook(st, last):
+                return eval_v(st["fixed_models"], Xte, Yte)
+        else:
+            def eval_hook(st, last):
+                return eval_v(st["mule_models"], Xte[last], Yte[last])
+
+        run = dict(state=pop, colocation=colocation, batches=batch_fn,
+                   train_fn=train_fn, cfg=pcfg, key=key,
+                   eval_every=cfg.eval_every, eval_fn=eval_hook,
+                   method=cfg.method, device=dev)
+        pop, aux = run_population(**run)
+        evals = aux["evals"]
+        traces = ([] if evals is None else
+                  [(int(s), float(a)) for s, a in
+                   zip(aux["eval_steps"],
+                       evals.reshape(len(evals), -1).mean(1).tolist())])
+        last_fid = aux["last_fid"]
+        final_models = (pop["fixed_models"] if cfg.mode == "fixed"
+                        else pop["mule_models"])
+        state.update(run=run, population=pop, aux=aux)
+    state["run_s"] = _clock(dev) - t1
+
+    # ---------------- final metrics (pre/post local) --------------------------
+    if cfg.mode == "fixed":
+        pre = eval_fixed_models(final_models)
+        post_models = final_models
+        for e in range(cfg.post_local_epochs):
+            ke = fold_in(fold_in(key, -1), e)
+            keys = split(fold_in(ke, 1), n_clients, dev)
+            post_models = torch.func.vmap(train_fn)(
+                post_models, sampler(fold_in(ke, 0)), keys)
+        post = eval_fixed_models(post_models)
+    else:
+        pre = eval_mobile_models(final_models, np.arange(n_clients)
+                                 % cfg.n_fixed if federated else last_fid)
+        post = pre
+    state["final_models"] = final_models
+
+    result = {
+        "config": dataclasses.asdict(cfg),
+        "trace": traces,
+        "pre_local_acc": float(np.mean(pre)),
+        "post_local_acc": float(np.mean(post)),
+        "wall_s": time.time() - t_start,
+    }
+    return result, state

@@ -1,0 +1,210 @@
+"""Port's experiment harness (experiment.py) against ``benchmarks/common.py``.
+
+The data layouts and schedules are numpy draws, bitwise the reference's
+for the same config. Minibatch draws, pretraining keys and model inits
+cannot match (``jax.random`` against ``torch.Generator``), so pretraining
+is held to a loop of ``jax.vmap(train_fn)`` on injected draws (1e-5: a few
+SGD steps of fp32 gradients), and ``run_experiment`` to the reference's
+contract: the result keys and config, the trace's steps, accuracies in
+[0, 1]. The reference's ``run_experiment`` compiles slowly, so it runs
+once, at the tiny size, where the federated methods' trace steps (rounds
+of 10 steps) coincide with the engine's (an eval every 10 steps).
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+
+import benchmarks.common as jcommon  # noqa: E402
+from repro_torch import experiment as texp  # noqa: E402
+from repro_torch.interop import flatten_tree, params_from_numpy, to_numpy  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+TINY = dict(steps=20, eval_every=10, pretrain_steps=2, image_size=8,
+            n_per_sub=8, n_mules=6)
+
+
+def _same(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_config_fields_and_defaults_match():
+    assert dataclasses.asdict(texp.ExperimentConfig()) == \
+        dataclasses.asdict(jcommon.ExperimentConfig())
+    assert texp.METHODS_FIXED == jcommon.METHODS_FIXED
+
+
+@pytest.mark.parametrize("dist", ["iid", "dir0.01", "shards"])
+def test_image_data_fixed_bitwise(dist):
+    kw = dict(dist=dist, seed=3, image_size=8, n_per_sub=8)
+    want = jcommon._image_data_fixed(jcommon.ExperimentConfig(**kw))
+    got = texp.image_data_fixed(texp.ExperimentConfig(**kw), device="cpu")
+    for g, w in zip(got, want):
+        _same(g.numpy(), w)
+
+
+@pytest.mark.parametrize("pattern,scenario", [("4q", ""), ("0.1", "commuter"),
+                                              ("0.1", "har_shift_worker")])
+def test_mobility_tensors_bitwise(pattern, scenario):
+    kw = dict(pattern=pattern, scenario=scenario, seed=2, n_mules=9,
+              steps=120)
+    want = jcommon._mobility_tensors(jcommon.ExperimentConfig(**kw))
+    got = texp.mobility_tensors(texp.ExperimentConfig(**kw))
+    assert sorted(got[0]) == sorted(want[0])
+    for k in want[0]:
+        _same(got[0][k], want[0][k])
+    _same(got[1], want[1])
+    _same(got[2], want[2])
+
+
+def test_mobility_tensors_walk_shapes():
+    """The walk draws from a torch.Generator (tests/test_torch_random_walk.py
+    feeds it the reference's draws): shapes and dtypes only."""
+    cfg = dict(pattern="0.5", seed=1, n_mules=7, steps=30)
+    want = jcommon._mobility_tensors(jcommon.ExperimentConfig(**cfg))[0]
+    got = texp.mobility_tensors(texp.ExperimentConfig(**cfg))[0]
+    for k in want:
+        assert (got[k].shape, got[k].dtype) == (want[k].shape, want[k].dtype)
+
+
+def test_sample_batches_rows_come_from_their_own_pool():
+    X = torch.arange(3 * 5).reshape(3, 5, 1).float()
+    Y = torch.arange(3 * 5).reshape(3, 5)
+    xb, yb = texp.sample_batches(4, X, Y, 7)
+    assert tuple(xb.shape) == (3, 7, 1) and tuple(yb.shape) == (3, 7)
+    assert torch.equal(xb[..., 0].long(), yb)
+    assert ((yb // 5) == torch.arange(3)[:, None]).all()
+    assert torch.equal(texp.sample_batches(4, X, Y, 7)[1], yb)
+    assert not torch.equal(texp.sample_batches(5, X, Y, 7)[1], yb)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_cfg():
+    cfg = jcommon.ExperimentConfig(image_size=8)
+    return cfg, jcommon._model_fns(cfg), texp.model_fns(
+        texp.ExperimentConfig(image_size=8))
+
+
+def test_make_pretrain_matches_a_loop_of_jax_vmap():
+    """Three pretraining steps of 4 clients on injected draws."""
+    jcfg, (jinit, jtrain, _), (_, ttrain, _) = _model_cfg()
+    steps, n = 3, 4
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(steps, n, 5, 8, 8, 3)).astype(np.float32)
+    ys = rng.integers(0, 20, (steps, n, 5)).astype(np.int32)
+    models = jax.tree.map(np.asarray, jax.vmap(jinit)(
+        jax.random.split(jax.random.PRNGKey(0), n)))
+    want, step = models, jax.jit(jax.vmap(jtrain))
+    for i in range(steps):
+        want = step(want, (xs[i], ys[i]),
+                    jax.random.split(jax.random.PRNGKey(i), n))
+    seen = []
+
+    def sampler(seed, i):
+        seen.append(i)
+        return torch.tensor(xs[i]), torch.tensor(ys[i])
+
+    cfg = texp.ExperimentConfig(image_size=8, pretrain_steps=steps)
+    got = texp.make_pretrain(ttrain, cfg, n, sampler)(
+        params_from_numpy(models, "cpu"), 7)
+    assert seen == [0, 1, 2]
+    want = flatten_tree(jax.tree.map(np.asarray, want))
+    got = to_numpy(got)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=1e-5,
+                                   err_msg=k)
+
+
+def test_model_fns_match_the_harness_models():
+    """The harness's reduced CNN: the same parameter shapes, and the same
+    loss step on the reference's weights."""
+    jcfg, (jinit, jtrain, jeval), (tinit, ttrain, teval) = _model_cfg()
+    p = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0)))
+    gen = torch.Generator()
+    got = tinit(gen)
+    want = flatten_tree(p)
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(6, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, 20, 6).astype(np.int32)
+    stepped = to_numpy(ttrain(params_from_numpy(p, "cpu"),
+                              (torch.tensor(x), torch.tensor(y)), 0))
+    ref = flatten_tree(jax.tree.map(np.asarray, jtrain(p, (x, y), None)))
+    for k in ref:
+        np.testing.assert_allclose(stepped[k], ref[k], atol=1e-5, rtol=1e-5)
+    assert float(teval(params_from_numpy(p, "cpu"), torch.tensor(x),
+                       torch.tensor(y))) == float(jeval(p, x, y))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_result():
+    return jcommon.run_experiment(jcommon.ExperimentConfig(**TINY))
+
+
+@pytest.mark.parametrize("method", texp.METHODS_FIXED)
+def test_run_experiment_fixed_mode_contract(method):
+    want = _reference_result()
+    got = texp.run_experiment(texp.ExperimentConfig(method=method, **TINY),
+                              device="cpu")
+    assert sorted(got) == sorted(want)
+    assert got["config"] == {**want["config"], "method": method}
+    assert [s for s, _ in got["trace"]] == [s for s, _ in want["trace"]] \
+        == [9, 19]
+    for _, acc in got["trace"]:
+        assert 0.0 <= acc <= 1.0
+    for k in ("pre_local_acc", "post_local_acc"):
+        assert 0.0 <= got[k] <= 1.0
+    assert got["wall_s"] > 0
+
+
+def test_run_with_models_state():
+    """What the body hands back: the server models of fedavg and fedas
+    (personal leaves unchanged by FedAS), CFL's clusters over the clients,
+    and mlmule's engine arguments, whose replay gives its population."""
+    fns = texp.model_fns(texp.ExperimentConfig(**TINY))
+    _, st = texp.run_with_models(texp.ExperimentConfig(method="fedas",
+                                                       **TINY), fns, "cpu")
+    for k in ("fc2", "fc2_b"):
+        assert torch.equal(st["global"][k], st["global0"][k])
+    assert not torch.equal(st["global"]["fc1"], st["global0"]["fc1"])
+    _, st = texp.run_with_models(texp.ExperimentConfig(method="cfl", **TINY),
+                                 fns, "cpu")
+    members = np.sort(np.concatenate(st["cfl"].clusters))
+    np.testing.assert_array_equal(members, np.arange(8))
+    _, st = texp.run_with_models(texp.ExperimentConfig(**TINY), fns, "cpu")
+    again, _ = texp.run_population(**st["run"])
+    for k, v in st["population"]["fixed_models"].items():
+        assert torch.equal(again["fixed_models"][k], v)
+    assert st["pretrain_s"] > 0 and st["run_s"] > 0
+
+
+@pytest.mark.parametrize("field,item", [("distributed", "13b"),
+                                        ("stream", "12")])
+def test_unported_engines_raise_naming_their_item(field, item):
+    cfg = texp.ExperimentConfig(**{field: True, **TINY})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
+        texp.run_experiment(cfg, device="cpu")
+
+
+def test_quickstart_runs_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "torch_quickstart.py"),
+         "--device", "cpu", "--steps", "20", "--eval-every", "10"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("per-space acc") == 2
+    assert "import jax" not in open(os.path.join(
+        ROOT, "examples", "torch_quickstart.py")).read()

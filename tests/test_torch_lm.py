@@ -99,7 +99,8 @@ def test_registry_ports_three_ids_and_names_the_rest():
         k: tconfigs.InputShape(**dataclasses.asdict(v))
         for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.get_config("mule-cnn").name == "mule-cnn"
-    for arch in set(jconfigs.ARCH_IDS + ("mule-lstm-cnn",)) - set(ARCHS):
+    assert tconfigs.get_config("mule-lstm-cnn").name == "mule-lstm-cnn"
+    for arch in set(jconfigs.ARCH_IDS) - set(ARCHS):
         for get in (tconfigs.get_config, tconfigs.get_smoke_config):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get(arch)
