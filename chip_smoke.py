@@ -99,9 +99,40 @@ Phases (any failure exits non-zero without the final result line):
    aggregation and ``gossip``'s mix held in lockstep; each prints steps/s,
    peak memory, its accuracy trace and a profile. Then
    ``run_experiment(task="har")`` at its defaults for the five
-   ``METHODS_MOBILE``, T = 20.
+   ``METHODS_MOBILE``, T = 20;
+12. the multi-area path: ``mlmule`` and ``gossip`` on ``multi_area_3city``
+   (12 fixed devices in 3 cities) and ``gossip`` on
+   ``multi_area_migratory`` (its area a [T, M] column) at the paper CNN's
+   full width, M = 256, T = 60, an eval every 20. ``mule_agg`` must launch
+   60 times for ``mlmule`` (its 16-row instantiation, F = 12),
+   ``encounter_mix`` 20 times for ``gossip``; each run replayed bitwise
+   and against its plain backend under the growth bound, ``gossip``'s mix
+   in lockstep with the plain version at every exchange (1e-5), and no met
+   pair across the step's areas;
+13. the seed sweep: ``run_sweep`` over S = 4 seeds of the walk (P_cross =
+   0.1, each seed its own schedule, data and population) for the five
+   ``METHODS_MOBILE`` at the paper CNN's full width, F = 8, M = 256 (1,024
+   mule models), batch 16, lr 0.05, T = 60, an eval every 20. Each step
+   launches ``mule_agg`` and ``encounter_mix`` once for all lanes, through
+   their lane-batched entries: ``mule_agg`` 60 launches for ``mlmule`` and
+   ``mlmule+gossip``, ``encounter_mix`` 20 for ``gossip`` and
+   ``mlmule+gossip``, none for ``oppcl`` and ``local``. The lanes of
+   ``mlmule`` and ``gossip`` are held to their sequential
+   ``run_population`` runs (weights within the growth bound, ``last_fid``
+   and eval steps exact); steps/s and lane-steps/s beside the sequential
+   runs', peak memory and a profile of the sweep step. Then
+   ``run_sweep_experiment`` at Fig 8's config (har, walk P_cross = 0.1,
+   batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 60,
+   every accuracy in [0, 1].
 
-Phase 3 also holds ``flash_attention`` against its plain versions on the
+Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
+at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
+at the walk's first exchange of four seeds and at a dense HAR strip): each
+lane bitwise a single-lane launch, the lanes within the JAX tests' bound of
+their plain version, timed against S single launches, ``torch.bmm`` of the
+dense gate and their bound (the ``lanes`` entries of rows 1 and 2); and
+``fold_in`` of int64 seed tensors on the card against the host's. It also
+holds ``flash_attention`` against its plain versions on the
 JAX tests' cases, on tensor-core cases (decode, ragged Sk, bidirectional,
 a fully masked first block at gemma3's GQA group) and at gemma3-4b's and
 zamba2-2.7b's per-layer prefill shapes (in f32, and in bf16 against the
@@ -326,6 +357,14 @@ FIXED_MULES, FIXED_STEPS, FIXED_PRETRAIN = 20, 60, 120
 HAR_BATCH, HAR_LR = 12, 0.03
 # run_experiment at the harness's own defaults, T cut to this
 SHORT_STEPS = 20
+# the seed sweep (phase 13) and the lane-batched kernel entries (phase 3):
+# S seeds of the walk as lanes of one replay, each launch of mule_agg and
+# encounter_mix serving all S lanes; the multi-area path (phase 12): the
+# 3-city scenarios' 12 fixed devices
+LANES = 4
+MULTI_AREA_FIXED = 12
+# the dense HAR strip of the lane-batched mix: the LSTM-CNN's D
+HAR_D = 44_580
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -697,6 +736,164 @@ def phase_encounter_mix() -> dict:
             del out, w
     row["dense_strip"] = dense
     return row
+
+
+def _check_seed_folds() -> None:
+    """``fold_in`` of int64 tensors on the card (the sweep's vmapped step
+    folds each lane's seed so) against the host's Python ints."""
+    import torch
+    from repro_torch.core.seeds import fold_in, split
+    seeds = [0, 1, SEED + 100, 12345, 2 ** 40 + 7, (1 << 62) - 1]
+    for data in (0, 1, 2, N_MULES, -1):
+        got = fold_in(torch.tensor(seeds, device="cuda"), data).tolist()
+        if got != [fold_in(k, data) for k in seeds]:
+            raise AssertionError(f"fold_in of a seed tensor on the card "
+                                 f"differs from the host's at data={data}")
+    got = split(torch.tensor(SEED + 100, device="cuda"), N_MULES, "cuda")
+    if not torch.equal(got, split(SEED + 100, N_MULES, "cuda")):
+        raise AssertionError("split of a seed tensor differs on the card")
+    print(f"seeds: fold_in and split of int64 seed tensors on the card give "
+          f"the host's bits ({len(seeds)} seeds x 5 folds)")
+
+
+def _lane_timing(label: str, lanes, singles, library, plain,
+                 n_bytes: int, n_flop: int, err: float) -> dict:
+    """The lanes entry's timings: one lane-batched call, S single-lane
+    calls, the library call and the plain version; and its bound."""
+    ms = _median_ms(lanes, reps=20)
+    single_ms = _median_ms(singles, reps=20)
+    library_ms = _median_ms(library, reps=20)
+    plain_ms = _median_ms(plain, reps=10)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+    entry = {"shape": label, "max_abs_err": err, "ms": ms,
+             "single_launches_ms": single_ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+    print(f"  {label}: lanes {ms:.4f} ms, {LANES} single launches "
+          f"{single_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}; {n_bytes} B, {n_flop} FLOP)")
+    return entry
+
+
+def phase_lanes() -> dict:
+    """The lane-batched entries of mule_agg and encounter_mix at S = LANES:
+    each lane bitwise a single-lane launch, the lanes within the JAX tests'
+    bound of the plain version; returns {kernel: its "lanes" entry}."""
+    import torch
+    from repro_torch.baselines.gossip import encounter_matrix
+    from repro_torch.kernels.encounter_mix import (
+        encounter_mix, encounter_mix_lanes, encounter_mix_lanes_reference)
+    from repro_torch.kernels.mule_agg import (mule_agg, mule_agg_lanes,
+                                              mule_agg_lanes_plain)
+    from repro_torch.scenarios import walk_colocation
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_seed_folds()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+    d_main = 546_484     # the paper CNN's parameter count (CONFIG)
+    tol = TOL["float32"]
+    agg_cases = []
+    # the sweep's shape, Table 1's, the multi-area scenarios' (F = 12: the
+    # kernel's 16-row instantiation)
+    for f, m, what in ((N_FIXED, N_MULES, "the sweep"),
+                       (N_FIXED, FIXED_MULES, "Table 1"),
+                       (MULTI_AREA_FIXED, N_MULES, "multi-area")):
+        a = torch.rand(LANES, f, m, device="cuda", generator=g)
+        a = a / a.sum(2, keepdim=True)
+        w = torch.randn(LANES, m, d_main, device="cuda", generator=g)
+        mule_agg.launches = 0
+        got = mule_agg_lanes(a, w)
+        if mule_agg.launches != 1:
+            raise AssertionError(f"mule_agg_lanes counted "
+                                 f"{mule_agg.launches} launches, not 1")
+        singles = torch.stack([mule_agg(a[i], w[i]) for i in range(LANES)])
+        torch.cuda.synchronize()
+        label = f"S={LANES} F={f} M={m} D={d_main} f32 ({what})"
+        same = torch.equal(got, singles)
+        print(f"mule_agg_lanes {label}: every lane "
+              f"{'bitwise' if same else 'NOT bitwise'} a single-lane launch")
+        if not same:
+            raise AssertionError(f"mule_agg_lanes {label}: a lane differs "
+                                 f"from its single-lane launch")
+        err = _hold(f"mule_agg_lanes {label} vs plain", got,
+                    mule_agg_lanes_plain(a, w), tol, tol)
+        del got, singles
+        agg_cases.append(_lane_timing(
+            label, lambda: mule_agg_lanes(a, w),
+            lambda: [mule_agg(a[i], w[i]) for i in range(LANES)],
+            lambda: torch.bmm(a, w), lambda: mule_agg_lanes_plain(a, w),
+            4 * LANES * (f * m + m * d_main + f * d_main),
+            2 * LANES * f * m * d_main, err))
+        del a, w
+
+    mix_cases = []
+    walks = [walk_colocation(SEED + i, N_MULES, N_STEPS, p_cross=P_CROSS)
+             for i in range(LANES)]
+    t = PEER_EVERY - 1                       # the walk's first exchange
+    for what, d in (("walk", d_main), ("dense HAR strip", HAR_D)):
+        if what == "walk":
+            pos = torch.stack([torch.as_tensor(co["pos"][t]) for co in walks])
+            area = torch.stack([torch.as_tensor(co["area"]) for co in walks])
+            pos, area = pos.to("cuda"), area.to("cuda", torch.int64)
+        else:                    # the trace scenarios' pos = 0, two areas
+            pos = torch.zeros(LANES, N_MULES, 2, device="cuda")
+            area = torch.randint(0, 2, (LANES, N_MULES), device="cuda",
+                                 generator=g)
+        act = torch.ones(LANES, N_MULES, dtype=torch.bool, device="cuda")
+        w = torch.randn(LANES, N_MULES, d, device="cuda", generator=g)
+        encounter_mix.launches = 0
+        mix, mass = encounter_mix_lanes(pos, area, act, w, radius=RADIUS)
+        if encounter_mix.launches != 1:
+            raise AssertionError(f"encounter_mix_lanes counted "
+                                 f"{encounter_mix.launches} launches, not 1")
+        singles = [encounter_mix(pos[i], area[i], act[i], w[i],
+                                 radius=RADIUS) for i in range(LANES)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(mix[i], o) and torch.equal(mass[i], ms)
+                   for i, (o, ms) in enumerate(singles))
+        nnz = int(mass.sum().item())
+        label = (f"S={LANES} M={N_MULES} D={d} f32, {what} ({nnz} met "
+                 f"pairs)")
+        print(f"encounter_mix_lanes {label}: every lane's mix and mass "
+              f"{'bitwise' if same else 'NOT bitwise'} a single-lane call")
+        if not same:
+            raise AssertionError(f"encounter_mix_lanes {label}: a lane "
+                                 f"differs from its single-lane call")
+        del singles
+        ref, ref_mass = encounter_mix_lanes_reference(pos, area, act, w,
+                                                      radius=RADIUS)
+        if not torch.equal(mass, ref_mass):
+            raise AssertionError(f"encounter_mix_lanes {label}: masses "
+                                 f"differ from the plain version's")
+        err = _hold(f"encounter_mix_lanes {label} vs plain", mix, ref, tol,
+                    tol)
+        del mix, ref
+        _same_bits_across_modes(f"encounter_mix_lanes {label}",
+                                lambda: encounter_mix_lanes(
+                                    pos, area, act, w, radius=RADIUS))
+        e = torch.stack([encounter_matrix(pos[i], area[i], RADIUS, act[i])
+                         for i in range(LANES)]).float()
+        # W read once, the mix and mass written once, the geometry (pos f32
+        # x2, area int64, active bool) read once; one multiply-add per met
+        # pair and column
+        mix_cases.append(_lane_timing(
+            label, lambda: encounter_mix_lanes(pos, area, act, w,
+                                               radius=RADIUS),
+            lambda: [encounter_mix(pos[i], area[i], act[i], w[i],
+                                   radius=RADIUS) for i in range(LANES)],
+            lambda: torch.bmm(e, w),
+            lambda: encounter_mix_lanes_reference(pos, area, act, w,
+                                                  radius=RADIUS),
+            LANES * (8 * N_MULES * d + 21 * N_MULES), 2 * nnz * d, err))
+        del w, e
+    entry = {"lanes": LANES, "library": "torch.bmm of the dense [S, F, M] "
+             "or [S, M, M] gate", "cases": None}
+    return {"mule_agg": {**entry, "cases": agg_cases},
+            "encounter_mix": {**entry, "cases": mix_cases}}
 
 
 def _ring_walk():
@@ -2299,18 +2496,22 @@ def _aggregation_lockstep(label: str, run: dict, n_steps: int) -> None:
 def _mix_lockstep(label: str, run: dict, n_steps: int) -> None:
     """At each peer exchange, ``encounter_mix`` of the state the run holds
     there against its plain version (masses equal, mix within
-    LOCKSTEP_ATOL); the run advances one exchange period at a time through
-    the kernel."""
+    LOCKSTEP_ATOL), and the pairs kernel's met pairs all within one area of
+    that step (an ``area`` per step or per mule); the run advances one
+    exchange period at a time through the kernel."""
     import torch
     from repro_torch.baselines.gossip import flatten_population
     from repro_torch.kernels.encounter_mix import (encounter_mix,
-                                                   encounter_mix_reference)
+                                                   encounter_mix_reference,
+                                                   encounter_pairs,
+                                                   unpack_pairs)
     from repro_torch.scenarios import run_population
     co = run["colocation"]
-    area = torch.as_tensor(co["area"], device="cuda")
-    st, worst = run["state"], 0.0
+    areas = torch.as_tensor(co["area"], device="cuda")
+    st, worst, met_pairs, crossing = run["state"], 0.0, 0, 0
     for j in range(n_steps // PEER_EVERY):
         t = j * PEER_EVERY + PEER_EVERY - 1
+        area = areas[t] if areas.dim() == 2 else areas
         flat, _ = flatten_population(st["mule_models"])
         pos = torch.as_tensor(co["pos"][t], device="cuda")
         mix_k, mass_k = encounter_mix(pos, area, None, flat, radius=RADIUS)
@@ -2320,16 +2521,24 @@ def _mix_lockstep(label: str, run: dict, n_steps: int) -> None:
             raise AssertionError(f"{label}: encounter_mix masses differ from "
                                  f"the plain version's at step {t}")
         worst = max(worst, (mix_k - mix_r).abs().max().item())
+        words, _ = encounter_pairs(pos, area, None, 0, pos, area, None, 0,
+                                   RADIUS)
+        met = unpack_pairs(words, pos.shape[0])
+        met_pairs += int(met.sum())
+        crossing += int((met & (area[:, None] != area[None, :])).sum())
         st, _ = run_population(**{**run, "state": st, "key": j,
                                   "colocation": _steps(co, t + 1 - PEER_EVERY,
                                                        t + 1),
                                   "eval_every": None, "eval_fn": None})
     print(f"{label}: lockstep over {n_steps // PEER_EVERY} exchanges, "
           f"encounter_mix vs its plain version on the same state: max diff "
-          f"{worst:.3e} (tol {LOCKSTEP_ATOL}), masses equal")
+          f"{worst:.3e} (tol {LOCKSTEP_ATOL}), masses equal; {met_pairs} met "
+          f"pairs, {crossing} across areas (must be 0)")
     if not worst <= LOCKSTEP_ATOL:
         raise AssertionError(f"{label}: encounter_mix and the plain mix "
                              f"disagree")
+    if crossing:
+        raise AssertionError(f"{label}: {crossing} met pairs cross an area")
 
 
 def _check_result(label: str, result: dict, want_steps) -> None:
@@ -2575,6 +2784,266 @@ def phase_har_path(card: str) -> dict:
             "encounter_mix": counts["gossip"]["encounter_mix"]}
 
 
+def phase_multi_area(card: str) -> dict:
+    """The multi-area path: ``mlmule`` and ``gossip`` on
+    ``multi_area_3city`` and ``gossip`` on ``multi_area_migratory`` (its
+    area a [T, M] column) at the paper CNN's full width, F = 12, M = 256,
+    T = 60, an eval every 20; launches exact, replays bitwise and against
+    the plain backends, the mix in lockstep with no met pair across areas.
+    Returns {path: {kernel: launches}}."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.experiment import (batch_sampler, cnn_model_fns,
+                                        image_data_mobile)
+    from repro_torch.scenarios import get_scenario, run_population
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_fn, train_fn, eval_fn = cnn_model_fns(CONFIG, LR)
+    paths = {}
+    for scenario, methods in (("multi_area_3city", ("mlmule", "gossip")),
+                              ("multi_area_migratory", ("gossip",))):
+        spec = get_scenario(scenario)
+        co = spec.colocation(SEED, N_MULES, N_STEPS)
+        if spec.n_fixed != MULTI_AREA_FIXED:
+            raise AssertionError(f"{scenario}: {spec.n_fixed} fixed devices")
+        area = np.asarray(co["area"])
+        moved = (int((area != area[:1]).any(0).sum()) if area.ndim == 2
+                 else 0)
+        print(f"{scenario}: areas {sorted(np.unique(area).tolist())}, area "
+              f"column {area.shape}, {moved} mules change area, "
+              f"{int((co['exchange'] & (co['fixed_id'] >= 0)).sum())} "
+              f"deliveries in T={N_STEPS}")
+        Xtr, Ytr, Xte, Yte = image_data_mobile(
+            SEED, N_MULES, spec.n_fixed, co["init_space"], co["init_area"],
+            n_super=CONFIG.n_classes, image_size=CONFIG.image_size)
+        pcfg = PopulationConfig(mode="mobile", n_fixed=spec.n_fixed,
+                                n_mules=N_MULES)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        pop0 = init_population(pcfg, init_fn, gen)
+        batch_fn = batch_sampler(Xtr, Ytr, BATCH)
+
+        def eval_hook(st, last):
+            return torch.func.vmap(eval_fn)(st["mule_models"], Xte[last],
+                                            Yte[last])
+
+        for method in methods:
+            run = dict(state=pop0, colocation=co, batches=batch_fn,
+                       train_fn=train_fn, cfg=pcfg, key=SEED,
+                       eval_every=EVAL_EVERY, eval_fn=eval_hook,
+                       method=method)
+            run_population(**{**run, "colocation": _steps(co, 0, PEER_EVERY),
+                              "eval_every": None, "eval_fn": None})
+            t0 = time.perf_counter()
+            (final, aux), got, peak = _count_run(
+                lambda: run_population(**run))
+            wall = time.perf_counter() - t0
+            want = ({"mule_agg": N_STEPS, "encounter_mix": 0}
+                    if method == "mlmule" else
+                    {"mule_agg": 0, "encounter_mix": N_STEPS // PEER_EVERY})
+            label = f"{scenario} {method}"
+            if got != want:
+                raise AssertionError(f"{label}: kernel launches {got}, "
+                                     f"expected {want}")
+            evals = aux["evals"]
+            if evals is None or tuple(evals.shape) != (
+                    N_STEPS // EVAL_EVERY, N_MULES) or \
+                    not bool(torch.isfinite(evals).all()):
+                raise AssertionError(f"{label}: evals missing or not finite")
+            _check_finite(label, {**final["mule_models"],
+                                  **final["fixed_models"]})
+            if method == "mlmule" and int(final["fresh"]["count"].sum()) == 0:
+                raise AssertionError(f"{label}: no mule delivered")
+            trace = [(int(s), float(a)) for s, a in
+                     zip(aux["eval_steps"], evals.mean(1).tolist())]
+            print(f"multi-area path: {label}, F={spec.n_fixed}, "
+                  f"M={N_MULES}, T={N_STEPS}: {N_STEPS / wall:.3f} steps/s "
+                  f"({wall:.3f} s), peak memory {peak} B, launches {got}, "
+                  f"accuracy trace {trace} [{card}]")
+            paths[label] = got
+            del final, aux
+            if method == "mlmule":
+                _replays(label, run, "agg_backend", REPLAY_ATOL)
+            else:
+                _replays(label, run, "enc_backend", PEER_REPLAY_ATOL)
+                _mix_lockstep(label, run, N_STEPS)
+        del pop0, Xtr, Xte
+    print(f"multi-area path: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _lane_steps(cos: dict, lo: int, hi: int) -> dict:
+    """Steps [lo, hi) of a lane-stacked schedule (an area per mule stays
+    whole)."""
+    return {k: (v if k == "area" and v.dim() == 2 else v[:, lo:hi])
+            for k, v in cos.items()}
+
+
+def phase_sweep(card: str) -> dict:
+    """The seed sweep: ``run_sweep`` over S = LANES seeds of the walk for
+    the five ``METHODS_MOBILE`` at the paper CNN's full width, each step's
+    ``mule_agg`` and ``encounter_mix`` one launch for all lanes; lanes of
+    ``mlmule`` and ``gossip`` held to their sequential runs. Then
+    ``run_sweep_experiment`` at Fig 8's config. Returns {path: {kernel:
+    launches}}."""
+    import gc
+    import torch
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core import METHODS_MOBILE
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.experiment import (ExperimentConfig, _stack_wrap_pad,
+                                        cnn_model_fns, image_data_mobile,
+                                        run_sweep_experiment, sample_batches)
+    from repro_torch.scenarios import (run_population, run_sweep,
+                                       stack_colocations, stack_trees,
+                                       walk_colocation)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_fn, train_fn, eval_fn = cnn_model_fns(CONFIG, LR)
+    seeds = [SEED + i for i in range(LANES)]
+    cos = [walk_colocation(s, N_MULES, N_STEPS, p_cross=P_CROSS)
+           for s in seeds]
+    if max(int(co["fixed_id"].max()) for co in cos) >= N_FIXED:
+        raise AssertionError("a walk visits a space past the F fixed devices")
+    data = [image_data_mobile(s, N_MULES, N_FIXED, co["init_space"],
+                              co["init_area"], n_super=CONFIG.n_classes,
+                              image_size=CONFIG.image_size)
+            for s, co in zip(seeds, cos)]
+    ctx = tuple(_stack_wrap_pad([d[k] for d in data]) for k in range(4))
+    del data
+    pcfg = PopulationConfig(mode="mobile", n_fixed=N_FIXED, n_mules=N_MULES)
+    pops = []
+    for s in seeds:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(s)
+        pops.append(init_population(pcfg, init_fn, gen))
+    states = stack_trees(pops)
+    stacked = stack_colocations(cos)
+    d_params = sum(v[0].numel() for v in pops[0]["mule_models"].values())
+    print(f"sweep: {LANES} seeds of the walk (P_cross={P_CROSS}) as lanes, "
+          f"M={N_MULES}, F={N_FIXED}, D={d_params}: "
+          f"{LANES * N_MULES} mule models, "
+          f"{4 * LANES * N_MULES * d_params} B of f32 mule weights")
+
+    def batch_fn(seed, t, c):
+        return {"fixed": None, "mule": sample_batches(seed, c[0], c[1],
+                                                      BATCH)}
+
+    def eval_hook(st, last, c):
+        return torch.func.vmap(eval_fn)(st["mule_models"], c[2][last],
+                                        c[3][last])
+
+    sweep = dict(states=states, colocations=stacked, batches=batch_fn,
+                 train_fn=train_fn, cfg=pcfg, keys=seeds,
+                 eval_every=EVAL_EVERY, eval_fn=eval_hook, context=ctx)
+    run_sweep(**{**sweep, "colocations": _lane_steps(stacked, 0, PEER_EVERY),
+                 "eval_every": None, "eval_fn": None},
+              methods="mlmule+gossip")                     # warm-up
+    n_ex = N_STEPS // PEER_EVERY
+    want = {"mlmule": {"mule_agg": N_STEPS, "encounter_mix": 0},
+            "mlmule+gossip": {"mule_agg": N_STEPS, "encounter_mix": n_ex},
+            "gossip": {"mule_agg": 0, "encounter_mix": n_ex},
+            "oppcl": {"mule_agg": 0, "encounter_mix": 0},
+            "local": {"mule_agg": 0, "encounter_mix": 0}}
+    paths = {}
+    for method in METHODS_MOBILE:
+        t0 = time.perf_counter()
+        (final, aux), got, peak = _count_run(
+            lambda: run_sweep(**sweep, methods=method))
+        wall = time.perf_counter() - t0
+        label = f"sweep S={LANES} {method}"
+        if got != want[method]:
+            raise AssertionError(f"{label}: kernel launches {got}, expected "
+                                 f"{want[method]}: one launch a step for "
+                                 f"all lanes")
+        evals = aux["evals"]
+        if tuple(evals.shape) != (LANES, N_STEPS // EVAL_EVERY, N_MULES) \
+                or not bool(torch.isfinite(evals).all()):
+            raise AssertionError(f"{label}: evals {tuple(evals.shape)} "
+                                 f"missing or not finite")
+        _check_finite(label, {**final["mule_models"],
+                              **final["fixed_models"]})
+        paths[label] = got
+        print(f"{label}: {N_STEPS / wall:.3f} steps/s, "
+              f"{LANES * N_STEPS / wall:.3f} lane-steps/s ({wall:.3f} s), "
+              f"peak memory {peak} B, launches {got}, mean accuracy by lane "
+              f"{[round(x, 4) for x in evals.mean((1, 2)).tolist()]} "
+              f"[{card}]")
+        if method in ("mlmule", "gossip"):
+            seq_wall, worst = 0.0, 0.0
+            for i in range(LANES):
+                lane_ctx = tuple(c[i] for c in ctx)
+                t0 = time.perf_counter()
+                one, one_aux = run_population(
+                    pops[i], cos[i], batch_fn, train_fn, pcfg, seeds[i],
+                    eval_every=EVAL_EVERY, eval_fn=eval_hook, method=method,
+                    context=lane_ctx)
+                torch.cuda.synchronize()
+                seq_wall += time.perf_counter() - t0
+                lane = {side: {k: v[i] for k, v in final[side].items()}
+                        for side in ("mule_models", "fixed_models")}
+                worst = max(worst, _max_diff(lane, one, ("mule_models",
+                                                         "fixed_models")))
+                if not torch.equal(aux["last_fid"][i], one_aux["last_fid"]):
+                    raise AssertionError(f"{label}: lane {i}'s last_fid "
+                                         f"differs from its sequential run")
+                if list(one_aux["eval_steps"]) != list(aux["eval_steps"]):
+                    raise AssertionError(f"{label}: eval steps differ")
+                del one
+            print(f"{label}: lanes vs {LANES} sequential run_population "
+                  f"runs ({LANES * N_STEPS / seq_wall:.3f} lane-steps/s, "
+                  f"{N_STEPS * LANES / seq_wall / LANES:.3f} steps/s a run, "
+                  f"{seq_wall:.3f} s): max |final weight diff| "
+                  f"{worst:.3e} (tol {REPLAY_ATOL}); last_fid and eval "
+                  f"steps equal")
+            if not worst <= REPLAY_ATOL:
+                raise AssertionError(f"{label}: a lane left its sequential "
+                                     f"run's growth bound")
+        del final, aux
+    _profile_steps(lambda: run_sweep(
+        **{**sweep, "colocations": _lane_steps(stacked, 0, PROFILE_STEPS),
+           "eval_every": None, "eval_fn": None}, methods="mlmule"),
+        PROFILE_STEPS, f"sweep S={LANES} mlmule")
+    del states, pops, sweep, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Fig 8's config through the harness's seeded sweep
+    cfg = ExperimentConfig(task="har", mode="mobile", pattern=str(P_CROSS),
+                           steps=N_STEPS, batch=HAR_BATCH, lr=HAR_LR)
+    t0 = time.perf_counter()
+    result, got, peak = _count_run(lambda: run_sweep_experiment(
+        cfg, seeds, methods=METHODS_MOBILE, device="cuda"))
+    wall = time.perf_counter() - t0
+    want_steps = [(i + 1) * cfg.eval_every - 1
+                  for i in range(N_STEPS // cfg.eval_every)]
+    want_got = {"mule_agg": 2 * N_STEPS, "encounter_mix": 2 * n_ex}
+    if result["eval_steps"] != want_steps or got != want_got:
+        raise AssertionError(f"Fig 8 sweep: eval steps "
+                             f"{result['eval_steps']}, launches {got}; "
+                             f"expected {want_steps}, {want_got}")
+    for m, r in result["methods"].items():
+        accs = [a for lane in r["acc"] for a in lane] + r["final_acc"]
+        if len(r["final_acc"]) != LANES or not all(
+                math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"Fig 8 sweep {m}: accuracies {accs}")
+        print(f"Fig 8 sweep (har, walk P_cross={P_CROSS}, seeds {seeds}, "
+              f"M={cfg.n_mules}, T={N_STEPS}): {m} mean final accuracy "
+              f"{r['mean_final_acc']:.4f}, by seed "
+              f"{[round(a, 4) for a in r['final_acc']]}, mean curve "
+              f"{[round(a, 4) for a in r['mean_acc']]}")
+    print(f"Fig 8 sweep: run_sweep_experiment of the five methods in "
+          f"{wall:.2f} s, peak memory {peak} B, launches {got} [{card}]")
+    paths[f"Fig 8 sweep S={LANES}"] = got
+    print(f"sweep: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -2651,6 +3120,9 @@ def main() -> int:
         rows = [phase_mule_agg(), phase_encounter_mix(),
                 phase_encounter_hop(card), phase_flash_attention(card),
                 phase_ssd_scan(card), phase_slstm_scan(card)]
+        lanes = phase_lanes()
+        rows[0]["lanes"] = lanes["mule_agg"]
+        rows[1]["lanes"] = lanes["encounter_mix"]
         # each path: {kernel: launches in its counted run}
         paths = {}
         phase = "main path"
@@ -2670,6 +3142,10 @@ def main() -> int:
         paths["Table 1 fixed path"] = phase_fixed_path(card)
         phase = "HAR path"
         paths["HAR on har_commuter"] = phase_har_path(card)
+        phase = "multi-area path"
+        paths.update(phase_multi_area(card))
+        phase = "sweep"
+        paths.update(phase_sweep(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

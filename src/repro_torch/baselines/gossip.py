@@ -46,7 +46,8 @@ from repro_torch.core.aggregation import batched_mix, masked_group_mean
 from repro_torch.core.seeds import split
 from repro_torch.interop import tree_map
 from repro_torch.kernels.encounter_mix import (encounter_block_hop,
-                                               encounter_gate, encounter_mix,
+                                               encounter_gate,
+                                               encounter_mix_op,
                                                encounter_mix_reference,
                                                normalize_mix)
 from repro_torch.kernels.encounter_mix.ref import radius_sq
@@ -269,8 +270,8 @@ def encounter_matrix(pos: torch.Tensor, area: torch.Tensor, radius: float,
 
 
 def _neighbor_mix(flat, pos, area, active, radius, backend):
-    if backend == "auto":
-        return encounter_mix(pos, area, active, flat, radius=radius)
+    if backend == "auto":      # the custom op: one launch for vmapped lanes
+        return encounter_mix_op(pos, area, active, flat, radius)
     if backend == "ref":
         return encounter_mix_reference(pos, area, active, flat, radius=radius)
     raise ValueError(f"unknown encounter backend {backend!r}; expected "

@@ -13,7 +13,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.mule_agg import mule_agg
+from repro_torch.kernels.mule_agg import mule_agg_op
 
 Params = Dict[str, torch.Tensor]
 
@@ -63,9 +63,11 @@ def masked_group_mean(models: Params, assign: torch.Tensor, *,
     callers mask on ``row_mass``. Returns (grouped [F, ...], row_mass [F]).
 
     ``backend="auto"`` flattens the leaves (sorted keys, the reference's
-    leaf order) into one [M, D] float32 matrix and hands it to ``mule_agg``,
-    which launches the CUDA kernel for CUDA tensors and takes its plain
-    version for CPU tensors. ``backend="ref"`` is the plain per-leaf matmul.
+    leaf order) into one [M, D] float32 matrix and hands it to ``mule_agg``
+    (as the custom op ``mule_agg_op``, so that under ``torch.func.vmap`` the
+    lanes go to one ``mule_agg_lanes`` launch), which launches the CUDA
+    kernel for CUDA tensors and takes its plain version for CPU tensors.
+    ``backend="ref"`` is the plain per-leaf matmul.
     """
     mass = assign.sum(1)                                   # [F]
     norm = assign / torch.clamp(mass, min=1e-12)[:, None]  # [F, M]
@@ -75,7 +77,7 @@ def masked_group_mean(models: Params, assign: torch.Tensor, *,
         keys = sorted(models)
         flat = torch.cat([models[k].reshape(n_m, -1).float() for k in keys],
                          dim=1)
-        out = mule_agg(norm.float().contiguous(), flat)
+        out = mule_agg_op(norm.float().contiguous(), flat)
         grouped, off = {}, 0
         for k in keys:
             leaf = models[k]

@@ -18,6 +18,10 @@ schedule (``mobility_tensors``). ``run_with_models`` is the body of
 ``run_experiment`` with the model functions handed in, and also returns
 what the run holds at its end.
 
+``run_sweep_experiment`` runs the engine's methods over several seeds at
+once (``scenarios.sweep.run_sweep``, the seeds as lanes of one replay):
+the paper's seed-averaged curves. ``run_sweep_with_models`` is its body.
+
 Seeds: torch cannot reproduce ``jax.random``, so the harness draws from
 integer seeds (``core/seeds.py``) in the reference's places. Model ``c``
 is the ``c``-th draw of a ``torch.Generator`` seeded with ``cfg.seed``.
@@ -44,8 +48,8 @@ from repro_torch.configs.mule_cnn import CNNConfig
 from repro_torch.configs.mule_lstm_cnn import LSTMCNNConfig
 from repro_torch.core.aggregation import weighted_average
 from repro_torch.core.freshness import FreshnessConfig
-from repro_torch.core.population import (PopulationConfig, _stack,
-                                         init_population)
+from repro_torch.core.population import (METHODS_MOBILE, PopulationConfig,
+                                         _stack, init_population)
 from repro_torch.core.seeds import fold_in, split
 from repro_torch.data import (dirichlet_partition, iid_partition,
                               make_image_dataset, make_imu_dataset,
@@ -55,7 +59,8 @@ from repro_torch.mobility import synth_foursquare_trace
 from repro_torch.models.cnn import (accuracy, cnn_forward, init_cnn,
                                     init_lstm_cnn, lstm_cnn_forward,
                                     xent_loss)
-from repro_torch.scenarios import (get_scenario, run_population,
+from repro_torch.scenarios import (get_scenario, run_population, run_sweep,
+                                   stack_colocations, stack_trees,
                                    trace_colocation, walk_colocation)
 
 METHODS_FIXED = ("mlmule", "fedavg", "cfl", "fedas", "local")
@@ -349,6 +354,62 @@ def run_experiment(cfg: ExperimentConfig, device="cuda") -> Dict:
     return run_with_models(cfg, model_fns(with_scenario(cfg)), device)[0]
 
 
+def _check_ported(cfg: ExperimentConfig) -> None:
+    for field, item in _NOT_PORTED.items():
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"ExperimentConfig.{field} is not ported yet; it arrives "
+                f"with {item}")
+
+
+def _experiment_data(cfg: ExperimentConfig, mule_space, mule_area,
+                     dev: torch.device) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """``((Xtr, Ytr, Xte, Yte), n_clients)`` of ``cfg``'s task and mode."""
+    if cfg.mode == "fixed":
+        return image_data_fixed(cfg, dev), cfg.n_fixed
+    if cfg.task == "image":
+        return image_data_mobile(
+            cfg.seed, cfg.n_mules, cfg.n_fixed, mule_space, mule_area,
+            n_per_sub=cfg.n_per_sub, n_super=cfg.n_super, n_sub=cfg.n_sub,
+            image_size=cfg.image_size, noise=cfg.noise,
+            train_per_device=cfg.train_per_device, device=dev), cfg.n_mules
+    return har_data_mobile(cfg, mule_space, mule_area, dev), cfg.n_mules
+
+
+def _population_config(cfg: ExperimentConfig) -> PopulationConfig:
+    fresh = (FreshnessConfig(init_threshold=1e9, warmup=10**9)
+             if cfg.freshness_off else FreshnessConfig())
+    return PopulationConfig(mode=cfg.mode, n_fixed=cfg.n_fixed,
+                            n_mules=cfg.n_mules, gamma=cfg.gamma,
+                            freshness=fresh)
+
+
+def _engine_population(cfg: ExperimentConfig, pcfg: PopulationConfig,
+                       init: Callable, pre_models, mule_space, mule_area,
+                       dev: torch.device) -> Dict[str, Any]:
+    """The engine's initial population: the pretrained models on the
+    training side; in fixed mode each mule starts with a snapshot from its
+    initial space (its user's 'home' space)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    pop = init_population(pcfg, init, gen, device=dev)
+    if cfg.mode == "fixed":
+        pop["fixed_models"] = pre_models
+        home = torch.as_tensor(np.asarray(mule_area) * 4
+                               + np.asarray(mule_space), device=dev)
+        pop["mule_models"] = {k: v[home] for k, v in pre_models.items()}
+    else:
+        pop["mule_models"] = pre_models
+    return pop
+
+
+def _side(cfg: ExperimentConfig, sampled) -> Dict[str, Any]:
+    """The engine's batches dict with ``sampled`` on the training side."""
+    if cfg.mode == "fixed":
+        return {"fixed": sampled, "mule": None}
+    return {"fixed": None, "mule": sampled}
+
+
 def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
                     device="cuda") -> Tuple[Dict, Dict[str, Any]]:
     """``run_experiment``'s body with ``fns = (init_fn, train_fn, eval_fn)``
@@ -364,11 +425,7 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
       ``population`` and ``aux`` at the end.
     """
     t_start = time.time()
-    for field, item in _NOT_PORTED.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"ExperimentConfig.{field} is not ported yet; it arrives "
-                f"with {item}")
+    _check_ported(cfg)
     dev = resolve_device(device)
     cfg = with_scenario(cfg)
     federated = cfg.method in FEDERATED
@@ -377,21 +434,8 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
                          f"{cfg.steps} runs none")
     init, train_fn, eval_fn = fns
     colocation, mule_space, mule_area = mobility_tensors(cfg)
-
-    if cfg.mode == "fixed":
-        Xtr, Ytr, Xte, Yte = image_data_fixed(cfg, dev)
-        n_clients = cfg.n_fixed
-    else:
-        if cfg.task == "image":
-            Xtr, Ytr, Xte, Yte = image_data_mobile(
-                cfg.seed, cfg.n_mules, cfg.n_fixed, mule_space, mule_area,
-                n_per_sub=cfg.n_per_sub, n_super=cfg.n_super,
-                n_sub=cfg.n_sub, image_size=cfg.image_size, noise=cfg.noise,
-                train_per_device=cfg.train_per_device, device=dev)
-        else:
-            Xtr, Ytr, Xte, Yte = har_data_mobile(cfg, mule_space, mule_area,
-                                                 dev)
-        n_clients = cfg.n_mules
+    (Xtr, Ytr, Xte, Yte), n_clients = _experiment_data(cfg, mule_space,
+                                                       mule_area, dev)
 
     key = cfg.seed + 100
     eval_v = torch.func.vmap(eval_fn)
@@ -460,28 +504,12 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
 
     # ---------------- mobility-coupled methods (the scenario engine) --------
     else:
-        fresh = (FreshnessConfig(init_threshold=1e9, warmup=10**9)
-                 if cfg.freshness_off else FreshnessConfig())
-        pcfg = PopulationConfig(mode=cfg.mode, n_fixed=cfg.n_fixed,
-                                n_mules=cfg.n_mules, gamma=cfg.gamma,
-                                freshness=fresh)
-        gen.manual_seed(cfg.seed)
-        pop = init_population(pcfg, init, gen, device=dev)
-        if cfg.mode == "fixed":
-            # fixed devices hold the pretrained models; each mule starts with
-            # a snapshot from its initial space (its user's 'home' space)
-            pop["fixed_models"] = pre_models
-            home = torch.as_tensor(np.asarray(mule_area) * 4
-                                   + np.asarray(mule_space), device=dev)
-            pop["mule_models"] = {k: v[home] for k, v in pre_models.items()}
-        else:
-            pop["mule_models"] = pre_models
+        pcfg = _population_config(cfg)
+        pop = _engine_population(cfg, pcfg, init, pre_models, mule_space,
+                                 mule_area, dev)
 
         def batch_fn(seed, t):
-            sampled = sampler(seed)
-            if cfg.mode == "fixed":
-                return {"fixed": sampled, "mule": None}
-            return {"fixed": None, "mule": sampled}
+            return _side(cfg, sampler(seed))
 
         if cfg.mode == "fixed":
             def eval_hook(st, last):
@@ -529,4 +557,147 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
         "post_local_acc": float(np.mean(post)),
         "wall_s": time.time() - t_start,
     }
+    return result, state
+
+
+# ---------------------------------------------------------------------------
+# seed sweeps
+# ---------------------------------------------------------------------------
+
+
+def _stack_wrap_pad(arrs: List[torch.Tensor]) -> torch.Tensor:
+    """Stack per-seed ``[P, N, ...]`` tensors whose N varies across seeds.
+
+    Shorter pools are padded to the longest with uniformly drawn repeats
+    (``np.random.default_rng(0)``, the reference's draws), so no sample is
+    systematically over-weighted; a repeat still tilts that seed's
+    sampling and eval weights slightly, which is why per-seed sweep metrics
+    can differ from an unpadded ``run_experiment`` at the same seed.
+    """
+    rng = np.random.default_rng(0)
+    n = max(a.shape[1] for a in arrs)
+    out = []
+    for a in arrs:
+        idx = np.concatenate([np.arange(a.shape[1]),
+                              rng.integers(0, a.shape[1], n - a.shape[1])])
+        out.append(a[:, torch.as_tensor(idx, device=a.device)])
+    return torch.stack(out)
+
+
+def run_sweep_experiment(cfg: ExperimentConfig, seeds, methods=None,
+                         device="cuda") -> Dict:
+    """Seed-averaged multi-method sweep on the lane-batched engine.
+
+    Builds each seed's data, schedule and pretrained population as
+    ``run_experiment`` builds them (the data pools padded to one size by
+    ``_stack_wrap_pad``), stacks them on a leading seed axis, and replays
+    every requested method with ``run_sweep``. The federated baselines
+    (fedavg/cfl/fedas) are round-based and not on the engine: request those
+    through ``run_experiment``.
+
+    Returns the reference's keys: ``config``, ``seeds``, ``eval_steps`` and,
+    per method, ``acc`` ``[S][E]`` and ``mean_acc`` ``[E]`` (the eval
+    curves), ``final_acc`` ``[S]`` and ``mean_final_acc``; and ``wall_s``.
+    """
+    cfg = with_scenario(cfg)
+    return run_sweep_with_models(cfg, seeds, model_fns(cfg), methods,
+                                 device)[0]
+
+
+def run_sweep_with_models(cfg: ExperimentConfig, seeds,
+                          fns: Tuple[Callable, ...], methods=None,
+                          device="cuda") -> Tuple[Dict, Dict[str, Any]]:
+    """``run_sweep_experiment``'s body with ``fns = (init_fn, train_fn,
+    eval_fn)`` handed in. Returns ``(result, state)``; ``state`` holds
+    ``pre_models`` (stacked ``[S, ...]``), ``pretrain_s`` and ``run_s``
+    (seconds, the device synchronised), ``run`` (``run_sweep``'s keyword
+    arguments but ``methods``) and ``out`` (its ``{method: (final,
+    aux)}``)."""
+    t_start = time.time()
+    _check_ported(cfg)
+    methods = list(methods or [cfg.method])
+    bad = [m for m in methods if m not in METHODS_MOBILE]
+    if bad:
+        raise ValueError(f"not engine methods: {bad}; pick from "
+                         f"{METHODS_MOBILE} (the federated baselines run "
+                         f"through run_experiment)")
+    dev = resolve_device(device)
+    cfg = with_scenario(cfg)
+    seeds = [int(s) for s in seeds]
+    init, train_fn, eval_fn = fns
+    eval_v = torch.func.vmap(eval_fn)
+
+    # -- per-seed assembly, stacked on a leading [S] axis ---------------------
+    cos, places, data = [], [], []
+    for s in seeds:
+        scfg = dataclasses.replace(cfg, seed=s)
+        co, mule_space, mule_area = mobility_tensors(scfg)
+        arrays, n_clients = _experiment_data(scfg, mule_space, mule_area,
+                                             dev)
+        cos.append(co)
+        places.append((mule_space, mule_area))
+        data.append(arrays)
+    context = tuple(_stack_wrap_pad([d[i] for d in data]) for i in range(4))
+
+    # -- per-seed pretraining, as run_with_models does it, on the padded pools
+    t0 = _clock(dev)
+    pre, pops = [], []
+    pcfg = _population_config(cfg)
+    for i, s in enumerate(seeds):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(s)
+        models = make_pretrain(
+            train_fn, cfg, n_clients,
+            lambda seed, step=None, i=i: sample_batches(
+                seed, context[0][i], context[1][i], cfg.batch))(
+            _stack([init(gen) for _ in range(n_clients)]), s + 7)
+        pre.append(models)
+        pops.append(_engine_population(dataclasses.replace(cfg, seed=s),
+                                       pcfg, init, models, *places[i], dev))
+    t1 = _clock(dev)
+
+    def batch_fn(seed, t, ctx):
+        return _side(cfg, sample_batches(seed, ctx[0], ctx[1], cfg.batch))
+
+    if cfg.mode == "fixed":
+        def eval_hook(st, last, ctx):
+            return eval_v(st["fixed_models"], ctx[2], ctx[3])
+    else:
+        def eval_hook(st, last, ctx):
+            return eval_v(st["mule_models"], ctx[2][last], ctx[3][last])
+
+    run = dict(states=stack_trees(pops),
+               colocations=stack_colocations(cos, dev), batches=batch_fn,
+               train_fn=train_fn, cfg=pcfg, keys=[s + 100 for s in seeds],
+               eval_every=cfg.eval_every, eval_fn=eval_hook, context=context,
+               device=dev)
+    out = run_sweep(methods=tuple(methods), **run)
+    t2 = _clock(dev)
+
+    result_methods, eval_steps = {}, np.zeros((0,), int)
+    for m, (final, aux) in out.items():
+        eval_steps = aux["eval_steps"]
+        evals = aux["evals"]
+        acc = (evals.cpu().numpy().mean(axis=-1) if evals is not None
+               else np.zeros((len(seeds), 0)))                   # [S, E]
+        facc = np.array([eval_hook(
+            {side: {k: v[i] for k, v in final[side].items()}
+             for side in ("mule_models", "fixed_models")},
+            aux["last_fid"][i], tuple(c[i] for c in context)
+        ).cpu().numpy().mean() for i in range(len(seeds))])      # [S]
+        result_methods[m] = {
+            "acc": acc.tolist(),
+            "mean_acc": acc.mean(axis=0).tolist(),
+            "final_acc": facc.tolist(),
+            "mean_final_acc": float(facc.mean()),
+        }
+    result = {
+        "config": dataclasses.asdict(cfg),
+        "seeds": seeds,
+        "eval_steps": [int(x) for x in eval_steps],
+        "methods": result_methods,
+        "wall_s": time.time() - t_start,
+    }
+    state = {"pre_models": stack_trees(pre), "pretrain_s": t1 - t0,
+             "run_s": t2 - t1, "run": run, "out": out}
     return result, state

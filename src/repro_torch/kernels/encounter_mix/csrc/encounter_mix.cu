@@ -17,6 +17,18 @@
 // and normalises once. Global ids are int64 (the JAX kernel carries them as
 // float32, exact only below 2^24 rows).
 //
+// Lanes (encounter_mix_lanes_*): a seed sweep's S populations in one call,
+// pos [S, M, 2], area [S, M], active [S, M], W [S, M, D] -> mix [S, M, D],
+// mass [S, M], scratch words [S, M, ceil(M / 32)]. The pairs kernel takes
+// the lane as gridDim.y, offsetting every pointer by its lane's strides.
+// The sums kernel's work items are (lane, row block, slab): the lane is
+// gridDim.y, and each lane gets the whole persistent wave of a single call,
+// so the lanes run one after another on the whole card (a lane's blocks
+// start as the previous lane's retire), without a launch between them.
+// W's tensor map is 3-d (D, M, S) with a box one lane deep. Each lane's
+// pairs, dense switches and sums are those of a single-lane call on its
+// inputs, so lane s has that call's bits.
+//
 // Replaces the Pallas TPU kernels of src/repro/kernels/encounter_mix/
 // kernel.py: _mix_kernel / encounter_mix_pallas, which builds one
 // [block_m, M] strip of e per (row block, d block) tile and multiplies it
@@ -194,6 +206,20 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// the [1, kKC, kC] box of the 3-d tensor map at column c0, row r0 of lane
+// s into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int r0,
+                                            int s) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(r0),
+      "r"(s)
+      : "memory");
+}
+
 // cp.async of N bytes (src_bytes of them read, the rest zero-filled)
 template <int N>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
@@ -213,6 +239,8 @@ __device__ __forceinline__ void cp_wait() {
 // One warp per row i: words[i, w] bit b = e[i, 32 w + b]; mass[i] = its
 // popcount. Rows [R] (global ids row_id0 + i) against visiting mules [V]
 // (global ids col_id0 + j); a null activity pointer means all active.
+// kLanes: the lane is blockIdx.y and every pointer is offset by its strides.
+template <bool kLanes>
 __global__ void __launch_bounds__(32 * kPairWarps)
     encounter_pairs_kernel(const float* __restrict__ pos_r,
                            const int64_t* __restrict__ area_r,
@@ -226,6 +254,13 @@ __global__ void __launch_bounds__(32 * kPairWarps)
   // the sums kernel may start now: it reads the words only after this
   // grid has finished (griddepcontrol.wait)
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if (kLanes) {  // the lane: offset every pointer
+    const int64_t s = blockIdx.y;
+    pos_r += s * 2 * R, area_r += s * R, pos_v += s * 2 * V, area_v += s * V;
+    if (active_r != nullptr) active_r += s * R;
+    if (active_v != nullptr) active_v += s * V;
+    words += s * R * nw, mass += s * R;
+  }
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kPairWarps + (threadIdx.x >> 5);
   if (row >= R) return;  // the whole warp
@@ -261,8 +296,11 @@ enum Load { kLoadTma = 0, kLoadAsync = 1, kLoadSync = 2 };
 // out[i, :] = sum of W[j, :] over the set bits j of row i's words, in
 // ascending j; kNormalize: divided by max(mass[i], 1e-12) and stored in T
 // (the mix), else stored as they are (the hop). vec_out: out's rows take
-// 4-element stores (D % 4 == 0).
-template <typename T, bool kNormalize, class S>
+// 4-element stores (D % 4 == 0). kLanes: the lane is blockIdx.y, every
+// pointer is offset by its strides and W comes through the 3-d map; a
+// single call takes kLanes = false, whose pointers stay the kernel's
+// parameters (offsetting them cost a single call ~7%, PERF.md).
+template <typename T, bool kNormalize, class S, bool kLanes>
 __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
     encounter_sum_kernel(const __grid_constant__ CUtensorMap tm,
                          const uint32_t* __restrict__ words, int nw,
@@ -280,6 +318,10 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned full = 0xffffffffu;
+  if (kLanes) {  // the lane (of a sweep): offset its pointers
+    const int64_t ls = blockIdx.y;
+    words += ls * R * nw, mass += ls * R, W += ls * V * D, out += ls * R * D;
+  }
   const int rb = (int)(blockIdx.x % (unsigned)n_row_blocks);
   const int64_t slab0 = blockIdx.x / (unsigned)n_row_blocks;
   const int64_t slab_step = gridDim.x / (unsigned)n_row_blocks;
@@ -305,7 +347,10 @@ __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
       if (tid == 0 && p_t < n_iter) {
         const uint32_t bar = smem_addr(&bars[p_s]);
         mbar_expect(bar, kKC * kC * sizeof(T));
-        tma_load_2d(smem_addr(dst), &tm, bar, (int)c0, k0);
+        if (kLanes)
+          tma_load_3d(smem_addr(dst), &tm, bar, (int)c0, k0, blockIdx.y);
+        else
+          tma_load_2d(smem_addr(dst), &tm, bar, (int)c0, k0);
       }
     } else {  // kLoadAsync: one group a chunk, empty past the last
       if (p_t < n_iter) {
@@ -497,32 +542,35 @@ EncodeTiledFn encode_tiled() {
 
 constexpr int kErrEncode = 10000;  // + the encode's CUresult
 
-// W [V, D] as a 2-d tensor map (D, V) whose box is kKC rows x kC columns;
-// out-of-range elements read as zeros
+// W [S, V, D] as a 3-d tensor map (D, V, S) whose box is one lane of kKC
+// rows x kC columns, or for one lane the 2-d map (D, V) of its [kKC, kC]
+// box; out-of-range elements read as zeros
 template <typename T>
-int encode_w(CUtensorMap* map, const void* W, int V, long long D) {
+int encode_w(CUtensorMap* map, const void* W, int S, int V, long long D) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kErrEncode;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)V};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)kC, (cuuint32_t)kKC};
-  const cuuint32_t unit[2] = {1, 1};
+  const cuuint32_t rank = S == 1 ? 2 : 3;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)V, (cuuint64_t)S};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
+                                 (cuuint64_t)V * D * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)kC, (cuuint32_t)kKC, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res =
       fn(map,
          sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-         2, const_cast<void*>(W), dims, strides, box, unit,
+         rank, const_cast<void*>(W), dims, strides, box, unit,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kErrEncode + (int)res;
 }
 
-template <typename T, bool kNormalize, class S>
-int launch_sums(const void* words, const void* mass, int R, int V,
+template <typename T, bool kNormalize, class S, bool kLanes>
+int launch_sums(int lanes, const void* words, const void* mass, int R, int V,
                 const void* W, void* out, long long D, int dense_min,
                 cudaStream_t s) {
-  auto kern = encounter_sum_kernel<T, kNormalize, S>;
+  auto kern = encounter_sum_kernel<T, kNormalize, S, kLanes>;
   constexpr int bytes = S::template smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -541,7 +589,8 @@ int launch_sums(const void* words, const void* mass, int R, int V,
   const int rows_per_block = S::kWarps * S::kRW;
   const int n_row_blocks = (R + rows_per_block - 1) / rows_per_block;
   const long long n_slabs = (D + kC - 1) / kC;
-  // one wave of resident blocks, a whole number of row blocks a slab
+  // one wave of resident blocks for each lane, a whole number of row blocks
+  // a slab
   long long slab_blocks = (long long)sms * occ / n_row_blocks;
   if (slab_blocks < 1) slab_blocks = 1;
   if (slab_blocks > n_slabs) slab_blocks = n_slabs;
@@ -554,7 +603,7 @@ int launch_sums(const void* words, const void* mass, int R, int V,
   CUtensorMap tm;
   memset(&tm, 0, sizeof(tm));
   if (pitch % 16 == 0 && w_addr % 16 == 0 && V > 0) {
-    const int e = encode_w<T>(&tm, W, V, D);
+    const int e = encode_w<T>(&tm, W, lanes, V, D);
     if (e != 0) return e;
     load = kLoadTma;
   } else {
@@ -566,7 +615,7 @@ int launch_sums(const void* words, const void* mass, int R, int V,
   // kEarly, a programmatic dependent launch: the blocks start while the
   // pairs kernel runs, and wait for it only before they read its words
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(n_row_blocks * slab_blocks));
+  cfg.gridDim = dim3((unsigned)(n_row_blocks * slab_blocks), (unsigned)lanes);
   cfg.blockDim = dim3(S::kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -584,14 +633,17 @@ int launch_sums(const void* words, const void* mass, int R, int V,
   return (int)cudaGetLastError();
 }
 
-int launch_pairs(const void* pos_r, const void* area_r, const void* active_r,
-                 int R, long long row_id0, const void* pos_v,
-                 const void* area_v, const void* active_v, int V,
-                 long long col_id0, float r2, void* words, void* mass,
+int launch_pairs(int lanes, const void* pos_r, const void* area_r,
+                 const void* active_r, int R, long long row_id0,
+                 const void* pos_v, const void* area_v, const void* active_v,
+                 int V, long long col_id0, float r2, void* words, void* mass,
                  cudaStream_t s) {
   const int nw = V > 0 ? (V + 31) / 32 : 1;
-  encounter_pairs_kernel<<<(R + kPairWarps - 1) / kPairWarps,
-                           32 * kPairWarps, 0, s>>>(
+  const dim3 grid((unsigned)((R + kPairWarps - 1) / kPairWarps),
+                  (unsigned)lanes);
+  auto kern = lanes > 1 ? encounter_pairs_kernel<true>
+                        : encounter_pairs_kernel<false>;
+  kern<<<grid, 32 * kPairWarps, 0, s>>>(
       static_cast<const float*>(pos_r), static_cast<const int64_t*>(area_r),
       static_cast<const uint8_t*>(active_r), R, (int64_t)row_id0,
       static_cast<const float*>(pos_v), static_cast<const int64_t*>(area_v),
@@ -608,36 +660,44 @@ int launch_pairs(const void* pos_r, const void* area_r, const void* active_r,
 using BigShape = Shape<16, 8, 4, 2, false>;
 using SmallShape = Shape<4, 16, 3, 4, true>;
 
-// Rows [R] against visiting mules [V]: the pairs, then the sums.
+// Rows [R] against visiting mules [V], in each of `lanes` lanes: the pairs,
+// then the sums.
 template <typename T, bool kNormalize>
-int launch(const void* pos_r, const void* area_r, const void* active_r, int R,
-           long long row_id0, const void* pos_v, const void* area_v,
-           const void* active_v, int V, long long col_id0, const void* W,
-           void* out, void* mass, void* words, long long D, float r2,
-           int dense_min, void* stream) {
-  if (R < 1 || V < 0 || D < 0 || dense_min < 0)
+int launch(int lanes, const void* pos_r, const void* area_r,
+           const void* active_r, int R, long long row_id0, const void* pos_v,
+           const void* area_v, const void* active_v, int V, long long col_id0,
+           const void* W, void* out, void* mass, void* words, long long D,
+           float r2, int dense_min, void* stream) {
+  if (lanes < 1 || lanes > 65535 || R < 1 || V < 0 || D < 0 || dense_min < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = launch_pairs(pos_r, area_r, active_r, R, row_id0, pos_v, area_v,
-                         active_v, V, col_id0, r2, words, mass, s);
+  int err = launch_pairs(lanes, pos_r, area_r, active_r, R, row_id0, pos_v,
+                         area_v, active_v, V, col_id0, r2, words, mass, s);
   if (err != 0 || D == 0) return err;
-  return R <= 64
-             ? launch_sums<T, kNormalize, SmallShape>(words, mass, R, V, W,
-                                                      out, D, dense_min, s)
-             : launch_sums<T, kNormalize, BigShape>(words, mass, R, V, W, out,
-                                                    D, dense_min, s);
+  if (lanes > 1)
+    return R <= 64 ? launch_sums<T, kNormalize, SmallShape, true>(
+                         lanes, words, mass, R, V, W, out, D, dense_min, s)
+                   : launch_sums<T, kNormalize, BigShape, true>(
+                         lanes, words, mass, R, V, W, out, D, dense_min, s);
+  return R <= 64 ? launch_sums<T, kNormalize, SmallShape, false>(
+                       1, words, mass, R, V, W, out, D, dense_min, s)
+                 : launch_sums<T, kNormalize, BigShape, false>(
+                       1, words, mass, R, V, W, out, D, dense_min, s);
 }
 
 }  // namespace
 
 // the mix: the population is both the rows and the visiting block; words
-// is scratch of [M, ceil(M / 32)] int32 (at least one word a row)
+// is scratch of [M, ceil(M / 32)] int32 (at least one word a row). The
+// wrappers call the lanes entries below (one lane for a single call); these
+// two keep the single-call interface that tools/ab_encounter_mix.py calls
+// on a source built from another commit.
 extern "C" int encounter_mix_f32(const void* pos, const void* area,
                                  const void* active, const void* W, void* out,
                                  void* mass, void* words, int M, long long D,
                                  float r2, int dense_min, void* stream) {
-  return launch<float, true>(pos, area, active, M, 0, pos, area, active, M, 0,
-                             W, out, mass, words, D, r2, dense_min, stream);
+  return launch<float, true>(1, pos, area, active, M, 0, pos, area, active, M,
+                             0, W, out, mass, words, D, r2, dense_min, stream);
 }
 
 extern "C" int encounter_mix_bf16(const void* pos, const void* area,
@@ -645,7 +705,29 @@ extern "C" int encounter_mix_bf16(const void* pos, const void* area,
                                   void* out, void* mass, void* words, int M,
                                   long long D, float r2, int dense_min,
                                   void* stream) {
-  return launch<__nv_bfloat16, true>(pos, area, active, M, 0, pos, area,
+  return launch<__nv_bfloat16, true>(1, pos, area, active, M, 0, pos, area,
+                                     active, M, 0, W, out, mass, words, D, r2,
+                                     dense_min, stream);
+}
+
+// S lanes of the mix in one call: pos [S, M, 2], area [S, M], active [S, M]
+// (or null), W [S, M, D] -> out [S, M, D], mass [S, M]; words is scratch of
+// [S, M, ceil(M / 32)] int32
+extern "C" int encounter_mix_lanes_f32(const void* pos, const void* area,
+                                       const void* active, const void* W,
+                                       void* out, void* mass, void* words,
+                                       int S, int M, long long D, float r2,
+                                       int dense_min, void* stream) {
+  return launch<float, true>(S, pos, area, active, M, 0, pos, area, active, M,
+                             0, W, out, mass, words, D, r2, dense_min, stream);
+}
+
+extern "C" int encounter_mix_lanes_bf16(const void* pos, const void* area,
+                                        const void* active, const void* W,
+                                        void* out, void* mass, void* words,
+                                        int S, int M, long long D, float r2,
+                                        int dense_min, void* stream) {
+  return launch<__nv_bfloat16, true>(S, pos, area, active, M, 0, pos, area,
                                      active, M, 0, W, out, mass, words, D, r2,
                                      dense_min, stream);
 }
@@ -660,7 +742,7 @@ extern "C" int encounter_hop_f32(const void* pos_r, const void* area_r,
                                  const void* W_v, void* acc, void* mass,
                                  void* words, long long D, float r2,
                                  int dense_min, void* stream) {
-  return launch<float, false>(pos_r, area_r, active_r, R, row0, pos_v,
+  return launch<float, false>(1, pos_r, area_r, active_r, R, row0, pos_v,
                               area_v, active_v, V, col0, W_v, acc, mass,
                               words, D, r2, dense_min, stream);
 }
@@ -673,7 +755,7 @@ extern "C" int encounter_pairs(const void* pos_r, const void* area_r,
                                float r2, void* words, void* mass,
                                void* stream) {
   if (R < 1 || V < 0) return (int)cudaErrorInvalidValue;
-  return launch_pairs(pos_r, area_r, active_r, R, row0, pos_v, area_v,
+  return launch_pairs(1, pos_r, area_r, active_r, R, row0, pos_v, area_v,
                       active_v, V, col0, r2, words, mass,
                       static_cast<cudaStream_t>(stream));
 }

@@ -11,6 +11,18 @@ version (``ref.encounter_mix_reference``), which is what the CPU tests run.
 launches, the pairs (the meet masks, into int32 scratch allocated here)
 and the sums over them.
 
+``encounter_mix_lanes(pos [S, M, 2], area [S, M], active [S, M],
+weights [S, M, D])`` is the lane-batched mix of a seed sweep: ``(mix
+[S, M, D], mass [S, M])`` from one call of the same two kernels for all S
+lanes (the lane is ``gridDim.y``; scratch words ``[S, M, ceil(M / 32)]``),
+lane s the bits of ``encounter_mix`` on lane s's inputs; on a CPU tensor
+``ref.encounter_mix_lanes_reference``. It adds one to
+``encounter_mix.launches`` a call; ``encounter_mix`` on a CUDA tensor is
+its one-lane call. ``encounter_mix_op`` is
+``encounter_mix`` registered as the custom op ``repro_torch::encounter_mix``,
+whose ``torch.func.vmap`` rule calls ``encounter_mix_lanes``; gossip's mix
+calls it.
+
 ``encounter_block_hop(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
 col0, weights_v, radius)`` is one hop of the ring (``baselines.gossip:
 ring_encounter_mix``): local rows against a visiting block, global ids
@@ -41,10 +53,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.encounter_mix.ref import (encounter_block,
-                                                  encounter_mix_reference,
-                                                  encounter_pairs_reference,
-                                                  n_words)
+from repro_torch.kernels.encounter_mix.ref import (
+    encounter_block, encounter_mix_lanes_reference, encounter_mix_reference,
+    encounter_pairs_reference, n_words)
+from repro_torch.kernels.mule_agg.ops import MAX_LANES, lanes_first
 
 # The sums kernel's switch from sparse to dense strips, in met pairs per
 # row of a 32-mule strip: a gathered pair costs a 512-byte shared-memory
@@ -52,12 +64,12 @@ from repro_torch.kernels.encounter_mix.ref import (encounter_block,
 # pays from a quarter full. tools/ab_encounter_mix.py sweeps it (PERF.md).
 DENSE_PAIRS_PER_ROW = 8
 
-# pos, area, active, W, out, mass, words, M, D, r2, dense_min, stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p]
-_ENTRY = {torch.float32: "encounter_mix_f32",
-          torch.bfloat16: "encounter_mix_bf16"}
+# pos, area, active, W, out, mass, words, S, M, D, r2, dense_min, stream
+_LANES_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_void_p]
+_LANES_ENTRY = {torch.float32: "encounter_mix_lanes_f32",
+                torch.bfloat16: "encounter_mix_lanes_bf16"}
 # pos_r, area_r, act_r, R, row0, pos_v, area_v, act_v, V, col0
 _SIDES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
           + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong])
@@ -87,20 +99,24 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check(pos: torch.Tensor, area: torch.Tensor,
-           active: Optional[torch.Tensor], weights: torch.Tensor) -> None:
-    if weights.dim() != 2:
-        raise ValueError(f"encounter_mix wants weights [M, D], got "
+           active: Optional[torch.Tensor], weights: torch.Tensor,
+           lanes: bool = False) -> None:
+    """``lanes``: every argument has a leading lane axis of one size."""
+    lead = "S, " if lanes else ""
+    if weights.dim() != 2 + lanes:
+        raise ValueError(f"encounter_mix wants weights [{lead}M, D], got "
                          f"{tuple(weights.shape)}")
-    m = weights.shape[0]
-    if tuple(pos.shape) != (m, 2):
-        raise ValueError(f"encounter_mix wants pos [M, 2] with M={m}, got "
-                         f"{tuple(pos.shape)}")
-    if tuple(area.shape) != (m,):
-        raise ValueError(f"encounter_mix wants area [M] with M={m}, got "
-                         f"{tuple(area.shape)}")
-    if active is not None and tuple(active.shape) != (m,):
-        raise ValueError(f"encounter_mix wants active [M] with M={m}, got "
-                         f"{tuple(active.shape)}")
+    m = weights.shape[-2]
+    ls = tuple(weights.shape[:1]) if lanes else ()
+    if tuple(pos.shape) != ls + (m, 2):
+        raise ValueError(f"encounter_mix wants pos [{lead}M, 2] with "
+                         f"{ls + (m,)}, got {tuple(pos.shape)}")
+    if tuple(area.shape) != ls + (m,):
+        raise ValueError(f"encounter_mix wants area [{lead}M] with "
+                         f"{ls + (m,)}, got {tuple(area.shape)}")
+    if active is not None and tuple(active.shape) != ls + (m,):
+        raise ValueError(f"encounter_mix wants active [{lead}M] with "
+                         f"{ls + (m,)}, got {tuple(active.shape)}")
     if pos.dtype != torch.float32:
         raise TypeError(f"encounter_mix: pos must be float32, got {pos.dtype}")
     if area.dtype.is_floating_point or area.dtype.is_complex \
@@ -110,7 +126,7 @@ def _check(pos: torch.Tensor, area: torch.Tensor,
     if active is not None and active.dtype != torch.bool:
         raise TypeError(f"encounter_mix: active must be bool, got "
                         f"{active.dtype}")
-    if weights.dtype not in _ENTRY:
+    if weights.dtype not in _LANES_ENTRY:
         raise TypeError(f"encounter_mix: weights must be float32 or bfloat16, "
                         f"got {weights.dtype}")
     others = [pos, area] + ([] if active is None else [active])
@@ -124,41 +140,89 @@ def encounter_mix(pos: torch.Tensor, area: torch.Tensor,
                   active: Optional[torch.Tensor], weights: torch.Tensor, *,
                   radius: float = 0.15) -> Tuple[torch.Tensor, torch.Tensor]:
     """pos [M, 2] f32, area [M] int, active [M] bool (None == all active),
-    weights [M, D] f32|bf16 -> (mix [M, D] in weights' dtype, mass [M] f32)."""
+    weights [M, D] f32|bf16 -> (mix [M, D] in weights' dtype, mass [M] f32).
+
+    On a CUDA tensor: ``encounter_mix_lanes`` of one lane (the single-call
+    kernels)."""
     _check(pos, area, active, weights)
     if weights.device.type == "cpu":
         mix, mass = encounter_mix_reference(pos, area, active, weights,
                                             radius=radius)
+        return mix.to(weights.dtype), mass
+    mix, mass = encounter_mix_lanes(
+        pos[None], area[None], None if active is None else active[None],
+        weights[None], radius=radius)
+    return mix[0], mass[0]
+
+
+encounter_mix.launches = 0
+
+
+def encounter_mix_lanes(pos: torch.Tensor, area: torch.Tensor,
+                        active: Optional[torch.Tensor],
+                        weights: torch.Tensor, *, radius: float = 0.15
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pos [S, M, 2] f32, area [S, M] int, active [S, M] bool (None == all
+    active), weights [S, M, D] f32|bf16 -> (mix [S, M, D] in weights'
+    dtype, mass [S, M] f32): lane s is ``encounter_mix`` on lane s's
+    inputs, all S lanes in one call."""
+    _check(pos, area, active, weights, lanes=True)
+    if weights.device.type == "cpu":
+        mix, mass = encounter_mix_lanes_reference(pos, area, active, weights,
+                                                  radius=radius)
         return mix.to(weights.dtype), mass
     if weights.device.type != "cuda":
         raise ValueError(f"encounter_mix runs on cuda or cpu, not "
                          f"{weights.device}")
     if not weights.is_contiguous():
         raise ValueError("encounter_mix: weights must be contiguous")
-    pos = pos.contiguous()                      # [M, 2]: a small copy at most
-    m, d = weights.shape
+    s, m, d = weights.shape
+    if s > MAX_LANES:
+        raise ValueError(f"encounter_mix_lanes: S={s} lanes exceed the "
+                         f"grid's bound of {MAX_LANES}")
+    pos = pos.contiguous()                      # [S, M, 2]: small
     dev = weights.device
-    out = torch.empty((m, d), dtype=weights.dtype, device=dev)
-    mass = torch.empty((m,), dtype=torch.float32, device=dev)
-    if m == 0:
+    out = torch.empty((s, m, d), dtype=weights.dtype, device=dev)
+    mass = torch.empty((s, m), dtype=torch.float32, device=dev)
+    if s == 0 or m == 0:
         return out, mass
     area64, on = _side(area, active)
-    words = torch.empty((m, n_words(m)), dtype=torch.int32, device=dev)
-    fn = _entry(_ENTRY[weights.dtype], _ARGTYPES)
+    words = torch.empty((s, m, n_words(m)), dtype=torch.int32, device=dev)
+    fn = _entry(_LANES_ENTRY[weights.dtype], _LANES_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pos.data_ptr(), area64.data_ptr(), _ptr(on),
                  weights.data_ptr(), out.data_ptr(), mass.data_ptr(),
-                 words.data_ptr(), m, d, ctypes.c_float(radius ** 2),
+                 words.data_ptr(), s, m, d, ctypes.c_float(radius ** 2),
                  DENSE_PAIRS_PER_ROW, stream)
     if err != 0:
-        raise RuntimeError(f"encounter_mix kernel launch failed: CUDA error "
-                           f"{err} (M={m}, D={d}, {weights.dtype})")
+        raise RuntimeError(f"encounter_mix_lanes kernel launch failed: CUDA "
+                           f"error {err} (S={s}, M={m}, D={d}, "
+                           f"{weights.dtype})")
     encounter_mix.launches += 1
     return out, mass
 
 
-encounter_mix.launches = 0
+@torch.library.custom_op("repro_torch::encounter_mix", mutates_args=())
+def encounter_mix_op(pos: torch.Tensor, area: torch.Tensor,
+                     active: Optional[torch.Tensor], weights: torch.Tensor,
+                     radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encounter_mix`` as a custom op, visible to ``torch.func.vmap``."""
+    return encounter_mix(pos, area, active, weights, radius=radius)
+
+
+@encounter_mix_op.register_fake
+def _(pos, area, active, weights, radius):
+    return (torch.empty_like(weights),
+            weights.new_empty(weights.shape[:1], dtype=torch.float32))
+
+
+@encounter_mix_op.register_vmap
+def _(info, in_dims, pos, area, active, weights, radius):
+    n = info.batch_size
+    lanes = [None if x is None else lanes_first(x, d, n)
+             for x, d in zip((pos, area, active, weights), in_dims[:4])]
+    return encounter_mix_lanes(*lanes, radius=radius), (0, 0)
 
 
 def _check_block(name: str, pos: torch.Tensor, area: torch.Tensor,

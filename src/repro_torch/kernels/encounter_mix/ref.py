@@ -137,3 +137,27 @@ def encounter_mix_reference(pos: torch.Tensor, area: torch.Tensor,
     acc, mass = encounter_block(pos, area, active, 0, pos, area, active, 0,
                                 weights, radius)
     return normalize_mix(acc, mass), mass
+
+
+def encounter_mix_lanes_reference(pos: torch.Tensor, area: torch.Tensor,
+                                  active: Optional[torch.Tensor],
+                                  weights: torch.Tensor, *, radius: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encounter_mix_reference`` with a leading lane axis on every
+    argument: pos [S, M, 2], area [S, M], active [S, M] (or None), weights
+    [S, M, D] -> (mixed [S, M, D] f32, mass [S, M]); the [S, M, M] gate
+    times W as one batched matmul. Written out rather than vmapped: the
+    custom op's vmap rule calls it, and a transform inside that rule is
+    refused."""
+    dx = pos[:, :, None, 0] - pos[:, None, :, 0]
+    dy = pos[:, :, None, 1] - pos[:, None, :, 1]
+    d2 = dx * dx + dy * dy
+    gate = area[:, :, None] == area[:, None, :]
+    if active is not None:
+        gate = gate & active[:, :, None] & active[:, None, :]
+    m = pos.shape[1]
+    gate = gate & ~torch.eye(m, dtype=torch.bool, device=pos.device)
+    e = ((d2 <= radius_sq(radius).to(d2.device)) & gate).float()
+    mass = e.sum(2)
+    acc = torch.matmul(e, weights.float())
+    return acc / torch.clamp(mass, min=1e-12)[:, :, None], mass

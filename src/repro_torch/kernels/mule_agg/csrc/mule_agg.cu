@@ -20,6 +20,10 @@
 //   by the template F_MAX; rows f >= F are computed and never stored.
 // - The ragged D edge is masked here, so W is never padded or copied.
 // - Accumulation is fp32; the output takes W's type (f32 or bf16).
+// - Lanes (a seed sweep's S populations, mule_agg_lanes_*) are gridDim.y:
+//   block row s offsets A, W and out by lane s's strides and runs the
+//   single-lane code unchanged, so each lane has the bits of a single-lane
+//   launch on its inputs, in one launch for all lanes.
 // - The launch allocates nothing and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -45,6 +49,11 @@ __global__ void __launch_bounds__(kThreads)
                     T* __restrict__ out, int F, int M, int64_t D) {
   constexpr int MC = 4096 / F_MAX;  // rows of A per chunk: 16 KB of floats
   __shared__ float sA[MC][F_MAX];   // sA[j][f] = A[f, m0 + j]
+
+  const int64_t lane = blockIdx.y;  // this lane's A [F, M], W [M, D], out
+  A += lane * F * M;
+  W += lane * M * D;
+  out += lane * F * D;
 
   const int64_t d = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const bool live = d < D;
@@ -81,10 +90,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(const void* A, const void* W, void* out, int F, int M, long long D,
-           void* stream) {
-  if (F < 1 || F > 16 || M < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((D + kThreads - 1) / kThreads));
+int launch(const void* A, const void* W, void* out, int S, int F, int M,
+           long long D, void* stream) {
+  if (S < 1 || S > 65535 || F < 1 || F > 16 || M < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((D + kThreads - 1) / kThreads), (unsigned)S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A);
   const T* w = static_cast<const T*>(W);
@@ -104,12 +114,16 @@ int launch(const void* A, const void* W, void* out, int F, int M, long long D,
 
 }  // namespace
 
-extern "C" int mule_agg_f32(const void* A, const void* W, void* out, int F,
-                            int M, long long D, void* stream) {
-  return launch<float>(A, W, out, F, M, D, stream);
+// S lanes in one launch (S = 1: a single call): A [S, F, M], W [S, M, D]
+// -> out [S, F, D]
+extern "C" int mule_agg_lanes_f32(const void* A, const void* W, void* out,
+                                  int S, int F, int M, long long D,
+                                  void* stream) {
+  return launch<float>(A, W, out, S, F, M, D, stream);
 }
 
-extern "C" int mule_agg_bf16(const void* A, const void* W, void* out, int F,
-                             int M, long long D, void* stream) {
-  return launch<__nv_bfloat16>(A, W, out, F, M, D, stream);
+extern "C" int mule_agg_lanes_bf16(const void* A, const void* W, void* out,
+                                   int S, int F, int M, long long D,
+                                   void* stream) {
+  return launch<__nv_bfloat16>(A, W, out, S, F, M, D, stream);
 }

@@ -13,3 +13,9 @@ import torch
 
 def mule_agg_plain(assign: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return (assign.float() @ weights.float()).to(weights.dtype)
+
+
+def mule_agg_lanes_plain(assign: torch.Tensor, weights: torch.Tensor
+                         ) -> torch.Tensor:
+    """assign [S, F, M] x weights [S, M, D] -> [S, F, D]: a batched matmul."""
+    return torch.matmul(assign.float(), weights.float()).to(weights.dtype)

@@ -1,10 +1,11 @@
 """Mobility: visit-log generators, churn masks and their [T, M] expansion,
 and the random walk of paper Sec 4.1."""
 from repro_torch.mobility.patterns import (  # noqa: F401
-    commuter_trace, event_crowd_trace, flash_churn_mask, markov_churn_mask,
-    shift_worker_trace)
+    commuter_trace, duty_cycle_mask, event_crowd_trace, flash_churn_mask,
+    markov_churn_mask, multi_area_trace, shift_worker_trace)
 from repro_torch.mobility.trace import (  # noqa: F401
-    dwell_exchange_flags, synth_foursquare_trace, trace_to_colocation)
+    area_over_time, dwell_exchange_flags, synth_foursquare_trace,
+    trace_to_colocation, trace_to_colocation_loop)
 from repro_torch.mobility.random_walk import (  # noqa: F401
     MobilityConfig, WalkDraws, init_mobility, mobility_step,
     sample_walk_draws, simulate_trajectories, space_of)

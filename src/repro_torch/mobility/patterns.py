@@ -10,6 +10,7 @@ All trace generators return the visit format of ``synth_foursquare_trace``
   window and rotate workplaces daily.
 - ``event_crowd_trace``  — sparse background visits plus scheduled events
   that pull a large user fraction into one venue simultaneously.
+- ``multi_area_trace``   — N near-isolated cities with rare travellers.
 
 The ``*_mask`` generators produce ``[T, M]`` bool activity masks
 (``colocation["active"]``):
@@ -17,6 +18,7 @@ The ``*_mask`` generators produce ``[T, M]`` bool activity masks
 - ``markov_churn_mask`` — each device is an independent on/off Markov chain.
 - ``flash_churn_mask``  — a small always-on core plus flash windows where
   most devices join at once and mass-exit at the end.
+- ``duty_cycle_mask``   — a periodic per-device duty cycle.
 
 Every generator is deterministic per seed, bitwise-equal to
 ``repro.mobility.patterns`` for the same seed, and every mask keeps at
@@ -81,11 +83,65 @@ def flash_churn_mask(seed: int, n_steps: int, n_mules: int,
     return _ensure_one_active(mask)
 
 
+def duty_cycle_mask(seed: int, n_steps: int, n_mules: int,
+                    period: int = 120, on_frac: float = 0.55,
+                    jitter: int = 15) -> np.ndarray:
+    """Periodic per-device duty cycle -> [T, M] bool.
+
+    Device ``m`` is on for ``on_frac * period`` steps of every period,
+    phase-shifted by a per-device jitter: commuter devices that sleep
+    off-shift, with staggered shift starts.
+    """
+    rng = np.random.default_rng(seed)
+    phase = rng.integers(0, max(jitter, 1) + 1, n_mules)
+    on_len = max(int(on_frac * period), 1)
+    t = np.arange(n_steps)[:, None]
+    mask = ((t + phase[None, :]) % period) < on_len
+    return _ensure_one_active(mask)
+
+
 def _sorted_visits(visits) -> np.ndarray:
     if not visits:
         return np.zeros((0, 4), np.int64)
     arr = np.array(visits, np.int64)
     return arr[np.argsort(arr[:, 2], kind="stable")]
+
+
+def multi_area_trace(seed: int, n_users: int = 30, n_places: int = 12,
+                     n_steps: int = 2000, n_areas: int = 3,
+                     p_travel: float = 0.01, min_visits: int = 6,
+                     max_visits: int = 18) -> np.ndarray:
+    """N near-isolated cities (paper Sec 4.1 generalized past 2 areas).
+
+    Places split into ``n_areas`` contiguous blocks of ``n_places //
+    n_areas`` spaces (area = place // block, as ``trace_colocation``
+    derives it). Each user lives in one home area and draws
+    foursquare-style visits from it; with probability ``p_travel`` a visit
+    crosses into another city, the paper's rare inter-area traveller
+    (0.715% in the Foursquare data).
+    """
+    if n_places != 4 * n_areas:
+        raise ValueError(
+            f"n_places={n_places} must be 4 * n_areas={n_areas}: the "
+            "colocation expansion derives area = place // 4 and space = "
+            "place % 4 (4 spaces per area throughout the harness)")
+    rng = np.random.default_rng(seed)
+    block = n_places // n_areas
+    home = rng.integers(0, n_areas, n_users)
+    visits = []
+    for u in range(n_users):
+        t = int(rng.integers(0, max(n_steps // 8, 1)))
+        for _ in range(int(rng.integers(min_visits, max_visits + 1))):
+            area = int(home[u])
+            if rng.random() < p_travel:
+                area = int(rng.integers(0, n_areas))
+            place = area * block + int(rng.integers(0, block))
+            dwell = int(rng.integers(6, 30))
+            if t + dwell >= n_steps:
+                break
+            visits.append((u, place, t, t + dwell))
+            t += dwell + int(rng.integers(5, 40))
+    return _sorted_visits(visits)
 
 
 def commuter_trace(seed: int, n_users: int = 20, n_places: int = 8,

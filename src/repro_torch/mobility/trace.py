@@ -98,6 +98,28 @@ def dwell_exchange_flags(fixed_id: np.ndarray, exchange_steps=3) -> np.ndarray:
     return present & (dwell % steps == 0)
 
 
+def area_over_time(fixed_id: np.ndarray, init_area,
+                   places_per_area: int = 4) -> np.ndarray:
+    """Per-step home-area trace ``[T, M]`` int32 from a co-location grid.
+
+    A mule's area is the area of the last place it visited (``place //
+    places_per_area``): corridor steps (``fixed_id == -1``) keep the area of
+    the previous visit, and steps before any visit fall back to
+    ``init_area``. The migratory scenario's time-varying ``"area"`` column.
+    """
+    fid = np.asarray(fixed_id)
+    n_steps, n_users = fid.shape
+    present = fid >= 0
+    t_grid = np.arange(n_steps, dtype=np.int64)[:, None]
+    last_t = np.maximum.accumulate(np.where(present, t_grid, -1), axis=0)
+    seen = last_t >= 0
+    last_place = np.take_along_axis(fid, np.maximum(last_t, 0).astype(np.intp),
+                                    axis=0)
+    init = np.broadcast_to(np.asarray(init_area), (n_users,))
+    return np.where(seen, last_place // places_per_area,
+                    init[None, :]).astype(np.int32)
+
+
 def _cadence_of(fixed_id: np.ndarray, exchange_steps) -> np.ndarray:
     """Per-cell exchange cadence: scalar, or looked up by space id.
 
@@ -113,3 +135,23 @@ def _cadence_of(fixed_id: np.ndarray, exchange_steps) -> np.ndarray:
             f"place id {top} has no cadence: exchange_steps covers only "
             f"{len(per_place)} places")
     return per_place[np.maximum(fixed_id, 0)]
+
+
+def trace_to_colocation_loop(visits: np.ndarray, n_users: int, n_steps: int,
+                             exchange_steps=3
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-step-loop oracle of ``trace_to_colocation`` (for parity tests;
+    O(T M) Python iterations)."""
+    fixed_id = -np.ones((n_steps, n_users), np.int32)
+    for u, place, t_in, t_out in visits:
+        fixed_id[t_in:t_out, u] = place
+    dwell = np.zeros((n_users,), np.int64)
+    exchange = np.zeros((n_steps, n_users), bool)
+    prev = -np.ones((n_users,), np.int32)
+    for t in range(n_steps):
+        same = (fixed_id[t] == prev) & (fixed_id[t] >= 0)
+        dwell = np.where(same, dwell + 1, np.where(fixed_id[t] >= 0, 1, 0))
+        steps = _cadence_of(fixed_id[t], exchange_steps)
+        exchange[t] = (dwell > 0) & (dwell % steps == 0)
+        prev = fixed_id[t]
+    return fixed_id, exchange

@@ -6,8 +6,13 @@
     co = spec.colocation(seed=0, n_mules=20, n_steps=500)
     final, aux = run_population(pop, co, batch_fn, train_fn, pcfg, key=0,
                                 eval_every=100, eval_fn=eval_hook)
+
+``run_sweep`` replays S seeds at once; ``stack_trees`` and
+``stack_colocations`` build its lane-stacked inputs.
 """
 from repro_torch.scenarios.engine import run_population  # noqa: F401
+from repro_torch.scenarios.sweep import (  # noqa: F401
+    run_sweep, run_sweep_distributed, stack_colocations, stack_trees)
 from repro_torch.scenarios.registry import (  # noqa: F401
     SCENARIOS, ChurnSpec, ScenarioSpec, SpaceSpec, get_scenario,
     list_scenarios, register, trace_colocation, walk_colocation)

@@ -10,8 +10,8 @@ back to the host.
 Seed discipline (the counterpart of the reference's key discipline):
 
 - step ``t`` uses ``k_t = fold_in(key, t)``;
-- if ``batches`` is a callable ``(seed, t) -> batches-dict``, the step calls
-  it with ``fold_in(k_t, 0)`` and trains with ``fold_in(k_t, 1)``;
+- if ``batches`` is a callable ``(seed, t[, context]) -> batches-dict``, the
+  step calls it with ``fold_in(k_t, 0)`` and trains with ``fold_in(k_t, 1)``;
 - if ``batches`` is a pytree of stacked ``[T, ...]`` tensors, step ``t``
   consumes slice ``t`` and trains with ``k_t``.
 
@@ -44,7 +44,8 @@ def _colocation_tensors(colocation: Dict[str, Any], dev: torch.device):
     """Normalize a colocation dict to (fid, exch, pos, area, act) tensors.
 
     ``act`` defaults to all-ones (the dense population), ``pos`` and
-    ``area`` to zeros.
+    ``area`` (one per mule) to zeros. A lane-stacked ``[S, T, M]`` schedule
+    gets the same defaults for each lane.
     """
     fid = _on(colocation["fixed_id"], torch.int64, dev)
     exch = _on(colocation["exchange"], torch.bool, dev)
@@ -52,7 +53,8 @@ def _colocation_tensors(colocation: Dict[str, Any], dev: torch.device):
     pos = (torch.zeros(fid.shape + (2,), device=dev) if pos is None
            else _on(pos, torch.float32, dev))
     area = colocation.get("area")
-    area = (torch.zeros(fid.shape[1:], dtype=torch.int64, device=dev)
+    area = (torch.zeros(fid.shape[:-2] + fid.shape[-1:], dtype=torch.int64,
+                        device=dev)
             if area is None else _on(area, torch.int64, dev))
     act = colocation.get("active")
     act = (torch.ones(fid.shape, dtype=torch.bool, device=dev) if act is None
@@ -70,6 +72,8 @@ def _tree_map(fn, tree):
 
 def _tree_stack(trees):
     first = trees[0]
+    if first is None:
+        return None
     if isinstance(first, dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in first}
     if isinstance(first, (tuple, list)):
@@ -91,8 +95,8 @@ def run_population(state: Dict[str, Any], colocation: Dict[str, Any],
                    batches: Any, train_fn: TrainFn, cfg: PopulationConfig,
                    key: int, *, eval_every: Optional[int] = None,
                    eval_fn: Optional[Callable] = None,
-                   method: str = "mlmule", device="cuda"
-                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+                   method: str = "mlmule", context: Any = None,
+                   device="cuda") -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Replay one method over a precomputed co-location schedule.
 
     state:      population state from ``init_population`` on ``device``.
@@ -100,17 +104,22 @@ def run_population(state: Dict[str, Any], colocation: Dict[str, Any],
                  "exchange": [T, M] bool}; optional "pos" [T, M, 2],
                  "area" [M] or [T, M], and "active" [T, M] bool churn mask
                  (numpy arrays or tensors; moved to ``device``).
-    batches:    callable ``(seed, t) -> {"fixed": ..., "mule": ...}``, or a
-                pytree of stacked ``[T, ...]`` tensors on ``device``.
+    batches:    callable ``(seed, t[, context]) -> {"fixed": ..., "mule":
+                ...}``, or a pytree of stacked ``[T, ...]`` tensors on
+                ``device``.
     key:        integer seed of the run.
     method:     any of ``METHODS_MOBILE``: ``"mlmule"``, ``"gossip"``,
                 ``"oppcl"``, ``"local"`` or ``"mlmule+gossip"`` (see
                 ``method_program``). The peer-encounter methods read "pos"
                 and "area" and fire at ``t % 3 == 2``.
-    eval_fn:    optional ``(state, last_fid [M]) -> metric`` run after every
-                ``eval_every`` steps (``last_fid`` is each mule's most
-                recent fixed device, 0 before any visit). A trailing partial
-                chunk of fewer than ``eval_every`` steps runs unevaluated.
+    eval_fn:    optional ``(state, last_fid [M][, context]) -> metric`` run
+                after every ``eval_every`` steps (``last_fid`` is each
+                mule's most recent fixed device, 0 before any visit). A
+                trailing partial chunk of fewer than ``eval_every`` steps
+                runs unevaluated.
+    context:    optional data handed to ``batches`` and ``eval_fn`` as a
+                trailing argument (under ``run_sweep``, each seed's own);
+                without it both take their two-argument forms.
 
     Returns ``(final_state, aux)`` with
     ``aux = {"last_fid": [M], "eval_steps": np [E], "evals": stacked/None}``
@@ -129,7 +138,9 @@ def run_population(state: Dict[str, Any], colocation: Dict[str, Any],
     for t in range(n_steps):
         k_t = fold_in(key, t)
         if dynamic:
-            bt, ks = batches(fold_in(k_t, 0), t), fold_in(k_t, 1)
+            kb, ks = fold_in(k_t, 0), fold_in(k_t, 1)
+            bt = (batches(kb, t) if context is None else
+                  batches(kb, t, context))
         else:
             bt, ks = _tree_map(lambda l: l[t], batches), k_t
         state = step_fn(state, {
@@ -138,7 +149,8 @@ def run_population(state: Dict[str, Any], colocation: Dict[str, Any],
             "active": act[t], "t": t}, bt, ks)
         last = torch.where((fid[t] >= 0) & act[t], fid[t], last)
         if n_ev and t < n_ev * eval_every and (t + 1) % eval_every == 0:
-            evals.append(eval_fn(state, last))
+            evals.append(eval_fn(state, last) if context is None else
+                         eval_fn(state, last, context))
 
     steps = (np.arange(n_ev) + 1) * eval_every - 1 if n_ev else \
         np.zeros((0,), int)

@@ -21,9 +21,9 @@ The port registers the trace-built scenarios of ``repro.scenarios.registry``
 and builds bitwise the same arrays for the same seed, and the paper's
 ``random_walk``, whose draws come from a ``torch.Generator`` (the
 reference's ``jax.random`` bits cannot be reproduced; fed the same draws,
-``mobility.random_walk`` gives the same walk). The other scenarios of the
-reference arrive with later items of ``ROADMAP.md``; ``get_scenario`` names
-the item for each of them.
+``mobility.random_walk`` gives the same walk). The one scenario of the
+reference not built yet, ``streaming_commuter``, arrives with a later item
+of ``ROADMAP.md``, which ``get_scenario`` names.
 """
 from __future__ import annotations
 
@@ -33,12 +33,14 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.mobility import (MobilityConfig, commuter_trace,
+from repro_torch.mobility import (MobilityConfig, area_over_time,
+                                  commuter_trace, duty_cycle_mask,
                                   dwell_exchange_flags, event_crowd_trace,
                                   flash_churn_mask, init_mobility,
-                                  markov_churn_mask, sample_walk_draws,
-                                  shift_worker_trace, simulate_trajectories,
-                                  space_of, synth_foursquare_trace,
+                                  markov_churn_mask, multi_area_trace,
+                                  sample_walk_draws, shift_worker_trace,
+                                  simulate_trajectories, space_of,
+                                  synth_foursquare_trace,
                                   trace_to_colocation)
 
 Colocation = Dict[str, np.ndarray]
@@ -46,14 +48,12 @@ Colocation = Dict[str, np.ndarray]
 _CHURN_GENERATORS = {
     "markov": markov_churn_mask,
     "flash": flash_churn_mask,
+    "duty_cycle": duty_cycle_mask,
 }
 
 # scenarios of the reference that the port does not build yet
 _DEFERRED = {
     "streaming_commuter": "ROADMAP §1 item 12 (streaming colocation)",
-    "multi_area_3city": "ROADMAP §1 item 7 (multi_area_trace)",
-    "multi_area_migratory": "ROADMAP §1 item 7 (multi_area_trace and "
-                            "area_over_time)",
 }
 
 
@@ -61,9 +61,9 @@ _DEFERRED = {
 class ChurnSpec:
     """Declarative population churn: which mask generator, with what knobs.
 
-    ``kind`` selects a generator (markov | flash); ``params`` are its
-    keyword arguments. ``seed_offset`` decorrelates the mask draw from the
-    mobility draw of the same scenario seed.
+    ``kind`` selects a generator (markov | flash | duty_cycle); ``params``
+    are its keyword arguments. ``seed_offset`` decorrelates the mask draw
+    from the mobility draw of the same scenario seed.
     """
     kind: str = "markov"
     params: Tuple[Tuple[str, float], ...] = ()
@@ -275,6 +275,35 @@ register(ScenarioSpec(
 # Same mobility as the image-task trace scenarios; the harness binds the
 # paper's LSTM-CNN HAR stack (task="har" selects the IMU dataset and the
 # ``configs.mule_lstm_cnn`` model, Fig 8/9's) instead of the CNN.
+
+register(ScenarioSpec(
+    name="multi_area_3city",
+    colocation=_from_trace(multi_area_trace, n_places=12, n_areas=3),
+    mode="mobile", dist="shards", n_fixed=12,
+    description="Three near-isolated cities (12 spaces, 3 areas) with rare "
+                "cross-city travelers: affinity groups must form per city "
+                "without cross-area leakage."))
+
+
+def _migratory_colocation(seed: int, n_mules: int, n_steps: int) -> Colocation:
+    """3-city trace with heavy travel and a *time-varying* area column.
+
+    ``p_travel=0.25`` makes relocation the norm, and ``area_over_time``
+    replaces the static per-mule area with the ``[T, M]`` trace of each
+    mule's current city.
+    """
+    co = _from_trace(multi_area_trace, n_places=12, n_areas=3,
+                     p_travel=0.25)(seed, n_mules, n_steps)
+    co["area"] = area_over_time(co["fixed_id"], co["init_area"])
+    return co
+
+
+register(ScenarioSpec(
+    name="multi_area_migratory",
+    colocation=_migratory_colocation,
+    mode="mobile", dist="shards", n_fixed=12,
+    description="Three cities with heavy migration (p_travel=0.25) and a "
+                "time-varying [T, M] area column: mules relocate for good."))
 
 register(ScenarioSpec(
     name="har_commuter", colocation=_from_trace(commuter_trace),

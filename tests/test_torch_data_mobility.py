@@ -86,7 +86,8 @@ def test_trace_to_colocation_bitwise(cadence):
 
 PORTED = ["commuter", "commuter_churn", "event_crowd", "event_crowd_flash",
           "foursquare_sparse", "har_commuter", "har_shift_worker",
-          "mixed_cadence", "random_walk", "shift_worker"]
+          "mixed_cadence", "multi_area_3city", "multi_area_migratory",
+          "random_walk", "shift_worker"]
 # the random walk draws from a torch.Generator, not the reference's
 # jax.random keys (tests/test_torch_random_walk.py feeds it those draws)
 BITWISE = [name for name in PORTED if name != "random_walk"]

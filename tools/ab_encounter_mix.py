@@ -37,6 +37,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SWEEP = (0, 4, 8, 12, 16, 33)
+# encounter_mix_f32's C interface in sources with the pair scratch: pos,
+# area, active, W, out, mass, words, M, D, r2, dense_min, stream
+MIX_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_void_p]
 
 
 def main() -> int:
@@ -64,7 +69,7 @@ def main() -> int:
     new_abi = hasattr(lib, "encounter_pairs")
     mix_fn, hop_fn = lib.encounter_mix_f32, lib.encounter_hop_f32
     if new_abi:
-        mix_fn.argtypes, hop_fn.argtypes = ops._ARGTYPES, ops._HOP_ARGTYPES
+        mix_fn.argtypes, hop_fn.argtypes = MIX_ARGTYPES, ops._HOP_ARGTYPES
     else:
         mix_fn.argtypes = ([ctypes.c_void_p] * 6
                            + [ctypes.c_int, ctypes.c_longlong,
@@ -156,6 +161,10 @@ def main() -> int:
         print(f"{name}, f32: the two sources give "
               f"{'the same bits' if same else 'DIFFERENT results'} "
               f"({int(b_mass.sum().item())} met pairs) [{card}]")
+        if not same:
+            print(f"  max |other - tree| {(a - b).abs().max().item():.3e}, "
+                  f"{int((a != b).sum())} cells, masses "
+                  f"{'equal' if torch.equal(a_mass, b_mass) else 'differ'}")
         del a, b
         times = {"other": [], "tree": []}
         for _ in range(5):
