@@ -11,7 +11,15 @@ Phases (any failure exits non-zero without the final result line):
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shape and at ragged and edge shapes, in f32 and bf16, with
    TF32 off; time the kernel, the plain version and the one PyTorch call
-   that computes the same function (CUDA events, median after warm-up);
+   that computes the same function (CUDA events, median after warm-up).
+   ``mule_agg`` is held at every tile height F = 1..16, at F = 17, 20
+   and 33 (row tiles), at D % 4 != 0, odd bf16 rows, rows out of 16-byte
+   alignment, bf16 at D = 546,484 and M = 1,100, and ``masked_group_mean``
+   runs at F = 20 through "auto" against "ref"; it is timed at the main
+   path's (8, 256, 546,484), the multi-area (12, 256, 546,484), Table 1's
+   (8, 20, 546,484) and the HAR (8, 256, 44,580) shapes beside
+   ``torch.matmul`` and its bound, W cold (copies rotating over 150 MB),
+   a call under 50 us timed in a CUDA graph of launches;
 4. the main path: ``mlmule`` in mobile mode on the ``commuter`` scenario at
    the full width of the paper's CNN (32x32x3, conv 32/64, hidden 128, 20
    classes), F=8 fixed devices, M=256 mules, batch 16, lr 0.05, T=60 steps,
@@ -104,7 +112,7 @@ Phases (any failure exits non-zero without the final result line):
    (12 fixed devices in 3 cities) and ``gossip`` on
    ``multi_area_migratory`` (its area a [T, M] column) at the paper CNN's
    full width, M = 256, T = 60, an eval every 20. ``mule_agg`` must launch
-   60 times for ``mlmule`` (its 16-row instantiation, F = 12),
+   60 times for ``mlmule`` (F = 12, the kernel's 12-row instance),
    ``encounter_mix`` 20 times for ``gossip``; each run replayed bitwise
    and against its plain backend under the growth bound, ``gossip``'s mix
    in lockstep with the plain version at every exchange (1e-5), and no met
@@ -365,6 +373,13 @@ LANES = 4
 MULTI_AREA_FIXED = 12
 # the dense HAR strip of the lane-batched mix: the LSTM-CNN's D
 HAR_D = 44_580
+# mule_agg's timings (phase 3): a call whose bound is under GRAPH_BELOW_MS
+# is timed in a CUDA graph of GRAPH_CALLS calls a copy of W (the wrapper's
+# enqueue, ~15-20 us, is longer than the call); copies of W rotate until
+# they span COLD_BYTES, three times the H100's 50 MB of L2
+GRAPH_BELOW_MS = 0.05
+GRAPH_CALLS = 4
+COLD_BYTES = 150e6
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -413,6 +428,37 @@ def _median_ms(fn, reps: int = 30, warm: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def _cold_ms(fn, inputs, graph: bool, reps: int = 20) -> float:
+    """Median ms of one call ``fn(*inputs[i])``, the calls cycling through
+    the copies ``inputs`` so that each finds its inputs out of L2. With
+    ``graph``, one reading is a replay of a CUDA graph of GRAPH_CALLS calls
+    a copy, over their count: the host's enqueue, not timed then, is longer
+    than such a call."""
+    import torch
+    n = len(inputs)
+    if not graph:
+        turn = [0]
+
+        def one():
+            fn(*inputs[turn[0] % n])
+            turn[0] += 1
+        return _median_ms(one, reps=max(reps, n))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        for x in inputs:
+            fn(*x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph_ = torch.cuda.CUDAGraph()
+    calls = GRAPH_CALLS * n
+    with torch.cuda.graph(graph_):
+        for k in range(calls):
+            fn(*inputs[k % n])
+    ms = _median_ms(graph_.replay, reps=reps, warm=2) / calls
+    del graph_
+    return ms
+
+
 def phase_card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -430,6 +476,11 @@ def phase_build() -> None:
     print(f"build: {len(logs)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
+        if name == "mule_agg":      # 32 instances: print three heights
+            for label, use in _mule_agg_build().items():
+                print(f"  mule_agg {label}: {use['registers']} registers, "
+                      f"{use['spill_bytes']} bytes spilled")
+            continue
         entry = ""
         for line in log.splitlines():
             if name == "flash_attention_tc" and "Compiling entry" in line:
@@ -468,8 +519,94 @@ def _ptxas_usage(name: str, entries: dict) -> dict:
     return usage
 
 
-def phase_mule_agg() -> dict:
-    """mule_agg against its plain version; returns its JSON row."""
+def _mule_agg_case(g, f, m, d, dtype, offset: int = 0):
+    """Seeded inputs of mule_agg: rows of a group mean a [F, M] and weights
+    w [M, D] (``offset`` elements into their storage, so that their rows
+    lose alignment)."""
+    import torch
+    a = torch.rand(f, m, device="cuda", generator=g)
+    a = a / a.sum(1, keepdim=True)                  # rows of a group mean
+    w = torch.randn(m * d + offset, device="cuda", generator=g).to(dtype)
+    return a, w[offset:].view(m, d)
+
+
+def _mule_agg_timing(g, f, m, d, what: str, dtype, card: str) -> dict:
+    """mule_agg at one path shape, cold (copies of W rotate while they span
+    under COLD_BYTES), beside its plain version, torch.matmul and its
+    bound."""
+    import torch
+    from repro_torch.kernels.mule_agg import mule_agg, mule_agg_plain
+    size = torch.tensor([], dtype=dtype).element_size()
+    w_bytes = m * d * size
+    inputs = [_mule_agg_case(g, f, m, d, dtype)
+              for _ in range(max(1, math.ceil(COLD_BYTES / w_bytes)))]
+    n_bytes = 4 * f * m + w_bytes + f * d * size
+    n_flop = 2 * f * m * d
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+    graph = max(t_bytes, t_ops) < GRAPH_BELOW_MS
+    ms = _cold_ms(mule_agg, inputs, graph)
+    plain_ms = _cold_ms(mule_agg_plain, inputs, graph)
+    library_ms = (_cold_ms(torch.matmul, inputs, graph)
+                  if dtype == torch.float32 else None)
+    method = (f"CUDA graph of {GRAPH_CALLS * len(inputs)} calls" if graph
+              else "CUDA events, one call each")
+    entry = {"shape": f"F={f} M={m} D={d} {str(dtype).split('.')[1]}",
+             "path": what, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms, "timed_by": method,
+             "w_copies": len(inputs)}
+    lib = "" if library_ms is None else \
+        f", torch.matmul {library_ms:.4f} ms"
+    print(f"mule_agg timing {entry['shape']} ({what}): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms{lib}, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}; {n_bytes} B, {n_flop} FLOP), "
+          f"{ms / entry['bound_ms']:.3f}x its bound; {method}, W in "
+          f"{len(inputs)} cop{'y' if len(inputs) == 1 else 'ies'} [{card}]")
+    return entry
+
+
+def _group_mean_wide(g) -> None:
+    """masked_group_mean at F = 20 fixed devices (two row tiles of the
+    kernel) through "auto" against "ref"."""
+    import torch
+    from repro_torch.core.aggregation import masked_group_mean
+    from repro_torch.kernels.mule_agg import mule_agg
+    f, m = 20, N_MULES
+    models = {"conv": torch.randn(m, 3, 3, 3, 32, device="cuda", generator=g),
+              "dense": torch.randn(m, 4099, device="cuda", generator=g)}
+    assign = (torch.rand(f, m, device="cuda", generator=g) < 0.1).float()
+    assign[f - 1] = 0.0                               # a zero-mass row
+    before = mule_agg.launches
+    got, mass = masked_group_mean(models, assign, backend="auto")
+    torch.cuda.synchronize()
+    if mule_agg.launches != before + 1:
+        raise AssertionError("masked_group_mean at F = 20 did not launch "
+                             "mule_agg once")
+    want, want_mass = masked_group_mean(models, assign, backend="ref")
+    if not torch.equal(mass, want_mass):
+        raise AssertionError("masked_group_mean at F = 20: masses differ")
+    for k in models:
+        _hold(f"masked_group_mean F={f} M={m} {k} {tuple(got[k].shape)} "
+              f"auto vs ref", got[k], want[k], TOL["float32"],
+              TOL["float32"])
+
+
+def _mule_agg_build() -> dict:
+    """Registers and spill bytes of mule_agg's F = 8, 12 and 16 instances,
+    f32 and bf16, from ptxas's report."""
+    return _ptxas_usage("mule_agg", {
+        f"F={f} {t}": f"mule_agg_kernelILi{f}E{mangled}"
+        for f in (8, 12, 16)
+        for t, mangled in (("f32", "f"), ("bf16", "13__nv_bfloat16"))})
+
+
+def phase_mule_agg(card: str) -> dict:
+    """mule_agg against its plain version: every tile height F = 1..16,
+    F > 16 (row tiles), ragged, odd and misaligned rows of W, A past one
+    chunk of shared memory, in f32 and bf16; masked_group_mean at F = 20;
+    timed at the four path shapes. Returns its JSON row."""
     import torch
     from repro_torch.kernels.mule_agg import mule_agg, mule_agg_plain
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -480,52 +617,66 @@ def phase_mule_agg() -> dict:
     cases = [  # (F, M, D): main path, tests/test_kernels_mule_agg.py's
         (N_FIXED, N_MULES, d_main),  # shapes, then A chunked in shared memory
         (8, 20, 256), (8, 20, 1000), (2, 3, 64), (16, 64, 4096), (1, 1, 130),
-        (8, 1100, 3000), (16, 600, 2000)]
-    row = None
+        (8, 1100, 3000), (16, 600, 2000),
+        # row tiles at a ragged (odd) D, an even D % 4 != 0, an odd bf16 row
+        (17, N_MULES, 5001), (20, N_MULES, 5001), (33, N_MULES, 5001),
+        (7, 40, 4098), (5, 33, 1001),
+        # every tile height, at Table 1's width and at a ragged D
+        *[(f, FIXED_MULES, d_main) for f in range(1, 17)],
+        *[(f, 37, 4099) for f in range(1, 17)],
+        (16, 1100, d_main)]
+    # W's storage offset by 1 or 3 elements: rows out of 16-byte alignment
+    cases = [(f, m, d, 0) for f, m, d in cases] + [(8, 40, 4100, 1),
+                                                   (12, 20, 4096, 3)]
+    err_main = None
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
-        for f, m, d in cases:
-            a = torch.rand(f, m, device="cuda", generator=g)
-            a = a / a.sum(1, keepdim=True)       # rows of a group mean
-            w = torch.randn(m, d, device="cuda", generator=g).to(dtype)
+        worst = 0.0
+        for f, m, d, offset in cases:
+            a, w = _mule_agg_case(g, f, m, d, dtype, offset)
+            before = mule_agg.launches
             out = mule_agg(a, w)
             torch.cuda.synchronize()
+            if mule_agg.launches != before + 1:
+                raise AssertionError(f"mule_agg F={f} counted "
+                                     f"{mule_agg.launches - before} launches")
             ref = mule_agg_plain(a, w)
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-            print(f"mule_agg F={f} M={m} D={d} {dtype}: max_abs_err={err:.3e}"
-                  f" (tol {tol}) {'ok' if ok else 'MISMATCH'}")
+            worst = max(worst, err)
+            if err_main is None:
+                err_main = err                      # the main path's, f32
+            print(f"mule_agg F={f} M={m} D={d}"
+                  f"{f' W offset {offset}' if offset else ''} {dtype}: "
+                  f"max_abs_err={err:.3e} (tol {tol}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"mule_agg disagrees with its plain "
                                      f"version at F={f} M={m} D={d} {dtype}")
-            if (f, m, d) == cases[0] and dtype == torch.float32:
-                ms = _median_ms(lambda: mule_agg(a, w))
-                plain_ms = _median_ms(lambda: mule_agg_plain(a, w))
-                library_ms = _median_ms(lambda: torch.matmul(a, w))
-                n_bytes = 4 * (f * m + m * d + f * d)
-                n_flop = 2 * f * m * d
-                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-                t_ops = n_flop / FP32_FLOP_PER_S * 1e3
-                row = {
-                    "name": "mule_agg", "route": "cuda",
-                    "source": "src/repro_torch/kernels/mule_agg/csrc/"
-                              "mule_agg.cu",
-                    "replaces": "src/repro/kernels/mule_agg/kernel.py:42",
-                    "launches": None, "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms,
-                }
-                print(f"mule_agg timing F={f} M={m} D={d} f32: kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-                      f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']}; {n_bytes} B, {n_flop} FLOP)")
-            elif (f, m, d) == cases[0]:
-                bf_ms = _median_ms(lambda: mule_agg(a, w))
-                print(f"mule_agg timing F={f} M={m} D={d} bf16: kernel "
-                      f"{bf_ms:.4f} ms, bound "
-                      f"{2 * m * d / HBM_BYTES_PER_S * 1e3:.4f} ms (W bytes)")
+            del a, w, out, ref
+        print(f"mule_agg {dtype}: {len(cases)} cases within {tol} of the "
+              f"plain version, worst {worst:.3e}")
+    _group_mean_wide(g)
+
+    timed = [_mule_agg_timing(g, f, m, d, what, torch.float32, card)
+             for f, m, d, what in (
+                 (N_FIXED, N_MULES, d_main, "main path"),
+                 (MULTI_AREA_FIXED, N_MULES, d_main, "multi-area"),
+                 (N_FIXED, FIXED_MULES, d_main, "Table 1"),
+                 (N_FIXED, N_MULES, HAR_D, "HAR"))]
+    timed.append(_mule_agg_timing(g, N_FIXED, N_MULES, d_main, "main path",
+                                  torch.bfloat16, card))
+    main = timed[0]
+    row = {
+        "name": "mule_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/mule_agg/csrc/mule_agg.cu",
+        "replaces": "src/repro/kernels/mule_agg/kernel.py:42",
+        "launches": None, "max_abs_err": err_main,
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "cases": timed,
+        "build": _mule_agg_build(),
+    }
     return row
 
 
@@ -797,8 +948,7 @@ def phase_lanes() -> dict:
     d_main = 546_484     # the paper CNN's parameter count (CONFIG)
     tol = TOL["float32"]
     agg_cases = []
-    # the sweep's shape, Table 1's, the multi-area scenarios' (F = 12: the
-    # kernel's 16-row instantiation)
+    # the sweep's shape, Table 1's, the multi-area scenarios' (F = 12)
     for f, m, what in ((N_FIXED, N_MULES, "the sweep"),
                        (N_FIXED, FIXED_MULES, "Table 1"),
                        (MULTI_AREA_FIXED, N_MULES, "multi-area")):
@@ -3117,7 +3267,7 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernels"
-        rows = [phase_mule_agg(), phase_encounter_mix(),
+        rows = [phase_mule_agg(card), phase_encounter_mix(),
                 phase_encounter_hop(card), phase_flash_attention(card),
                 phase_ssd_scan(card), phase_slstm_scan(card)]
         lanes = phase_lanes()

@@ -1,9 +1,10 @@
 """Wrapper of the ``mule_agg`` kernel: checks, device dispatch, launch count.
 
 ``mule_agg(assign, weights)`` computes ``assign [F, M] @ weights [M, D]``
-with fp32 accumulation and returns ``[F, D]`` in ``weights``' dtype. On a
-CUDA tensor it launches the hand-written kernel (``csrc/mule_agg.cu``) or
-raises; on a CPU tensor it takes the plain version (``ref.py``), which is
+with fp32 accumulation and returns ``[F, D]`` in ``weights``' dtype, for
+any F: the kernel takes the rows in tiles of at most 16 within one launch.
+On a CUDA tensor it launches the hand-written kernel (``csrc/mule_agg.cu``)
+or raises; on a CPU tensor it takes the plain version (``ref.py``), which is
 what the CPU tests run. ``mule_agg.launches`` counts kernel launches.
 
 ``mule_agg_lanes(assign [S, F, M], weights [S, M, D])`` is the lane-batched
@@ -27,8 +28,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.mule_agg.ref import (mule_agg_lanes_plain,
                                               mule_agg_plain)
-
-MAX_F = 16          # the kernel's compile-time bound on F (rows of assign)
 
 # A, W, out, S, F, M, D, stream
 _LANES_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
@@ -87,9 +86,6 @@ def mule_agg_lanes(assign: torch.Tensor, weights: torch.Tensor
         raise ValueError(f"mule_agg runs on cuda or cpu, not {weights.device}")
     s, f, m = assign.shape
     d = weights.shape[2]
-    if f > MAX_F:
-        raise ValueError(f"mule_agg: F={f} rows of assign exceed the "
-                         f"kernel's bound of {MAX_F}")
     if s > MAX_LANES:
         raise ValueError(f"mule_agg_lanes: S={s} lanes exceed the grid's "
                          f"bound of {MAX_LANES}")

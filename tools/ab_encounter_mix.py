@@ -22,9 +22,13 @@ sums, and mass), then times them in turns (other, tree, tree, other), five
 rounds of medians of CUDA-event timings, and prints every reading and the
 medians. Then it sweeps this tree's dense switch
 (``ops.DENSE_PAIRS_PER_ROW``: 0 makes every strip dense, 33 none) on the
-walk and the dense strip, checking the bits at each setting. Every line
-carries the card's name and power limit. It exits non-zero without a GPU
-or nvcc, or if any two results differ.
+walk and the dense strip, checking the bits at each setting. Last, the
+tree's hop against ``encounter_block``: after the allocator's next
+blocks are filled with NaN (a cell the kernel never writes would show),
+and in HOP_REPEATS back-to-back hops alternating with mixes (a race of
+the early-launched sums kernel would show). Every line carries the card's
+name and power limit. It exits non-zero without a GPU or nvcc, or if any
+two results differ.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SWEEP = (0, 4, 8, 12, 16, 33)
+HOP_REPEATS = 200
 # encounter_mix_f32's C interface in sources with the pair scratch: pos,
 # area, active, W, out, mass, words, M, D, r2, dense_min, stream
 MIX_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
@@ -95,12 +100,15 @@ def main() -> int:
         area64 = area.to(torch.int64).contiguous()
         out = torch.empty_like(w)
         mass = torch.empty(m, device="cuda")
+        # the closure holds the scratch tensor itself: a pointer alone
+        # would let the allocator hand its block on while the kernel still
+        # writes its pair words there
         words = torch.empty((m, n_words(m)), dtype=torch.int32,
                             device="cuda")
-        extra = ([words.data_ptr()], [ops.DENSE_PAIRS_PER_ROW]) if new_abi \
-            else ([], [])
 
         def run():
+            extra = ([words.data_ptr()], [ops.DENSE_PAIRS_PER_ROW]) \
+                if new_abi else ([], [])
             err = mix_fn(pos.data_ptr(), area64.data_ptr(), on.data_ptr(),
                          w.data_ptr(), out.data_ptr(), mass.data_ptr(),
                          *extra[0], m, d, r2, *extra[1], stream())
@@ -121,10 +129,10 @@ def main() -> int:
         mass = torch.empty(r, device="cuda")
         words = torch.empty((r, n_words(v)), dtype=torch.int32,
                             device="cuda")
-        extra = ([words.data_ptr()], [ops.DENSE_PAIRS_PER_ROW]) if new_abi \
-            else ([], [])
 
         def run():
+            extra = ([words.data_ptr()], [ops.DENSE_PAIRS_PER_ROW]) \
+                if new_abi else ([], [])
             err = hop_fn(pr.data_ptr(), ar64.data_ptr(), on_r.data_ptr(), r,
                          row0, pv.data_ptr(), av64.data_ptr(),
                          on_v.data_ptr(), v, col0, wv.data_ptr(),
@@ -175,6 +183,7 @@ def main() -> int:
             print(f"  {name} {label}: {[round(t, 4) for t in ms]} ms, "
                   f"median {statistics.median(ms):.4f} ms [{card}]")
 
+    ok &= _hop_checks(hop_args, walk, on, w, card)
     default = ops.DENSE_PAIRS_PER_ROW
     try:
         for name in ("walk", "dense strip"):
@@ -197,6 +206,38 @@ def main() -> int:
     finally:
         ops.DENSE_PAIRS_PER_ROW = default
     return 0 if ok else 1
+
+
+def _hop_checks(hop_args, walk, on, w, card: str) -> bool:
+    """The tree's hop against encounter_block on a poisoned allocator and
+    over HOP_REPEATS back-to-back hops alternating with walk mixes."""
+    import torch
+    import chip_smoke
+    from repro_torch.kernels.encounter_mix import (encounter_block,
+                                                   encounter_block_hop,
+                                                   encounter_mix)
+    want, want_mass = encounter_block(*hop_args)
+    r, d = hop_args[0].shape[0], hop_args[8].shape[1]
+    junk = (torch.empty((r, d), device="cuda").fill_(float("nan")),
+            torch.empty(r, device="cuda").fill_(float("nan")))
+    del junk                                  # the blocks the hop takes next
+    got, got_mass = encounter_block_hop(*hop_args)
+    torch.cuda.synchronize()
+    poisoned = (bool(torch.isfinite(got).all())
+                and torch.equal(got_mass, want_mass)
+                and torch.equal(got, want))
+    print(f"hop after NaN-filled blocks: "
+          f"{'the bits of encounter_block' if poisoned else 'DIFFERENT'}"
+          f" [{card}]")
+    differ = 0
+    for _ in range(HOP_REPEATS):
+        got, got_mass = encounter_block_hop(*hop_args)
+        encounter_mix(walk[0], walk[1], on, w, radius=chip_smoke.RADIUS)
+        differ += int(not (torch.equal(got_mass, want_mass)
+                           and torch.equal(got, want)))
+    print(f"{HOP_REPEATS} hops alternating with walk mixes: {differ} differ "
+          f"from encounter_block [{card}]")
+    return poisoned and differ == 0
 
 
 if __name__ == "__main__":
