@@ -131,7 +131,39 @@ Phases (any failure exits non-zero without the final result line):
    runs', peak memory and a profile of the sweep step. Then
    ``run_sweep_experiment`` at Fig 8's config (har, walk P_cross = 0.1,
    batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 60,
-   every accuracy in [0, 1].
+   every accuracy in [0, 1];
+14. the streamed path: phase 4's ``mlmule`` run and phase 5's ``gossip``
+   run, each through ``run_population`` and through
+   ``run_population_streamed`` over the schedule's compact form in chunks
+   of 20, with cuDNN's deterministic algorithms: final states,
+   ``last_fid`` and evals bitwise equal, ``mule_agg`` 60 and
+   ``encounter_mix`` 20 launches in each; steps/s, peak memory and the
+   schedule's bytes on the card of both;
+15. population scale: the reference's scale workload (a linear model of
+   8 weights, F = 8, ``mlmule``, 2 samples a mule a step) on
+   ``streaming_commuter``'s procedural stream at M = 100,000 and
+   1,000,000, T = 96, streamed in chunks of 8 and through ``run_population``
+   over ``materialize_generator``'s schedule: final models and
+   ``last_fid`` bitwise equal, ``mule_agg`` 96 launches a run; steps/s,
+   schedule bytes and peak memory of each; then ``mule_agg`` timed at
+   (8, 1,000,000, 8) beside ``torch.matmul`` and its bytes bound (a
+   ``cases`` entry of row 1);
+16. the distributed path: ``spawn_local_cluster`` starts 4 ranks of this
+   script (``--dist-rank``) on the one card over gloo, each a 64-mule
+   block of phase 9's bucket-ordered walk at the CNN's full width, T = 30.
+   ``run_population_distributed`` runs the five ``METHODS_MOBILE`` with the
+   histogram sketch: ``mule_agg`` 30 launches a rank for ``mlmule`` and
+   ``mlmule+gossip``, ``encounter_hop`` once per kept hop for the peer
+   methods, ``encounter_mix`` never; every rank's replicated state
+   (``fixed_models``, ``fresh``, ``t``) bitwise equal. ``mlmule`` against
+   ``agg_backend="ref"``: the final weights within phase 4's growth
+   bound, the aggregation in lockstep with training off within 1e-5;
+   ``mlmule`` with ``cross_pod=False`` on a 2 x 2 mesh. Then ``gossip`` on
+   ``multi_area_migratory`` through the streamed distributed engine,
+   re-bucketing every 10 steps: at least one swap, a permutation, the
+   same drift readings on every rank, bitwise
+   ``run_population_distributed(rebucket_every=10)``; steps/s, bytes sent
+   a step and hops pruned before and after the swap.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -380,6 +412,24 @@ HAR_D = 44_580
 GRAPH_BELOW_MS = 0.05
 GRAPH_CALLS = 4
 COLD_BYTES = 150e6
+# the streamed path (phase 14): phase 4's run through the streamed engine,
+# a chunk an eval period
+STREAM_CHUNK = EVAL_EVERY
+# population scale (phase 15): the reference's scale workload
+# (benchmarks/engine_micro.py: _scale_workload), a linear model of D = 8
+# weights over F = 8 fixed devices, two samples a mule a step, lr 0.05, on
+# streaming_commuter's procedural stream, T = 96 in chunks of 8
+SCALE_MULES = (100_000, 1_000_000)
+SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 96, 8, 2, 0.05
+# the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
+# bucket-ordered walk of phase 9 at the CNN's full width, T = 30; then the
+# streamed engine on multi_area_migratory, re-bucketing every 10 steps.
+# At M = 256 that schedule's drift from its build-time buckets is 0 at
+# step 10 and 2 mules of 256 (0.0078) at step 20: the threshold lets the
+# second check swap
+DIST_RANKS, DIST_STEPS = 4, 30
+REBUCKET_EVERY, REBUCKET_THRESHOLD = 10, 0.005
+DIST_TIMEOUT = 900
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -530,10 +580,11 @@ def _mule_agg_case(g, f, m, d, dtype, offset: int = 0):
     return a, w[offset:].view(m, d)
 
 
-def _mule_agg_timing(g, f, m, d, what: str, dtype, card: str) -> dict:
+def _mule_agg_timing(g, f, m, d, what: str, dtype, card: str,
+                     reps: int = 20) -> dict:
     """mule_agg at one path shape, cold (copies of W rotate while they span
     under COLD_BYTES), beside its plain version, torch.matmul and its
-    bound."""
+    bound; the kernel over ``reps`` readings."""
     import torch
     from repro_torch.kernels.mule_agg import mule_agg, mule_agg_plain
     size = torch.tensor([], dtype=dtype).element_size()
@@ -545,7 +596,7 @@ def _mule_agg_timing(g, f, m, d, what: str, dtype, card: str) -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flop / FP32_FLOP_PER_S * 1e3
     graph = max(t_bytes, t_ops) < GRAPH_BELOW_MS
-    ms = _cold_ms(mule_agg, inputs, graph)
+    ms = _cold_ms(mule_agg, inputs, graph, reps)
     plain_ms = _cold_ms(mule_agg_plain, inputs, graph)
     library_ms = (_cold_ms(torch.matmul, inputs, graph)
                   if dtype == torch.float32 else None)
@@ -3194,6 +3245,623 @@ def phase_sweep(card: str) -> dict:
     return paths
 
 
+def _schedule_bytes(window) -> int:
+    """Bytes of a schedule window's tensors on the card."""
+    return sum(t.numel() * t.element_size() for t in window)
+
+
+def _same_state(label: str, a: dict, b: dict) -> None:
+    """Raises unless every tensor of two population states is bitwise
+    equal."""
+    import torch
+    from repro_torch.interop import flatten_tree
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    if sorted(fa) != sorted(fb):
+        raise AssertionError(f"{label}: state keys differ")
+    bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    if bad:
+        raise AssertionError(f"{label}: not bitwise equal in {bad}")
+
+
+def phase_streamed_path(card: str) -> dict:
+    """Phase 4's mlmule run and phase 5's gossip run, each materialized and
+    through ``run_population_streamed`` (chunks of STREAM_CHUNK), with
+    cuDNN's deterministic algorithms: final states, last_fid and evals
+    bitwise equal, kernel launches exact. Returns {path: launches}."""
+    import gc
+    import torch
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.experiment import (batch_sampler, cnn_model_fns,
+                                        image_data_mobile)
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels.encounter_mix import encounter_mix
+    from repro_torch.kernels.mule_agg import mule_agg
+    from repro_torch.scenarios import (get_scenario, run_population,
+                                       run_population_streamed,
+                                       scenario_generator, walk_colocation)
+    from repro_torch.scenarios.engine import _colocation_tensors
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_fn, train_fn, eval_fn = cnn_model_fns(CONFIG, LR)
+    spec = get_scenario("commuter")
+    paths = {}
+    for method, co, n_fixed, kernel, want in (
+            ("mlmule", spec.colocation(SEED, N_MULES, N_STEPS), spec.n_fixed,
+             mule_agg, N_STEPS),
+            ("gossip", walk_colocation(SEED, N_MULES, N_STEPS,
+                                       p_cross=P_CROSS), None, encounter_mix,
+             N_STEPS // PEER_EVERY)):
+        if n_fixed is None:
+            n_fixed = 4 * (int(co["area"].max()) + 1)
+        Xtr, Ytr, Xte, Yte = image_data_mobile(
+            SEED, N_MULES, n_fixed, co["init_space"], co["init_area"],
+            n_super=CONFIG.n_classes, image_size=CONFIG.image_size)
+        pcfg = PopulationConfig(mode="mobile", n_fixed=n_fixed,
+                                n_mules=N_MULES)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        pop0 = init_population(pcfg, init_fn, gen)
+        batch_fn = batch_sampler(Xtr, Ytr, BATCH)
+
+        def eval_hook(st, last):
+            return torch.func.vmap(eval_fn)(st["mule_models"], Xte[last],
+                                            Yte[last])
+
+        stream = scenario_generator(spec if method == "mlmule" else
+                                    "random_walk", SEED, N_MULES, N_STEPS,
+                                    colocation=co, device="cuda")
+        kw = dict(batches=batch_fn, train_fn=train_fn, cfg=pcfg, key=SEED,
+                  eval_every=EVAL_EVERY, eval_fn=eval_hook, method=method)
+        mat_bytes = _schedule_bytes(_colocation_tensors(co, "cuda"))
+        chunk = stream.generate_chunk(None, 0, STREAM_CHUNK)
+        str_bytes = stream.schedule_bytes() + _schedule_bytes(
+            chunk.values())
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            run_population(pop0, _steps(co, 0, PEER_EVERY), **{
+                **kw, "eval_every": None, "eval_fn": None})    # warm-up
+            runs = {}
+            for engine in ("materialized", "streamed"):
+                t0 = time.perf_counter()
+                if engine == "materialized":
+                    (final, aux), got, peak = _count_run(
+                        lambda: run_population(pop0, co, **kw))
+                else:
+                    (final, aux), got, peak = _count_run(
+                        lambda: run_population_streamed(
+                            pop0, stream, chunk_len=STREAM_CHUNK, **kw))
+                wall = time.perf_counter() - t0
+                # to the host, so that the next run's peak holds only its own
+                runs[engine] = (tree_map(lambda t: t.cpu(), final),
+                                {k: (v.cpu() if isinstance(v, torch.Tensor)
+                                     else v) for k, v in aux.items()},
+                                wall, got, peak)
+                del final, aux
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (fm, am, wm, gm, pm), (fs, as_, ws, gs, ps) = (runs["materialized"],
+                                                       runs["streamed"])
+        label = f"streamed {method}"
+        name = "mule_agg" if kernel is mule_agg else "encounter_mix"
+        for engine, got in (("materialized", gm), ("streamed", gs)):
+            if got[name] != want:
+                raise AssertionError(f"{label}: {engine} run launched "
+                                     f"{name} {got[name]} times, expected "
+                                     f"{want}")
+        _same_state(label, fs, fm)
+        if not (torch.equal(as_["last_fid"], am["last_fid"])
+                and torch.equal(as_["evals"], am["evals"])
+                and list(as_["eval_steps"]) == list(am["eval_steps"])):
+            raise AssertionError(f"{label}: last_fid or evals differ")
+        if not bool(torch.isfinite(as_["evals"]).all()):
+            raise AssertionError(f"{label}: non-finite eval")
+        _check_finite(label, {**fs["mule_models"], **fs["fixed_models"]})
+        where = "commuter" if method == "mlmule" else "random_walk"
+        print(f"streamed path: {method} on {where}, M={N_MULES}, "
+              f"T={N_STEPS}, chunks of {STREAM_CHUNK}: streamed "
+              f"{N_STEPS / ws:.3f} steps/s ({ws:.3f} s, peak {ps} B, "
+              f"schedule {str_bytes} B: {stream.schedule_bytes()} B compact "
+              f"+ {str_bytes - stream.schedule_bytes()} B a chunk), "
+              f"materialized {N_STEPS / wm:.3f} steps/s ({wm:.3f} s, peak "
+              f"{pm} B, schedule {mat_bytes} B); launches {gs}; final "
+              f"state, last_fid and evals bitwise equal [{card}]")
+        paths[label] = gs
+        del fm, fs, am, as_, pop0, runs
+    print(f"streamed path: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _scale_fns(n_mules: int):
+    """The reference's scale workload: (train_fn, batch_fn, state)."""
+    import torch
+    from repro_torch.core.population import PopulationConfig, init_population
+
+    def train_fn(params, batch, key):
+        xb, yb = batch
+        g = torch.func.grad(
+            lambda p: torch.mean((xb @ p["w"] - yb) ** 2))(params)
+        return {k: p - SCALE_LR * g[k] for k, p in params.items()}
+
+    def batch_fn(seed, t):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        return {"fixed": None, "mule": (
+            torch.randn(n_mules, SCALE_BATCH, SCALE_D, device="cuda",
+                        generator=g),
+            torch.randn(n_mules, SCALE_BATCH, device="cuda", generator=g))}
+
+    pcfg = PopulationConfig(mode="mobile", n_fixed=N_FIXED, n_mules=n_mules)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    weights = {side: {"w": torch.randn(n, SCALE_D, device="cuda",
+                                       generator=g)}
+               for side, n in (("mule_models", n_mules),
+                               ("fixed_models", N_FIXED))}
+    return train_fn, batch_fn, pcfg, init_population(pcfg, weights=weights)
+
+
+def phase_scale(card: str):
+    """Population scale: the scale workload on streaming_commuter's
+    procedural stream at SCALE_MULES, streamed and through run_population
+    over the materialized schedule: final models bitwise equal, mule_agg
+    launched SCALE_STEPS times a run; then mule_agg timed at the scale
+    shape. Returns ({path: launches}, the timing entry of row 1)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.mobility import materialize_generator
+    from repro_torch.scenarios import (run_population,
+                                       run_population_streamed,
+                                       scenario_generator)
+    from repro_torch.scenarios.engine import _colocation_tensors
+    t_phase = time.perf_counter()
+    paths = {}
+    for m in SCALE_MULES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_fn, batch_fn, pcfg, pop0 = _scale_fns(m)
+        stream = scenario_generator("streaming_commuter", SEED, m,
+                                    SCALE_STEPS, device="cuda")
+        t0 = time.perf_counter()
+        co = materialize_generator(stream)
+        build_s = time.perf_counter() - t0
+        delivers = int((co["exchange"] & (co["fixed_id"] >= 0)
+                        & co["active"]).sum())
+        kw = dict(batches=batch_fn, train_fn=train_fn, cfg=pcfg, key=SEED)
+        run_population_streamed(pop0, stream, n_steps=SCALE_CHUNK,
+                                chunk_len=SCALE_CHUNK, **kw)   # warm-up
+        runs = {}
+        for engine in ("streamed", "materialized"):
+            t0 = time.perf_counter()
+            if engine == "streamed":
+                (final, aux), got, peak = _count_run(
+                    lambda: run_population_streamed(
+                        pop0, stream, chunk_len=SCALE_CHUNK, **kw))
+                sched = stream.schedule_bytes() + _schedule_bytes(
+                    stream.generate_chunk(None, 0, SCALE_CHUNK).values())
+            else:
+                (final, aux), got, peak = _count_run(
+                    lambda: run_population(pop0, co, **kw))
+                sched = _schedule_bytes(_colocation_tensors(co, "cuda"))
+            wall = time.perf_counter() - t0
+            if got["mule_agg"] != SCALE_STEPS:
+                raise AssertionError(f"scale M={m} {engine}: mule_agg "
+                                     f"launched {got['mule_agg']} times, "
+                                     f"expected {SCALE_STEPS}")
+            runs[engine] = (final, aux)
+            print(f"scale M={m} {engine}: {SCALE_STEPS / wall:.3f} steps/s "
+                  f"({wall:.3f} s), schedule {sched} B, peak memory {peak} "
+                  f"B, launches {got} [{card}]")
+        (fs, as_), (fm, am) = runs["streamed"], runs["materialized"]
+        _same_state(f"scale M={m}", fs["mule_models"], fm["mule_models"])
+        _same_state(f"scale M={m} fixed", fs["fixed_models"],
+                    fm["fixed_models"])
+        if not torch.equal(as_["last_fid"], am["last_fid"]):
+            raise AssertionError(f"scale M={m}: last_fid differs")
+        _check_finite(f"scale M={m}", fs["mule_models"])
+        moved = int((fs["mule_models"]["w"] != pop0["mule_models"]["w"])
+                    .any(1).sum())
+        if moved == 0 or int(fs["fresh"]["count"].sum()) == 0:
+            raise AssertionError(f"scale M={m}: no mule delivered")
+        print(f"scale M={m}: streamed and materialized final models and "
+              f"last_fid bitwise equal; {delivers} deliveries, {moved} "
+              f"mules moved, schedule materialized on the host in "
+              f"{build_s:.2f} s ({int(np.asarray(co['fixed_id']).nbytes)} B "
+              f"of fixed_id alone)")
+        paths[f"scale M={m}"] = {"mule_agg": SCALE_STEPS}
+        del runs, fs, fm, co
+        if m == SCALE_MULES[-1]:
+            _profile_steps(lambda: run_population_streamed(
+                pop0, stream, n_steps=SCALE_CHUNK, chunk_len=SCALE_CHUNK,
+                **kw), SCALE_CHUNK, f"scale M={m} streamed",
+                parts={"mule_agg": "mule_agg"})
+        del pop0
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    # the kernel is far above its bound at this shape (PERF.md §6): a few
+    # readings of a graph of 20 calls, to keep the phase short
+    entry = _mule_agg_timing(g, N_FIXED, SCALE_MULES[-1], SCALE_D, "scale",
+                             torch.float32, card, reps=3)
+    print(f"scale: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths, entry
+
+
+def _replicated_digest(st: dict) -> str:
+    """sha256 of the bits of a rank's replicated state (fixed_models,
+    fresh, t)."""
+    import hashlib
+    from repro_torch.interop import flatten_tree
+    h = hashlib.sha256()
+    for part in ("fixed_models", "fresh", "t"):
+        flat = flatten_tree({part: st[part]})
+        for k in sorted(flat):
+            h.update(k.encode())
+            h.update(flat[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _pruned_hops(co, order, n_ranks, t_swap, n_steps) -> list:
+    """Remote hops the ring's mask skips a rank at the exchanges before and
+    from ``t_swap``, where one swap put the mules in ``order``."""
+    import numpy as np
+    from repro_torch.baselines.gossip import ring_hop_mask
+    area = np.asarray(co["area"])
+    before = after = 0
+    for t in range(PEER_EVERY - 1, n_steps, PEER_EVERY):
+        row = area[t] if t < t_swap else area[t][order]
+        mask = ring_hop_mask(row, None, n_ranks)
+        skipped = int((~mask[1:]).sum())
+        if t < t_swap:
+            before += skipped
+        else:
+            after += skipped
+    return [before, after]
+
+
+def dist_rank(out_dir: str) -> None:
+    """One rank of phase 16, run as ``chip_smoke.py --dist-rank DIR`` by
+    ``spawn_local_cluster``: the five methods through
+    ``run_population_distributed`` on this rank's block, mlmule against its
+    plain aggregation (whole run and lockstep), mlmule on a 2 x 2 mesh,
+    and the re-bucketed streamed engine on multi_area_migratory; rank 0
+    writes every rank's report to DIR/dist.json."""
+    import dataclasses as dc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.baselines.gossip import RING_COUNTS, flatten_population
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core import METHODS_MOBILE
+    from repro_torch.core.distributed import (PSUM_COUNTS, DistributedConfig,
+                                              bucket_mule_order,
+                                              make_distributed_method_step,
+                                              reorder_colocation,
+                                              reorder_mule_state,
+                                              to_distributed_state)
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.core.seeds import fold_in
+    from repro_torch.experiment import (batch_sampler, cnn_model_fns,
+                                        image_data_mobile)
+    from repro_torch.kernels.encounter_mix import (encounter_block_hop,
+                                                   encounter_mix)
+    from repro_torch.kernels.mule_agg import mule_agg
+    from repro_torch.launch.mesh import make_mule_mesh
+    from repro_torch.launch.multiprocess import (gather_global,
+                                                 initialize_from_env,
+                                                 put_global, put_global_tree)
+    from repro_torch.mobility import compact_colocation
+    from repro_torch.scenarios import (get_scenario,
+                                       run_population_distributed,
+                                       run_population_streamed)
+
+    if not initialize_from_env():
+        raise RuntimeError("--dist-rank needs the REPRO_MP_* environment of "
+                           "spawn_local_cluster")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    n, i = dist.get_world_size(), dist.get_rank()
+    co, order = _ring_walk()
+    n_fixed = 4 * (int(co["area"].max()) + 1)
+    Xtr, Ytr, _, _ = image_data_mobile(
+        SEED, N_MULES, n_fixed, co["init_space"], co["init_area"],
+        n_super=CONFIG.n_classes, image_size=CONFIG.image_size)
+    init_fn, train_fn, _ = cnn_model_fns(CONFIG, LR)
+    pcfg = PopulationConfig(mode="mobile", n_fixed=n_fixed, n_mules=N_MULES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    pop0 = reorder_mule_state(init_population(pcfg, init_fn, gen), order)
+    batch_fn = batch_sampler(Xtr, Ytr, BATCH)
+    dcfg = DistributedConfig(pop=pcfg)
+    mesh = make_mule_mesh(1, n)
+    report = {"rank": i, "runs": {}}
+
+    def whole(models, mesh_):
+        """The population's flat models from every rank's block."""
+        return gather_global(flatten_population(models)[0], mesh_)
+
+    def run(method, dcfg_, mesh_, n_steps, train=train_fn):
+        return run_population_distributed(
+            to_distributed_state(pop0, dcfg_), _steps(co, 0, n_steps),
+            batch_fn, train, dcfg_, mesh_, key=SEED, method=method)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        mule_agg.launches = 0
+        encounter_block_hop.launches = 0
+        encounter_mix.launches = 0
+        ring0, psum0 = dict(RING_COUNTS), dict(PSUM_COUNTS)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        return out, {"wall_s": time.perf_counter() - t0,
+                     "mule_agg": mule_agg.launches,
+                     "encounter_hop": encounter_block_hop.launches,
+                     "encounter_mix": encounter_mix.launches,
+                     "pruned": RING_COUNTS["pruned"] - ring0["pruned"],
+                     "ring_bytes": RING_COUNTS["sent_bytes"]
+                     - ring0["sent_bytes"],
+                     "psum_bytes": PSUM_COUNTS["sent_bytes"]
+                     - psum0["sent_bytes"]}
+
+    finals = {}
+    for method in METHODS_MOBILE:
+        run(method, dcfg, mesh, PEER_EVERY)                    # warm-up
+        (final, _), rec = counted(lambda: run(method, dcfg, mesh, DIST_STEPS))
+        rec["digest"] = _replicated_digest(final)
+        flat = whole(final["mule_models"], mesh)
+        rec["finite"] = bool(torch.isfinite(flat).all()) and all(
+            bool(torch.isfinite(v).all())
+            for v in final["fixed_models"].values())
+        rec["moved"] = int((flat != flatten_population(
+            pop0["mule_models"])[0]).any(1).sum())
+        if method == "mlmule":
+            finals["mlmule"] = (flat, final["fixed_models"])
+        report["runs"][method] = rec
+        del final, flat
+
+    # mlmule against its plain aggregation: the whole run, under a bound
+    # on training's growth, and the aggregation in lockstep, training off
+    dcfg_ref = dc.replace(dcfg, pop=dc.replace(pcfg, agg_backend="ref"))
+    (ref, _), _ = counted(lambda: run("mlmule", dcfg_ref, mesh, DIST_STEPS))
+    flat_k, fixed_k = finals["mlmule"]
+    report["ref_diff"] = max(
+        (whole(ref["mule_models"], mesh) - flat_k).abs().max().item(),
+        max((ref["fixed_models"][k] - fixed_k[k]).abs().max().item()
+            for k in fixed_k))
+    del ref
+
+    def keep(params, batch, key):
+        return params
+
+    step_k = make_distributed_method_step("mlmule", keep, dcfg, mesh)
+    step_r = make_distributed_method_step("mlmule", keep, dcfg_ref, mesh)
+    step_t = make_distributed_method_step("mlmule", train_fn, dcfg, mesh)
+    st = put_global_tree(to_distributed_state(pop0, dcfg), mesh,
+                         {k: (0 if k.startswith("mule") else None)
+                          for k in pop0})
+    cols = {k: torch.as_tensor(co[k], device="cuda")
+            for k in ("fixed_id", "exchange", "pos")}
+    area = put_global(torch.as_tensor(co["area"], device="cuda").long(), mesh)
+    worst = 0.0
+    for t in range(DIST_STEPS):
+        info = {"fixed_id": put_global(cols["fixed_id"][t].long(), mesh),
+                "exchange": put_global(cols["exchange"][t], mesh),
+                "pos": put_global(cols["pos"][t], mesh), "area": area,
+                "active": None, "t": t}
+        k_t = fold_in(SEED, t)
+        bt, ks = batch_fn(fold_in(k_t, 0), t), fold_in(k_t, 1)
+        a, b = step_k(st, info, bt, ks), step_r(st, info, bt, ks)
+        worst = max([worst] + [
+            (a[side][k].float() - b[side][k].float()).abs().max().item()
+            for side in ("mule_models", "fixed_models", "fresh")
+            for k in a[side]])
+        st = step_t(st, info, bt, ks)
+    report["lockstep"] = worst
+    del st, a, b
+
+    # mlmule on a 2 x 2 mesh, each pod summing its own data axis
+    mesh22 = make_mule_mesh(2, n // 2)
+    dcfg22 = dc.replace(dcfg, cross_pod=False)
+    run("mlmule", dcfg22, mesh22, PEER_EVERY)                   # warm-up
+    (final, _), rec = counted(lambda: run("mlmule", dcfg22, mesh22,
+                                          DIST_STEPS))
+    rec["digest"] = _replicated_digest(final)
+    flat = whole(final["mule_models"], mesh22)
+    rec["finite"] = bool(torch.isfinite(flat).all())
+    rec["diff_vs_1x4"] = (flat - flat_k).abs().max().item()
+    report["runs"]["mlmule 2x2 pod-local"] = rec
+    del final, finals
+
+    # the re-bucketed streamed engine on the migratory schedule
+    spec = get_scenario("multi_area_migratory")
+    mco = spec.colocation(SEED, N_MULES, DIST_STEPS)
+    morder = bucket_mule_order(mco["area"])
+    mco = reorder_colocation(mco, morder)
+    mX, mY, _, _ = image_data_mobile(
+        SEED, N_MULES, spec.n_fixed, mco["init_space"], mco["init_area"],
+        n_super=CONFIG.n_classes, image_size=CONFIG.image_size)
+    mcfg = PopulationConfig(mode="mobile", n_fixed=spec.n_fixed,
+                            n_mules=N_MULES)
+    gen.manual_seed(SEED)
+    mpop = reorder_mule_state(init_population(mcfg, init_fn, gen), morder)
+    mbatch = batch_sampler(mX, mY, BATCH)
+    dcfg_rb = DistributedConfig(pop=mcfg, rebucket_every=REBUCKET_EVERY,
+                                rebucket_threshold=REBUCKET_THRESHOLD)
+    stream = compact_colocation(mco, device="cuda")
+    marks, expand = [], stream.expand
+
+    def marked(arrays, key, t0, chunk_len):
+        """The stream's expand, noting the hops pruned so far: the engine
+        expands once to read the first areas, then once a chunk."""
+        marks.append(RING_COUNTS["pruned"])
+        return expand(arrays, key, t0, chunk_len)
+
+    stream.expand = marked
+    (fin_s, aux_s), rec = counted(lambda: run_population_streamed(
+        to_distributed_state(mpop, dcfg_rb), stream, mbatch, train_fn, mcfg,
+        SEED, chunk_len=REBUCKET_EVERY, method="gossip", mesh=mesh,
+        dcfg=dcfg_rb))
+    marks.append(RING_COUNTS["pruned"])
+    by_chunk = [b - a for a, b in zip(marks[1:], marks[2:])]
+    (fin_d, aux_d), rec_d = counted(lambda: run_population_distributed(
+        to_distributed_state(mpop, dcfg_rb), mco, mbatch, train_fn, dcfg_rb,
+        mesh, key=SEED, method="gossip"))
+    rb = aux_s["rebucket"]
+    try:
+        _same_state("rebucketed streamed vs run_population_distributed",
+                    {k: fin_s[k] for k in ("mule_models", "fixed_models",
+                                           "mule_ts")},
+                    {k: fin_d[k] for k in ("mule_models", "fixed_models",
+                                           "mule_ts")})
+        rec["equal_to_distributed"] = bool(
+            torch.equal(aux_s["last_fid"], aux_d["last_fid"])
+            and list(aux_d["rebucket"]["order"]) == list(rb["order"]))
+    except AssertionError:
+        rec["equal_to_distributed"] = False
+    swap_t = next(((k + 1) * REBUCKET_EVERY for k, d in enumerate(rb["drift"])
+                   if d > REBUCKET_THRESHOLD), DIST_STEPS)
+    rec.update(checks=rb["checks"], swaps=rb["swaps"], drift=rb["drift"],
+               order=[int(x) for x in rb["order"]], swap_t=swap_t,
+               pruned_by_chunk=by_chunk,
+               pruned_host=_pruned_hops(mco, rb["order"], n, swap_t,
+                                        DIST_STEPS),
+               digest=_replicated_digest(fin_s), finite=bool(all(
+                   bool(torch.isfinite(v).all())
+                   for v in fin_s["mule_models"].values())))
+    report["runs"]["rebucket gossip"] = rec
+    reports = [None] * n if i == 0 else None
+    dist.gather_object(report, reports, dst=0)
+    if i == 0:
+        (Path(out_dir) / "dist.json").write_text(json.dumps(reports))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_distributed(card: str) -> dict:
+    """The distributed engine over DIST_RANKS ranks on the one card
+    (``spawn_local_cluster``, gloo): holds what the ranks report and
+    returns {path: {kernel: launches of all ranks}}."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.baselines.gossip import ring_hop_mask
+    from repro_torch.core import METHODS_MOBILE
+    from repro_torch.launch.multiprocess import spawn_local_cluster
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    co, _ = _ring_walk()
+    kept = int(ring_hop_mask(co["area"], None, DIST_RANKS).sum())
+    n_ex = DIST_STEPS // PEER_EVERY
+    with tempfile.TemporaryDirectory() as out_dir:
+        outs = spawn_local_cluster(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+             out_dir], DIST_RANKS, timeout=DIST_TIMEOUT)
+        ranks = json.loads((Path(out_dir) / "dist.json").read_text())
+    for line in outs[0].stdout.splitlines():
+        print(f"  rank 0: {line}")
+    want = {"mlmule": {"mule_agg": DIST_STEPS, "encounter_hop": 0},
+            "gossip": {"mule_agg": 0, "encounter_hop": n_ex * kept},
+            "oppcl": {"mule_agg": 0, "encounter_hop": 0},
+            "local": {"mule_agg": 0, "encounter_hop": 0},
+            "mlmule+gossip": {"mule_agg": DIST_STEPS,
+                              "encounter_hop": n_ex * kept},
+            "mlmule 2x2 pod-local": {"mule_agg": DIST_STEPS,
+                                     "encounter_hop": 0},
+            "rebucket gossip": {"mule_agg": 0}}
+    paths = {}
+    for label, exp in want.items():
+        recs = [r["runs"][label] for r in ranks]
+        got = [{k: r[k] for k in exp} for r in recs]
+        if got != [exp] * DIST_RANKS or any(r["encounter_mix"]
+                                            for r in recs):
+            raise AssertionError(f"distributed {label}: launches by rank "
+                                 f"{got}, encounter_mix "
+                                 f"{[r['encounter_mix'] for r in recs]}; "
+                                 f"expected {exp} and no encounter_mix")
+        if len({r["digest"] for r in recs}) != 1:
+            raise AssertionError(f"distributed {label}: the ranks' "
+                                 f"replicated state differs")
+        if not all(r["finite"] for r in recs):
+            raise AssertionError(f"distributed {label}: non-finite weights")
+        if label in METHODS_MOBILE and recs[0]["moved"] == 0:
+            raise AssertionError(f"distributed {label}: no mule changed")
+        wall = max(r["wall_s"] for r in recs)
+        sent = sum(r["ring_bytes"] + r["psum_bytes"] for r in recs)
+        print(f"distributed path: {label}, {DIST_RANKS} ranks x "
+              f"{N_MULES // DIST_RANKS} mules, T={DIST_STEPS}: "
+              f"{DIST_STEPS / wall:.3f} steps/s ({wall:.3f} s), launches by "
+              f"rank {got}, {sent} B sent ({sent // DIST_STEPS} B a step; "
+              f"ring {sum(r['ring_bytes'] for r in recs)}, psum "
+              f"{sum(r['psum_bytes'] for r in recs)}), "
+              f"{sum(r['pruned'] for r in recs)} hops pruned; replicated "
+              f"state bitwise equal on every rank [{card}]")
+        paths[f"distributed {label}"] = {
+            k: sum(r[k] for r in recs) for k in exp if any(
+                r[k] for r in recs)}
+    r0 = ranks[0]
+    lock = max(r["lockstep"] for r in ranks)
+    print(f"distributed mlmule: vs agg_backend='ref', final weights max "
+          f"diff {r0['ref_diff']:.3e} (tol {REPLAY_ATOL}); lockstep over "
+          f"{DIST_STEPS} steps, training off: max diff {lock:.3e} (tol "
+          f"{LOCKSTEP_ATOL}); 2 x 2 pod-local vs 1 x 4: "
+          f"{r0['runs']['mlmule 2x2 pod-local']['diff_vs_1x4']:.3e} (tol "
+          f"{REPLAY_ATOL})")
+    if not (r0["ref_diff"] <= REPLAY_ATOL and lock <= LOCKSTEP_ATOL
+            and r0["runs"]["mlmule 2x2 pod-local"]["diff_vs_1x4"]
+            <= REPLAY_ATOL):
+        raise AssertionError("distributed mlmule: the kernel path and the "
+                             "plain path disagree")
+    rbs = [r["runs"]["rebucket gossip"] for r in ranks]
+    rb = rbs[0]
+    if rb["swaps"] < 1 or sorted(rb["order"]) != list(range(N_MULES)):
+        raise AssertionError(f"rebucket: {rb['swaps']} swaps, order a "
+                             f"permutation: "
+                             f"{sorted(rb['order']) == list(range(N_MULES))}")
+    if any(r["drift"] != rb["drift"] or r["order"] != rb["order"]
+           for r in rbs):
+        raise AssertionError("rebucket: the ranks read different drifts or "
+                             "orders")
+    if not all(r["equal_to_distributed"] for r in rbs):
+        raise AssertionError("rebucket: the streamed run differs from "
+                             "run_population_distributed(rebucket_every)")
+    by_chunk = [r["pruned_by_chunk"] for r in rbs]
+    if by_chunk != [rb["pruned_by_chunk"]] * DIST_RANKS \
+            or sum(rb["pruned_by_chunk"]) != rb["pruned"]:
+        raise AssertionError(f"rebucket: hops pruned by chunk and rank "
+                             f"{by_chunk}, in all {rb['pruned']}")
+    k = rb["swap_t"] // REBUCKET_EVERY
+    before, after = sum(by_chunk[0][:k]), sum(by_chunk[0][k:])
+    if rb["swaps"] == 1 and [before, after] != rb["pruned_host"]:
+        raise AssertionError(f"rebucket: pruned {before} hops before the "
+                             f"swap and {after} after, the host masks "
+                             f"{rb['pruned_host']}")
+    moved = int((np.asarray(rb["order"]) != np.arange(N_MULES)).sum())
+    n_before = len(range(PEER_EVERY - 1, rb["swap_t"], PEER_EVERY))
+    n_after = DIST_STEPS // PEER_EVERY - n_before
+    print(f"distributed rebucket: gossip on multi_area_migratory, streamed "
+          f"in chunks of {REBUCKET_EVERY}, threshold {REBUCKET_THRESHOLD}: "
+          f"{rb['checks']} checks, drift {rb['drift']}, {rb['swaps']} "
+          f"swap(s), the first after step {rb['swap_t']} ({moved} mules "
+          f"renumbered in all); hops pruned a rank by chunk "
+          f"{rb['pruned_by_chunk']}: {before} over {n_before} exchanges "
+          f"before the swap, {after} over {n_after} after; equal to "
+          f"run_population_distributed(rebucket_every={REBUCKET_EVERY}) "
+          f"bitwise; drifts and orders equal on every rank")
+    print(f"distributed path: phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -3254,6 +3922,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--ring-rank"]:
         ring_rank(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -3296,6 +3967,14 @@ def main() -> int:
         paths.update(phase_multi_area(card))
         phase = "sweep"
         paths.update(phase_sweep(card))
+        phase = "streamed path"
+        paths.update(phase_streamed_path(card))
+        phase = "population scale"
+        scale_paths, scale_entry = phase_scale(card)
+        paths.update(scale_paths)
+        rows[0]["cases"].append(scale_entry)
+        phase = "distributed path"
+        paths.update(phase_distributed(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

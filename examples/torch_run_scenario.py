@@ -7,6 +7,11 @@
       --scenario multi_area_3city --method gossip --seeds 4
   PYTHONPATH=src python examples/torch_run_scenario.py --device cpu \\
       --scenario commuter --steps 20 --n-mules 6
+  PYTHONPATH=src python examples/torch_run_scenario.py \\
+      --scenario streaming_commuter --stream --n-mules 1000
+  PYTHONPATH=src python examples/torch_run_scenario.py \\
+      --scenario multi_area_migratory --method gossip --n-mules 16 \\
+      --distributed --stream --rebucket-every 20 --processes 4
 
 The scenario supplies mobility, protocol mode and data partition, and for
 the churn family a per-step device activity mask: ``commuter_churn``
@@ -19,28 +24,30 @@ oppcl, local, mlmule+gossip) rides the engine. With ``--seeds N > 1`` the
 seeds run as lanes of one sweep (``run_sweep_experiment``), each step
 launching ``mule_agg`` and ``encounter_mix`` once for all of them.
 
-The reference's ``--stream``, ``--stream-chunk``, ``--distributed``,
-``--processes`` and ``--rebucket-*`` flags are accepted and raise: the
-streamed schedule is ROADMAP item 12, the distributed engine item 13b.
+With ``--stream`` the schedule is generated chunk by chunk on the device
+(``run_population_streamed``: O(chunk * M) schedule memory instead of
+O(T * M), the same results). With ``--distributed`` the mules are cut over
+the ranks of a ``torch.distributed`` world (``run_population_distributed``;
+the peer methods search encounters around the ring of ranks; mobile runs
+report the final accuracy only, since an eval inside the run would see one
+rank's mules). ``--processes N`` re-runs this script as N local ranks over
+gloo (``spawn_local_cluster``), all on the one device, and prints rank 0's
+output; ``--rebucket-every`` re-buckets the population between chunks of
+the streamed distributed engine.
 """
 import argparse
+import os
+import sys
 
 import numpy as np
 
 from repro_torch.core import METHODS_MOBILE
 from repro_torch.experiment import (ExperimentConfig, run_experiment,
                                     run_sweep_experiment)
+from repro_torch.launch.multiprocess import (ENV_COORDINATOR,
+                                             initialize_from_env,
+                                             spawn_local_cluster)
 from repro_torch.scenarios import SCENARIOS, list_scenarios
-
-# flags of the reference's script whose engines the port does not have yet
-NOT_PORTED = {
-    "stream": "ROADMAP §1 item 12 (streaming colocation)",
-    "stream_chunk": "ROADMAP §1 item 12 (streaming colocation)",
-    "distributed": "ROADMAP §1 item 13b (the distributed engine)",
-    "processes": "ROADMAP §1 item 13b (the distributed engine)",
-    "rebucket_every": "ROADMAP §1 item 13b (the distributed engine)",
-    "rebucket_threshold": "ROADMAP §1 item 13b (the distributed engine)",
-}
 
 
 def main(argv=None):
@@ -57,31 +64,69 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--list", action="store_true",
                     help="print the registry and exit")
-    # the reference's engines that are not ported: raise when asked for
-    ap.add_argument("--stream", action="store_true")
-    ap.add_argument("--stream-chunk", type=int, default=0)
-    ap.add_argument("--distributed", action="store_true")
-    ap.add_argument("--processes", type=int, default=1)
-    ap.add_argument("--rebucket-every", type=int, default=0)
-    ap.add_argument("--rebucket-threshold", type=float, default=None)
+    ap.add_argument("--stream", action="store_true",
+                    help="generate the schedule chunk by chunk on the "
+                         "device (the same results as the materialized "
+                         "run)")
+    ap.add_argument("--stream-chunk", type=int, default=0,
+                    help="steps per chunk of --stream (0: the engine's "
+                         "default; a multiple of the eval cadence)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="cut the mules over the ranks of the world (one "
+                         "rank without --processes: nothing is cut)")
+    ap.add_argument("--processes", type=int, default=1,
+                    help="run as N local ranks over gloo (needs "
+                         "--distributed; n-mules must divide over them)")
+    ap.add_argument("--rebucket-every", type=int, default=0,
+                    help="distributed runs: re-bucket the mules by area "
+                         "every N steps when the drift passes "
+                         "--rebucket-threshold (a multiple of "
+                         "--stream-chunk)")
+    ap.add_argument("--rebucket-threshold", type=float, default=0.25,
+                    help="share of drifted mules that triggers a swap")
     args = ap.parse_args(argv)
 
     if args.list:
         for name in list_scenarios():
             print(f"{name:20s} {SCENARIOS[name].description}")
         return
-    for field, item in NOT_PORTED.items():
-        if getattr(args, field) != ap.get_default(field):
-            raise NotImplementedError(
-                f"--{field.replace('_', '-')} is not ported yet; it arrives "
-                f"with {item}")
+    if args.processes > 1 and not args.distributed:
+        ap.error("--processes cuts the population over ranks; add "
+                 "--distributed")
+    if args.distributed and args.seeds > 1:
+        ap.error("--distributed runs one seed; drop --seeds (a sweep over "
+                 "the distributed engine is ROADMAP item 13c)")
+    if args.stream and args.seeds > 1:
+        ap.error("--stream runs one seed; drop --seeds")
+    if args.rebucket_every:
+        if not args.distributed:
+            ap.error("--rebucket-every re-buckets the population over the "
+                     "ranks; add --distributed")
+        if args.stream_chunk and args.rebucket_every % args.stream_chunk:
+            ap.error(f"--rebucket-every={args.rebucket_every} must be a "
+                     f"multiple of --stream-chunk={args.stream_chunk}")
+    if args.processes > 1 and not os.environ.get(ENV_COORDINATOR):
+        # the parent: run this script as the ranks, show rank 0's output
+        ranks = spawn_local_cluster(
+            [sys.executable, os.path.abspath(__file__), *(
+                sys.argv[1:] if argv is None else argv)], args.processes)
+        sys.stdout.write(ranks[0].stdout)
+        return
+    initialize_from_env()
 
     spec = SCENARIOS[args.scenario]
     print(f"scenario={spec.name} mode={spec.mode} dist={spec.dist} "
-          f"task={spec.task} method={args.method} device={args.device}")
+          f"task={spec.task} method={args.method} device={args.device}"
+          + (" [distributed]" if args.distributed else "")
+          + (" [streamed]" if args.stream else "")
+          + (f" [{args.processes} processes]" if args.processes > 1
+             else ""))
     cfg = ExperimentConfig(scenario=args.scenario, method=args.method,
                            steps=args.steps, n_mules=args.n_mules,
-                           seed=args.seed)
+                           seed=args.seed, distributed=args.distributed,
+                           stream=args.stream, stream_chunk=args.stream_chunk,
+                           rebucket_every=args.rebucket_every,
+                           rebucket_threshold=args.rebucket_threshold)
     if args.seeds > 1:
         seeds = range(args.seed, args.seed + args.seeds)
         r = run_sweep_experiment(cfg, seeds, device=args.device)

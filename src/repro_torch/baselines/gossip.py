@@ -93,7 +93,10 @@ class RingSpec:
                 for j in range(self.axis_size)]
 
     def rank(self) -> int:
-        """This process's index on the ring; checks the group's size."""
+        """This process's index on the ring; checks the group's size. A
+        one-rank ring (a mesh axis of size 1) needs no process group."""
+        if self.axis_size == 1:
+            return 0
         size = dist.get_world_size(self.group)
         if size != self.axis_size:
             raise ValueError(f"RingSpec.axis_size is {self.axis_size}, its "

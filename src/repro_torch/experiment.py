@@ -46,7 +46,10 @@ from repro_torch.baselines.fedas import fedas_round
 from repro_torch.baselines.fedavg import broadcast, fedavg_round
 from repro_torch.configs.mule_cnn import CNNConfig
 from repro_torch.configs.mule_lstm_cnn import LSTMCNNConfig
+from repro_torch import interop
 from repro_torch.core.aggregation import weighted_average
+from repro_torch.core.distributed import (DistributedConfig,
+                                          to_distributed_state)
 from repro_torch.core.freshness import FreshnessConfig
 from repro_torch.core.population import (METHODS_MOBILE, PopulationConfig,
                                          _stack, init_population)
@@ -55,23 +58,20 @@ from repro_torch.data import (dirichlet_partition, iid_partition,
                               make_image_dataset, make_imu_dataset,
                               shards_partition, train_test_split)
 from repro_torch.device import resolve_device
-from repro_torch.mobility import synth_foursquare_trace
+from repro_torch.launch.multiprocess import gather_global
+from repro_torch.mobility import compact_colocation, synth_foursquare_trace
 from repro_torch.models.cnn import (accuracy, cnn_forward, init_cnn,
                                     init_lstm_cnn, lstm_cnn_forward,
                                     xent_loss)
-from repro_torch.scenarios import (get_scenario, run_population, run_sweep,
-                                   stack_colocations, stack_trees,
-                                   trace_colocation, walk_colocation)
+from repro_torch.scenarios import (get_scenario, run_population,
+                                   run_population_distributed,
+                                   run_population_streamed, run_sweep,
+                                   scenario_generator, stack_colocations,
+                                   stack_trees, trace_colocation,
+                                   walk_colocation)
 
 METHODS_FIXED = ("mlmule", "fedavg", "cfl", "fedas", "local")
 FEDERATED = ("fedavg", "cfl", "fedas")
-
-# fields of the reference's config whose engines the port does not have yet
-_NOT_PORTED = {
-    "distributed": "ROADMAP §1 item 13b (the distributed engine)",
-    "stream": "ROADMAP §1 item 12 (streaming colocation)",
-}
-
 
 @dataclasses.dataclass
 class ExperimentConfig:
@@ -100,9 +100,9 @@ class ExperimentConfig:
     gamma: float = 0.3
     scenario: str = ""             # registry scenario name; overrides
                                    # mode/dist/task/pattern when set
-    distributed: bool = False      # the mule-sharded engine (not ported)
-    stream: bool = False           # the streamed replay (not ported)
-    stream_chunk: int = 0          # steps per streamed chunk
+    distributed: bool = False      # the mule-sharded engine over the ranks
+    stream: bool = False           # the schedule generated chunk by chunk
+    stream_chunk: int = 0          # steps per streamed chunk (0: default)
     rebucket_every: int = 0        # distributed runs: re-bucketing cadence
     rebucket_threshold: float = 0.25   # drift fraction that triggers a swap
 
@@ -354,12 +354,21 @@ def run_experiment(cfg: ExperimentConfig, device="cuda") -> Dict:
     return run_with_models(cfg, model_fns(with_scenario(cfg)), device)[0]
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
-    for field, item in _NOT_PORTED.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"ExperimentConfig.{field} is not ported yet; it arrives "
-                f"with {item}")
+def _mule_mesh(n_mules: int):
+    """The (1, k) mesh of ``distributed`` runs: every rank of the world on
+    the data axis (a rank outside the mesh would never join its
+    collectives), so ``n_mules`` must divide over the world. Prints the
+    mesh; one process gives k = 1, the distributed code path with nothing
+    cut."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mule_mesh
+    k = dist.get_world_size() if dist.is_initialized() else 1
+    if n_mules % k:
+        raise ValueError(f"distributed run: n_mules={n_mules} must divide "
+                         f"over all {k} ranks")
+    print(f"distributed mesh: 1 pod x {k} mule shards (n_mules={n_mules})"
+          + (": k=1 shards nothing" if k == 1 else ""))
+    return make_mule_mesh(1, k)
 
 
 def _experiment_data(cfg: ExperimentConfig, mule_space, mule_area,
@@ -420,12 +429,24 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
     - for ``fedavg`` and ``fedas``: ``global0`` and ``global``, the server
       model before the first round and after the last; for ``cfl``: the
       ``CFLState`` as ``cfl``;
-    - for the engine's methods: ``run``, the keyword arguments handed to
-      ``run_population`` (its initial population included), and its
+    - for the engine's methods: ``engine``, the name of the engine that
+      ran (``run_population``, or with ``cfg.stream`` /
+      ``cfg.distributed`` ``run_population_streamed`` /
+      ``run_population_distributed``), ``run``, the keyword arguments
+      handed to it (its initial population included), and its
       ``population`` and ``aux`` at the end.
+
+    ``cfg.stream`` replays the schedule chunk by chunk
+    (``run_population_streamed`` over the scenario's generator, or the
+    compacted schedule), bitwise the materialized run. ``cfg.distributed``
+    cuts the mules over the ranks of the world
+    (``run_population_distributed``, or the streamed engine with a mesh
+    when ``cfg.stream`` is set too; ``rebucket_every`` re-buckets between
+    chunks). In mobile mode an eval inside the run would read only a
+    rank's mules, so it runs once, on the gathered final state; the
+    population and ``last_fid`` come back gathered on every rank.
     """
     t_start = time.time()
-    _check_ported(cfg)
     dev = resolve_device(device)
     cfg = with_scenario(cfg)
     federated = cfg.method in FEDERATED
@@ -518,11 +539,50 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
             def eval_hook(st, last):
                 return eval_v(st["mule_models"], Xte[last], Yte[last])
 
-        run = dict(state=pop, colocation=colocation, batches=batch_fn,
-                   train_fn=train_fn, cfg=pcfg, key=key,
+        run = dict(state=pop, batches=batch_fn, train_fn=train_fn, key=key,
                    eval_every=cfg.eval_every, eval_fn=eval_hook,
                    method=cfg.method, device=dev)
-        pop, aux = run_population(**run)
+        if cfg.stream:
+            # scenarios with a native generator stream it; the rest stream
+            # the compacted schedule already built for the data partition
+            generator = (scenario_generator(cfg.scenario, cfg.seed,
+                                            cfg.n_mules, cfg.steps,
+                                            colocation=colocation,
+                                            device=dev)
+                         if cfg.scenario else
+                         compact_colocation(colocation, device=dev))
+            run.update(generator=generator, cfg=pcfg, n_steps=cfg.steps,
+                       chunk_len=cfg.stream_chunk or cfg.eval_every)
+            engine = run_population_streamed
+        else:
+            run.update(colocation=colocation, cfg=pcfg)
+            engine = run_population
+        if cfg.distributed:
+            dcfg = DistributedConfig(
+                pop=pcfg, rebucket_every=cfg.rebucket_every,
+                rebucket_threshold=cfg.rebucket_threshold)
+            dist_eval = cfg.mode == "fixed"
+            run.update(state=to_distributed_state(pop, dcfg),
+                       mesh=_mule_mesh(cfg.n_mules), dcfg=dcfg,
+                       eval_every=cfg.eval_every if dist_eval else None,
+                       eval_fn=eval_hook if dist_eval else None)
+            if cfg.stream:
+                run["chunk_len"] = cfg.stream_chunk or (
+                    cfg.rebucket_every or (cfg.eval_every if dist_eval
+                                           else 64))
+            else:
+                del run["cfg"]
+                engine = run_population_distributed
+        pop, aux = engine(**run)
+        if cfg.distributed:
+            # every rank holds its block of the mules: gather them, so
+            # the metrics below see the whole population
+            mesh, ax = run["mesh"], run["dcfg"].data_axis
+            pop = {k: (interop.tree_map(
+                lambda l: gather_global(l, mesh, 0, ax), v)
+                if k.startswith("mule") else v) for k, v in pop.items()}
+            aux = {**aux, "last_fid": gather_global(aux["last_fid"], mesh,
+                                                    0, ax)}
         evals = aux["evals"]
         traces = ([] if evals is None else
                   [(int(s), float(a)) for s, a in
@@ -531,7 +591,8 @@ def run_with_models(cfg: ExperimentConfig, fns: Tuple[Callable, ...],
         last_fid = aux["last_fid"]
         final_models = (pop["fixed_models"] if cfg.mode == "fixed"
                         else pop["mule_models"])
-        state.update(run=run, population=pop, aux=aux)
+        state.update(engine=engine.__name__, run=run, population=pop,
+                     aux=aux)
     state["run_s"] = _clock(dev) - t1
 
     # ---------------- final metrics (pre/post local) --------------------------
@@ -614,7 +675,13 @@ def run_sweep_with_models(cfg: ExperimentConfig, seeds,
     arguments but ``methods``) and ``out`` (its ``{method: (final,
     aux)}``)."""
     t_start = time.time()
-    _check_ported(cfg)
+    if cfg.distributed:
+        raise NotImplementedError(
+            "a seed sweep over the distributed engine is not ported yet; "
+            "it arrives with ROADMAP §1 item 13c (run_sweep_distributed)")
+    if cfg.stream:
+        raise ValueError("the seed sweep replays materialized schedules; "
+                         "stream runs one seed through run_experiment")
     methods = list(methods or [cfg.method])
     bad = [m for m in methods if m not in METHODS_MOBILE]
     if bad:

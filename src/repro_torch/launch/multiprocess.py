@@ -1,6 +1,6 @@
 """Multi-process bring-up for the ring of ranks (``torch.distributed``).
 
-Two small layers, in the order a run uses them:
+Three small layers, in the order a run uses them:
 
 1. **Spawn**: ``spawn_local_cluster`` runs N copies of an argv as a local
    cluster, each with the coordinator, the world size and its rank in its
@@ -8,6 +8,10 @@ Two small layers, in the order a run uses them:
    others and makes the caller raise.
 2. **Init**: inside each process, ``initialize_from_env`` (or the explicit
    ``initialize_process``) joins the default process group over ``gloo``.
+3. **Place**: ``put_global`` / ``put_global_tree`` take this rank's block
+   of rows of a global array (the rank's mules), ``gather_global`` puts
+   the blocks of every rank back together in rank order, and
+   ``host_replicated`` reads a value every rank holds the same.
 
 The coordinator is ``host:port`` (``pick_free_port`` finds a port) or a
 ``file://`` path, a ``FileStore`` that needs no port at all. Gloo carries
@@ -22,8 +26,10 @@ import socket
 import subprocess
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 ENV_COORDINATOR = "REPRO_MP_COORDINATOR"
@@ -132,3 +138,69 @@ def spawn_local_cluster(argv: Sequence[str], num_processes: int, *,
                 p.wait()
         for f in logs:
             f.close()
+
+
+# ---------------------------------------------------------------------------
+# per-rank data placement
+# ---------------------------------------------------------------------------
+
+
+def _blocks(mesh, axis_name: Optional[str]):
+    name = axis_name or mesh.data_axis
+    return mesh.shape[name], mesh.coords[name], mesh.group(name)
+
+
+def put_global(x: torch.Tensor, mesh, axis: int = 0,
+               axis_name: Optional[str] = None) -> torch.Tensor:
+    """This rank's block of ``x`` along ``axis``: the mesh's data axis (or
+    ``axis_name``) cuts ``x`` into equal blocks, and the rank at index
+    ``j`` of that axis keeps block ``j``. ``x`` must divide evenly."""
+    n, j, _ = _blocks(mesh, axis_name)
+    size = x.shape[axis]
+    if size % n:
+        raise ValueError(f"{size} rows along axis {axis} do not divide "
+                         f"into {n} blocks")
+    step = size // n
+    return x.narrow(axis, j * step, step)
+
+
+def put_global_tree(tree: Any, mesh, axes: Any,
+                    axis_name: Optional[str] = None) -> Any:
+    """``put_global`` over nested dicts / tuples of tensors. ``axes`` is an
+    int (the axis of every tensor below), ``None`` (kept whole on every
+    rank), or a dict of those for a dict's entries."""
+    if isinstance(tree, dict):
+        return {k: put_global_tree(v, mesh, axes[k] if isinstance(axes, dict)
+                                   else axes, axis_name)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(put_global_tree(v, mesh, axes, axis_name)
+                          for v in tree)
+    if tree is None or axes is None:
+        return tree
+    return put_global(tree, mesh, axes, axis_name)
+
+
+def gather_global(x: torch.Tensor, mesh, axis: int = 0,
+                  axis_name: Optional[str] = None) -> torch.Tensor:
+    """The blocks of every rank along the mesh's data axis (or
+    ``axis_name``), joined along ``axis`` in rank order, on ``x``'s
+    device. The transfer goes through host memory (gloo)."""
+    n, _, group = _blocks(mesh, axis_name)
+    if n == 1:
+        return x
+    host = x.detach().cpu().contiguous()
+    wire = host.view(torch.uint8) if host.dtype == torch.bool else host
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=group)
+    if host.dtype == torch.bool:
+        parts = [p.view(torch.bool) for p in parts]
+    return torch.cat(parts, dim=axis).to(x.device)
+
+
+def host_replicated(x) -> np.ndarray:
+    """A value every rank holds the same (replicated state, a drift
+    reading), read on this rank's host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -18,12 +18,12 @@ of the mask generators (``register`` folds the mask into every build), and
 a tuple of ``SpaceSpec`` gives each space its own exchange tempo.
 
 The port registers the trace-built scenarios of ``repro.scenarios.registry``
-and builds bitwise the same arrays for the same seed, and the paper's
-``random_walk``, whose draws come from a ``torch.Generator`` (the
-reference's ``jax.random`` bits cannot be reproduced; fed the same draws,
-``mobility.random_walk`` gives the same walk). The one scenario of the
-reference not built yet, ``streaming_commuter``, arrives with a later item
-of ``ROADMAP.md``, which ``get_scenario`` names.
+and builds bitwise the same arrays for the same seed; the paper's
+``random_walk``; and ``streaming_commuter``, whose native form is a chunk
+generator (``ScenarioSpec.generator``, ``mobility.streaming``). The walk and
+the commuter stream draw from a ``torch.Generator``: the reference's
+``jax.random`` bits cannot be reproduced, and fed the same draws both give
+the reference's schedule. ``scenario_generator`` streams any scenario.
 """
 from __future__ import annotations
 
@@ -34,10 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.mobility import (MobilityConfig, area_over_time,
-                                  commuter_trace, duty_cycle_mask,
+                                  commuter_stream, commuter_trace,
+                                  compact_colocation, duty_cycle_mask,
                                   dwell_exchange_flags, event_crowd_trace,
                                   flash_churn_mask, init_mobility,
-                                  markov_churn_mask, multi_area_trace,
+                                  markov_churn_mask, materialize_generator,
+                                  multi_area_trace,
                                   sample_walk_draws, shift_worker_trace,
                                   simulate_trajectories, space_of,
                                   synth_foursquare_trace,
@@ -50,12 +52,6 @@ _CHURN_GENERATORS = {
     "flash": flash_churn_mask,
     "duty_cycle": duty_cycle_mask,
 }
-
-# scenarios of the reference that the port does not build yet
-_DEFERRED = {
-    "streaming_commuter": "ROADMAP §1 item 12 (streaming colocation)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ChurnSpec:
@@ -105,6 +101,9 @@ class ScenarioSpec:
     churn: Optional[ChurnSpec] = None       # device join/leave mask
     spaces: Tuple[SpaceSpec, ...] = ()      # per-space exchange tempos
     description: str = ""
+    # native chunk generator (seed, n_mules, n_steps, device=) -> generator;
+    # None: the scenario streams through compact_colocation
+    generator: Optional[Callable[..., object]] = None
 
 
 SCENARIOS: Dict[str, ScenarioSpec] = {}
@@ -136,10 +135,6 @@ def register(spec: ScenarioSpec) -> ScenarioSpec:
 
 
 def get_scenario(name: str) -> ScenarioSpec:
-    if name in _DEFERRED:
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported yet; it arrives with "
-            f"{_DEFERRED[name]}")
     if name not in SCENARIOS:
         raise ValueError(f"unknown scenario {name!r}; available: "
                          f"{', '.join(list_scenarios())}")
@@ -148,6 +143,27 @@ def get_scenario(name: str) -> ScenarioSpec:
 
 def list_scenarios():
     return sorted(SCENARIOS)
+
+
+def scenario_generator(name_or_spec, seed: int, n_mules: int, n_steps: int,
+                       colocation: Optional[Colocation] = None,
+                       device="cuda"):
+    """Chunk generator of a scenario, native or compacted, on ``device``.
+
+    A spec with a native ``generator`` (procedural, O(M) memory at any
+    horizon) builds it. Every other scenario streams through
+    ``compact_colocation`` of its materialized schedule (``colocation``
+    when given, else built here), with the spec's per-space tempos as the
+    dwell cadence, so the expansion is bitwise the schedule.
+    """
+    spec = name_or_spec if isinstance(name_or_spec, ScenarioSpec) \
+        else get_scenario(name_or_spec)
+    if spec.generator is not None:
+        return spec.generator(seed, n_mules, n_steps, device=device)
+    if colocation is None:
+        colocation = spec.colocation(seed, n_mules, n_steps)
+    return compact_colocation(colocation, cadence=_cadence(spec.spaces),
+                              device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -316,3 +332,25 @@ register(ScenarioSpec(
     mode="mobile", dist="shards", task="har",
     description="IMU HAR with rotating crews: LSTM-CNN models relay "
                 "between workplaces shift by shift."))
+
+
+# -- streaming-native scenarios ----------------------------------------------
+
+def _streaming_commuter_colocation(seed: int, n_mules: int,
+                                   n_steps: int) -> Colocation:
+    """The materialized schedule of the procedural commuter stream (drawn
+    and expanded on the CPU): the stream is the source, so every
+    materialized path sees the schedule a streamed replay generates."""
+    return materialize_generator(commuter_stream(seed, n_mules, n_steps,
+                                                 device="cpu"))
+
+
+register(ScenarioSpec(
+    name="streaming_commuter",
+    colocation=_streaming_commuter_colocation,
+    mode="mobile", dist="shards",
+    generator=commuter_stream,
+    description="Procedural commuter schedule generated chunk by chunk on "
+                "the device (per-mule home/work/jitter parameters, O(M) "
+                "memory at any horizon): the native workload of "
+                "run_population_streamed and the M=10^5+ scale runs."))

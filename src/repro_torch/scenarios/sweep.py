@@ -172,4 +172,4 @@ def run_sweep_distributed(*args, **kwargs):
     """The reference's sweep over the mule-sharded engine: not ported."""
     raise NotImplementedError(
         "run_sweep_distributed is not ported yet; it arrives with ROADMAP "
-        "§1 item 13b (the distributed engine)")
+        "§1 item 13c (the seed lanes inside the ring of ranks)")

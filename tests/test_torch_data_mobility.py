@@ -87,10 +87,12 @@ def test_trace_to_colocation_bitwise(cadence):
 PORTED = ["commuter", "commuter_churn", "event_crowd", "event_crowd_flash",
           "foursquare_sparse", "har_commuter", "har_shift_worker",
           "mixed_cadence", "multi_area_3city", "multi_area_migratory",
-          "random_walk", "shift_worker"]
-# the random walk draws from a torch.Generator, not the reference's
-# jax.random keys (tests/test_torch_random_walk.py feeds it those draws)
-BITWISE = [name for name in PORTED if name != "random_walk"]
+          "random_walk", "shift_worker", "streaming_commuter"]
+# the random walk and the commuter stream draw from a torch.Generator, not
+# the reference's jax.random keys (tests/test_torch_random_walk.py and
+# tests/test_torch_streaming.py feed them those draws)
+BITWISE = [name for name in PORTED
+           if name not in ("random_walk", "streaming_commuter")]
 
 
 def test_registry_holds_the_ported_scenarios():

@@ -193,9 +193,20 @@ def test_run_with_models_state():
 @pytest.mark.parametrize("field,item", [("distributed", "13b"),
                                         ("stream", "12")])
 def test_unported_engines_raise_naming_their_item(field, item):
+    """The engines of ROADMAP items 12 and 13b raised before they were
+    ported; now each runs the harness on one process (the distributed
+    engine cuts nothing there) and a seed sweep over the distributed
+    engine raises naming item 13c."""
     cfg = texp.ExperimentConfig(**{field: True, **TINY})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-        texp.run_experiment(cfg, device="cpu")
+    result, st = texp.run_with_models(cfg, texp.model_fns(cfg), "cpu")
+    engine = {"12": "run_population_streamed",
+              "13b": "run_population_distributed"}[item]
+    assert st["engine"] == engine
+    assert 0.0 <= result["pre_local_acc"] <= 1.0
+    assert [s for s, _ in result["trace"]] == [9, 19]
+    if field == "distributed":
+        with pytest.raises(NotImplementedError, match="item 13c"):
+            texp.run_sweep_experiment(cfg, [0, 1], device="cpu")
 
 
 def test_quickstart_runs_on_the_cpu():

@@ -324,7 +324,9 @@ def test_sweep_seeds_fold_like_the_engine():
 
 
 def test_run_sweep_distributed_raises_naming_13b():
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    """Item 13b ported the distributed engine; the sweep over it moved to
+    item 13c, which the error now names."""
+    with pytest.raises(NotImplementedError, match="item 13c"):
         run_sweep_distributed()
 
 
