@@ -100,9 +100,9 @@ Phases (any failure exits non-zero without the final result line):
 11. the HAR path (Fig 8): ``mlmule`` and ``gossip`` on ``har_commuter``
    through ``run_with_models`` handed the LSTM-CNN at full width (window
    128, 6 channels, conv 32/64, LSTM 64, 4 classes), M = 256, F = 8, batch
-   12, lr 0.03, T = 60, an eval every 20 steps. ``mule_agg`` must launch
-   60 times for ``mlmule``; ``encounter_mix`` 20 times and ``mule_agg``
-   never for ``gossip``. Both are replayed bitwise and against their plain
+   12, lr 0.03, T = 30 (cut from 60), an eval every 20 steps.
+   ``mule_agg`` must launch 30 times for ``mlmule``; ``encounter_mix`` 10
+   times and ``mule_agg`` never for ``gossip``. Both are replayed bitwise and against their plain
    backend under the growth bound of phases 4 and 5, ``mlmule``'s
    aggregation and ``gossip``'s mix held in lockstep; each prints steps/s,
    peak memory, its accuracy trace and a profile. Then
@@ -120,17 +120,18 @@ Phases (any failure exits non-zero without the final result line):
 13. the seed sweep: ``run_sweep`` over S = 4 seeds of the walk (P_cross =
    0.1, each seed its own schedule, data and population) for the five
    ``METHODS_MOBILE`` at the paper CNN's full width, F = 8, M = 256 (1,024
-   mule models), batch 16, lr 0.05, T = 60, an eval every 20. Each step
+   mule models), batch 16, lr 0.05, T = 30 (cut from 60), an eval every
+   20. Each step
    launches ``mule_agg`` and ``encounter_mix`` once for all lanes, through
-   their lane-batched entries: ``mule_agg`` 60 launches for ``mlmule`` and
-   ``mlmule+gossip``, ``encounter_mix`` 20 for ``gossip`` and
+   their lane-batched entries: ``mule_agg`` 30 launches for ``mlmule`` and
+   ``mlmule+gossip``, ``encounter_mix`` 10 for ``gossip`` and
    ``mlmule+gossip``, none for ``oppcl`` and ``local``. The lanes of
    ``mlmule`` and ``gossip`` are held to their sequential
    ``run_population`` runs (weights within the growth bound, ``last_fid``
    and eval steps exact); steps/s and lane-steps/s beside the sequential
    runs', peak memory and a profile of the sweep step. Then
    ``run_sweep_experiment`` at Fig 8's config (har, walk P_cross = 0.1,
-   batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 60,
+   batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 30,
    every accuracy in [0, 1];
 14. the streamed path: phase 4's ``mlmule`` run and phase 5's ``gossip``
    run, each through ``run_population`` and through
@@ -142,7 +143,8 @@ Phases (any failure exits non-zero without the final result line):
 15. population scale: the reference's scale workload (a linear model of
    8 weights, F = 8, ``mlmule``, 2 samples a mule a step) on
    ``streaming_commuter``'s procedural stream at M = 100,000 and
-   1,000,000, T = 96, streamed in chunks of 8 and through ``run_population``
+   1,000,000, T = 48 (the reference's 96, cut), streamed in chunks of 8
+   and through ``run_population``
    over ``materialize_generator``'s schedule: final models and
    ``last_fid`` bitwise equal, ``mule_agg`` 96 launches a run; steps/s,
    schedule bytes and peak memory of each; then ``mule_agg`` timed at
@@ -157,13 +159,44 @@ Phases (any failure exits non-zero without the final result line):
    methods, ``encounter_mix`` never; every rank's replicated state
    (``fixed_models``, ``fresh``, ``t``) bitwise equal. ``mlmule`` against
    ``agg_backend="ref"``: the final weights within phase 4's growth
-   bound, the aggregation in lockstep with training off within 1e-5;
+   bound, the aggregation in lockstep with training off within 1e-5 over
+   the first 10 steps;
    ``mlmule`` with ``cross_pod=False`` on a 2 x 2 mesh. Then ``gossip`` on
    ``multi_area_migratory`` through the streamed distributed engine,
    re-bucketing every 10 steps: at least one swap, a permutation, the
    same drift readings on every rank, bitwise
    ``run_population_distributed(rebucket_every=10)``; steps/s, bytes sent
-   a step and hops pruned before and after the swap.
+   a step and hops pruned before and after the swap;
+17. the seed sweep over the ranks, in phase 16's world: each rank runs
+   ``run_sweep_distributed`` over 4 seeds of the walk (each bucket-ordered
+   by its own areas) for ``mlmule`` and ``gossip``, T = 12, then each lane
+   alone through ``run_population_distributed``. One ``ordered_psum`` a
+   ``mlmule`` step and one ``encounter_hop`` launch a hop that any lane
+   keeps, for all lanes; every lane's replicated state bitwise on every
+   rank; each lane within the growth bound of its sequential run, and
+   bitwise it over 4 steps with training off (the collectives, the
+   aggregation and the hops alone); the lanes' distance from their
+   sequential runs with training alone (``local``, 2 steps) with cuDNN
+   and without; lane-steps/s beside the sequential runs and the bytes a
+   step through host memory;
+18. training: stablelm-1.6b at full width (24 layers, 1.64 B f32 weights)
+   through ``launch/train.py``'s functions: an f32 copy's loss and
+   gradient through the kernels (the SIMT flash route) against
+   ``backend="ref"`` (every leaf a finite, non-zero gradient, the loss
+   within 2e-4, each leaf's gap bounded); then Adam steps in bf16 compute
+   (batch 4 x 128) with 24 tensor-core ``flash_attention`` launches a
+   step and a finite, falling loss, and the checkpoint they write restored
+   bitwise; steps/s, tokens/s and peak memory. Then the same gradient
+   check for zamba2-2.7b (6 layers: 5 ``ssd_scan``, 1 ``flash_attention``
+   at head dim 80) and xlstm-350m (4 layers: 2 ``slstm_scan``) at full
+   width;
+19. the LM population: ``examples/torch_train_lm_population.py``'s body
+   with xlstm-350m at full width, 4 fixed devices training under
+   ``torch.func.vmap`` and 6 mules on the walk, seq 64, batch 4, T = 4:
+   ``mule_agg`` once a step over whole parameter vectors (D =
+   468,260,864), ``slstm_scan`` once a layer a step for all 4 models; the
+   aggregation of every step's state in lockstep with
+   ``agg_backend="ref"`` (1e-5); steps/s and peak memory.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -204,7 +237,13 @@ every pair of the 4 blocks of phase 9's population at its first exchange
 (and their ring-order sum, normalised, against ``encounter_mix``), on
 ragged blocks, and on a balanced 4-area population whose hop mask prunes
 (launches equal to the kept hops), timed at the ring's hop shape (R = V =
-64, D = 546,484) beside ``torch.matmul`` of the hop's dense gate.
+64, D = 546,484) beside ``torch.matmul`` of the hop's dense gate; and its
+lane-batched entry ``encounter_block_hop_lanes`` at S = 1, 2, 4 (each lane
+the single hop's bits, one launch a call), timed at S = 4 beside 4 single
+launches and ``torch.bmm`` (the ``lanes`` entry of row 3). Last in phase
+3, the three LM kernels as autograd ops: a ``grad_fn`` on each output, the
+gradient against ``backend="ref"``'s, and ``vmap(grad)`` over 4 lanes in
+one launch, each lane against its single gradient.
 
 The second-to-last line is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -395,6 +434,9 @@ RING_TIMEOUT = 600
 FIXED_MULES, FIXED_STEPS, FIXED_PRETRAIN = 20, 60, 120
 # HAR path (phase 11): Fig 8's batch and lr (examples/har_mobile_training.py)
 HAR_BATCH, HAR_LR = 12, 0.03
+# the HAR path's horizon, cut from 60 to keep the script inside its time
+# with phases 17-19 (one eval, after step 19)
+HAR_STEPS = 30
 # run_experiment at the harness's own defaults, T cut to this
 SHORT_STEPS = 20
 # the seed sweep (phase 13) and the lane-batched kernel entries (phase 3):
@@ -402,6 +444,9 @@ SHORT_STEPS = 20
 # encounter_mix serving all S lanes; the multi-area path (phase 12): the
 # 3-city scenarios' 12 fixed devices
 LANES = 4
+# the sweep's horizon, cut from the other paths' 60 to keep the script
+# inside its time with phases 17-19 (one eval, after step 19)
+SWEEP_STEPS = 30
 MULTI_AREA_FIXED = 12
 # the dense HAR strip of the lane-batched mix: the LSTM-CNN's D
 HAR_D = 44_580
@@ -418,9 +463,11 @@ STREAM_CHUNK = EVAL_EVERY
 # population scale (phase 15): the reference's scale workload
 # (benchmarks/engine_micro.py: _scale_workload), a linear model of D = 8
 # weights over F = 8 fixed devices, two samples a mule a step, lr 0.05, on
-# streaming_commuter's procedural stream, T = 96 in chunks of 8
+# streaming_commuter's procedural stream, T = 48 (the reference's horizon
+# is 96; cut to keep the script inside its time with phases 17-19) in
+# chunks of 8
 SCALE_MULES = (100_000, 1_000_000)
-SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 96, 8, 2, 0.05
+SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 48, 8, 2, 0.05
 # the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
 # bucket-ordered walk of phase 9 at the CNN's full width, T = 30; then the
 # streamed engine on multi_area_migratory, re-bucketing every 10 steps.
@@ -428,7 +475,38 @@ SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 96, 8, 2, 0.05
 # step 10 and 2 mules of 256 (0.0078) at step 20: the threshold lets the
 # second check swap
 DIST_RANKS, DIST_STEPS = 4, 30
+# the distributed mlmule's lockstep with agg_backend="ref": the first 10
+# steps (cut from 30, to keep the script inside its time)
+DIST_LOCKSTEP_STEPS = 10
 REBUCKET_EVERY, REBUCKET_THRESHOLD = 10, 0.005
+# the seed sweep over the ranks (phase 17, in phase 16's world): S seeds of
+# that walk as lanes inside each rank's block, T = 12 (cut from 30 to keep
+# the script inside its time with the checks below)
+DIST_LANES = 4
+DIST_SWEEP_METHODS = ("mlmule", "gossip")
+DIST_SWEEP_STEPS = 12
+# its lanes against their sequential runs with training off (the
+# collectives, aggregation and hops alone: bitwise; two gossip exchanges)
+# and with training alone (method "local", with and without cuDNN)
+DIST_SWEEP_OFF_STEPS, DIST_LOCAL_STEPS = 4, 2
+# the kernels' autograd ops (phase 3): each lane of vmap(grad) against its
+# single gradient, and the single gradient against backend="ref"'s (both
+# relative to the largest gradient; readings 8.6e-8 and 5.9e-7 on the H100)
+KERNEL_GRAD_LANE_REL, KERNEL_GRAD_REF_REL = 1e-6, 1e-5
+# training (phase 18): stablelm-1.6b at full width through launch/train.py,
+# Adam in bf16 compute on batch 4 x 128; the f32 gradient checks at batch
+# 2 (zamba2 and xlstm at full width, reduced depth, seq 64). The loss bound
+# is the f32 prefills' (two orders of the same sums); the leaf bound 4x the
+# largest gap read on the H100 (4.4e-5, zamba2; stablelm 5.0e-6, xlstm
+# 1.5e-5)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 5, 4, 128
+GRAD_BATCH, GRAD_SEQ = 2, 64
+GRAD_HYBRID_LAYERS, GRAD_XLSTM_LAYERS = 6, 4
+GRAD_LOSS_REL, GRAD_LEAF_REL = 2e-4, 2e-4
+# the LM population (phase 19): examples/torch_train_lm_population.py's
+# F 4 / M 6 with xlstm-350m at full width
+LM_POP_ARCH, LM_POP_STEPS, LM_POP_SEQ, LM_POP_BATCH = "xlstm-350m", 4, 64, 4
+LM_POP_FIXED, LM_POP_MULES = 4, 6
 DIST_TIMEOUT = 900
 
 
@@ -1273,7 +1351,86 @@ def phase_encounter_hop(card: str) -> dict:
           f"pairs; the dense strip's {2 * m_loc * m_loc * d_main} FLOP take "
           f"{2 * m_loc * m_loc * d_main / FP32_FLOP_PER_S * 1e3:.4f} ms) "
           f"[{card}]")
+    row["lanes"] = _hop_lanes(pos, area, w, (i, j), n_bytes, card)
     return row
+
+
+def _hop_lanes(pos, area, w, busiest, hop_bytes: int, card: str) -> dict:
+    """``encounter_block_hop_lanes``, the hop of a seed sweep over the
+    ranks, at S = 1, 2 and 4 lanes of the ring path's remote hops (lane 0
+    the busiest; every lane with the busiest hop's row0 and col0): each lane
+    bitwise its single-lane ``encounter_block_hop``, one launch a call,
+    within the float32 bound of the plain version; S = 4 timed beside 4
+    single launches and ``torch.bmm`` over the dense gates (the ``lanes``
+    entry of row 3)."""
+    import torch
+    from repro_torch.kernels.encounter_mix import (
+        encounter_block_hop, encounter_block_hop_lanes,
+        encounter_block_lanes_reference, encounter_gate)
+    from repro_torch.kernels.encounter_mix.ref import radius_sq
+    m_loc = N_MULES // RING_RANKS
+    i0, j0 = busiest
+    row0, col0 = i0 * m_loc, j0 * m_loc
+    pairs = [busiest] + [((i0 + k) % RING_RANKS, (j0 + k) % RING_RANKS)
+                         for k in range(1, LANES)]
+
+    def blk(k, x):
+        return x[k * m_loc:(k + 1) * m_loc]
+
+    # lane k: (pos_r, area_r, pos_v, area_v, w_v) of hop pairs[k]
+    hops = [(blk(i, pos), blk(i, area), blk(j, pos), blk(j, area), blk(j, w))
+            for i, j in pairs]
+
+    def single(k):
+        p_r, a_r, p_v, a_v, w_v = hops[k]
+        return (p_r, a_r, None, row0, p_v, a_v, None, col0, w_v, RADIUS)
+
+    def lanes(n):
+        st = [torch.stack([h[c] for h in hops[:n]]) for c in range(5)]
+        return (st[0], st[1], None, row0, st[2], st[3], None, col0, st[4],
+                RADIUS)
+
+    worst = 0.0
+    for n in (1, 2, LANES):
+        args = lanes(n)
+        before = encounter_block_hop.launches
+        acc, mass = encounter_block_hop_lanes(*args)
+        torch.cuda.synchronize()
+        if encounter_block_hop.launches - before != 1:
+            raise AssertionError("encounter_block_hop_lanes: not one launch "
+                                 "a call")
+        for k in range(n):
+            a1, m1 = encounter_block_hop(*single(k))
+            if not (torch.equal(acc[k], a1) and torch.equal(mass[k], m1)):
+                raise AssertionError(f"encounter_hop lanes S={n}: lane {k} "
+                                     f"is not its single-lane hop's bits")
+        want, want_mass = encounter_block_lanes_reference(*args)
+        err = (acc - want).abs().max().item()
+        if not (torch.equal(mass, want_mass) and err <= TOL["float32"]):
+            raise AssertionError(f"encounter_hop lanes S={n}: vs the plain "
+                                 f"version, masses equal "
+                                 f"{torch.equal(mass, want_mass)}, "
+                                 f"max_abs_err {err:.3e}")
+        worst = max(worst, err)
+        print(f"encounter_hop lanes S={n} (hops {pairs[:n]}, row0 {row0}, "
+              f"col0 {col0}): one launch, each lane the bits of its "
+              f"single-lane hop; vs the plain version masses equal, "
+              f"max_abs_err {err:.3e} (tol {TOL['float32']})")
+        del acc, want
+    args = lanes(LANES)
+    gates = [encounter_gate(*single(k)[:8]) for k in range(LANES)]
+    e = torch.stack([((d2 <= radius_sq(RADIUS).cuda()) & g).float()
+                     for d2, g in gates])
+    nnz = int(e.sum().item())
+    print(f"encounter_hop lanes timing, S={LANES} hops of R=V={m_loc}, "
+          f"D={w.shape[1]} ({nnz} encounters) [{card}]:")
+    return _lane_timing(
+        f"S={LANES} ring hops R=V={m_loc} D={w.shape[1]}",
+        lambda: encounter_block_hop_lanes(*args),
+        lambda: [encounter_block_hop(*single(k)) for k in range(LANES)],
+        lambda: torch.bmm(e, args[8]),
+        lambda: encounter_block_lanes_reference(*args),
+        LANES * hop_bytes, 2 * nnz * w.shape[1], worst)
 
 
 def _unmasked_pairs(s: int, sk: int, window, causal: bool) -> int:
@@ -2249,9 +2406,9 @@ def phase_hybrid_serve(card: str) -> dict:
     # (a) the warm-up prefill also keeps the scan inputs of the first and
     # the last Mamba2 layer and the first shared attention's q, k, v
     calls = _warm_prefill(prefill, params, batch, {
-        "ssd_scan": (mamba_lib, (0, HYBRID_SCANS - 1)),
+        "ssd_scan_op": (mamba_lib, (0, HYBRID_SCANS - 1)),
         "flash_attention": (attn_lib, (0,))})
-    scans, attns = calls["ssd_scan"], calls["flash_attention"]
+    scans, attns = calls["ssd_scan_op"], calls["flash_attention"]
     if (len(scans), len(attns)) != (HYBRID_SCANS, HYBRID_ATTNS):
         raise AssertionError(f"the prefill made {len(scans)} scans and "
                              f"{len(attns)} attention calls")
@@ -2259,12 +2416,14 @@ def phase_hybrid_serve(card: str) -> dict:
               **_flash_counts(HYBRID_ATTNS, HYBRID_ATTNS)}
     launches = _counted_prefill(prefill, params, batch, cfg, expect, card)
     for li in (0, HYBRID_SCANS - 1):
-        args, kw = scans[li]
-        y, _ = ssd_scan(*args, **kw)
+        # ssd_scan_op(x, dt, A, B, C, chunk, backend)
+        args, _ = scans[li]
+        chunk = args[5]
+        y, _ = ssd_scan(*args[:5], chunk=chunk)
         _hold_scaled(f"lm serve lockstep, Mamba2 layer {li} of the "
                      f"{cfg.name} prefill, ssd_scan on its x "
                      f"{list(args[0].shape)} vs ssd_chunked_reference", y,
-                     ssd_chunked_reference(*args, chunk=kw["chunk"])[0],
+                     ssd_chunked_reference(*args[:5], chunk=chunk)[0],
                      SSD_VS_CHUNKED_REL)
     (q, k, v), kw = attns[0]
     out = _flash_routed(q, k, v, **kw)
@@ -2308,18 +2467,19 @@ def phase_xlstm_serve(card: str) -> dict:
     # (a) the warm-up prefill also keeps the scan inputs of the first and
     # the last sLSTM block
     scans = _warm_prefill(prefill, params, batch, {
-        "slstm_scan": (xlstm_lib, (0, XLSTM_PAIRS - 1))})["slstm_scan"]
+        "slstm_scan_op": (xlstm_lib, (0, XLSTM_PAIRS - 1))})["slstm_scan_op"]
     if len(scans) != XLSTM_PAIRS:
         raise AssertionError(f"the prefill made {len(scans)} sLSTM scans")
     expect = {"slstm_scan": (slstm_scan, "launches", XLSTM_PAIRS)}
     launches = _counted_prefill(prefill, params, batch, cfg, expect, card)
     for li in (0, XLSTM_PAIRS - 1):
-        args, kw = scans[li]
+        # slstm_scan_op(pre, r, backend)
+        (pre, r, _), _ = scans[li]
         _hold(f"lm serve lockstep, sLSTM block {li} of the {cfg.name} "
-              f"prefill, slstm_scan on its pre {list(args[0].shape)} vs "
-              f"slstm_reference", slstm_scan(*args, **kw),
-              slstm_reference(*args)[0], SLSTM_TOL, 0.0)
-    del scans, args
+              f"prefill, slstm_scan on its pre {list(pre.shape)} vs "
+              f"slstm_reference", slstm_scan(pre, r),
+              slstm_reference(pre, r)[0], SLSTM_TOL, 0.0)
+    del scans, pre, r
     _profile_steps(lambda: prefill(params, batch), 1, f"{cfg.name} prefill")
     # (b) decode through the serving loop; (c) the f32 copy, all 24 blocks
     _serve_generate(model, params, cfg, gen, card)
@@ -2373,16 +2533,16 @@ def _f64_slstm_logits(cfg32, params, batch):
     from repro_torch.models import build_model
     from repro_torch.models import xlstm as xlstm_lib
 
-    def exact_scan(pre, r, **kw):
+    def exact_scan(pre, r, backend="auto"):
         return slstm_reference(pre.double(), r.double())[0].float()
 
-    real = xlstm_lib.slstm_scan
-    xlstm_lib.slstm_scan = exact_scan
+    real = xlstm_lib.slstm_scan_op
+    xlstm_lib.slstm_scan_op = exact_scan
     try:
         with torch.no_grad():
             return build_model(cfg32, backend="ref").forward(params, batch)[0]
     finally:
-        xlstm_lib.slstm_scan = real
+        xlstm_lib.slstm_scan_op = real
 
 
 def ring_rank(out_dir: str) -> None:
@@ -2934,17 +3094,17 @@ def phase_har_path(card: str) -> dict:
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    base = ExperimentConfig(scenario="har_commuter", steps=N_STEPS,
+    base = ExperimentConfig(scenario="har_commuter", steps=HAR_STEPS,
                             eval_every=EVAL_EVERY, n_mules=N_MULES,
                             batch=HAR_BATCH, lr=HAR_LR, seed=SEED)
     fns = lstm_cnn_model_fns(CONFIG, HAR_LR)
-    n_exchanges = N_STEPS // PEER_EVERY
+    n_exchanges = HAR_STEPS // PEER_EVERY
     counts = {}
     for method in ("mlmule", "gossip"):
         cfg = dataclasses.replace(base, method=method)
         (result, st), got, peak = _count_run(
             lambda: run_with_models(cfg, fns, device="cuda"))
-        want = ({"mule_agg": N_STEPS, "encounter_mix": 0}
+        want = ({"mule_agg": HAR_STEPS, "encounter_mix": 0}
                 if method == "mlmule" else
                 {"mule_agg": 0, "encounter_mix": n_exchanges})
         if got != want:
@@ -2952,15 +3112,15 @@ def phase_har_path(card: str) -> dict:
                                  f"expected {want}")
         counts[method] = got
         _check_result(f"HAR {method}", result,
-                      _trace_steps(method, N_STEPS, EVAL_EVERY))
+                      _trace_steps(method, HAR_STEPS, EVAL_EVERY))
         pop = st["population"]
         _check_finite(f"HAR {method}", {**pop["mule_models"],
                                         **pop["fixed_models"]})
         d_params = sum(v[0].numel() for v in pop["mule_models"].values())
         print(f"HAR path: {method} mobile on har_commuter, M={N_MULES}, "
               f"F={result['config']['n_fixed']}, D={d_params} "
-              f"({CONFIG.name}), batch {HAR_BATCH}, T={N_STEPS}: "
-              f"{N_STEPS / st['run_s']:.3f} steps/s ({st['run_s']:.3f} s), "
+              f"({CONFIG.name}), batch {HAR_BATCH}, T={HAR_STEPS}: "
+              f"{HAR_STEPS / st['run_s']:.3f} steps/s ({st['run_s']:.3f} s), "
               f"pretraining {st['pretrain_s']:.3f} s "
               f"({base.pretrain_steps} steps), peak memory {peak} B, "
               f"launches {got}, accuracy trace {result['trace']} [{card}]")
@@ -2970,10 +3130,10 @@ def phase_har_path(card: str) -> dict:
                 raise AssertionError("HAR mlmule: no mule delivered to a "
                                      "fixed device")
             _replays("HAR mlmule", run, "agg_backend", REPLAY_ATOL)
-            _aggregation_lockstep("HAR mlmule", run, N_STEPS)
+            _aggregation_lockstep("HAR mlmule", run, HAR_STEPS)
         else:
             _replays("HAR gossip", run, "enc_backend", PEER_REPLAY_ATOL)
-            _mix_lockstep("HAR gossip", run, N_STEPS)
+            _mix_lockstep("HAR gossip", run, HAR_STEPS)
         _profile_steps(lambda: run_population(**{
             **run, "colocation": _steps(run["colocation"], 0,
                                         PROFILE_STEPS),
@@ -3107,7 +3267,7 @@ def phase_sweep(card: str) -> dict:
     torch.cuda.empty_cache()
     init_fn, train_fn, eval_fn = cnn_model_fns(CONFIG, LR)
     seeds = [SEED + i for i in range(LANES)]
-    cos = [walk_colocation(s, N_MULES, N_STEPS, p_cross=P_CROSS)
+    cos = [walk_colocation(s, N_MULES, SWEEP_STEPS, p_cross=P_CROSS)
            for s in seeds]
     if max(int(co["fixed_id"].max()) for co in cos) >= N_FIXED:
         raise AssertionError("a walk visits a space past the F fixed devices")
@@ -3145,9 +3305,10 @@ def phase_sweep(card: str) -> dict:
     run_sweep(**{**sweep, "colocations": _lane_steps(stacked, 0, PEER_EVERY),
                  "eval_every": None, "eval_fn": None},
               methods="mlmule+gossip")                     # warm-up
-    n_ex = N_STEPS // PEER_EVERY
-    want = {"mlmule": {"mule_agg": N_STEPS, "encounter_mix": 0},
-            "mlmule+gossip": {"mule_agg": N_STEPS, "encounter_mix": n_ex},
+    n_ex = SWEEP_STEPS // PEER_EVERY
+    want = {"mlmule": {"mule_agg": SWEEP_STEPS, "encounter_mix": 0},
+            "mlmule+gossip": {"mule_agg": SWEEP_STEPS,
+                              "encounter_mix": n_ex},
             "gossip": {"mule_agg": 0, "encounter_mix": n_ex},
             "oppcl": {"mule_agg": 0, "encounter_mix": 0},
             "local": {"mule_agg": 0, "encounter_mix": 0}}
@@ -3163,15 +3324,17 @@ def phase_sweep(card: str) -> dict:
                                  f"{want[method]}: one launch a step for "
                                  f"all lanes")
         evals = aux["evals"]
-        if tuple(evals.shape) != (LANES, N_STEPS // EVAL_EVERY, N_MULES) \
+        n_ev = SWEEP_STEPS // EVAL_EVERY
+        if tuple(evals.shape) != (LANES, n_ev, N_MULES) \
                 or not bool(torch.isfinite(evals).all()):
             raise AssertionError(f"{label}: evals {tuple(evals.shape)} "
                                  f"missing or not finite")
         _check_finite(label, {**final["mule_models"],
                               **final["fixed_models"]})
         paths[label] = got
-        print(f"{label}: {N_STEPS / wall:.3f} steps/s, "
-              f"{LANES * N_STEPS / wall:.3f} lane-steps/s ({wall:.3f} s), "
+        print(f"{label}: {SWEEP_STEPS / wall:.3f} steps/s, "
+              f"{LANES * SWEEP_STEPS / wall:.3f} lane-steps/s "
+              f"({wall:.3f} s), "
               f"peak memory {peak} B, launches {got}, mean accuracy by lane "
               f"{[round(x, 4) for x in evals.mean((1, 2)).tolist()]} "
               f"[{card}]")
@@ -3197,8 +3360,8 @@ def phase_sweep(card: str) -> dict:
                     raise AssertionError(f"{label}: eval steps differ")
                 del one
             print(f"{label}: lanes vs {LANES} sequential run_population "
-                  f"runs ({LANES * N_STEPS / seq_wall:.3f} lane-steps/s, "
-                  f"{N_STEPS * LANES / seq_wall / LANES:.3f} steps/s a run, "
+                  f"runs ({LANES * SWEEP_STEPS / seq_wall:.3f} lane-steps/s, "
+                  f"{SWEEP_STEPS / seq_wall:.3f} steps/s a run, "
                   f"{seq_wall:.3f} s): max |final weight diff| "
                   f"{worst:.3e} (tol {REPLAY_ATOL}); last_fid and eval "
                   f"steps equal")
@@ -3216,14 +3379,14 @@ def phase_sweep(card: str) -> dict:
 
     # Fig 8's config through the harness's seeded sweep
     cfg = ExperimentConfig(task="har", mode="mobile", pattern=str(P_CROSS),
-                           steps=N_STEPS, batch=HAR_BATCH, lr=HAR_LR)
+                           steps=SWEEP_STEPS, batch=HAR_BATCH, lr=HAR_LR)
     t0 = time.perf_counter()
     result, got, peak = _count_run(lambda: run_sweep_experiment(
         cfg, seeds, methods=METHODS_MOBILE, device="cuda"))
     wall = time.perf_counter() - t0
     want_steps = [(i + 1) * cfg.eval_every - 1
-                  for i in range(N_STEPS // cfg.eval_every)]
-    want_got = {"mule_agg": 2 * N_STEPS, "encounter_mix": 2 * n_ex}
+                  for i in range(SWEEP_STEPS // cfg.eval_every)]
+    want_got = {"mule_agg": 2 * SWEEP_STEPS, "encounter_mix": 2 * n_ex}
     if result["eval_steps"] != want_steps or got != want_got:
         raise AssertionError(f"Fig 8 sweep: eval steps "
                              f"{result['eval_steps']}, launches {got}; "
@@ -3234,7 +3397,7 @@ def phase_sweep(card: str) -> dict:
                 math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
             raise AssertionError(f"Fig 8 sweep {m}: accuracies {accs}")
         print(f"Fig 8 sweep (har, walk P_cross={P_CROSS}, seeds {seeds}, "
-              f"M={cfg.n_mules}, T={N_STEPS}): {m} mean final accuracy "
+              f"M={cfg.n_mules}, T={SWEEP_STEPS}): {m} mean final accuracy "
               f"{r['mean_final_acc']:.4f}, by seed "
               f"{[round(a, 4) for a in r['final_acc']]}, mean curve "
               f"{[round(a, 4) for a in r['mean_acc']]}")
@@ -3528,9 +3691,11 @@ def dist_rank(out_dir: str) -> None:
     ``spawn_local_cluster``: the five methods through
     ``run_population_distributed`` on this rank's block, mlmule against its
     plain aggregation (whole run and lockstep), mlmule on a 2 x 2 mesh,
-    and the re-bucketed streamed engine on multi_area_migratory; rank 0
-    writes every rank's report to DIR/dist.json."""
+    and the re-bucketed streamed engine on multi_area_migratory; then
+    phase 17's sweep (``_dist_sweep``); rank 0 writes every rank's report
+    to DIR/dist.json."""
     import dataclasses as dc
+    import gc
     import torch
     import torch.distributed as dist
     from repro_torch.baselines.gossip import RING_COUNTS, flatten_population
@@ -3651,7 +3816,7 @@ def dist_rank(out_dir: str) -> None:
             for k in ("fixed_id", "exchange", "pos")}
     area = put_global(torch.as_tensor(co["area"], device="cuda").long(), mesh)
     worst = 0.0
-    for t in range(DIST_STEPS):
+    for t in range(DIST_LOCKSTEP_STEPS):
         info = {"fixed_id": put_global(cols["fixed_id"][t].long(), mesh),
                 "exchange": put_global(cols["exchange"][t], mesh),
                 "pos": put_global(cols["pos"][t], mesh), "area": area,
@@ -3737,12 +3902,255 @@ def dist_rank(out_dir: str) -> None:
                    bool(torch.isfinite(v).all())
                    for v in fin_s["mule_models"].values())))
     report["runs"]["rebucket gossip"] = rec
+    del fin_s, fin_d, mpop, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["sweep"] = _dist_sweep(mesh, counted, whole, init_fn, train_fn)
     reports = [None] * n if i == 0 else None
     dist.gather_object(report, reports, dst=0)
     if i == 0:
         (Path(out_dir) / "dist.json").write_text(json.dumps(reports))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _sweep_walks():
+    """The distributed sweep's lanes: DIST_LANES seeds of the walk (T =
+    DIST_STEPS), each bucket-ordered by its own areas; (colocations,
+    orders)."""
+    from repro_torch.core.distributed import (bucket_mule_order,
+                                              reorder_colocation)
+    from repro_torch.scenarios import walk_colocation
+    cos, orders = [], []
+    for s in range(SEED, SEED + DIST_LANES):
+        co = walk_colocation(s, N_MULES, DIST_STEPS, p_cross=P_CROSS)
+        order = bucket_mule_order(co["area"])
+        cos.append(reorder_colocation(co, order))
+        orders.append(order)
+    return cos, orders
+
+
+def _dist_sweep(mesh, counted, whole, init_fn, train_fn) -> dict:
+    """Phase 17 in a rank of phase 16's world: ``run_sweep_distributed``
+    over DIST_LANES seeds of the walk for ``mlmule`` and ``gossip``, then
+    each lane alone through ``run_population_distributed``; the rank's
+    launches, collectives, bytes and digests, and each lane's largest
+    distance from its sequential run. Then the same comparison over
+    DIST_SWEEP_OFF_STEPS steps with training off (the collectives, the
+    aggregation and the hops alone) for both methods, and over
+    DIST_LOCAL_STEPS for ``local`` (training alone) with cuDNN and
+    without; each with its wall seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core.distributed import (PSUM_COUNTS, DistributedConfig,
+                                              reorder_mule_state,
+                                              to_distributed_state)
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.experiment import (_stack_wrap_pad, image_data_mobile,
+                                        sample_batches)
+    from repro_torch.scenarios import (run_population_distributed,
+                                       run_sweep_distributed, stack_trees)
+    from repro_torch.scenarios.sweep import _lane as tree_lane
+    cos, orders = _sweep_walks()
+    seeds = [SEED + s for s in range(DIST_LANES)]
+    data = [image_data_mobile(s, N_MULES, N_FIXED, co["init_space"],
+                              co["init_area"], n_super=CONFIG.n_classes,
+                              image_size=CONFIG.image_size)
+            for s, co in zip(seeds, cos)]
+    ctx = tuple(_stack_wrap_pad([d[k] for d in data]) for k in range(2))
+    del data
+    pcfg = PopulationConfig(mode="mobile", n_fixed=N_FIXED, n_mules=N_MULES)
+    dcfg = DistributedConfig(pop=pcfg)
+    pops = []
+    for s, order in zip(seeds, orders):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(s)
+        pops.append(to_distributed_state(reorder_mule_state(
+            init_population(pcfg, init_fn, gen), order), dcfg))
+    # the lanes' states stacked once; lane l's sequential run takes its
+    # slices (4 ranks share the card, so no rank keeps a second copy)
+    states = stack_trees(pops)
+    del pops
+    stacked = {k: torch.as_tensor(np.stack([co[k] for co in cos]),
+                                  device="cuda")
+               for k in ("fixed_id", "exchange", "pos", "area")}
+
+    def batch_fn(seed, t, c):
+        return {"fixed": None, "mule": sample_batches(seed, c[0], c[1],
+                                                      BATCH)}
+
+    def sweep(method, n_steps, train=train_fn):
+        return run_sweep_distributed(
+            states, _lane_steps(stacked, 0, n_steps), batch_fn, train,
+            dcfg, mesh, seeds, methods=method, context=ctx)
+
+    def alone(method, n_steps, l, train=train_fn):
+        return run_population_distributed(
+            tree_lane(states, l), _steps(cos[l], 0, n_steps), batch_fn,
+            train, dcfg, mesh, key=seeds[l], method=method,
+            context=tuple(c[l] for c in ctx))
+
+    def gap(final, aux, l, one, one_aux):
+        """(largest distance, bitwise) of lane l of a sweep from its
+        sequential run: the whole population's mules and the fixed
+        models, and last_fid."""
+        lane = whole(tree_lane(final["mule_models"], l), mesh)
+        solo = whole(one["mule_models"], mesh)
+        pairs = [(lane, solo)] + [(final["fixed_models"][k][l], v)
+                                  for k, v in one["fixed_models"].items()]
+        diff = max((a - b).abs().max().item() for a, b in pairs)
+        exact = all(torch.equal(a, b) for a, b in pairs) and torch.equal(
+            aux["last_fid"][l], one_aux["last_fid"])
+        return diff, exact
+
+    def lanes_gap(method, n_steps, train):
+        """(largest distance, every lane bitwise, wall seconds) of the
+        sweep's lanes from their sequential runs."""
+        t0 = time.perf_counter()
+        final, aux = sweep(method, n_steps, train)
+        worst, exact = 0.0, True
+        for l in range(DIST_LANES):
+            diff, ok = gap(final, aux, l, *alone(method, n_steps, l, train))
+            worst, exact = max(worst, diff), exact and ok
+        return worst, exact, time.perf_counter() - t0
+
+    def keep(params, batch, key):
+        return params
+
+    out = {}
+    for method in DIST_SWEEP_METHODS:
+        torch.cuda.empty_cache()     # what this rank cached, for the others
+        sweep(method, PEER_EVERY)                               # warm-up
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls0 = PSUM_COUNTS["calls"]
+        (final, aux), rec = counted(lambda: sweep(method,
+                                                      DIST_SWEEP_STEPS))
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["psum_calls"] = PSUM_COUNTS["calls"] - calls0
+        rec["digests"] = [_replicated_digest(
+            {k: tree_lane(final[k], l) for k in ("fixed_models", "fresh",
+                                                 "t")})
+            for l in range(DIST_LANES)]
+        seq_wall, worst, bitwise, seq_bytes, seq_hops = 0.0, 0.0, True, 0, 0
+        for l in range(DIST_LANES):
+            (one, one_aux), r1 = counted(lambda: alone(
+                method, DIST_SWEEP_STEPS, l))
+            seq_wall += r1["wall_s"]
+            seq_bytes += r1["ring_bytes"] + r1["psum_bytes"]
+            seq_hops += r1["encounter_hop"]
+            diff, exact = gap(final, aux, l, one, one_aux)
+            worst, bitwise = max(worst, diff), bitwise and exact
+            if not torch.equal(aux["last_fid"][l], one_aux["last_fid"]):
+                rec["last_fid_differs"] = l
+            del one
+        rec.update(seq_wall_s=seq_wall, lane_diff=worst, bitwise=bitwise,
+                   seq_bytes=seq_bytes, seq_hops=seq_hops,
+                   finite=bool(all(bool(torch.isfinite(v).all())
+                                   for v in final["mule_models"].values())))
+        out[method] = rec
+        del final, aux
+        torch.cuda.empty_cache()
+        rec["off"] = lanes_gap(method, DIST_SWEEP_OFF_STEPS, keep)
+    # training alone: the vmapped CNN steps over lanes and mules (cuDNN
+    # sees S times the groups), and the same without cuDNN
+    torch.cuda.empty_cache()
+    out["local"] = {"cudnn": lanes_gap("local", DIST_LOCAL_STEPS,
+                                       train_fn)}
+    with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        out["local"]["no cudnn"] = lanes_gap("local", DIST_LOCAL_STEPS,
+                                             train_fn)
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_dist_sweep(ranks: list, card: str) -> dict:
+    """Phase 17's checks on the ranks' reports; {path: {kernel: launches of
+    all ranks}}."""
+    import numpy as np
+    from repro_torch.baselines.gossip import ring_hop_mask
+    cos, _ = _sweep_walks()
+    need = np.zeros(DIST_RANKS, bool)
+    kept_by_lane = []
+    for co in cos:
+        mask = ring_hop_mask(co["area"], None, DIST_RANKS).numpy()
+        need |= mask
+        kept_by_lane.append(int(mask.sum()))
+    kept, n_ex = int(need.sum()), DIST_SWEEP_STEPS // PEER_EVERY
+    want = {"mlmule": {"mule_agg": DIST_SWEEP_STEPS, "encounter_hop": 0,
+                       "psum_calls": DIST_SWEEP_STEPS},
+            "gossip": {"mule_agg": 0, "encounter_hop": n_ex * kept,
+                       "psum_calls": 0}}
+    paths = {}
+    for method, exp in want.items():
+        recs = [r["sweep"][method] for r in ranks]
+        label = f"distributed sweep S={DIST_LANES} {method}"
+        got = [{k: r[k] for k in exp} for r in recs]
+        if got != [exp] * DIST_RANKS or any(r["encounter_mix"]
+                                            for r in recs):
+            raise AssertionError(f"{label}: by rank {got}, expected {exp} "
+                                 f"(one ordered_psum a step and one "
+                                 f"encounter_hop launch a kept hop for all "
+                                 f"lanes), no encounter_mix")
+        for l in range(DIST_LANES):
+            if len({r["digests"][l] for r in recs}) != 1:
+                raise AssertionError(f"{label}: lane {l}'s replicated state "
+                                     f"differs between ranks")
+        if not all(r["finite"] for r in recs) or any(
+                "last_fid_differs" in r for r in recs):
+            raise AssertionError(f"{label}: non-finite weights or a lane's "
+                                 f"last_fid off its sequential run")
+        worst = max(r["lane_diff"] for r in recs)
+        wall = max(r["wall_s"] for r in recs)
+        seq = max(r["seq_wall_s"] for r in recs)
+        sent = sum(r["ring_bytes"] + r["psum_bytes"] for r in recs)
+        seq_sent = sum(r["seq_bytes"] for r in recs)
+        print(f"{label}: {DIST_RANKS} ranks x {N_MULES // DIST_RANKS} mules "
+              f"x {DIST_LANES} lanes, T={DIST_SWEEP_STEPS}: "
+              f"{DIST_LANES * DIST_SWEEP_STEPS / wall:.3f} lane-steps/s "
+              f"({wall:.3f} s) against "
+              f"{DIST_LANES * DIST_SWEEP_STEPS / seq:.3f} "
+              f"for {DIST_LANES} sequential runs ({seq:.3f} s); launches by "
+              f"rank {got}; {sent // DIST_SWEEP_STEPS} B a step through "
+              f"host memory ({seq_sent // DIST_SWEEP_STEPS} B a step for the "
+              f"sequential runs); encounter_hop {recs[0]['encounter_hop']} "
+              f"a rank for all lanes against "
+              f"{recs[0]['seq_hops']} for the sequential runs (kept hops "
+              f"by lane {kept_by_lane}, union {kept}); replicated state "
+              f"bitwise on every rank; lanes vs sequential runs max diff "
+              f"{worst:.3e} (tol {REPLAY_ATOL}), bitwise "
+              f"{all(r['bitwise'] for r in recs)}; peak memory by rank "
+              f"{[r['peak'] for r in recs]} B [{card}]")
+        off = max(r["off"][0] for r in recs)
+        off_exact = all(r["off"][1] for r in recs)
+        print(f"{label}, training off, T={DIST_SWEEP_OFF_STEPS}: lanes vs "
+              f"sequential runs max diff {off:.3e}, bitwise {off_exact} "
+              f"({max(r['off'][2] for r in recs):.1f} s) [{card}]")
+        if not worst <= REPLAY_ATOL:
+            raise AssertionError(f"{label}: a lane left its sequential "
+                                 f"run's growth bound")
+        if not off_exact:
+            raise AssertionError(f"{label}: with training off a lane is not "
+                                 f"bitwise its sequential run (the "
+                                 f"collectives, aggregation or hops mix "
+                                 f"lanes)")
+        paths[label] = {k: sum(r[k] for r in recs)
+                        for k in ("mule_agg", "encounter_hop")
+                        if any(r[k] for r in recs)}
+    local = {k: (max(r["sweep"]["local"][k][0] for r in ranks),
+                 all(r["sweep"]["local"][k][1] for r in ranks),
+                 max(r["sweep"]["local"][k][2] for r in ranks))
+             for k in ("cudnn", "no cudnn")}
+    print(f"distributed sweep S={DIST_LANES} local (training alone), "
+          f"T={DIST_LOCAL_STEPS}: lanes vs sequential runs max diff "
+          f"{local['cudnn'][0]:.3e} (bitwise {local['cudnn'][1]}; "
+          f"{local['cudnn'][2]:.1f} s) with cuDNN, "
+          f"{local['no cudnn'][0]:.3e} (bitwise {local['no cudnn'][1]}; "
+          f"{local['no cudnn'][2]:.1f} s) without [{card}]")
+    return paths
 
 
 def phase_distributed(card: str) -> dict:
@@ -3812,7 +4220,8 @@ def phase_distributed(card: str) -> dict:
     lock = max(r["lockstep"] for r in ranks)
     print(f"distributed mlmule: vs agg_backend='ref', final weights max "
           f"diff {r0['ref_diff']:.3e} (tol {REPLAY_ATOL}); lockstep over "
-          f"{DIST_STEPS} steps, training off: max diff {lock:.3e} (tol "
+          f"{DIST_LOCKSTEP_STEPS} steps, training off: max diff {lock:.3e} "
+          f"(tol "
           f"{LOCKSTEP_ATOL}); 2 x 2 pod-local vs 1 x 4: "
           f"{r0['runs']['mlmule 2x2 pod-local']['diff_vs_1x4']:.3e} (tol "
           f"{REPLAY_ATOL})")
@@ -3859,7 +4268,400 @@ def phase_distributed(card: str) -> dict:
           f"bitwise; drifts and orders equal on every rank")
     print(f"distributed path: phase wall "
           f"{time.perf_counter() - t_phase:.1f} s")
+    t_sweep = time.perf_counter()
+    paths.update(_check_dist_sweep(ranks, card))
+    print(f"distributed sweep: checks {time.perf_counter() - t_sweep:.1f} s "
+          f"(its runs are in the ranks' wall above)")
     return paths
+
+
+def phase_kernel_grads(card: str) -> None:
+    """The three LM kernels as autograd ops on the card: each output has a
+    ``grad_fn`` and its gradient is the plain version's (the backward is
+    the plain version's VJP; the forwards differ by the kernel's rounding),
+    and under ``torch.func.vmap(torch.func.grad(...))`` each lane gets its
+    single-model gradient from one kernel launch for all lanes."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.slstm_fused import slstm_scan, slstm_scan_op
+    from repro_torch.kernels.ssm_scan import ssd_scan, ssd_scan_op
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 9)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    n = LANES
+    cases = {
+        "flash_attention": (
+            flash_attention, "launches",
+            lambda q, k, v, backend="auto": flash_attention(
+                q, k, v, causal=True, backend=backend),
+            [rn(n, 2, 128, 32, 64), rn(n, 2, 128, 32, 64),
+             rn(n, 2, 128, 32, 64)]),
+        "ssd_scan": (
+            ssd_scan, "launches",
+            lambda x, dt, a, bm, cm, backend="auto": ssd_scan_op(
+                x, dt, a, bm, cm, 64, backend),
+            [rn(n, 2, 128, 8, 64), torch.rand(n, 2, 128, 8, device="cuda",
+                                               generator=g) * 0.1,
+             -torch.rand(n, 8, device="cuda", generator=g) - 0.5,
+             rn(n, 2, 128, 64), rn(n, 2, 128, 64)]),
+        "slstm_scan": (
+            slstm_scan, "launches",
+            lambda pre, r, backend="auto": slstm_scan_op(pre, r, backend),
+            [rn(n, 2, 64, 4, 4, 256), rn(n, 4, 4, 256, 256, scale=0.05)]),
+    }
+    for name, (fn, attr, op, inputs) in cases.items():
+        def loss(*xs, backend="auto"):
+            return (op(*xs, backend=backend) ** 2).mean()
+
+        argnums = tuple(range(len(inputs)))
+        setattr(fn, attr, 0)
+        lanes = torch.func.vmap(torch.func.grad(loss, argnums=argnums))(
+            *inputs)
+        torch.cuda.synchronize()
+        launched = getattr(fn, attr)
+        if launched != 1:
+            raise AssertionError(f"{name}: vmap(grad) over {n} lanes "
+                                 f"launched {launched} times, not once")
+        lane_gap, ref_gap, exact = 0.0, 0.0, True
+        for i in range(n):
+            one = [x[i].clone().requires_grad_() for x in inputs]
+            out = op(*one)
+            if out.grad_fn is None:
+                raise AssertionError(f"{name}: the kernel's output has no "
+                                     f"grad_fn")
+            single = torch.autograd.grad((out ** 2).mean(), one)
+            ref = torch.func.grad(lambda *xs: loss(*xs, backend="ref"),
+                                  argnums=argnums)(*(x[i] for x in inputs))
+            for a, b, c in zip(lanes, single, ref):
+                scale = c.abs().max().item()
+                lane_gap = max(lane_gap, (a[i] - b).abs().max().item()
+                               / scale)
+                ref_gap = max(ref_gap, (b - c).abs().max().item() / scale)
+                exact = exact and torch.equal(a[i], b)
+        print(f"kernel grads {name}: grad_fn set; vmap(grad) over {n} lanes "
+              f"in 1 launch, each lane vs its single gradient max rel gap "
+              f"{lane_gap:.3e} (bitwise {exact}; tol {KERNEL_GRAD_LANE_REL}),"
+              f" the single vs backend='ref' {ref_gap:.3e} (tol "
+              f"{KERNEL_GRAD_REF_REL}) [{card}]")
+        if not (lane_gap <= KERNEL_GRAD_LANE_REL
+                and ref_gap <= KERNEL_GRAD_REF_REL):
+            raise AssertionError(f"{name}: a lane's gradient or the "
+                                 f"kernel's gradient is off")
+
+
+def _grad_check(label: str, cfg, params, tokens, expect: dict,
+                card: str) -> None:
+    """One f32 loss and gradient through the kernels (``backend="auto"``)
+    against ``backend="ref"`` on the same weights and tokens: every leaf a
+    finite, non-zero gradient, the loss within GRAD_LOSS_REL, each leaf's
+    largest gap within GRAD_LEAF_REL of its largest gradient, the kernels
+    launched as ``expect`` says."""
+    import torch
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import build_model
+    batch = {"tokens": tokens}
+    _zero_counts(expect)
+    ga, (la, _) = torch.func.grad_and_value(
+        build_model(cfg).loss, has_aux=True)(params, batch)
+    torch.cuda.synchronize()
+    got = _counts(expect)
+    if got != {k: v[2] for k, v in expect.items()}:
+        raise AssertionError(f"{label}: launches {got}, expected "
+                             f"{ {k: v[2] for k, v in expect.items()} }")
+    leaves_a = tree_leaves(ga)
+    del ga
+    gr, (lr, _) = torch.func.grad_and_value(
+        build_model(cfg, backend="ref").loss, has_aux=True)(params, batch)
+    leaves_r = tree_leaves(gr)
+    if len(leaves_a) != len(tree_leaves(params)):
+        raise AssertionError(f"{label}: a parameter leaf has no gradient")
+    worst, worst_at, zero = 0.0, -1, 0
+    for k, (a, r) in enumerate(zip(leaves_a, leaves_r)):
+        if a is None or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: leaf {k}'s gradient is missing "
+                                 f"or not finite")
+        scale = r.abs().max().item()
+        if a.abs().max().item() == 0.0 or scale == 0.0:
+            zero += 1
+            continue
+        gap = (a - r).abs().max().item() / scale
+        if gap > worst:
+            worst, worst_at = gap, k
+    rel = abs(la.item() - lr.item()) / abs(lr.item())
+    print(f"{label}: f32 loss {la.item():.6f} through the kernels vs "
+          f"{lr.item():.6f} backend='ref' (rel {rel:.3e}, tol "
+          f"{GRAD_LOSS_REL}); {len(leaves_a)} gradient leaves, {zero} zero, "
+          f"largest gap {worst:.3e} of its leaf's largest gradient (leaf "
+          f"{worst_at}, tol {GRAD_LEAF_REL}); launches {got} [{card}]")
+    if zero or not (rel <= GRAD_LOSS_REL and worst <= GRAD_LEAF_REL):
+        raise AssertionError(f"{label}: the gradient through the kernels "
+                             f"is off the plain version's")
+
+
+def _flash_backward_cost(cfg, card: str) -> None:
+    """One attention layer of the training step at its shape (bf16, batch
+    TRAIN_BATCH x TRAIN_SEQ): the kernel's forward, the plain backward
+    (``ref.flash_backward``) and, inside it, the recompute of the per-row
+    softmax statistics that the kernel does not keep (``_fwd_impl``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_backward)
+    from repro_torch.kernels.flash_attention.ops import REF_BLOCK
+    from repro_torch.kernels.flash_attention.ref import _fwd_impl
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v, do = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, d, device="cuda",
+                               generator=g).bfloat16() for _ in range(4))
+    blk = min(REF_BLOCK, TRAIN_SEQ)
+    fwd_ms = _median_ms(lambda: flash_attention(q, k, v, causal=True))
+    bwd_ms = _median_ms(lambda: flash_backward(
+        q, k, v, do, causal=True, block_q=REF_BLOCK, block_k=REF_BLOCK))
+    stats_ms = _median_ms(lambda: _fwd_impl(q, k, v, True, None, blk, blk,
+                                            d ** -0.5))
+    print(f"flash backward at one training layer (q, k, v [{TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}, {h}, {d}] bf16): kernel forward {fwd_ms:.4f} ms, "
+          f"plain backward {bwd_ms:.4f} ms, of which the statistics' "
+          f"recompute (the plain forward) {stats_ms:.4f} ms "
+          f"({100 * stats_ms / bwd_ms:.1f}%) [{card}]")
+
+
+def phase_training(card: str) -> dict:
+    """Phase 18: stablelm-1.6b at full width through ``launch/train.py``'s
+    functions (the f32 gradient check through the kernels, then Adam steps
+    in bf16 with a checkpoint), and the gradient checks of zamba2-2.7b and
+    xlstm-350m at full width and reduced depth. Returns {path: {kernel:
+    launches}}."""
+    import dataclasses as dc
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels.flash_attention.ops import TC_HEAD_DIMS
+    from repro_torch.kernels.slstm_fused import slstm_scan
+    from repro_torch.kernels.ssm_scan import ssd_scan
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths = {}
+    rng = np.random.default_rng(SEED)
+
+    # (a) the f32 gradient of stablelm-1.6b through the SIMT flash kernel
+    cfg = get_config(TRAIN_ARCH)
+    cfg32 = dc.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = build_model(cfg32).init(gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (GRAD_BATCH,
+                                                       TRAIN_SEQ)),
+                           device="cuda")
+    _grad_check(f"training {cfg.name} ({cfg.n_layers} layers, {n_params} "
+                f"parameters) gradient", cfg32, params, toks,
+                _flash_counts(cfg.n_layers, 0), card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Adam steps in bf16 through launch/train.py's loop, a checkpoint;
+    # bf16 attention at stablelm's head dim 64 takes the tensor cores
+    n_tc = cfg.n_layers if cfg.resolved_head_dim in TC_HEAD_DIMS else 0
+    expect = _flash_counts(TRAIN_STEPS * cfg.n_layers, TRAIN_STEPS * n_tc)
+    with tempfile.TemporaryDirectory() as ck:
+        torch.cuda.reset_peak_memory_stats()
+        ttrain.train(cfg, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     device="cuda", log=lambda *_: None)          # warm-up
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(expect)
+        out = ttrain.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                           seq=TRAIN_SEQ, ckpt_dir=ck,
+                           ckpt_every=TRAIN_STEPS, device="cuda",
+                           log=lambda m: print(f"  {m}"))
+        torch.cuda.synchronize()
+        got = _counts(expect)
+        peak = torch.cuda.max_memory_allocated()
+        losses, times = out["losses"], out["step_s"]
+        if got != {k: v[2] for k, v in expect.items()}:
+            raise AssertionError(f"training {cfg.name}: launches {got}, "
+                                 f"expected {cfg.n_layers} a step, {n_tc} "
+                                 f"on the tensor cores")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"training {cfg.name}: losses {losses}")
+        t0 = time.perf_counter()
+        path = latest_checkpoint(ck)
+        back, meta = restore_checkpoint(path, out["params"])
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves(out["params"])))
+        ck_s = time.perf_counter() - t0
+        if not same or meta.get("step") != TRAIN_STEPS:
+            raise AssertionError(f"training {cfg.name}: the checkpoint "
+                                 f"{path} did not restore bitwise")
+        del back, out
+    rate = TRAIN_STEPS / sum(times)
+    print(f"training {cfg.name}: {TRAIN_STEPS} Adam steps (bf16 compute, "
+          f"f32 weights, batch {TRAIN_BATCH} x {TRAIN_SEQ}): {rate:.3f} "
+          f"steps/s, {rate * TRAIN_BATCH * TRAIN_SEQ:.1f} tokens/s (step "
+          f"walls {[round(x, 4) for x in times]} s), losses "
+          f"{[round(x, 4) for x in losses]}, peak memory {peak} B; "
+          f"flash_attention {got['flash_attention'] // TRAIN_STEPS} a step "
+          f"({got['flash_attention tc'] // TRAIN_STEPS} tensor-core); the "
+          f"checkpoint restored bitwise ({ck_s:.1f} s) [{card}]")
+    paths[f"{cfg.name} training"] = {"flash_attention": got["flash_attention"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    _flash_backward_cost(cfg, card)
+
+    # (c) zamba2-2.7b and xlstm-350m, full width, reduced depth, f32
+    for arch, layers, expect_fn in (
+            (HYBRID_ARCH, GRAD_HYBRID_LAYERS, lambda c: {
+                "ssd_scan": (ssd_scan, "launches",
+                             c.n_layers - c.n_layers
+                             // c.attn_layer_interval),
+                **_flash_counts(c.n_layers // c.attn_layer_interval, 0)}),
+            (XLSTM_ARCH, GRAD_XLSTM_LAYERS, lambda c: {
+                "slstm_scan": (slstm_scan, "launches", c.n_layers // 2)})):
+        c = dc.replace(get_config(arch), n_layers=layers, dtype="float32")
+        gen.manual_seed(SEED)
+        params = build_model(c).init(gen)
+        toks = torch.as_tensor(rng.integers(0, c.vocab, (GRAD_BATCH,
+                                                         GRAD_SEQ)),
+                               device="cuda")
+        exp = expect_fn(c)
+        _grad_check(f"training {arch} ({layers} layers, full width) "
+                    f"gradient", c, params, toks, exp, card)
+        paths[f"{arch} gradient check"] = {k: v[2] for k, v in exp.items()
+                                           if "tc" not in k}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"training: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def phase_lm_population(card: str) -> dict:
+    """Phase 19: ``examples/torch_train_lm_population.py``'s
+    ``lm_population`` with xlstm-350m at full width (F fixed devices
+    training under ``torch.func.vmap``, M mules on the walk): ``mule_agg``
+    once a step over whole LM parameter vectors, ``slstm_scan`` once a
+    layer a step for all F models; before every step the aggregation of
+    the state there held in lockstep through the kernel and through
+    ``agg_backend="ref"`` (training off: the aggregation alone), on the
+    step's deliveries and on every mule delivered. Returns {path: {kernel:
+    launches}}."""
+    import gc
+    import importlib.util
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregation import masked_group_mean
+    from repro_torch.core.freshness import FreshnessConfig, accept_mask
+    from repro_torch.kernels.mule_agg import mule_agg
+    from repro_torch.kernels.slstm_fused import slstm_scan
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm_population",
+        ROOT / "examples" / "torch_train_lm_population.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = get_config(LM_POP_ARCH)
+    fresh_cfg = FreshnessConfig()          # the example's
+    lock = {"worst": 0.0, "delivered": 0, "d": 0}
+
+    def lockstep(t, pop, info, batches):
+        saved = mule_agg.launches       # comparison launches do not count
+        fid = info["fixed_id"]
+        m = fid.shape[0]
+        deliver = info["exchange"] & (fid >= 0)
+        ok = accept_mask(pop["fresh"], fid, pop["t"] - pop["mule_ts"],
+                         fresh_cfg) & deliver
+        ids = torch.arange(LM_POP_FIXED, device=fid.device)[:, None]
+        every = (torch.arange(m, device=fid.device)[None, :]
+                 % LM_POP_FIXED == ids).float()
+        step = (fid.clamp(min=0)[None, :] == ids).float() * ok[None].float()
+        lock["delivered"] += int(ok.sum().item())
+        for assign in (step, every):
+            a, ma = masked_group_mean(pop["mule_models"], assign,
+                                      backend="auto")
+            lock["d"] = sum(v[0].numel() for v in a.values())
+            b, mb = masked_group_mean(pop["mule_models"], assign,
+                                      backend="ref")
+            if not torch.equal(ma, mb):
+                raise AssertionError("LM population: masses differ")
+            lock["worst"] = max([lock["worst"]] + [
+                (a[k] - b[k]).abs().max().item() for k in a])
+            del a, b
+        mule_agg.launches = saved
+
+    torch.cuda.reset_peak_memory_stats()
+    mule_agg.launches = slstm_scan.launches = 0
+    out = example.lm_population(
+        cfg, steps=LM_POP_STEPS, seq=LM_POP_SEQ, batch=LM_POP_BATCH,
+        n_fixed=LM_POP_FIXED, n_mules=LM_POP_MULES, eval_every=10 ** 9,
+        device="cuda", seed=SEED, on_step=lockstep,
+        log=lambda m: print(f"  {m}"))
+    torch.cuda.synchronize()
+    got = {"mule_agg": mule_agg.launches, "slstm_scan": slstm_scan.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"mule_agg": LM_POP_STEPS,
+            "slstm_scan": LM_POP_STEPS * cfg.n_layers // 2}
+    if got != want:
+        raise AssertionError(f"LM population: launches {got}, expected "
+                             f"{want} (one mule_agg a step, one slstm_scan "
+                             f"a layer a step for all fixed devices)")
+    pop = out["pop"]
+    with torch.no_grad():
+        losses = [out["loss"]({k: v[f] for k, v in
+                               pop["fixed_models"].items()},
+                              out["data"][f, :LM_POP_BATCH]).item()
+                  for f in range(LM_POP_FIXED)]
+    if not (all(math.isfinite(x) for x in losses) and all(
+            bool(torch.isfinite(v).all())
+            for side in ("mule_models", "fixed_models")
+            for v in pop[side].values())):
+        raise AssertionError(f"LM population: non-finite weights or losses "
+                             f"{losses}")
+    walls = out["step_s"]
+    print(f"LM population: {LM_POP_FIXED} fixed + {LM_POP_MULES} mule "
+          f"{cfg.name} models at full width (D = {lock['d']} a model), "
+          f"seq {LM_POP_SEQ}, batch {LM_POP_BATCH}, T={LM_POP_STEPS}: "
+          f"{(len(walls) - 1) / sum(walls[1:]):.3f} steps/s after the "
+          f"first step (step walls {[round(x, 3) for x in walls]} s; the "
+          f"first warms cuBLAS and the allocator), peak memory {peak} "
+          f"B, launches {got}; per-space loss after {losses}; aggregation "
+          f"in lockstep with agg_backend='ref' ({lock['delivered']} "
+          f"deliveries, and every mule delivered) max diff "
+          f"{lock['worst']:.3e} (tol {LOCKSTEP_ATOL}) [{card}]")
+    if not lock["worst"] <= LOCKSTEP_ATOL:
+        raise AssertionError("LM population: mule_agg and the plain "
+                             "aggregation disagree")
+    d = lock["d"]
+    del out, pop
+    gc.collect()
+    torch.cuda.empty_cache()
+    # mule_agg at the population's shape, beside torch.matmul and its bound
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+    entry = _mule_agg_timing(g, LM_POP_FIXED, LM_POP_MULES, d,
+                             f"{cfg.name} population", torch.float32, card,
+                             reps=5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"LM population: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {f"{cfg.name} population": got}, entry
 
 
 def _profile_steps(fn, n_steps: int, label: str,
@@ -3944,6 +4746,7 @@ def main() -> int:
         lanes = phase_lanes()
         rows[0]["lanes"] = lanes["mule_agg"]
         rows[1]["lanes"] = lanes["encounter_mix"]
+        phase_kernel_grads(card)
         # each path: {kernel: launches in its counted run}
         paths = {}
         phase = "main path"
@@ -3973,8 +4776,14 @@ def main() -> int:
         scale_paths, scale_entry = phase_scale(card)
         paths.update(scale_paths)
         rows[0]["cases"].append(scale_entry)
-        phase = "distributed path"
+        phase = "distributed path and sweep"
         paths.update(phase_distributed(card))
+        phase = "training"
+        paths.update(phase_training(card))
+        phase = "LM population"
+        pop_paths, pop_entry = phase_lm_population(card)
+        paths.update(pop_paths)
+        rows[0]["cases"].append(pop_entry)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

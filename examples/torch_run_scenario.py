@@ -12,6 +12,9 @@
   PYTHONPATH=src python examples/torch_run_scenario.py \\
       --scenario multi_area_migratory --method gossip --n-mules 16 \\
       --distributed --stream --rebucket-every 20 --processes 4
+  PYTHONPATH=src python examples/torch_run_scenario.py --device cpu \
+      --scenario random_walk --method gossip --n-mules 16 --steps 9 \
+      --seeds 2 --distributed --processes 4
 
 The scenario supplies mobility, protocol mode and data partition, and for
 the churn family a per-step device activity mask: ``commuter_churn``
@@ -33,7 +36,9 @@ report the final accuracy only, since an eval inside the run would see one
 rank's mules). ``--processes N`` re-runs this script as N local ranks over
 gloo (``spawn_local_cluster``), all on the one device, and prints rank 0's
 output; ``--rebucket-every`` re-buckets the population between chunks of
-the streamed distributed engine.
+the streamed distributed engine. ``--seeds N`` with ``--distributed`` runs
+the seeds as lanes inside each rank's block (``run_sweep_distributed``):
+each step sends one collective for all lanes.
 """
 import argparse
 import os
@@ -93,9 +98,8 @@ def main(argv=None):
     if args.processes > 1 and not args.distributed:
         ap.error("--processes cuts the population over ranks; add "
                  "--distributed")
-    if args.distributed and args.seeds > 1:
-        ap.error("--distributed runs one seed; drop --seeds (a sweep over "
-                 "the distributed engine is ROADMAP item 13c)")
+    if args.rebucket_every and args.seeds > 1:
+        ap.error("--rebucket-every re-buckets one seed's run; drop --seeds")
     if args.stream and args.seeds > 1:
         ap.error("--stream runs one seed; drop --seeds")
     if args.rebucket_every:

@@ -27,7 +27,9 @@ skips both its transfer and its compute. A pruned hop would have added
 exactly zero, so pruned and unpruned rings agree bitwise, and since the
 mask is replicated every rank skips the same collectives. The next hop's
 transfer is issued (``async_op=True``) before the block in hand is
-consumed, so transfers overlap the compute.
+consumed, so transfers overlap the compute. Each collective is a custom
+op (``ring_need_op``, ``ring_shift_op``) whose ``torch.func.vmap`` rule
+sends the lane-stacked tensor of a seed sweep in one collective.
 
 Mules should be ordered by spatial bucket for the pruning to bite
 (``repro_torch.core.distributed.bucket_mule_order``).
@@ -45,12 +47,14 @@ import torch.distributed as dist
 from repro_torch.core.aggregation import batched_mix, masked_group_mean
 from repro_torch.core.seeds import split
 from repro_torch.interop import tree_map
-from repro_torch.kernels.encounter_mix import (encounter_block_hop,
-                                               encounter_gate,
+from repro_torch.kernels.encounter_mix import (encounter_gate,
+                                               encounter_hop_op,
                                                encounter_mix_op,
                                                encounter_mix_reference,
                                                normalize_mix)
 from repro_torch.kernels.encounter_mix.ref import radius_sq
+from repro_torch.kernels.mule_agg.ops import lanes_first
+from repro_torch.launch.mesh import group_handle, group_of
 
 Params = Dict[str, torch.Tensor]
 # sorted leaf keys, per-leaf shapes (without the population axis), dtypes
@@ -106,30 +110,32 @@ class RingSpec:
 
 def area_bits(area: torch.Tensor, active: Optional[torch.Tensor] = None,
               n_bits: int = N_AREA_BITS) -> torch.Tensor:
-    """[m] int areas (+ optional [m] active mask) -> [n_bits] bool summary.
+    """[..., m] int areas (+ optional [..., m] active mask) -> [..., n_bits]
+    bool summary.
 
     Bit ``b`` is set iff some active row has ``area % n_bits == b``. Hash
     collisions (areas ``n_bits`` apart) can only add bits, so a predicate
     built on these summaries may keep a skippable hop but never prunes a
     hop whose blocks truly share an area.
     """
-    hit = ((area[:, None] % n_bits)
-           == torch.arange(n_bits, device=area.device)[None, :])
+    hit = ((area[..., :, None] % n_bits)
+           == torch.arange(n_bits, device=area.device))
     if active is not None:
-        hit = hit & active[:, None]
-    return hit.any(dim=0)
+        hit = hit & active[..., :, None]
+    return hit.any(dim=-2)
 
 
 def hops_needed(all_bits: torch.Tensor) -> torch.Tensor:
-    """[n_ranks, n_bits] per-rank area summaries -> [n_ranks] bool.
+    """[..., n_ranks, n_bits] per-rank area summaries -> [..., n_ranks]
+    bool.
 
     Entry ``s`` answers: does any rank's area set intersect that of its
     shift-``s`` source ``(i - s) % n``? Entry 0, the local block, is True
     whenever any rank has an active mule.
     """
-    n = all_bits.shape[0]
-    return torch.stack([(all_bits & torch.roll(all_bits, s, dims=0)).any()
-                        for s in range(n)])
+    n = all_bits.shape[-2]
+    return torch.stack([(all_bits & torch.roll(all_bits, s, dims=-2))
+                        .flatten(-2).any(-1) for s in range(n)], dim=-1)
 
 
 def ring_hop_mask(area, active, n_shards: int,
@@ -165,19 +171,52 @@ def area_bit_collision_rate(area, n_bits: int = N_AREA_BITS) -> float:
     return float(collided) / float(u.size)
 
 
-def _ring_need(area: torch.Tensor, act: torch.Tensor,
-               ring: RingSpec) -> List[bool]:
-    """The replicated [axis_size] hop mask, on the host.
+def _ring_need(area: torch.Tensor, act: torch.Tensor, ring: RingSpec):
+    """The replicated [axis_size] hop mask: ``(lane, union)``, a bool tensor
+    and the same as a list on the host. Under ``torch.func.vmap`` (a seed
+    sweep) ``lane`` is each lane's own mask and ``union`` the hops any lane
+    needs, which every lane runs (``ring_need_op``)."""
+    lane, union = ring_need_op(area, act, ring.axis_size, ring.n_bits,
+                               ring.rank(), group_handle(ring.group))
+    return lane, union.tolist()
 
-    Each rank writes its area summary into its row of an [n, n_bits]
-    table; one ``all_reduce(SUM)`` gives every rank the same table, so
-    every rank prunes the same hops and issues the same collectives.
+
+def _need_table(area: torch.Tensor, act: torch.Tensor, n: int, n_bits: int,
+                rank: int, group: int) -> torch.Tensor:
+    """[S, n] hop masks of S lanes of blocks ([S, m] areas and activity).
+
+    Each rank writes its lanes' area summaries into its row of an [S, n,
+    n_bits] table; one ``all_reduce(SUM)`` gives every rank the same table,
+    so every rank prunes the same hops and issues the same collectives.
     """
-    n = ring.axis_size
-    table = torch.zeros((n, ring.n_bits), dtype=torch.int64)
-    table[ring.rank()] = area_bits(area, act, n_bits=ring.n_bits).cpu()
-    dist.all_reduce(table, op=dist.ReduceOp.SUM, group=ring.group)
-    return hops_needed(table > 0).tolist()
+    table = torch.zeros((area.shape[0], n, n_bits), dtype=torch.int64)
+    table[:, rank] = area_bits(area, act, n_bits=n_bits).cpu()
+    dist.all_reduce(table, op=dist.ReduceOp.SUM, group=group_of(group))
+    return hops_needed(table > 0)
+
+
+@torch.library.custom_op("repro_torch::ring_need", mutates_args=())
+def ring_need_op(area: torch.Tensor, act: torch.Tensor, n: int, n_bits: int,
+                 rank: int, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hop mask of this rank's block (area [m], act [m] bool) on a ring
+    of ``n`` ranks, twice: (the lane's, the union of the lanes')."""
+    need = _need_table(area[None], act[None], n, n_bits, rank, group)[0]
+    return need, need.clone()
+
+
+@ring_need_op.register_fake
+def _(area, act, n, n_bits, rank, group):
+    return (area.new_empty((n,), dtype=torch.bool),
+            area.new_empty((n,), dtype=torch.bool))
+
+
+@ring_need_op.register_vmap
+def _(info, in_dims, area, act, n, n_bits, rank, group):
+    k = info.batch_size
+    need = _need_table(lanes_first(area, in_dims[0], k),
+                       lanes_first(act, in_dims[1], k), n, n_bits, rank,
+                       group)
+    return (need, need.any(0)), (0, None)
 
 
 class _Shift:
@@ -187,37 +226,65 @@ class _Shift:
         self.received, self.works = received, works
 
     def wait(self) -> Any:
-        for w in self.works:
+        for w, _keep in self.works:
             w.wait()
         return self.received
+
+
+# transfers that ring_shift_op started, each with the tensor it reads;
+# _ring_shift hands them to the _Shift that waits for them
+_STARTED: List[Tuple[Any, torch.Tensor]] = []
 
 
 def _ring_shift(orig: Any, s: int, ring: RingSpec) -> _Shift:
     """Send every tensor of ``orig`` to rank ``(i + s) % n`` and receive
     rank ``(i - s) % n``'s, one asynchronous ``all_to_all_single`` per
-    tensor (``bool`` travels as ``uint8``). Every rank holds a block of
-    the same shapes."""
-    n = ring.axis_size
-    i = ring.rank()
-    works = []
+    tensor (``ring_shift_op``; under ``torch.func.vmap`` each tensor's lanes
+    travel stacked in one). Every rank holds a block of the same shapes."""
+    first = len(_STARTED)
+    g = group_handle(ring.group)
+    received = tree_map(
+        lambda t: ring_shift_op(t, s, ring.axis_size, ring.rank(), g), orig)
+    works = _STARTED[first:]
+    del _STARTED[first:]
+    return _Shift(received, works)
 
-    def send(t: torch.Tensor) -> torch.Tensor:
-        src = t.contiguous()
-        wire = src.view(torch.uint8) if src.dtype == torch.bool else src
-        buf = torch.empty_like(wire)
-        rows = wire.shape[0]
-        send_to = [rows if j == (i + s) % n else 0 for j in range(n)]
-        recv_from = [rows if j == (i - s) % n else 0 for j in range(n)]
-        works.append(dist.all_to_all_single(buf, wire, recv_from, send_to,
-                                            group=ring.group, async_op=True))
-        RING_COUNTS["sent_bytes"] += wire.numel() * wire.element_size()
-        return buf.view(torch.bool) if src.dtype == torch.bool else buf
 
-    return _Shift(tree_map(send, orig), works)
+@torch.library.custom_op("repro_torch::ring_shift", mutates_args=())
+def ring_shift_op(x: torch.Tensor, s: int, n: int, rank: int,
+                  group: int) -> torch.Tensor:
+    """Start sending ``x`` whole to rank ``(rank + s) % n`` of the group
+    named ``group`` and receiving rank ``(rank - s) % n``'s into the tensor
+    returned, which is valid once the transfer pushed on ``_STARTED`` has
+    been waited for (``bool`` travels as ``uint8``)."""
+    src = x.contiguous()
+    wire = src.view(torch.uint8) if src.dtype == torch.bool else src
+    buf = torch.empty_like(wire)
+    rows = wire.shape[0]
+    send_to = [rows if j == (rank + s) % n else 0 for j in range(n)]
+    recv_from = [rows if j == (rank - s) % n else 0 for j in range(n)]
+    _STARTED.append((dist.all_to_all_single(buf, wire, recv_from, send_to,
+                                            group=group_of(group),
+                                            async_op=True), wire))
+    RING_COUNTS["sent_bytes"] += wire.numel() * wire.element_size()
+    return buf.view(torch.bool) if src.dtype == torch.bool else buf
+
+
+@ring_shift_op.register_fake
+def _(x, s, n, rank, group):
+    return torch.empty_like(x)
+
+
+@ring_shift_op.register_vmap
+def _(info, in_dims, x, s, n, rank, group):
+    if in_dims[0] is None:
+        return ring_shift_op(x, s, n, rank, group), None
+    return ring_shift_op(lanes_first(x, in_dims[0], info.batch_size), s, n,
+                         rank, group), 0
 
 
 def _ring_shifts(orig: Any, ring: RingSpec, need: Optional[List[bool]]):
-    """(source rank, visiting block) of hops s = 1 .. n-1 in order,
+    """(hop s, source rank, visiting block) of hops s = 1 .. n-1 in order,
     skipping pruned hops; hop s+1's transfer is issued before hop s's
     block is handed out (double buffering)."""
     n = ring.axis_size
@@ -235,7 +302,7 @@ def _ring_shifts(orig: Any, ring: RingSpec, need: Optional[List[bool]]):
         if s + 1 < n:       # issue the next transfer before consuming
             nxt = issue(s + 1)
         if blk is not None:
-            yield (i - s) % n, blk.wait()
+            yield s, (i - s) % n, blk.wait()
 
 
 def flatten_population(models: Params) -> Tuple[torch.Tensor, FlatSpec]:
@@ -294,8 +361,12 @@ def ring_encounter_mix(pos: torch.Tensor, area: torch.Tensor,
     partials (``encounter_block_hop``, with ``backend``) are summed in hop
     order, ``acc = acc + p_acc`` for s = 1 .. n-1, into the local hop's
     buffers, and normalized once. With ``ring.prune`` a hop the replicated
-    area mask rules out skips its transfer and its compute. Returns the
-    local rows' (mix [m_loc, D], mass [m_loc]).
+    area mask rules out skips its transfer and its compute. Under
+    ``torch.func.vmap`` (a seed sweep) every lane runs the hops that any
+    lane needs; a hop that one lane does not need meets no pair in that
+    lane, so its partial is +0 everywhere, and adding +0 to sums that start
+    from +0 (never -0) changes no bit. Returns the local rows' (mix
+    [m_loc, D], mass [m_loc]).
     """
     m_loc = flat.shape[0]
     row0 = ring.rank() * m_loc
@@ -306,14 +377,13 @@ def ring_encounter_mix(pos: torch.Tensor, area: torch.Tensor,
     def hop(visiting, col0):
         pos_v, area_v, act_v, flat_v = visiting
         RING_COUNTS["hops"] += 1
-        return encounter_block_hop(pos, area, act, row0, pos_v, area_v,
-                                   act_v, col0, flat_v, radius,
-                                   backend=backend)
+        return encounter_hop_op(pos, area, act, row0, pos_v, area_v, act_v,
+                                col0, flat_v, radius, backend)
 
     acc, mass = hop(orig, row0)                     # shift 0: local block
     if ring.axis_size > 1:
-        need = _ring_need(area, act, ring) if ring.prune else None
-        for src, blk in _ring_shifts(orig, ring, need):
+        need = _ring_need(area, act, ring)[1] if ring.prune else None
+        for _, src, blk in _ring_shifts(orig, ring, need):
             p_acc, p_mass = hop(blk, src * m_loc)
             acc.add_(p_acc)
             mass.add_(p_mass)

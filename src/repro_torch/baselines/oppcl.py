@@ -19,7 +19,10 @@ exactly, and the per-row train and aggregate are rank-local. The search
 shares gossip's area-bitmask hop pruning: a pruned hop has no same-area
 active pair (all-``inf`` distances), so skipping it leaves ``met`` and
 every met row's winner unchanged; rows that met no peer may carry other
-placeholder batches, which ``gamma * met = 0`` gates out.
+placeholder batches, which ``gamma * met = 0`` gates out. Under
+``torch.func.vmap`` (a seed sweep) every lane runs the hops any lane needs,
+and a hop that one lane does not need changes nothing in that lane (its
+own hop mask gates the update), so each lane is its sequential run.
 """
 from __future__ import annotations
 
@@ -67,7 +70,7 @@ def _ring_nearest_peer(pos: torch.Tensor, area: torch.Tensor,
     r2 = radius_sq(radius).to(dev)
     orig = (pos, area, act, batches)
 
-    def consume(carry, visiting, col0):
+    def consume(carry, visiting, col0, lane_need=None):
         best_d2, best_g, best_b = carry
         pos_v, area_v, act_v, batch_v = visiting
         RING_COUNTS["hops"] += 1
@@ -77,6 +80,8 @@ def _ring_nearest_peer(pos: torch.Tensor, area: torch.Tensor,
         cand = d2.gather(1, j[:, None])[:, 0]
         cand_g = col0 + j
         better = (cand < best_d2) | ((cand == best_d2) & (cand_g < best_g))
+        if lane_need is not None:   # a hop this lane does not need: no-op
+            better = better & lane_need
         best_b = tree_map(lambda nw, o: torch.where(
             better.reshape((-1,) + (1,) * (nw.dim() - 1)), nw, o),
             _take(batch_v, j), best_b)
@@ -89,9 +94,11 @@ def _ring_nearest_peer(pos: torch.Tensor, area: torch.Tensor,
              batches)                # placeholder rows; met gates them out
     carry = consume(carry, orig, row0)              # shift 0: local block
     if ring.axis_size > 1:
-        need = _ring_need(area, act, ring) if ring.prune else None
-        for src, blk in _ring_shifts(orig, ring, need):
-            carry = consume(carry, blk, src * m_loc)
+        lane, need = (_ring_need(area, act, ring) if ring.prune
+                      else (None, None))
+        for s, src, blk in _ring_shifts(orig, ring, need):
+            carry = consume(carry, blk, src * m_loc,
+                            None if lane is None else lane[s])
     best_d2, best_g, best_b = carry
     return best_b, torch.isfinite(best_d2).float(), best_g
 

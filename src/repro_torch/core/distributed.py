@@ -56,6 +56,8 @@ from repro_torch.core.freshness import (FreshnessConfig, age_histogram,
                                         init_freshness_sketch)
 from repro_torch.core.population import PopulationConfig
 from repro_torch.interop import tree_map
+from repro_torch.kernels.mule_agg.ops import lanes_first
+from repro_torch.launch.mesh import group_handle, group_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,18 +100,41 @@ def ordered_psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     then a left-to-right fold in rank order on ``x``'s device. A float sum
     in the order of a backend's all-reduce would differ from rank to rank
     and from one transport to another; the fold's order depends on the
-    mesh alone."""
+    mesh alone. Under ``torch.func.vmap`` (a seed sweep) the lanes travel
+    stacked in one all-gather (``ordered_psum_op``)."""
     n = mesh.axis_size(axes)
     if n == 1:
         return x
+    return ordered_psum_op(x, n, group_handle(mesh.group(axes)))
+
+
+@torch.library.custom_op("repro_torch::ordered_psum", mutates_args=())
+def ordered_psum_op(x: torch.Tensor, n: int, group: int) -> torch.Tensor:
+    """``ordered_psum`` over the ``n`` ranks of the process group named
+    ``group`` (``launch.mesh.group_handle``), a custom op so that
+    ``torch.func.vmap`` can see it."""
     host = x.detach().cpu().contiguous()
     parts = [torch.empty_like(host) for _ in range(n)]
-    dist.all_gather(parts, host, group=mesh.group(axes))
+    dist.all_gather(parts, host, group=group_of(group))
     PSUM_COUNTS["calls"] += 1
     PSUM_COUNTS["sent_bytes"] += host.numel() * host.element_size() * (n - 1)
     stacked = torch.stack(parts).to(x.device)
     return functools.reduce(lambda a, b: a + b,
                             [stacked[i] for i in range(n)])
+
+
+@ordered_psum_op.register_fake
+def _(x, n, group):
+    return torch.empty_like(x)
+
+
+@ordered_psum_op.register_vmap
+def _(info, in_dims, x, n, group):
+    # the fold is elementwise, so the lane-stacked sum is each lane's
+    if in_dims[0] is None:
+        return ordered_psum_op(x, n, group), None
+    return ordered_psum_op(lanes_first(x, in_dims[0], info.batch_size), n,
+                           group), 0
 
 
 def ordered_pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:

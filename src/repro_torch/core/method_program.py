@@ -45,7 +45,7 @@ from repro_torch.core.freshness import (age_bin_onehot,
                                         sketch_push_and_update)
 from repro_torch.core.seeds import fold_in, split
 from repro_torch.interop import tree_map
-from repro_torch.kernels.mule_agg import mule_agg
+from repro_torch.kernels.mule_agg.ops import mule_agg_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,10 +207,11 @@ def compile_distributed_step(program: MethodProgram, train_fn: Callable,
 def _fused_models(a_loc: torch.Tensor, flat: torch.Tensor,
                   backend: str) -> torch.Tensor:
     """``a_loc [F, M_loc] @ flat [M_loc, D]``, the model columns of the
-    fused reduce: the ``mule_agg`` kernel (``"auto"``; any non-negative A)
-    or the plain matmul (``"ref"``)."""
+    fused reduce: the ``mule_agg`` kernel (``"auto"``, through the custom
+    op, so a seed sweep's lanes launch it once; any non-negative A) or the
+    plain matmul (``"ref"``)."""
     if backend == "auto":
-        return mule_agg(a_loc.contiguous(), flat)
+        return mule_agg_op(a_loc.contiguous(), flat)
     if backend == "ref":
         return a_loc @ flat
     raise ValueError(f"unknown aggregation backend {backend!r}; expected "

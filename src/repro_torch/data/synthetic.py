@@ -6,7 +6,8 @@ has a smooth spatial prototype; each sub-class adds a distinct offset
 pattern; samples add noise + random shifts. A small CNN can learn
 super-class classification, and the sub-class structure supports the
 paper's Shards partitioning (sub-classes split across spaces).
-``make_imu_dataset`` gives the IMU windows of the HAR task (Fig 8).
+``make_imu_dataset`` gives the IMU windows of the HAR task (Fig 8),
+``make_lm_dataset`` the per-space token streams of the LM zoo's training.
 
 Bitwise-equal to ``repro.data.synthetic``'s functions of the same names for
 the same seed (both draw from ``np.random.default_rng``).
@@ -103,3 +104,24 @@ def make_imu_dataset(seed: int, n_per_cell: int = 60, window: int = 128,
             locs.append(np.full(n, l))
     x = np.concatenate(xs).astype(np.float32)
     return x, np.concatenate(ys).astype(np.int32), np.concatenate(locs).astype(np.int32)
+
+
+def make_lm_dataset(seed: int, n_seqs: int, seq_len: int, vocab: int,
+                    n_spaces: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """Markov-chain token streams with per-space transition statistics:
+    (tokens [n_seqs, seq_len] int32, space of each sequence [n_seqs])."""
+    rng = np.random.default_rng(seed)
+    seqs = np.zeros((n_seqs, seq_len), np.int32)
+    spaces = rng.integers(0, n_spaces, size=n_seqs).astype(np.int32)
+    # per-space sparse preferred-next tables
+    nxt = rng.integers(0, vocab, size=(n_spaces, vocab, 4))
+    for i in range(n_seqs):
+        s = spaces[i]
+        tok = rng.integers(0, vocab)
+        for j in range(seq_len):
+            seqs[i, j] = tok
+            if rng.random() < 0.8:
+                tok = nxt[s, tok, rng.integers(0, 4)]
+            else:
+                tok = rng.integers(0, vocab)
+    return seqs, spaces

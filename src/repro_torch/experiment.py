@@ -19,8 +19,9 @@ schedule (``mobility_tensors``). ``run_with_models`` is the body of
 what the run holds at its end.
 
 ``run_sweep_experiment`` runs the engine's methods over several seeds at
-once (``scenarios.sweep.run_sweep``, the seeds as lanes of one replay):
-the paper's seed-averaged curves. ``run_sweep_with_models`` is its body.
+once (``scenarios.sweep.run_sweep``, the seeds as lanes of one replay;
+``run_sweep_distributed`` with ``distributed``): the paper's seed-averaged
+curves. ``run_sweep_with_models`` is its body.
 
 Seeds: torch cannot reproduce ``jax.random``, so the harness draws from
 integer seeds (``core/seeds.py``) in the reference's places. Model ``c``
@@ -66,6 +67,7 @@ from repro_torch.models.cnn import (accuracy, cnn_forward, init_cnn,
 from repro_torch.scenarios import (get_scenario, run_population,
                                    run_population_distributed,
                                    run_population_streamed, run_sweep,
+                                   run_sweep_distributed,
                                    scenario_generator, stack_colocations,
                                    stack_trees, trace_colocation,
                                    walk_colocation)
@@ -652,9 +654,12 @@ def run_sweep_experiment(cfg: ExperimentConfig, seeds, methods=None,
     Builds each seed's data, schedule and pretrained population as
     ``run_experiment`` builds them (the data pools padded to one size by
     ``_stack_wrap_pad``), stacks them on a leading seed axis, and replays
-    every requested method with ``run_sweep``. The federated baselines
-    (fedavg/cfl/fedas) are round-based and not on the engine: request those
-    through ``run_experiment``.
+    every requested method with ``run_sweep``, or with
+    ``run_sweep_distributed`` over the ranks of the world when
+    ``cfg.distributed`` (the mule blocks gathered back after the run; no
+    re-bucketing). The federated baselines (fedavg/cfl/fedas) are
+    round-based and not on the engine: request those through
+    ``run_experiment``.
 
     Returns the reference's keys: ``config``, ``seeds``, ``eval_steps`` and,
     per method, ``acc`` ``[S][E]`` and ``mean_acc`` ``[E]`` (the eval
@@ -675,10 +680,10 @@ def run_sweep_with_models(cfg: ExperimentConfig, seeds,
     arguments but ``methods``) and ``out`` (its ``{method: (final,
     aux)}``)."""
     t_start = time.time()
-    if cfg.distributed:
-        raise NotImplementedError(
-            "a seed sweep over the distributed engine is not ported yet; "
-            "it arrives with ROADMAP §1 item 13c (run_sweep_distributed)")
+    if cfg.distributed and cfg.rebucket_every:
+        raise ValueError("the seed sweep over the ranks does not re-bucket: "
+                         "rebucket_every runs one seed through "
+                         "run_experiment")
     if cfg.stream:
         raise ValueError("the seed sweep replays materialized schedules; "
                          "stream runs one seed through run_experiment")
@@ -738,7 +743,31 @@ def run_sweep_with_models(cfg: ExperimentConfig, seeds,
                train_fn=train_fn, cfg=pcfg, keys=[s + 100 for s in seeds],
                eval_every=cfg.eval_every, eval_fn=eval_hook, context=context,
                device=dev)
-    out = run_sweep(methods=tuple(methods), **run)
+    if cfg.distributed:
+        # the lanes inside each rank's block of the mules; as in
+        # run_with_models, only fixed mode evaluates during the run (a
+        # rank's mule block would see only its own mules' last places)
+        dcfg = DistributedConfig(pop=pcfg)
+        dist_eval = cfg.mode == "fixed"
+        run.update(states=stack_trees([to_distributed_state(p, dcfg)
+                                       for p in pops]),
+                   dcfg=dcfg, mesh=_mule_mesh(cfg.n_mules),
+                   eval_every=cfg.eval_every if dist_eval else None,
+                   eval_fn=eval_hook if dist_eval else None)
+        del run["cfg"]
+        out = run_sweep_distributed(methods=tuple(methods), **run)
+        mesh, ax = run["mesh"], dcfg.data_axis
+
+        def whole(final, aux):
+            # every rank holds its block of the mules (axis 1): gather them
+            final = {k: (interop.tree_map(
+                lambda l: gather_global(l, mesh, 1, ax), v)
+                if k.startswith("mule") else v) for k, v in final.items()}
+            return final, {**aux, "last_fid": gather_global(
+                aux["last_fid"], mesh, 1, ax)}
+        out = {m: whole(*fa) for m, fa in out.items()}
+    else:
+        out = run_sweep(methods=tuple(methods), **run)
     t2 = _clock(dev)
 
     result_methods, eval_steps = {}, np.zeros((0,), int)

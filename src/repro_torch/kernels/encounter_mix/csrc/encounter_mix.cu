@@ -9,10 +9,10 @@
 // pos [M, 2] f32, area [M] int64, active [M] uint8, W [M, D] f32 or bf16 ->
 // mix [M, D] in W's type, mass [M] f32. The [M, M] matrix e is never stored.
 //
-// The hop (encounter_hop_f32) is the same code with rows and visiting mules
-// apart: local rows [R] (pos_r, area_r, active_r, global ids row0 + i)
-// against a visiting block [V] (pos_v, area_v, active_v, global ids col0 +
-// j, weights W_v [V, D] f32). It writes the unnormalised partials acc
+// The hop (encounter_hop_lanes_f32) is the same code with rows and visiting
+// mules apart: local rows [R] (pos_r, area_r, active_r, global ids row0 +
+// i) against a visiting block [V] (pos_v, area_v, active_v, global ids
+// col0 + j, weights W_v [V, D] f32). It writes the unnormalised partials acc
 // [R, D] = e @ W_v and mass [R] in f32, which the ring sums over its hops
 // and normalises once. Global ids are int64 (the JAX kernel carries them as
 // float32, exact only below 2^24 rows).
@@ -27,7 +27,9 @@
 // start as the previous lane's retire), without a launch between them.
 // W's tensor map is 3-d (D, M, S) with a box one lane deep. Each lane's
 // pairs, dense switches and sums are those of a single-lane call on its
-// inputs, so lane s has that call's bits.
+// inputs, so lane s has that call's bits. The hop has the same lanes: a
+// sweep over the ranks sends each hop's lane-stacked block once and sums
+// all its lanes in one call, and a single hop is its call with S = 1.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/encounter_mix/
 // kernel.py: _mix_kernel / encounter_mix_pallas, which builds one
@@ -732,17 +734,19 @@ extern "C" int encounter_mix_lanes_bf16(const void* pos, const void* area,
                                      dense_min, stream);
 }
 
-// one ring hop: rows [R] with global ids row0 + i against a visiting block
-// [V] with global ids col0 + j -> acc [R, D] f32 and mass [R] f32, both
-// unnormalised; words is scratch of [R, ceil(V / 32)] int32
-extern "C" int encounter_hop_f32(const void* pos_r, const void* area_r,
-                                 const void* active_r, int R, long long row0,
-                                 const void* pos_v, const void* area_v,
-                                 const void* active_v, int V, long long col0,
-                                 const void* W_v, void* acc, void* mass,
-                                 void* words, long long D, float r2,
-                                 int dense_min, void* stream) {
-  return launch<float, false>(1, pos_r, area_r, active_r, R, row0, pos_v,
+// S lanes of one ring hop in one call (a seed sweep over the ranks): pos_r
+// [S, R, 2], area_r [S, R], active_r [S, R] (or null), pos_v [S, V, 2],
+// area_v [S, V], active_v [S, V] (or null), W_v [S, V, D] -> acc [S, R, D],
+// mass [S, R]; words is scratch of [S, R, ceil(V / 32)] int32. Every lane
+// shares row0 and col0 (one rank's blocks). The lane is gridDim.y of both
+// kernels, as in encounter_mix_lanes_*.
+extern "C" int encounter_hop_lanes_f32(
+    const void* pos_r, const void* area_r, const void* active_r, int R,
+    long long row0, const void* pos_v, const void* area_v,
+    const void* active_v, int V, long long col0, const void* W_v, void* acc,
+    void* mass, void* words, int S, long long D, float r2, int dense_min,
+    void* stream) {
+  return launch<float, false>(S, pos_r, area_r, active_r, R, row0, pos_v,
                               area_v, active_v, V, col0, W_v, acc, mass,
                               words, D, r2, dense_min, stream);
 }

@@ -28,11 +28,23 @@ col0, weights_v, radius)`` is one hop of the ring (``baselines.gossip:
 ring_encounter_mix``): local rows against a visiting block, global ids
 ``row0 + i`` and ``col0 + j``, returning the unnormalized ``(acc [R, D],
 mass [R])`` of ``ref.encounter_block``, float32 only. ``backend="auto"``
-launches the hop kernels (``encounter_hop_f32`` in the same source: pairs,
-then sums, two CUDA launches) on a CUDA tensor and takes
+launches the hop kernels (pairs, then sums, two CUDA launches: the lane
+entry with one lane) on a CUDA tensor and takes
 ``encounter_block`` on a CPU tensor; ``"ref"`` is ``encounter_block``
 everywhere. ``encounter_block_hop.launches`` counts its calls that
 launched.
+
+``encounter_block_hop_lanes`` is the hop with a leading lane axis on every
+tensor (a seed sweep over the ranks; every lane shares ``row0`` and
+``col0``): ``(acc [S, R, D], mass [S, R])`` from one call of the same two
+kernels for all S lanes (``encounter_hop_lanes_f32``, the lane as
+``gridDim.y``, scratch words ``[S, R, ceil(V / 32)]``), lane s the bits of
+its one-lane call on lane s's inputs; on a CPU tensor or under
+``backend="ref"`` ``ref.encounter_block_lanes_reference``. It adds one to
+``encounter_block_hop.launches`` a call. ``encounter_hop_op`` is
+``encounter_block_hop`` registered as the custom op
+``repro_torch::encounter_hop``, whose ``torch.func.vmap`` rule calls
+``encounter_block_hop_lanes``; the ring (``baselines.gossip``) calls it.
 
 ``encounter_pairs(...)`` (the hop's arguments without weights) is the
 pairs kernel alone: ``(words [R, ceil(V / 32)] int32, mass [R] f32)``,
@@ -54,7 +66,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.encounter_mix.ref import (
-    encounter_block, encounter_mix_lanes_reference, encounter_mix_reference,
+    encounter_block, encounter_block_lanes_reference,
+    encounter_mix_lanes_reference, encounter_mix_reference,
     encounter_pairs_reference, n_words)
 from repro_torch.kernels.mule_agg.ops import MAX_LANES, lanes_first
 
@@ -73,9 +86,10 @@ _LANES_ENTRY = {torch.float32: "encounter_mix_lanes_f32",
 # pos_r, area_r, act_r, R, row0, pos_v, area_v, act_v, V, col0
 _SIDES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
           + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong])
-# ..., W_v, acc, mass, words, D, r2, dense_min, stream
+# ..., W_v, acc, mass, words, S, D, r2, dense_min, stream
 _HOP_ARGTYPES = _SIDES + [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
 # ..., r2, words, mass, stream
 _PAIRS_ARGTYPES = _SIDES + [ctypes.c_float] + [ctypes.c_void_p] * 3
 
@@ -254,16 +268,16 @@ def _check_block(name: str, pos: torch.Tensor, area: torch.Tensor,
 
 def _sides(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0):
     """(args, keep): the kernels' first ten arguments (each side's pos,
-    area as int64 and activity as bool or null, its size and global offset)
-    and the tensors they point to, which the caller holds until the
-    launch."""
+    area as int64 and activity as bool or null, its size and global offset;
+    with or without a leading lane axis) and the tensors they point to,
+    which the caller holds until the launch."""
     args, keep = [], []
     for pos, area, act, start in ((pos_r, area_r, act_r, row0),
                                   (pos_v, area_v, act_v, col0)):
-        pos = pos.contiguous()                          # [n, 2]: small
+        pos = pos.contiguous()                  # [n, 2] or [S, n, 2]: small
         area64, on = _side(area, act)
         keep += [pos, area64, on]
-        args += [pos.data_ptr(), area64.data_ptr(), _ptr(on), pos.shape[0],
+        args += [pos.data_ptr(), area64.data_ptr(), _ptr(on), pos.shape[-2],
                  int(start)]
     return args, keep
 
@@ -296,32 +310,121 @@ def encounter_block_hop(pos_r: torch.Tensor, area_r: torch.Tensor,
     if backend == "ref" or dev.type == "cpu":
         return encounter_block(pos_r, area_r, act_r, row0, pos_v, area_v,
                                act_v, col0, weights_v, radius)
+    return _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
+                       weights_v, radius)
+
+
+encounter_block_hop.launches = 0
+
+
+def encounter_block_hop_lanes(pos_r: torch.Tensor, area_r: torch.Tensor,
+                              act_r: Optional[torch.Tensor], row0: int,
+                              pos_v: torch.Tensor, area_v: torch.Tensor,
+                              act_v: Optional[torch.Tensor], col0: int,
+                              weights_v: torch.Tensor, radius: float = 0.15,
+                              *, backend: str = "auto"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encounter_block_hop`` of S lanes in one call: pos_r [S, R, 2],
+    area_r / act_r [S, R], the visiting block's [S, V], weights_v [S, V, D]
+    f32 -> (acc [S, R, D] f32, mass [S, R] f32); every lane shares ``row0``
+    and ``col0``."""
+    if backend not in ("auto", "ref"):
+        raise ValueError(f"unknown encounter_block_hop backend {backend!r}; "
+                         "expected 'auto' or 'ref'")
+    if weights_v.dim() != 3:
+        raise ValueError(f"encounter_block_hop_lanes wants weights_v "
+                         f"[S, V, D], got {tuple(weights_v.shape)}")
+    if weights_v.dtype != torch.float32:
+        raise TypeError(f"encounter_block_hop_lanes: weights_v must be "
+                        f"float32, got {weights_v.dtype}")
+    s, v, d = weights_v.shape
+    r = pos_r.shape[1] if pos_r.dim() == 3 else -1
+    dev = weights_v.device
+    for name, pos, area, act, n in (("r", pos_r, area_r, act_r, r),
+                                    ("v", pos_v, area_v, act_v, v)):
+        if pos.dim() != 3 or pos.shape[0] != s or area.shape[:1] != (s,) \
+                or (act is not None and act.shape[:1] != (s,)):
+            raise ValueError(f"encounter_block_hop_lanes wants {s} lanes of "
+                             f"every {name} input, got pos "
+                             f"{tuple(pos.shape)}, area {tuple(area.shape)}")
+        if s:       # lane 0 stands for the others: same shapes and types
+            _check_block(name, pos[0], area[0], None if act is None
+                         else act[0], n, dev, "encounter_block_hop_lanes")
+    if backend == "ref" or dev.type == "cpu":
+        return encounter_block_lanes_reference(pos_r, area_r, act_r, row0,
+                                               pos_v, area_v, act_v, col0,
+                                               weights_v, radius)
+    return _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
+                       col0, weights_v, radius)
+
+
+def _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
+                weights_v, radius):
+    """The hop kernels on checked inputs, with a leading lane axis S or
+    without one (a single hop, S = 1) -> (acc [S, R, D], mass [S, R], or
+    [R, D] and [R]); one launch for all lanes."""
+    *lanes, v, d = weights_v.shape
+    s, r = (lanes[0] if lanes else 1), pos_r.shape[-2]
+    dev = weights_v.device
     if dev.type != "cuda":
         raise ValueError(f"encounter_block_hop runs on cuda or cpu, not "
                          f"{dev}")
-    if not weights_v.is_contiguous():
-        raise ValueError("encounter_block_hop: weights_v must be contiguous")
-    acc = torch.empty((r, d), dtype=torch.float32, device=dev)
-    mass = torch.empty((r,), dtype=torch.float32, device=dev)
-    if r == 0:
+    if s > MAX_LANES:
+        raise ValueError(f"encounter_block_hop_lanes: S={s} lanes exceed "
+                         f"the grid's bound of {MAX_LANES}")
+    weights_v = weights_v.contiguous()
+    acc = torch.empty((*lanes, r, d), dtype=torch.float32, device=dev)
+    mass = torch.empty((*lanes, r), dtype=torch.float32, device=dev)
+    if s == 0 or r == 0:
         return acc, mass
-    words = torch.empty((r, n_words(v)), dtype=torch.int32, device=dev)
+    words = torch.empty((*lanes, r, n_words(v)), dtype=torch.int32,
+                        device=dev)
     args, _keep = _sides(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
                          col0)
-    fn = _entry("encounter_hop_f32", _HOP_ARGTYPES)
+    fn = _entry("encounter_hop_lanes_f32", _HOP_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*args, weights_v.data_ptr(), acc.data_ptr(),
-                 mass.data_ptr(), words.data_ptr(), d,
+                 mass.data_ptr(), words.data_ptr(), s, d,
                  ctypes.c_float(radius ** 2), DENSE_PAIRS_PER_ROW, stream)
     if err != 0:
-        raise RuntimeError(f"encounter_hop kernel launch failed: CUDA error "
-                           f"{err} (R={r}, V={v}, D={d})")
+        raise RuntimeError(f"encounter_hop_lanes kernel launch failed: CUDA "
+                           f"error {err} (S={s}, R={r}, V={v}, D={d})")
     encounter_block_hop.launches += 1
     return acc, mass
 
 
-encounter_block_hop.launches = 0
+@torch.library.custom_op("repro_torch::encounter_hop", mutates_args=())
+def encounter_hop_op(pos_r: torch.Tensor, area_r: torch.Tensor,
+                     act_r: Optional[torch.Tensor], row0: int,
+                     pos_v: torch.Tensor, area_v: torch.Tensor,
+                     act_v: Optional[torch.Tensor], col0: int,
+                     weights_v: torch.Tensor, radius: float, backend: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encounter_block_hop`` as a custom op, visible to
+    ``torch.func.vmap``."""
+    return encounter_block_hop(pos_r, area_r, act_r, row0, pos_v, area_v,
+                               act_v, col0, weights_v, radius,
+                               backend=backend)
+
+
+@encounter_hop_op.register_fake
+def _(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0, weights_v,
+      radius, backend):
+    return (weights_v.new_empty((pos_r.shape[0], weights_v.shape[1])),
+            weights_v.new_empty((pos_r.shape[0],)))
+
+
+@encounter_hop_op.register_vmap
+def _(info, in_dims, pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
+      weights_v, radius, backend):
+    n = info.batch_size
+    lanes = [None if x is None else lanes_first(x, d, n)
+             for x, d in zip((pos_r, area_r, act_r, pos_v, area_v, act_v,
+                              weights_v),
+                             in_dims[:3] + in_dims[4:7] + in_dims[8:9])]
+    return encounter_block_hop_lanes(*lanes[:3], row0, *lanes[3:6], col0,
+                                     lanes[6], radius, backend=backend), (0, 0)
 
 
 def encounter_pairs(pos_r: torch.Tensor, area_r: torch.Tensor,

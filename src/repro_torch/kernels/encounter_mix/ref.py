@@ -161,3 +161,32 @@ def encounter_mix_lanes_reference(pos: torch.Tensor, area: torch.Tensor,
     mass = e.sum(2)
     acc = torch.matmul(e, weights.float())
     return acc / torch.clamp(mass, min=1e-12)[:, :, None], mass
+
+
+def encounter_block_lanes_reference(pos_r: torch.Tensor,
+                                    area_r: torch.Tensor,
+                                    act_r: Optional[torch.Tensor], row0: int,
+                                    pos_v: torch.Tensor,
+                                    area_v: torch.Tensor,
+                                    act_v: Optional[torch.Tensor], col0: int,
+                                    weights_v: torch.Tensor, radius: float
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encounter_block`` with a leading lane axis on every tensor: pos_r
+    [S, R, 2], area_r / act_r [S, R], pos_v [S, V, 2], area_v / act_v [S,
+    V], weights_v [S, V, D] -> (acc [S, R, D] f32, mass [S, R]); every lane
+    shares ``row0`` and ``col0``. Written out, as
+    ``encounter_mix_lanes_reference`` is, for the hop op's vmap rule."""
+    dx = pos_r[:, :, None, 0] - pos_v[:, None, :, 0]
+    dy = pos_r[:, :, None, 1] - pos_v[:, None, :, 1]
+    d2 = dx * dx + dy * dy
+    gate = area_r[:, :, None] == area_v[:, None, :]
+    if act_r is not None:
+        gate = gate & act_r[:, :, None]
+    if act_v is not None:
+        gate = gate & act_v[:, None, :]
+    dev = pos_r.device
+    ridx = row0 + torch.arange(pos_r.shape[1], device=dev)
+    cidx = col0 + torch.arange(pos_v.shape[1], device=dev)
+    gate = gate & (ridx[:, None] != cidx[None, :])
+    e = ((d2 <= radius_sq(radius).to(d2.device)) & gate).float()
+    return torch.matmul(e, weights_v.float()), e.sum(2)

@@ -20,6 +20,14 @@ with blocks of 256 as the reference's ``"ref"`` backend uses.
 with S > Sk raises: its first S - Sk queries would see no key.
 ``flash_attention.launches`` counts kernel launches of both routes;
 ``flash_attention.tc_launches`` counts those of the tensor-core kernel.
+
+``flash_attention`` is a ``torch.autograd.Function`` (``_FlashAttention``):
+its forward is the route above (the kernel on a CUDA tensor), its backward
+the reference's custom VJP (``ref.flash_backward``: the per-row statistics
+recomputed by the plain forward, then the two blockwise float32 passes,
+with the plain version's blocks of 256) on either route; the reference has
+no backward kernel. Its ``torch.func.vmap`` rule folds the lanes into B, so
+a vmapped population launches the kernel once.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_reference
+from repro_torch.kernels.flash_attention.ref import (flash_backward,
+                                                     flash_reference)
+from repro_torch.kernels.mule_agg.ops import lanes_first
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)   # the head dims of both routes
 TC_HEAD_DIMS = (64, 80, 128, 256)           # the tensor-core kernel's
@@ -99,7 +109,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None,
                     backend: str = "auto") -> torch.Tensor:
-    """q [B,S,H,D], k/v [B,Sk,KV,D] -> [B,S,H,D]; queries right-aligned."""
+    """q [B,S,H,D], k/v [B,Sk,KV,D] -> [B,S,H,D]; queries right-aligned.
+    Differentiable (the reference's blockwise backward) and vmappable."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale, backend)
+
+
+flash_attention.launches = 0
+flash_attention.tc_launches = 0
+
+
+def _flash_forward(q, k, v, causal: bool, window: Optional[int],
+                   scale: Optional[float], backend: str) -> torch.Tensor:
+    """The forward of ``flash_attention``: the plain version or a kernel."""
     _check(q, k, v, causal, window)
     if backend not in ("auto", "ref"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -143,5 +164,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
-flash_attention.tc_launches = 0
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention``: the kernel's forward, the reference's blockwise
+    backward, lanes folded into B under vmap."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale, backend):
+        return _flash_forward(q, k, v, causal, window, scale, backend)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:3])
+        ctx.cfg = inputs[3:6]
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, scale = ctx.cfg
+        grads = flash_backward(*ctx.saved_tensors, dout, causal=causal,
+                               window=window, block_q=REF_BLOCK,
+                               block_k=REF_BLOCK, scale=scale)
+        return grads + (None,) * 4
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale, backend):
+        n = info.batch_size
+        q, k, v = (lanes_first(t, d, n) for t, d in zip((q, k, v), in_dims))
+        b = q.shape[1]
+        out = _FlashAttention.apply(
+            *(t.reshape((n * b,) + t.shape[2:]) for t in (q, k, v)),
+            causal, window, scale, backend)
+        return out.reshape((n, b) + out.shape[1:]), 0
+

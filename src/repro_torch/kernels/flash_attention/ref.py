@@ -1,6 +1,6 @@
 """Plain PyTorch versions of blockwise GQA attention.
 
-Port of ``repro.kernels.flash_attention.ref`` (forward only):
+Port of ``repro.kernels.flash_attention.ref``:
 
 - ``mha_reference``: softmax(QK^T)V with the full score matrix. The oracle
   the kernel is held to; only safe at small S.
@@ -15,7 +15,13 @@ Shapes: q [B, S, H, D]; k, v [B, Sk, KV, D] with H % KV == 0. Queries are
 right-aligned: query i sits at position ``i + Sk - S``. Masked scores are
 ``NEG_INF = -1e30`` (not -inf), so a row whose first block is fully masked
 carries finite garbage that the next block's correction factor wipes out.
-The custom VJP of the reference waits for the training slice.
+
+- ``flash_backward``: the reference's custom VJP (``_flash_core_bwd`` over
+  ``_bwd_impl``): the per-row softmax statistics of the plain forward
+  (``_fwd_impl``'s ``ms``, ``ls``), then two blockwise passes that
+  recompute the scores, dQ per query block and dK, dV per key block, all in
+  float32. ``ops.flash_attention_op`` takes it as the backward of both
+  routes: the kernel keeps no statistics, so they are recomputed here.
 """
 from __future__ import annotations
 
@@ -75,7 +81,8 @@ def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _fwd_impl(q, k, v, causal, window, block_q, block_k, scale):
-    """The reference's forward: out [B,S,H,D] in q's dtype."""
+    """The reference's forward: (out [B,S,H,D] in q's dtype, and the per-row
+    running max ``ms`` and sum ``ls`` [B,S,KV,G] in float32)."""
     b, s, h, d = q.shape
     _, sk, n_kv, _ = k.shape
     g = h // n_kv
@@ -105,8 +112,10 @@ def _fwd_impl(q, k, v, causal, window, block_q, block_k, scale):
             m = torch.amax(sc, dim=-1, keepdim=True)
             p = torch.exp(sc - m)
             l = torch.sum(p, dim=-1, keepdim=True)
-            return torch.einsum("bkgij,bjkd->bikgd",
-                                p / torch.clamp(l, min=1e-30), v_rng.float())
+            o = torch.einsum("bkgij,bjkd->bikgd",
+                             p / torch.clamp(l, min=1e-30), v_rng.float())
+            return (o, torch.movedim(m[..., 0], -1, 1),
+                    torch.movedim(l[..., 0], -1, 1))
 
         m = torch.full((b, n_kv, g, block_q, 1), NEG_INF, device=dev)
         l = torch.zeros((b, n_kv, g, block_q, 1), device=dev)
@@ -129,11 +138,104 @@ def _fwd_impl(q, k, v, causal, window, block_q, block_k, scale):
                 torch.einsum("bkgij,bjkd->bkgid", p, v_blk.float()), 3, 1)
             m = m_new
         l_b = torch.movedim(l[..., 0], -1, 1)[..., None]
-        return acc / torch.clamp(l_b, min=1e-30)
+        return (acc / torch.clamp(l_b, min=1e-30),
+                torch.movedim(m[..., 0], -1, 1), l_b[..., 0])
 
-    out = torch.stack([one_q_block(qi, qg[:, qi]) for qi in range(nq)], dim=1)
+    blocks = [one_q_block(qi, qg[:, qi]) for qi in range(nq)]
+    out, ms, ls = (torch.stack(x, dim=1) for x in zip(*blocks))
     out = out.reshape(b, nq * block_q, h, d)
-    return out[:, :s].to(q.dtype)
+    ms = ms.reshape(b, nq * block_q, n_kv, g)
+    ls = ls.reshape(b, nq * block_q, n_kv, g)
+    return out[:, :s].to(q.dtype), ms[:, :s], ls[:, :s]
+
+
+def _bwd_impl(q, k, v, out, ms, ls, dout, causal, window, block_q, block_k,
+              scale):
+    """The reference's two-pass backward: (dq, dk, dv) in the inputs'
+    dtypes; O(S·D) live memory, the scores recomputed per block pair."""
+    b, s, h, d = q.shape
+    _, sk, n_kv, _ = k.shape
+    g = h // n_kv
+    nq = -(-s // block_q)
+    pad_q = nq * block_q - s
+    q_off = sk - s
+    nk = -(-sk // block_k)
+    pad_k = nk * block_k - sk
+    dev = q.device
+
+    def grouped(t):
+        return _group(_pad_seq(t.float(), pad_q), n_kv) \
+            .reshape(b, nq, block_q, n_kv, g, d)
+
+    qg, dog, og = grouped(q), grouped(dout), grouped(out)
+    msr = _pad_seq(ms, pad_q).reshape(b, nq, block_q, n_kv, g)
+    lsr = _pad_seq(ls, pad_q).reshape(b, nq, block_q, n_kv, g)
+    delta = torch.sum(dog * og, dim=-1)                       # [B,nq,Bq,KV,G]
+    kr = _pad_seq(k, pad_k).float()
+    vr = _pad_seq(v, pad_k).float()
+
+    def scores(qi, kj_start, span_k):
+        """The normalised p of query block qi against a key range ->
+        ([B,KV,G,Bq,span], the key range)."""
+        q_blk = qg[:, qi] * scale
+        k_rng = kr[:, kj_start:kj_start + span_k]
+        qpos = qi * block_q + torch.arange(block_q, device=dev) + q_off
+        kpos = kj_start + torch.arange(span_k, device=dev)
+        valid = (kpos[None, :] <= qpos[:, None] if causal else
+                 torch.ones((block_q, span_k), dtype=torch.bool, device=dev))
+        if window is not None:
+            valid = valid & (kpos[None, :] > qpos[:, None] - window)
+        valid = valid & (kpos < sk)[None, :]
+        sc = torch.einsum("bikgd,bjkd->bkgij", q_blk, k_rng)
+        sc = torch.where(valid, sc, NEG_INF)
+        m_i = torch.movedim(msr[:, qi], 1, -1)[..., None]    # [B,KV,G,Bq,1]
+        l_i = torch.movedim(lsr[:, qi], 1, -1)[..., None]
+        return torch.exp(sc - m_i) / torch.clamp(l_i, min=1e-30), k_rng
+
+    def ds_of(qi, p, v_rng):
+        dp = torch.einsum("bikgd,bjkd->bkgij", dog[:, qi], v_rng)
+        dl = torch.movedim(delta[:, qi], 1, -1)[..., None]   # [B,KV,G,Bq,1]
+        return p * (dp - dl)
+
+    # -- pass 1: dQ per query block --------------------------------------
+    def dq_block(qi):
+        if window is not None:
+            start, span = _band_range(qi, block_q, block_k, window, sk, q_off)
+            p, k_rng = scores(qi, start, span)
+            ds = ds_of(qi, p, vr[:, start:start + span])
+            return torch.einsum("bkgij,bjkd->bikgd", ds, k_rng) * scale
+        hi = min(qi + 1, nk) if causal and q_off == 0 else nk
+        dq = torch.zeros((b, block_q, n_kv, g, d), device=dev)
+        for kj in range(hi):
+            p, k_rng = scores(qi, kj * block_k, block_k)
+            ds = ds_of(qi, p, vr[:, kj * block_k:(kj + 1) * block_k])
+            dq = dq + torch.einsum("bkgij,bjkd->bikgd", ds, k_rng) * scale
+        return dq
+
+    dq = torch.stack([dq_block(qi) for qi in range(nq)], dim=1)
+    dq = dq.reshape(b, nq * block_q, h, d)[:, :s].to(q.dtype)
+
+    # -- pass 2: dK, dV per key block ------------------------------------
+    def dkv_block(kj):
+        lo = kj if (causal and q_off == 0 and block_q == block_k) else 0
+        hi = nq
+        if window is not None:       # the query blocks whose band has kj
+            lo = max(0, (kj * block_k - block_q - q_off) // block_q)
+            hi = min(nq, (kj * block_k + block_k + window) // block_q + 1)
+        dk = torch.zeros((b, block_k, n_kv, d), device=dev)
+        dv = torch.zeros((b, block_k, n_kv, d), device=dev)
+        v_rng = vr[:, kj * block_k:(kj + 1) * block_k]
+        for qi in range(lo, hi):
+            p, _ = scores(qi, kj * block_k, block_k)
+            ds = ds_of(qi, p, v_rng)
+            dv = dv + torch.einsum("bkgij,bikgd->bjkd", p, dog[:, qi])
+            dk = dk + torch.einsum("bkgij,bikgd->bjkd", ds, qg[:, qi]) * scale
+        return dk, dv
+
+    dks, dvs = zip(*[dkv_block(kj) for kj in range(nk)])
+    dk = torch.cat(dks, dim=1)[:, :sk].to(k.dtype)
+    dv = torch.cat(dvs, dim=1)[:, :sk].to(v.dtype)
+    return dq, dk, dv
 
 
 def flash_reference(q, k, v, *, causal: bool = True,
@@ -145,4 +247,17 @@ def flash_reference(q, k, v, *, causal: bool = True,
     _, sk, _, _ = k.shape
     scale = _scale(d, scale)
     return _fwd_impl(q, k, v, causal, window, min(block_q, s),
-                     min(block_k, sk), scale)
+                     min(block_k, sk), scale)[0]
+
+
+def flash_backward(q, k, v, dout, *, causal: bool = True,
+                   window: Optional[int] = None, block_q: int = 512,
+                   block_k: int = 512, scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_reference`` at (q, k, v) for the cotangent
+    ``dout``: the reference's ``_flash_core_bwd``, with ``out``, ``ms`` and
+    ``ls`` from the plain forward."""
+    s, sk, d = q.shape[1], k.shape[1], q.shape[3]
+    cfg = (causal, window, min(block_q, s), min(block_k, sk),
+           _scale(d, scale))
+    out, ms, ls = _fwd_impl(q, k, v, *cfg)
+    return _bwd_impl(q, k, v, out, ms, ls, dout, *cfg)

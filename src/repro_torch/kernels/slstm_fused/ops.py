@@ -16,6 +16,16 @@ route. One cluster of ``CLUSTER`` blocks runs each head for a group of up
 to ``MAX_ROWS`` batch rows (``slstm_geometry``); a cluster that the card
 cannot hold raises. ``slstm_step_floor`` times the kernel's h exchange
 alone (no products, no cell) and launches nothing that ``launches`` counts.
+
+``slstm_scan_op(pre, r, backend)`` is the scan from the zero state as a
+``torch.autograd.Function``: its forward is ``slstm_scan``'s route (the
+kernel on a CUDA tensor under ``"auto"``), its backward the
+vector-Jacobian product of the plain version (``ref.slstm_reference``)
+re-run on the saved inputs, the code the reference's training
+differentiates (neither has a backward kernel); its ``torch.func.vmap``
+rule folds the lanes into the heads (each head is its own recurrence with
+its own r), so a vmapped population launches the kernel once, with each
+lane's bits.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.mule_agg.ops import lanes_first
 from repro_torch.kernels.slstm_fused.ref import slstm_reference
 
 MAX_P = 256         # the largest head width the kernel's registers take
@@ -165,3 +176,40 @@ def slstm_step_floor(b: int, s: int, h: int, p: int, *, sync: str,
     if err != 0:
         raise RuntimeError(f"slstm_step_floor failed: CUDA error {err}")
     return out
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """``slstm_scan`` from the zero state, differentiable and vmappable
+    (``slstm_scan_op``)."""
+
+    @staticmethod
+    def forward(pre, r, backend):
+        return slstm_scan(pre, r, backend=backend)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1])
+
+    @staticmethod
+    def backward(ctx, dh):
+        _, vjp = torch.func.vjp(lambda pre, r: slstm_reference(pre, r)[0],
+                                *ctx.saved_tensors)
+        return vjp(dh) + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, pre, r, backend):
+        n = info.batch_size
+        pre = lanes_first(pre, in_dims[0], n)       # [L, B, S, 4, H, P]
+        r = lanes_first(r, in_dims[1], n)           # [L, 4, H, P, P]
+        _, b, s, g, h, p = pre.shape
+        pre = pre.permute(1, 2, 3, 0, 4, 5).reshape(b, s, g, n * h, p)
+        r = r.permute(1, 0, 2, 3, 4).reshape(g, n * h, p, p)
+        out = _SLSTMScan.apply(pre, r, backend)     # [B, S, L * H, P]
+        return out.reshape(b, s, n, h, p).permute(2, 0, 1, 3, 4), 0
+
+
+def slstm_scan_op(pre: torch.Tensor, r: torch.Tensor,
+                  backend: str = "auto") -> torch.Tensor:
+    """h [B, S, H, P] of the scan from the zero state, with an autograd rule
+    (the plain version's VJP) and a vmap rule (lanes folded into heads)."""
+    return _SLSTMScan.apply(pre, r, backend)

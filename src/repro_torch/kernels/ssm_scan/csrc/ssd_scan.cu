@@ -13,7 +13,10 @@
 //
 // Shapes: x [B, S, H, P], dt [B, S, H], A [H], B and C [B, S, N], all f32,
 // read in place through their strides; y is a new contiguous [B, S, H, P].
-// B and C are shared across heads.
+// B and C are shared across heads. A may also be [B, H], one A per batch
+// row (a_rs apart): a vmapped population of models folds its
+// lanes into B, each lane with its own A; a row's bits are those of a call
+// with its A alone.
 //
 // What bounds it: at zamba2's prefill (x [2, 4096, 80, 64], Q = 64,
 // N = 64) the chunked form is 13.4 GFLOP of fp32 multiply-adds (0.20 ms at
@@ -89,6 +92,7 @@ struct Args {
   int64_t ds[3];   // dt (b, s, h)
   int64_t bs[3];   // B (b, s, n)
   int64_t cs[3];   // C (b, s, n)
+  int64_t a_rs;    // A's stride between batch rows (0: one A for all)
 };
 
 __device__ __forceinline__ void fma_tile(float (&acc)[4][4], float4 a4,
@@ -194,7 +198,7 @@ __global__ void __launch_bounds__(kPrepThreads)
   const float* db = a.dt + b * a.ds[0] + (int64_t)s0 * a.ds[1];
   const int warp = tid / 32, lane = tid % 32;
   for (int hh = warp; hh < a.H; hh += kPrepThreads / 32) {
-    const float Ah = a.A[hh];
+    const float Ah = a.A[b * a.a_rs + hh];
     const float* dh = db + hh * a.ds[2];
     const float d0 = lane < qv ? dh[(int64_t)lane * a.ds[1]] : 0.f;
     const float d1 = lane + 32 < qv ? dh[(int64_t)(lane + 32) * a.ds[1]] : 0.f;
@@ -420,19 +424,21 @@ cudaError_t launch_scan(const Args& a, int B, cudaStream_t stream) {
 
 // strides: x (b, s, h, p), dt (b, s, h), B (b, s, n), C (b, s, n), in
 // elements; y is written contiguous [B, S, H, P]. tiles [B, n_chunks, 3, 64,
-// 64] and vecs [B, n_chunks, H, 4, 64] are f32 scratch.
+// 64] and vecs [B, n_chunks, H, 4, 64] are f32 scratch. Row b's A is at
+// A + b * a_rs: a_rs = 0 for A [H], H for A [B, H].
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
-                            const void* Bm, const void* Cm, void* y,
-                            void* tiles, void* vecs, int B, int S, int H,
-                            int P, int N, int chunk,
+                            long long a_rs, const void* Bm, const void* Cm,
+                            void* y, void* tiles, void* vecs, int B, int S,
+                            int H, int P, int N, int chunk,
                             const long long* strides, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || H < 1 || P < 1 || P > T || N < 1 ||
-      N > T || chunk < 1 || chunk > T)
+      N > T || chunk < 1 || chunk > T || a_rs < 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const float*>(x);
   a.dt = static_cast<const float*>(dt);
   a.A = static_cast<const float*>(A);
+  a.a_rs = a_rs;
   a.bm = static_cast<const float*>(Bm);
   a.cm = static_cast<const float*>(Cm);
   a.y = static_cast<float*>(y);

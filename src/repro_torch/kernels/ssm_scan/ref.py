@@ -12,7 +12,8 @@ with dA_i = exp(dt_i * A_h), A_h < 0. B/C are shared across heads.
   inter-chunk state carry), the plain version the model runs on the CPU
   and under ``backend="ref"``; mathematically equal.
 
-Shapes: x [B, S, H, P]; dt [B, S, H]; A [H]; Bmat/Cmat [B, S, N].
+Shapes: x [B, S, H, P]; dt [B, S, H]; A [H], or [B, H] for one A per
+batch row (a vmapped population folded into B); Bmat/Cmat [B, S, N].
 Both return y [B, S, H, P] and the final state [B, H, P, N].
 
 The reference's three-operand einsums are written as two-operand steps, so
@@ -27,11 +28,16 @@ import torch
 import torch.nn.functional as F
 
 
+def _per_row(A: torch.Tensor) -> torch.Tensor:
+    """A [H] or [B, H] broadcast against dt [B, S, H]."""
+    return A[None, None, :] if A.dim() == 1 else A[:, None, :]
+
+
 def ssd_reference(x, dt, A, Bmat, Cmat,
                   init_state: Optional[torch.Tensor] = None):
     b, s, h, p = x.shape
     n = Bmat.shape[-1]
-    dA = torch.exp(dt * A[None, None, :])                     # [B,S,H]
+    dA = torch.exp(dt * _per_row(A))                          # [B,S,H]
     dtx = dt[..., None] * x                                   # [B,S,H,P]
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
         if init_state is None else init_state.float()
@@ -57,7 +63,7 @@ def ssd_chunked_reference(x, dt, A, Bmat, Cmat, *, chunk: int = 64,
     x, dt = _pad_time(x, pad), _pad_time(dt, pad)
     Bmat, Cmat = _pad_time(Bmat, pad), _pad_time(Cmat, pad)
 
-    loga = (dt * A[None, None, :]).float()                    # [B,S,H] (<= 0)
+    loga = (dt * _per_row(A)).float()                         # [B,S,H] (<= 0)
     dtx = (dt[..., None] * x).float()                         # [B,S,H,P]
 
     def rc(t):  # time axis -> (nc, chunk)

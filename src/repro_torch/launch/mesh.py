@@ -18,13 +18,16 @@ one-rank mesh needs no process group at all ("k = 1 shards nothing").
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Tuple, Union
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import torch.distributed as dist
 
 Axes = Union[str, Sequence[str]]
 
 _MESHES: Dict[Tuple, "MuleMesh"] = {}
+# process groups named by an int, for custom ops, which take no Python
+# objects; handle 0 is the default group
+_GROUPS: List[Any] = [None]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -58,6 +61,20 @@ class MuleMesh:
         """Process group of ``axes`` (one name or several); ``None`` for the
         default group or a one-rank axis."""
         return self.groups.get(self._key(axes))
+
+
+def group_handle(group) -> int:
+    """The int that names ``group`` (``None``: the default group, 0) to the
+    collective custom ops; ``group_of`` turns it back."""
+    for i, g in enumerate(_GROUPS):
+        if g is group:
+            return i
+    _GROUPS.append(group)
+    return len(_GROUPS) - 1
+
+
+def group_of(handle: int):
+    return _GROUPS[handle]
 
 
 def _world() -> Tuple[int, int]:

@@ -3,7 +3,8 @@
 Port of ``repro.models.attention`` for self-attention: QKV bias (qwen),
 sliding windows (gemma3's local layers, with a rolling KV cache at decode)
 and RoPE. The full-sequence path goes through ``flash_attention``, which
-launches the hand-written kernel for CUDA tensors. The reference's
+launches the hand-written kernel for CUDA tensors and differentiates
+through the reference's blockwise backward. The reference's
 ``_constrain_heads`` and ``_constrain_seq`` are GSPMD sharding hints with no
 meaning on one card, so the port leaves them out. Cross-attention
 (``cross_attn_forward``, ``cross_kv``), the bidirectional encoder and the

@@ -7,9 +7,10 @@ via softplus(dt + bias). The projections stay separate (``w_z``, ``w_x``,
 ``w_B``, ``w_C``, ``w_dt``) under the reference's leaf names, so weights
 carry across leaf for leaf.
 
-The full-sequence path goes through ``ssd_scan``, which launches the
+The full-sequence path goes through ``ssd_scan_op``, which launches the
 hand-written kernel for CUDA tensors (``backend="auto"``) and runs its
-plain chunked version on the CPU or under ``backend="ref"``. Decode is the
+plain chunked version on the CPU or under ``backend="ref"``; its gradient
+is the plain version's. Decode is the
 plain O(1) recurrent step; where the reference returns an updated copy of
 the cache, ``mamba2_decode`` writes the new conv history and state into
 ``cache`` in place.
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels.ssm_scan import ssd_scan
+from repro_torch.kernels.ssm_scan import ssd_scan_op
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import dense_init
 
@@ -97,7 +98,7 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     dt = F.softplus(dt_raw.float() + params["dt_bias"])             # [B,S,H]
     A = -torch.exp(params["A_log"])                                  # [H]
     xh = xs.reshape(bsz, s, h, cfg.ssm_head_dim)
-    y, _ = ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, backend=backend)
+    y = ssd_scan_op(xh, dt, A, Bm, Cm, chunk, backend)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(bsz, s, d_in)
     y = _gated_norm(y, z.float(), params["norm_scale"])

@@ -9,9 +9,10 @@ built), plain PyTorch as in the reference:
     d_ij = cumF_i - cumF_j + i_j   (j <= i),  separable as cumF_i + b_j
     h_i  = sum_j (q_i . k_j / sqrt(P)) e^{d_ij - m_i} v_j / max(|den_i|, e^{-m_i})
 
-The sLSTM's full-sequence path goes through ``slstm_scan``, which launches
-the hand-written kernel for CUDA tensors (``backend="auto"``) and runs its
-plain version on the CPU or under ``backend="ref"``. Decode is the plain
+The sLSTM's full-sequence path goes through ``slstm_scan_op``, which
+launches the hand-written kernel for CUDA tensors (``backend="auto"``) and
+runs its plain version on the CPU or under ``backend="ref"``; its gradient
+is the plain version's. Decode is the plain
 recurrent step of both cells, as in the reference; where the reference
 returns an updated copy of the cache, ``mlstm_decode`` and ``slstm_decode``
 write the new state into ``cache`` in place.
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels.slstm_fused import slstm_scan
+from repro_torch.kernels.slstm_fused import slstm_scan_op
 from repro_torch.kernels.slstm_fused.ref import cell_step
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import apply_norm, dense_init, init_norm
@@ -277,12 +278,12 @@ def _slstm_pre(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                   backend: str = "auto") -> torch.Tensor:
     """x: [B,S,D] -> x + sLSTM block(x): the true sequential recurrence,
-    through ``slstm_scan`` (the recurrent weights stay in registers
+    through ``slstm_scan_op`` (the recurrent weights stay in registers
     across the sweep: see kernels/slstm_fused)."""
     h = cfg.n_heads
     bsz, s, d = x.shape
     pre = _slstm_pre(params, x, cfg).reshape(bsz, s, 4, h, d // h)
-    hs = slstm_scan(pre, params["r"], backend=backend)   # [B,S,H,P]
+    hs = slstm_scan_op(pre, params["r"], backend)        # [B,S,H,P]
     return x + _slstm_out(params, hs, cfg).to(x.dtype)
 
 

@@ -84,38 +84,15 @@ def _step_at(step_fn: Callable, t: int, st, info, batches, key):
     return step_fn(st, {**info, "t": t}, batches, key)
 
 
-def run_sweep(states: Dict[str, Any], colocations: Dict[str, Any],
-              batches: Any, train_fn: TrainFn, cfg: PopulationConfig,
-              keys: Sequence[int], *, eval_every: Optional[int] = None,
-              eval_fn: Optional[Callable] = None,
-              methods: Union[str, Sequence[str]] = "mlmule",
-              context: Any = None, device="cuda"
-              ) -> Union[SweepResult, Dict[str, SweepResult]]:
-    """Replay S seeds (x several methods), the lanes vmapped step by step.
-
-    states:      population states stacked ``[S, ...]`` (``stack_trees``
-                 over per-seed ``init_population`` results) on ``device``.
-    colocations: a schedule stacked ``[S, T, M]`` (``stack_colocations``),
-                 or one ``[T, M]`` schedule shared by every seed.
-    batches:     callable ``(seed, t[, context]) -> batches-dict``, called
-                 per lane, or a tree of stacked ``[S, T, ...]`` tensors.
-    keys:        one integer key per lane (a sequence or an int tensor).
-    context:     optional tree stacked ``[S, ...]``: lane ``i``'s slice goes
-                 to ``batches`` and ``eval_fn`` as a trailing argument.
-    methods:     one of ``METHODS_MOBILE``, or a sequence of them.
-
-    Returns ``(final_states, aux)`` with a leading ``[S]`` axis on every
-    tensor, ``aux = {"last_fid": [S, M], "eval_steps": np [E], "evals":
-    [S, E, ...] or None}``; for a sequence of methods a ``{method:
-    (final_states, aux)}`` dict. Lane ``i`` replays what ``run_population``
-    with key ``keys[i]`` and lane ``i``'s inputs replays.
-    """
-    dev = resolve_device(device)
-    _check_state_on(states, dev)
-    keys = [int(k) for k in (keys.tolist() if isinstance(keys, torch.Tensor)
-                             else keys)]
+def _sweep(make_step: Callable, states: Dict[str, Any], schedule,
+           batches: Any, keys: Sequence[int], *, eval_every, eval_fn,
+           methods, context, dev: torch.device):
+    """The walk of ``run_sweep`` and ``run_sweep_distributed``: each step
+    ``torch.func.vmap`` of ``make_step(method)``'s step over the lanes of
+    the state, the schedule ``(fid, exch, pos, area, act)`` [S, T, m, ...],
+    the batches and the seeds."""
     n_lanes = len(keys)
-    fid, exch, pos, area, act = _lane_schedule(colocations, n_lanes, dev)
+    fid, exch, pos, area, act = schedule
     n_steps, n_mules = fid.shape[1], fid.shape[2]
     dynamic = callable(batches)
     n_ev = n_steps // eval_every if (eval_fn is not None and eval_every) else 0
@@ -134,7 +111,7 @@ def run_sweep(states: Dict[str, Any], colocations: Dict[str, Any],
                 eval_fn(st, last[i], lane_ctx[i]))
 
     def one(method: str) -> SweepResult:
-        step_fn = compile_step(get_program(method), train_fn, cfg)
+        step_fn = make_step(method)
         state = states
         last = torch.zeros((n_lanes, n_mules), dtype=torch.int64, device=dev)
         evals = [[] for _ in range(n_lanes)]
@@ -168,8 +145,116 @@ def run_sweep(states: Dict[str, Any], colocations: Dict[str, Any],
     return {m: one(m) for m in methods}
 
 
-def run_sweep_distributed(*args, **kwargs):
-    """The reference's sweep over the mule-sharded engine: not ported."""
-    raise NotImplementedError(
-        "run_sweep_distributed is not ported yet; it arrives with ROADMAP "
-        "§1 item 13c (the seed lanes inside the ring of ranks)")
+def _keys(keys) -> list:
+    return [int(k) for k in (keys.tolist() if isinstance(keys, torch.Tensor)
+                             else keys)]
+
+
+def run_sweep(states: Dict[str, Any], colocations: Dict[str, Any],
+              batches: Any, train_fn: TrainFn, cfg: PopulationConfig,
+              keys: Sequence[int], *, eval_every: Optional[int] = None,
+              eval_fn: Optional[Callable] = None,
+              methods: Union[str, Sequence[str]] = "mlmule",
+              context: Any = None, device="cuda"
+              ) -> Union[SweepResult, Dict[str, SweepResult]]:
+    """Replay S seeds (x several methods), the lanes vmapped step by step.
+
+    states:      population states stacked ``[S, ...]`` (``stack_trees``
+                 over per-seed ``init_population`` results) on ``device``.
+    colocations: a schedule stacked ``[S, T, M]`` (``stack_colocations``),
+                 or one ``[T, M]`` schedule shared by every seed.
+    batches:     callable ``(seed, t[, context]) -> batches-dict``, called
+                 per lane, or a tree of stacked ``[S, T, ...]`` tensors.
+    keys:        one integer key per lane (a sequence or an int tensor).
+    context:     optional tree stacked ``[S, ...]``: lane ``i``'s slice goes
+                 to ``batches`` and ``eval_fn`` as a trailing argument.
+    methods:     one of ``METHODS_MOBILE``, or a sequence of them.
+
+    Returns ``(final_states, aux)`` with a leading ``[S]`` axis on every
+    tensor, ``aux = {"last_fid": [S, M], "eval_steps": np [E], "evals":
+    [S, E, ...] or None}``; for a sequence of methods a ``{method:
+    (final_states, aux)}`` dict. Lane ``i`` replays what ``run_population``
+    with key ``keys[i]`` and lane ``i``'s inputs replays.
+    """
+    dev = resolve_device(device)
+    _check_state_on(states, dev)
+    keys = _keys(keys)
+    schedule = _lane_schedule(colocations, len(keys), dev)
+    return _sweep(lambda m: compile_step(get_program(m), train_fn, cfg),
+                  states, schedule, batches, keys, eval_every=eval_every,
+                  eval_fn=eval_fn, methods=methods, context=context, dev=dev)
+
+
+def run_sweep_distributed(states: Dict[str, Any],
+                          colocations: Dict[str, Any], batches: Any,
+                          train_fn: TrainFn, dcfg, mesh, keys: Sequence[int],
+                          *, eval_every: Optional[int] = None,
+                          eval_fn: Optional[Callable] = None,
+                          methods: Union[str, Sequence[str]] = "mlmule",
+                          context: Any = None, device="cuda"
+                          ) -> Union[SweepResult, Dict[str, SweepResult]]:
+    """``run_sweep`` on the mule-sharded engine, in every rank of the world.
+
+    The stacking contract of ``run_sweep`` (a leading ``[S]`` seed axis on
+    states, schedule, stacked batches, keys and context), with ``dcfg`` and
+    ``mesh`` of ``run_population_distributed``; the states follow the
+    ``to_distributed_state`` layout, stacked, the whole population on every
+    rank. Each rank takes its block of the mule axis (axis 1 of a state's
+    ``mule*`` entries, the schedule's last axis, axis 2 of the ``"mule"``
+    leaves of stacked batches), and every step vmaps the rank-local step
+    (``make_distributed_method_step``) over the lanes: the seed lanes run
+    inside each rank's block. The step's collectives and kernels are custom
+    ops whose vmap rules move all lanes at once: one ``ordered_psum`` a
+    ``mlmule`` step, one transfer a tensor a ring hop (the hops any lane
+    needs), one ``mule_agg`` and one ``encounter_hop`` launch for every
+    lane. The collectives, the aggregation and the hops give each lane
+    the bits of the ``i``-th sequential ``run_population_distributed``
+    call; so does training on the CPU, where lane ``i`` is bitwise that
+    call. On a CUDA card ``train_fn`` vmapped over lanes and mules runs
+    other kernels than over mules alone (convolutions with S times the
+    groups, batched products), and each lane's training rounds apart
+    from its sequential run's, with cuDNN and without. ``methods``: any of the five
+    ``METHODS_MOBILE``.
+
+    The sweep does not re-bucket (``dcfg.rebucket_every`` must be 0): the
+    lanes share one layout of the ranks.
+
+    Returns ``run_sweep``'s results, every mule array the rank's block
+    (``last_fid`` ``[S, m_loc]``; ``launch.multiprocess.gather_global``
+    along axis 1 assembles the population).
+    """
+    from repro_torch.core.distributed import make_distributed_method_step
+    from repro_torch.launch.multiprocess import put_global, put_global_tree
+    from repro_torch.scenarios.engine import (_auto_mesh,
+                                              _check_mule_sharding,
+                                              _resolve_ring_bits)
+    if dcfg.rebucket_every > 0:
+        raise ValueError(
+            f"run_sweep_distributed does not re-bucket (rebucket_every="
+            f"{dcfg.rebucket_every}): the lanes share one layout of the ranks")
+    dev = resolve_device(device)
+    _check_state_on(states, dev)
+    keys = _keys(keys)
+    fid, exch, pos, area, act = _lane_schedule(colocations, len(keys), dev)
+    n_mules = fid.shape[2]
+    first = methods if isinstance(methods, str) else methods[0]
+    dcfg = _resolve_ring_bits(dcfg, int(area.max()) if area.numel() else 0)
+    if mesh is None:
+        mesh = _auto_mesh(first, n_mules, dcfg)
+    _check_mule_sharding(n_mules, mesh, dcfg)
+    ax = dcfg.data_axis
+    states = put_global_tree(
+        states, mesh, {k: (1 if k.startswith("mule") else None)
+                       for k in states}, ax)
+    if not callable(batches):
+        batches = put_global_tree(
+            batches, mesh, {k: (2 if k == "mule" else None)
+                            for k in batches}, ax)
+    schedule = (put_global(fid, mesh, 2, ax), put_global(exch, mesh, 2, ax),
+                put_global(pos, mesh, 2, ax),
+                put_global(area, mesh, area.dim() - 1, ax),
+                put_global(act, mesh, 2, ax))
+    return _sweep(lambda m: make_distributed_method_step(m, train_fn, dcfg,
+                                                         mesh),
+                  states, schedule, batches, keys, eval_every=eval_every,
+                  eval_fn=eval_fn, methods=methods, context=context, dev=dev)

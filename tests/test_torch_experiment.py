@@ -195,8 +195,9 @@ def test_run_with_models_state():
 def test_unported_engines_raise_naming_their_item(field, item):
     """The engines of ROADMAP items 12 and 13b raised before they were
     ported; now each runs the harness on one process (the distributed
-    engine cuts nothing there) and a seed sweep over the distributed
-    engine raises naming item 13c."""
+    engine cuts nothing there). The seed sweep over the distributed engine,
+    which raised naming item 13c, runs too (``run_sweep_distributed``),
+    and refuses re-bucketing."""
     cfg = texp.ExperimentConfig(**{field: True, **TINY})
     result, st = texp.run_with_models(cfg, texp.model_fns(cfg), "cpu")
     engine = {"12": "run_population_streamed",
@@ -205,8 +206,14 @@ def test_unported_engines_raise_naming_their_item(field, item):
     assert 0.0 <= result["pre_local_acc"] <= 1.0
     assert [s for s, _ in result["trace"]] == [9, 19]
     if field == "distributed":
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            texp.run_sweep_experiment(cfg, [0, 1], device="cpu")
+        sweep = texp.run_sweep_experiment(cfg, [0, 1], device="cpu")
+        got = sweep["methods"][cfg.method]
+        assert len(got["final_acc"]) == 2
+        assert all(0.0 <= a <= 1.0 for a in got["final_acc"])
+        with pytest.raises(ValueError, match="re-bucket"):
+            texp.run_sweep_experiment(
+                dataclasses.replace(cfg, rebucket_every=10), [0, 1],
+                device="cpu")
 
 
 def test_quickstart_runs_on_the_cpu():

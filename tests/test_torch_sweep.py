@@ -324,10 +324,63 @@ def test_sweep_seeds_fold_like_the_engine():
 
 
 def test_run_sweep_distributed_raises_naming_13b():
-    """Item 13b ported the distributed engine; the sweep over it moved to
-    item 13c, which the error now names."""
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        run_sweep_distributed()
+    """Item 13c ported the sweep over the distributed engine, which raised
+    naming it: on one rank (the mesh cuts nothing) each lane is now bitwise
+    its sequential ``run_population_distributed`` run, and a re-bucketing
+    config, which the lanes cannot share, raises instead."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch.mesh import make_mule_mesh
+    from repro_torch.scenarios import run_population_distributed
+    m, f, t, d, s = 8, 3, 6, 4, 2
+    rng = np.random.default_rng(5)
+
+    def train_fn(params, batch, key):
+        xb, yb = batch
+        g = torch.func.grad(lambda p: torch.mean(
+            (xb @ p["w"] + p["b"] - yb) ** 2))(params)
+        return {k: p - 0.05 * g[k] for k, p in params.items()}
+
+    dcfg = tdist.DistributedConfig(pop=tpop.PopulationConfig(
+        mode="mobile", n_fixed=f, n_mules=m))
+    pops, cos, bs = [], [], []
+    for _ in range(s):
+        gen = torch.Generator().manual_seed(int(rng.integers(100)))
+        pops.append(tdist.to_distributed_state(tpop.init_population(
+            dcfg.pop, lambda g: {"w": torch.randn(d, generator=g),
+                                 "b": torch.zeros(())}, gen, device="cpu"),
+            dcfg))
+        cos.append({"fixed_id": rng.integers(-1, f, (t, m)),
+                    "exchange": rng.uniform(size=(t, m)) < 0.7,
+                    "pos": rng.uniform(size=(t, m, 2)).astype(np.float32),
+                    "area": np.repeat(np.arange(2), m // 2)})
+        bs.append({"fixed": None, "mule": (
+            torch.tensor(rng.normal(size=(t, m, 3, d)), dtype=torch.float32),
+            torch.tensor(rng.normal(size=(t, m, 3)), dtype=torch.float32))})
+    mesh = make_mule_mesh(1, 1)
+    stacked = {k: np.stack([c[k] for c in cos]) for k in cos[0]}
+    batches = {"fixed": None, "mule": tuple(
+        torch.stack([b["mule"][j] for b in bs]) for j in (0, 1))}
+    for method in ("mlmule", "gossip"):
+        final, aux = run_sweep_distributed(
+            tpop_stack(pops), stacked, batches, train_fn, dcfg, mesh, [4, 9],
+            methods=method, device="cpu")
+        for i in range(s):
+            want, waux = run_population_distributed(
+                pops[i], cos[i], bs[i], train_fn, dcfg, mesh, key=[4, 9][i],
+                method=method, device="cpu")
+            for side in ("mule_models", "fixed_models"):
+                for k, v in want[side].items():
+                    assert torch.equal(final[side][k][i], v), (method, k)
+            assert torch.equal(aux["last_fid"][i], waux["last_fid"])
+    with pytest.raises(ValueError, match="re-bucket"):
+        run_sweep_distributed(tpop_stack(pops), stacked, batches, train_fn,
+                              dataclasses.replace(dcfg, rebucket_every=2),
+                              mesh, [4, 9], device="cpu")
+
+
+def tpop_stack(pops):
+    from repro_torch.scenarios.sweep import stack_trees
+    return stack_trees(pops)
 
 
 # -- the kernels' lane entries and vmap rules on the CPU --------------------

@@ -15,7 +15,8 @@ dense switch). Three inputs, f32, seeded weights:
 - ``dense strip``: the same shape with pos 0 and two areas, as the trace
   scenarios give the peer step (every same-area pair meets);
 - ``hop``: the ring path's busiest remote hop (R = V = 64), through
-  ``encounter_hop_f32``.
+  ``encounter_hop_f32`` (or, in a source without it,
+  ``encounter_hop_lanes_f32`` with one lane).
 
 For each, the script checks that both sources give the same bits (mix or
 sums, and mass), then times them in turns (other, tree, tree, other), five
@@ -72,9 +73,16 @@ def main() -> int:
                        capture_output=True)
         lib = ctypes.CDLL(str(lib_path))
     new_abi = hasattr(lib, "encounter_pairs")
-    mix_fn, hop_fn = lib.encounter_mix_f32, lib.encounter_hop_f32
+    # a source whose only hop entry takes S lanes is called with S = 1
+    lanes_hop = not hasattr(lib, "encounter_hop_f32")
+    mix_fn = lib.encounter_mix_f32
+    hop_fn = lib.encounter_hop_lanes_f32 if lanes_hop else \
+        lib.encounter_hop_f32
     if new_abi:
-        mix_fn.argtypes, hop_fn.argtypes = MIX_ARGTYPES, ops._HOP_ARGTYPES
+        # ops._HOP_ARGTYPES's fifth from last entry is the lane count S
+        mix_fn.argtypes = MIX_ARGTYPES
+        hop_fn.argtypes = ops._HOP_ARGTYPES if lanes_hop else (
+            ops._HOP_ARGTYPES[:-5] + ops._HOP_ARGTYPES[-4:])
     else:
         mix_fn.argtypes = ([ctypes.c_void_p] * 6
                            + [ctypes.c_int, ctypes.c_longlong,
@@ -136,7 +144,8 @@ def main() -> int:
             err = hop_fn(pr.data_ptr(), ar64.data_ptr(), on_r.data_ptr(), r,
                          row0, pv.data_ptr(), av64.data_ptr(),
                          on_v.data_ptr(), v, col0, wv.data_ptr(),
-                         acc.data_ptr(), mass.data_ptr(), *extra[0], d, r2,
+                         acc.data_ptr(), mass.data_ptr(), *extra[0],
+                         *([1] if lanes_hop else []), d, r2,
                          *extra[1], stream())
             if err != 0:
                 raise RuntimeError(f"the other hop failed: CUDA error {err}")

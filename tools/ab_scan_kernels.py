@@ -9,7 +9,8 @@ commit, for example ``git show <commit>:src/repro_torch/kernels/slstm_fused/
 csrc/slstm_scan.cu > build/other_slstm.cu`` (and ``.../ssm_scan/csrc/
 ssd_scan.cu``). Both are built with the port's nvcc flags; an
 ``ssd_scan.cu`` without ``ssd_prep_kernel`` is called through the older C
-interface, which takes no scratch (``slstm_scan_f32`` kept its interface).
+interface, which takes no scratch, and one without ``a_rs`` takes no row
+stride for A (``slstm_scan_f32`` kept its interface).
 Checks, f32, seeded inputs:
 
 - ``ssd_scan``: the two sources give the same bits on chip_smoke.py's
@@ -97,7 +98,9 @@ def main() -> int:
     card = chip_smoke.phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     slstm_src, ssd_src = sys.argv[1], sys.argv[2]
-    new_ssd = "ssd_prep_kernel" in Path(ssd_src).read_text()
+    ssd_text = Path(ssd_src).read_text()
+    new_ssd = "ssd_prep_kernel" in ssd_text
+    a_rs = [0] if "a_rs" in ssd_text else []   # A's row stride, A [H]
     libs = {}
     with tempfile.TemporaryDirectory() as tmp:
         # this tree's sources too, for their ptxas reports
@@ -118,7 +121,9 @@ def main() -> int:
     # ---- ssd_scan ------------------------------------------------------
     ssd_fn = libs["other ssd"].ssd_scan_f32
     ssd_fn.restype = ctypes.c_int
-    ssd_fn.argtypes = dops._ARGTYPES if new_ssd else (
+    # dops._ARGTYPES's fourth entry is A's row stride
+    ssd_fn.argtypes = dops._ARGTYPES[:3] + dops._ARGTYPES[
+        4 - len(a_rs):] if new_ssd else (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
         [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
 
@@ -137,7 +142,7 @@ def main() -> int:
                        torch.empty(geo["vecs"], device="cuda")]
 
         def run():
-            err = ssd_fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            err = ssd_fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), *a_rs,
                          bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
                          *(t.data_ptr() for t in scratch), b, s, h, p, n,
                          chunk, strides, stream())

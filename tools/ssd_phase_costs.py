@@ -101,7 +101,7 @@ def main() -> int:
         fn.argtypes, fn.restype = ops._ARGTYPES, ctypes.c_int
 
         def run(fn=fn):
-            err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), 0,
                      bm.data_ptr(), cm.data_ptr(), y.data_ptr(),
                      tiles.data_ptr(), vecs.data_ptr(), b, s, h, p, n, chunk,
                      strides, torch.cuda.current_stream().cuda_stream)
