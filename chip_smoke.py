@@ -100,8 +100,8 @@ Phases (any failure exits non-zero without the final result line):
 11. the HAR path (Fig 8): ``mlmule`` and ``gossip`` on ``har_commuter``
    through ``run_with_models`` handed the LSTM-CNN at full width (window
    128, 6 channels, conv 32/64, LSTM 64, 4 classes), M = 256, F = 8, batch
-   12, lr 0.03, T = 30 (cut from 60), an eval every 20 steps.
-   ``mule_agg`` must launch 30 times for ``mlmule``; ``encounter_mix`` 10
+   12, lr 0.03, T = 21 (cut from 60), an eval every 20 steps.
+   ``mule_agg`` must launch 21 times for ``mlmule``; ``encounter_mix`` 7
    times and ``mule_agg`` never for ``gossip``. Both are replayed bitwise and against their plain
    backend under the growth bound of phases 4 and 5, ``mlmule``'s
    aggregation and ``gossip``'s mix held in lockstep; each prints steps/s,
@@ -120,18 +120,18 @@ Phases (any failure exits non-zero without the final result line):
 13. the seed sweep: ``run_sweep`` over S = 4 seeds of the walk (P_cross =
    0.1, each seed its own schedule, data and population) for the five
    ``METHODS_MOBILE`` at the paper CNN's full width, F = 8, M = 256 (1,024
-   mule models), batch 16, lr 0.05, T = 30 (cut from 60), an eval every
+   mule models), batch 16, lr 0.05, T = 21 (cut from 60), an eval every
    20. Each step
    launches ``mule_agg`` and ``encounter_mix`` once for all lanes, through
-   their lane-batched entries: ``mule_agg`` 30 launches for ``mlmule`` and
-   ``mlmule+gossip``, ``encounter_mix`` 10 for ``gossip`` and
+   their lane-batched entries: ``mule_agg`` 21 launches for ``mlmule`` and
+   ``mlmule+gossip``, ``encounter_mix`` 7 for ``gossip`` and
    ``mlmule+gossip``, none for ``oppcl`` and ``local``. The lanes of
    ``mlmule`` and ``gossip`` are held to their sequential
    ``run_population`` runs (weights within the growth bound, ``last_fid``
    and eval steps exact); steps/s and lane-steps/s beside the sequential
    runs', peak memory and a profile of the sweep step. Then
    ``run_sweep_experiment`` at Fig 8's config (har, walk P_cross = 0.1,
-   batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 30,
+   batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 21,
    every accuracy in [0, 1];
 14. the streamed path: phase 4's ``mlmule`` run and phase 5's ``gossip``
    run, each through ``run_population`` and through
@@ -143,10 +143,10 @@ Phases (any failure exits non-zero without the final result line):
 15. population scale: the reference's scale workload (a linear model of
    8 weights, F = 8, ``mlmule``, 2 samples a mule a step) on
    ``streaming_commuter``'s procedural stream at M = 100,000 and
-   1,000,000, T = 48 (the reference's 96, cut), streamed in chunks of 8
+   1,000,000, T = 24 (the reference's 96, cut), streamed in chunks of 8
    and through ``run_population``
    over ``materialize_generator``'s schedule: final models and
-   ``last_fid`` bitwise equal, ``mule_agg`` 96 launches a run; steps/s,
+   ``last_fid`` bitwise equal, ``mule_agg`` 24 launches a run; steps/s,
    schedule bytes and peak memory of each; then ``mule_agg`` timed at
    (8, 1,000,000, 8) beside ``torch.matmul`` and its bytes bound (a
    ``cases`` entry of row 1);
@@ -192,11 +192,36 @@ Phases (any failure exits non-zero without the final result line):
    width;
 19. the LM population: ``examples/torch_train_lm_population.py``'s body
    with xlstm-350m at full width, 4 fixed devices training under
-   ``torch.func.vmap`` and 6 mules on the walk, seq 64, batch 4, T = 4:
+   ``torch.func.vmap`` and 6 mules on the walk, seq 64, batch 4, T = 3:
    ``mule_agg`` once a step over whole parameter vectors (D =
    468,260,864), ``slstm_scan`` once a layer a step for all 4 models; the
    aggregation of every step's state in lockstep with
-   ``agg_backend="ref"`` (1e-5); steps/s and peak memory.
+   ``agg_backend="ref"`` (1e-5); steps/s and peak memory;
+20. mixture-of-experts: granite-moe-1b-a400m at full width (24 layers of
+   attention, 16 heads x 64 with KV 8, and 32 experts of 512, top-8;
+   vocab 49155; 1,334,628,352 random f32 weights from a seed). (a)
+   ``make_prefill_step`` on 2 x 4096 tokens in bf16 at the config's
+   capacity factor, which must launch ``flash_attention`` 24 times, all on
+   the tensor cores; prefill tokens/s, a profile, the dropped slots of
+   every layer, and one MoE layer timed piece by piece on its own input
+   (router and top-k, dispatch, expert GEMMs, un-group); (b)
+   ``serve.generate`` at the launcher's defaults; (c) an f32 drop-free
+   copy (capacity factor E / k) whose prefill through the kernel is held
+   to ``backend="ref"`` route by route: every route flip is printed with
+   its gap, a first flip at a gap of 1e-5 or more fails, and the rows no
+   flip can reach are held to 2e-4; then decode against forward (1e-3);
+   (d) training through ``launch/train.py``'s functions: the f32 gradient
+   at 2 x 128 through the kernel against ``backend="ref"`` (the router
+   and every expert of every layer non-zero), then 5 Adam steps in bf16
+   at 4 x 128 with 24 tensor-core launches a step, a falling loss, a
+   non-zero aux term and the checkpoint restored bitwise; (e)
+   qwen3-moe-235b-a22b, granite-34b and qwen2.5-32b at full width, their
+   depth cut to 2 layers (the whole models do not fit one card): the bf16
+   prefill on 2 x 4096 tokens with both attention launches on the tensor
+   cores, a profile (and qwen3-moe's 128-expert layer timed piece by
+   piece); the f32 copy through the kernel against ``backend="ref"``
+   (qwen3-moe drop-free on 2 x 1024 tokens, route by route as in (c); the
+   dense two on 2 x 4096 within 2e-4); decode against forward (1e-3).
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -209,7 +234,10 @@ holds ``flash_attention`` against its plain versions on the
 JAX tests' cases, on tensor-core cases (decode, ragged Sk, bidirectional,
 a fully masked first block at gemma3's GQA group) and at gemma3-4b's and
 zamba2-2.7b's per-layer prefill shapes (in f32, and in bf16 against the
-fp32 oracle on the same inputs), checks every call's route (bf16 at head
+fp32 oracle on the same inputs), and at the layer shapes of
+granite-moe-1b-a400m (GQA group 2, head dim 64; also f32), qwen3-moe-235b-a22b
+(64 heads on 4 KV heads), granite-34b (48 heads on one KV head) and
+qwen2.5-32b (40 on 8), head dim 128, in bf16, checks every call's route (bf16 at head
 dims 64, 80, 128 and 256 on the tensor-core kernel, the rest on the SIMT
 one), counts the ``HGMMA`` instructions of the built tensor-core library
 (``cuobjdump -sass``; none fails), and times the tensor-core kernel beside
@@ -435,8 +463,9 @@ FIXED_MULES, FIXED_STEPS, FIXED_PRETRAIN = 20, 60, 120
 # HAR path (phase 11): Fig 8's batch and lr (examples/har_mobile_training.py)
 HAR_BATCH, HAR_LR = 12, 0.03
 # the HAR path's horizon, cut from 60 to keep the script inside its time
-# with phases 17-19 (one eval, after step 19)
-HAR_STEPS = 30
+# with phases 17-20 (one eval, after step 19; a multiple of the peer
+# cadence, 3)
+HAR_STEPS = 21
 # run_experiment at the harness's own defaults, T cut to this
 SHORT_STEPS = 20
 # the seed sweep (phase 13) and the lane-batched kernel entries (phase 3):
@@ -445,8 +474,9 @@ SHORT_STEPS = 20
 # 3-city scenarios' 12 fixed devices
 LANES = 4
 # the sweep's horizon, cut from the other paths' 60 to keep the script
-# inside its time with phases 17-19 (one eval, after step 19)
-SWEEP_STEPS = 30
+# inside its time with phases 17-20 (one eval, after step 19; a multiple
+# of the peer cadence, 3)
+SWEEP_STEPS = 21
 MULTI_AREA_FIXED = 12
 # the dense HAR strip of the lane-batched mix: the LSTM-CNN's D
 HAR_D = 44_580
@@ -463,11 +493,11 @@ STREAM_CHUNK = EVAL_EVERY
 # population scale (phase 15): the reference's scale workload
 # (benchmarks/engine_micro.py: _scale_workload), a linear model of D = 8
 # weights over F = 8 fixed devices, two samples a mule a step, lr 0.05, on
-# streaming_commuter's procedural stream, T = 48 (the reference's horizon
-# is 96; cut to keep the script inside its time with phases 17-19) in
+# streaming_commuter's procedural stream, T = 24 (the reference's horizon
+# is 96; cut to keep the script inside its time with phases 17-20) in
 # chunks of 8
 SCALE_MULES = (100_000, 1_000_000)
-SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 48, 8, 2, 0.05
+SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 24, 8, 2, 0.05
 # the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
 # bucket-ordered walk of phase 9 at the CNN's full width, T = 30; then the
 # streamed engine on multi_area_migratory, re-bucketing every 10 steps.
@@ -504,9 +534,38 @@ GRAD_BATCH, GRAD_SEQ = 2, 64
 GRAD_HYBRID_LAYERS, GRAD_XLSTM_LAYERS = 6, 4
 GRAD_LOSS_REL, GRAD_LEAF_REL = 2e-4, 2e-4
 # the LM population (phase 19): examples/torch_train_lm_population.py's
-# F 4 / M 6 with xlstm-350m at full width
-LM_POP_ARCH, LM_POP_STEPS, LM_POP_SEQ, LM_POP_BATCH = "xlstm-350m", 4, 64, 4
+# F 4 / M 6 with xlstm-350m at full width, T = 3 (4 until phase 20 came)
+LM_POP_ARCH, LM_POP_STEPS, LM_POP_SEQ, LM_POP_BATCH = "xlstm-350m", 3, 64, 4
 LM_POP_FIXED, LM_POP_MULES = 4, 6
+# mixture-of-experts (phase 20): granite-moe-1b-a400m at full width, 24
+# layers of attention (16 heads x 64, KV 8) and 32 experts of 512, top-8.
+# Its leaves: the config's param_count() (1,334,578,176) and the norms'
+# 2 x 24 x 1024 + 1024 scales
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_PARAMS = 1_334_628_352
+# flash_attention at the layer shapes of the MoE and the other dense
+# models (phase 3): GQA groups 2 (head dim 64), 16, 48 and 5 (head dim 128)
+FLASH_LAYER_ARCHS = (MOE_ARCH, "qwen3-moe-235b-a22b", "granite-34b",
+                     "qwen2.5-32b")
+# the f32 drop-free prefill through the kernel vs backend="ref": the two
+# differ in the order of attention's sums, and a token whose k-th and
+# (k+1)-th router probabilities are that close may take another expert
+# (a flip). A flip moves its token's output a long way, and attention
+# carries it to the later positions of its sequence. So the rows held to
+# REF_PREFILL_TOL are those that no flip can reach (positions before the
+# first flip of their sequence); every flip is printed with its gap, and a
+# first flip (no flip at an earlier layer and position of its sequence)
+# whose gap is MOE_FLIP_GAP_REL of the k-th probability or more fails
+MOE_FLIP_GAP_REL = 1e-5
+# its training: the f32 gradient check at GRAD_BATCH x TRAIN_SEQ, then
+# TRAIN_STEPS Adam steps at TRAIN_BATCH x TRAIN_SEQ in bf16 (phase 18's)
+# the models whose whole depth does not fit one card run at full width
+# with WIDE_LAYERS layers (every stage kind of each); qwen3-moe's f32
+# drop-free copy on WIDE_MOE_S tokens a row: its group buffer is
+# [128, T, 4096] f32 with the capacity T, 4.3 GB at T = 2 x 1024
+WIDE_ARCHS = ("qwen3-moe-235b-a22b", "granite-34b", "qwen2.5-32b")
+WIDE_LAYERS = 2
+WIDE_MOE_S = 1024
 DIST_TIMEOUT = 900
 
 
@@ -1536,9 +1595,6 @@ def phase_flash_attention(card: str) -> dict:
     q, k, v = inputs(b, s, s, h, kv, d, torch.bfloat16)
     # SDPA's layout is [B, H, S, D]; the copies are made outside the timing
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
-    if not gqa:     # older PyTorch: SDPA on KV heads repeated to H
-        kh, vh = (t.repeat_interleave(h // kv, dim=1) for t in (kh, vh))
     row, errs = None, []
     for win in (None, cfg.sliding_window):
         kind = "global" if win is None else f"local (window {win})"
@@ -1571,11 +1627,11 @@ def phase_flash_attention(card: str) -> dict:
             kpos = torch.arange(s, device="cuda")[None, :]
             mask = (kpos <= qpos) & (kpos > qpos - win)
             note = "a boolean band mask"
-        kw = {"enable_gqa": True} if gqa else {}
 
         def lib():
             return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, is_causal=mask is None, **kw)
+                qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
 
         lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max()
         del out
@@ -1594,7 +1650,7 @@ def phase_flash_attention(card: str) -> dict:
               f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
               f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p "
               f"split), plain {plain_ms:.4f} ms, "
-              f"SDPA ({note}{', enable_gqa' if gqa else ', KV repeated'}) "
+              f"SDPA ({note}, enable_gqa) "
               f"{library_ms:.4f} ms (max |SDPA - kernel| "
               f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
               f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
@@ -1619,32 +1675,44 @@ def phase_flash_attention(card: str) -> dict:
             row["local_layer"] = {"window": win, "max_abs_err": errs[-1],
                                   **timed}
     row["max_abs_err"] = max(errs)
-    row["second_shape"] = _flash_hybrid_shape(card, inputs, check)
+    row["second_shape"] = _flash_layer_shape(card, inputs, check,
+                                             HYBRID_ARCH)
+    # the GQA groups of the MoE and the other dense models (head dims 64
+    # and 128): bf16 on the tensor cores; granite-moe's also f32 (SIMT)
+    row["layer_shapes"] = [
+        _flash_layer_shape(card, inputs, check, arch, f32=arch == MOE_ARCH)
+        for arch in FLASH_LAYER_ARCHS]
     return row
 
 
-def _flash_hybrid_shape(card: str, inputs, check) -> dict:
-    """flash_attention at zamba2-2.7b's shared attention (q, k, v
-    [2, 4096, 32, 80], causal, no window): held to its oracles, timed
-    beside SDPA; returns the numbers of row 4's second shape."""
+def _flash_layer_shape(card: str, inputs, check, arch: str,
+                       f32: bool = True) -> dict:
+    """flash_attention at ``arch``'s per-layer prefill shape (q [2, 4096, H,
+    D], k/v [2, 4096, KV, D], causal, no window): bf16 on the tensor-core
+    route held to its oracles and timed beside SDPA and its bound; with
+    ``f32`` also the same (bf16-valued) inputs in f32 on the SIMT route.
+    Returns the shape's entry of row 4."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      mha_reference)
-    cfg = get_config(HYBRID_ARCH)
-    b, s, h, d = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = inputs(b, s, s, h, cfg.n_kv_heads, d, torch.bfloat16)
-    label = f"{HYBRID_ARCH} shared attention q {list(q.shape)}"
+    cfg = get_config(arch)
+    b, s, h, kv, d = (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim)
+    q, k, v = inputs(b, s, s, h, kv, d, torch.bfloat16)
+    label = (f"{arch} layer q {list(q.shape)} k/v {list(k.shape)} (GQA "
+             f"group {h // kv})")
     q32, k32, v32 = q.float(), k.float(), v.float()
     oracle = mha_reference(q32, k32, v32, causal=True)
-    check(label + " f32 vs mha_reference",
-          _flash_routed(q32, k32, v32, causal=True), oracle,
-          FLASH_MHA_TOL_F32)
-    check(label + " f32 vs flash_reference",
-          _flash_routed(q32, k32, v32, causal=True),
-          flash_attention(q32, k32, v32, causal=True, backend="ref"),
-          FLASH_TOL["float32"])
+    if f32:
+        check(label + " f32 vs mha_reference",
+              _flash_routed(q32, k32, v32, causal=True), oracle,
+              FLASH_MHA_TOL_F32)
+        check(label + " f32 vs flash_reference",
+              _flash_routed(q32, k32, v32, causal=True),
+              flash_attention(q32, k32, v32, causal=True, backend="ref"),
+              FLASH_TOL["float32"])
     del q32, k32, v32
     out = _flash_routed(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -1657,7 +1725,8 @@ def _flash_hybrid_shape(card: str, inputs, check) -> dict:
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def lib():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
 
     lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max()
     del out
@@ -1676,12 +1745,13 @@ def _flash_hybrid_shape(card: str, inputs, check) -> dict:
           f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
           f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p split), "
           f"plain {plain_ms:.4f} ms, SDPA "
-          f"(is_causal=True) {library_ms:.4f} ms (max |SDPA - kernel| "
+          f"(is_causal=True, enable_gqa) {library_ms:.4f} ms (max |SDPA - kernel| "
           f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
           f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
           f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
           f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
-    return {"shape": f"q, k, v {list(q.shape)} causal ({HYBRID_ARCH})",
+    return {"shape": f"q {list(q.shape)}, k/v {list(k.shape)} causal "
+                     f"({arch})",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
             "library_ms": library_ms}
@@ -2134,9 +2204,10 @@ def phase_peer_path(card: str) -> dict:
     return launches
 
 
-def _init_lm(arch: str):
+def _init_lm(arch: str, n_layers: Optional[int] = None):
     """(cfg, model, params, generator, parameter count): ``arch`` at full
-    width, random f32 weights from the seed, on the card."""
+    width (its depth cut to ``n_layers`` if given), random f32 weights from
+    the seed, on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import tree_leaves
@@ -2144,6 +2215,8 @@ def _init_lm(arch: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2312,6 +2385,13 @@ def _f32_checks(cfg, params, batch, gen, ref_tol: float, expect: dict,
                                  "plain versions")
         del exact
     del got, want
+    _decode_consistency(cfg, model32, params, gen)
+
+
+def _decode_consistency(cfg, model32, params, gen) -> None:
+    """The f32 model's ``forward`` logits on DECODE_B x DECODE_S tokens
+    against its ``decode_step`` replay, within DECODE_TOL."""
+    import torch
     toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_S), device="cuda",
                          generator=gen)
     with torch.no_grad():
@@ -4354,12 +4434,13 @@ def phase_kernel_grads(card: str) -> None:
 
 
 def _grad_check(label: str, cfg, params, tokens, expect: dict,
-                card: str) -> None:
+                card: str, check_tree=None) -> None:
     """One f32 loss and gradient through the kernels (``backend="auto"``)
     against ``backend="ref"`` on the same weights and tokens: every leaf a
     finite, non-zero gradient, the loss within GRAD_LOSS_REL, each leaf's
     largest gap within GRAD_LEAF_REL of its largest gradient, the kernels
-    launched as ``expect`` says."""
+    launched as ``expect`` says; ``check_tree`` (if given) is called on the
+    gradient tree through the kernels."""
     import torch
     from repro_torch.interop import tree_leaves
     from repro_torch.models import build_model
@@ -4372,6 +4453,8 @@ def _grad_check(label: str, cfg, params, tokens, expect: dict,
     if got != {k: v[2] for k, v in expect.items()}:
         raise AssertionError(f"{label}: launches {got}, expected "
                              f"{ {k: v[2] for k, v in expect.items()} }")
+    if check_tree is not None:
+        check_tree(ga)
     leaves_a = tree_leaves(ga)
     del ga
     gr, (lr, _) = torch.func.grad_and_value(
@@ -4664,6 +4747,390 @@ def phase_lm_population(card: str) -> dict:
     return {f"{cfg.name} population": got}, entry
 
 
+class _MoeRoutes:
+    """Records what every MoE layer call routes, through the module's own
+    functions (a test-side hook, not a model option): each call's top-k
+    experts and top-(k+1) probabilities (``moe._route``), its count of
+    dropped slots and each expert's kept slots (``moe._route_and_group``);
+    with ``keep_input``, the first call's token input and router."""
+
+    def __init__(self, keep_input: bool = False):
+        self.top_e, self.top_p, self.dropped, self.kept = [], [], [], []
+        self.keep_input, self.first = keep_input, None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as moe_lib
+        self._real = (moe_lib._route, moe_lib._route_and_group)
+        real_route, real_group = self._real
+
+        def route(xt, router, cfg):
+            probs, top_p, top_e, aux = real_route(xt, router, cfg)
+            self.top_e.append(torch.sort(top_e, dim=-1).values)
+            self.top_p.append(torch.topk(probs, cfg.top_k + 1,
+                                         dim=-1).values)
+            return probs, top_p, top_e, aux
+
+        def route_and_group(xt, router, cfg, capacity):
+            if self.keep_input and self.first is None:
+                self.first = (xt.clone(), router, capacity)
+            out = real_group(xt, router, cfg, capacity)
+            dest = out[1]
+            keep = dest < cfg.n_experts * capacity
+            self.dropped.append(int((~keep).sum()))
+            self.kept.append(torch.bincount(dest[keep] // capacity,
+                                            minlength=cfg.n_experts))
+            return out
+
+        moe_lib._route, moe_lib._route_and_group = route, route_and_group
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+        moe_lib._route, moe_lib._route_and_group = self._real
+        return False
+
+
+def _route_flips(auto: "_MoeRoutes", ref: "_MoeRoutes", b: int, s: int):
+    """The layers' routes of two runs of one [b, s] prefill compared: every
+    flip (layer, row, position, gap of the k-th over the (k+1)-th
+    probability relative to the k-th, in the ref run), whether it is a
+    first flip, and the mask [b, s] of the positions no flip can reach."""
+    import torch
+    reach = torch.full((b,), s, dtype=torch.long, device="cuda")
+    pos = torch.arange(s, device="cuda")
+    flips = []
+    for layer, (ea, er, pr) in enumerate(zip(auto.top_e, ref.top_e,
+                                             ref.top_p)):
+        differ = (ea != er).any(-1).reshape(b, s)
+        if not bool(differ.any()):
+            continue
+        first = differ & (pos[None] < reach[:, None])
+        k = pr.shape[-1] - 1
+        gap = ((pr[:, k - 1] - pr[:, k]) / pr[:, k - 1]).reshape(b, s)
+        at_rows, at_pos = differ.nonzero().unbind(1)
+        flips += [(layer, row, p, g, f) for row, p, g, f in zip(
+            at_rows.tolist(), at_pos.tolist(),
+            gap[at_rows, at_pos].tolist(), first[at_rows, at_pos].tolist())]
+        at = torch.where(differ, pos[None], s).amin(1)
+        reach = torch.minimum(reach, at)
+    return flips, pos[None] < reach[:, None]
+
+
+def _moe_split(rec: "_MoeRoutes", params, cfg, layers: int,
+               card: str) -> dict:
+    """One MoE layer of the bf16 prefill, piece by piece on the first
+    layer's own input (CUDA events, median): the router and top-k, the
+    dispatch (sort, search, scatter, gather), the expert GEMMs and the
+    un-group; each times ``layers`` is that piece's share of a prefill."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.attention import compute_dtype_of
+    xt, router, cap = rec.first
+    p = params["stages"][0]
+    dt = compute_dtype_of(cfg)
+    wg, wu, wo = (p["moe"][n][0].to(dt) for n in ("wi_gate", "wi_up", "wo"))
+    t, d = xt.shape
+    grouped, dest, st, sw, _ = moe_lib._route_and_group(xt, router, cfg, cap)
+    out_g = moe_lib._expert_ffn(grouped, wg, wu, wo, cfg.act)
+    # the un-group sums each token's slots in a fixed order (no atomics)
+    if not torch.equal(moe_lib._ungroup(out_g, dest, st, sw, t, d),
+                       moe_lib._ungroup(out_g, dest, st, sw, t, d)):
+        raise AssertionError("two replays of the un-group differ")
+    ms = {
+        "router and top-k": _median_ms(
+            lambda: moe_lib._route(xt, router, cfg), reps=10),
+        "route and dispatch": _median_ms(
+            lambda: moe_lib._route_and_group(xt, router, cfg, cap), reps=10),
+        "expert GEMMs": _median_ms(
+            lambda: moe_lib._expert_ffn(grouped, wg, wu, wo, cfg.act),
+            reps=10),
+        "un-group": _median_ms(
+            lambda: moe_lib._ungroup(out_g, dest, st, sw, t, d), reps=10),
+    }
+    ms["dispatch (sort, search, scatter, gather)"] = \
+        ms["route and dispatch"] - ms["router and top-k"]
+    e, f, k = cfg.n_experts, cfg.d_ff, cfg.top_k
+    flop = 2 * 3 * e * cap * d * f
+    print(f"moe layer split at the prefill's layer input (xt [{t}, {d}] "
+          f"{str(xt.dtype).split('.')[1]}, {e} experts x {cap} slots, "
+          f"top-{k}), ms a layer and x{layers} a prefill: "
+          + ", ".join(f"{name} {v:.4f} ({v * layers:.2f})"
+                      for name, v in ms.items() if name
+                      != "route and dispatch")
+          + f"; the expert GEMMs {flop / ms['expert GEMMs'] / 1e9:.1f} "
+          f"TFLOP/s on {flop} FLOP (slots padded to the capacity) [{card}]")
+    return ms
+
+
+def _moe_vs_ref(cfg32, params, batch, card: str) -> None:
+    """The drop-free f32 prefill of ``batch`` through the kernel against
+    backend="ref", route by route: every flip printed with its gap, a first
+    flip at MOE_FLIP_GAP_REL or more fails, the rows no flip can reach held
+    to REF_PREFILL_TOL."""
+    import torch
+    from repro_torch.models import build_model
+    b, s = batch["tokens"].shape
+    expect = _flash_counts(cfg32.n_layers, 0)
+    _zero_counts(expect)
+    with torch.no_grad():
+        with _MoeRoutes() as ra:
+            got, aux = build_model(cfg32).forward(params, batch)
+        launches = _counts(expect)
+        with _MoeRoutes() as rr:
+            want, aux_r = build_model(cfg32, backend="ref").forward(params,
+                                                                    batch)
+    if launches != {name: n for name, (_, _, n) in expect.items()}:
+        raise AssertionError(f"the f32 prefill launched {launches}")
+    if sum(ra.dropped) or sum(rr.dropped):
+        raise AssertionError("the drop-free prefill dropped slots")
+    flips, held = _route_flips(ra, rr, b, s)
+    diff = (got - want).abs().amax(-1)
+    err = diff[held].max().item()
+    rest = diff[~held].max().item() if bool((~held).any()) else 0.0
+    bad = [f for f in flips if f[4] and not f[3] < MOE_FLIP_GAP_REL]
+    for layer, row, p, gap, first in flips[:40]:
+        print(f"  route flip: layer {layer}, row {row}, position {p}, gap "
+              f"{gap:.3e} of the k-th probability "
+              f"({'first' if first else 'after an earlier flip'})")
+    print(f"moe {cfg32.name} f32 drop-free prefill {b} x {s} through the "
+          f"kernel ({launches}) vs backend='ref': {len(flips)} route flips "
+          f"({sum(f[4] for f in flips)} first), {int(held.sum())} of "
+          f"{held.numel()} rows no flip reaches, max diff there {err:.3e} "
+          f"(tol {REF_PREFILL_TOL}), on the other rows {rest:.3e}; logits up "
+          f"to {want.abs().max().item():.3f}; aux {aux.item():.6f} / "
+          f"{aux_r.item():.6f} [{card}]")
+    if bad:
+        raise AssertionError(f"route flips at gaps of {MOE_FLIP_GAP_REL} or "
+                             f"more: {bad}")
+    if not err <= REF_PREFILL_TOL:
+        raise AssertionError("the f32 prefill through the kernel and "
+                             "through the plain version disagree")
+
+
+def _wide_layers(arch: str, card: str) -> dict:
+    """``arch`` at full width with WIDE_LAYERS layers: the bf16 prefill on
+    PREFILL_B x PREFILL_S tokens (a MoE model at its capacity factor) with
+    every attention launch on the tensor cores, and a profile; the f32 copy
+    through the kernel against backend="ref" (a MoE model drop-free on
+    WIDE_MOE_S tokens a row, route by route) and decode against forward.
+    Returns the prefill's launches."""
+    import gc
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg, model, params, gen, _ = _init_lm(arch, WIDE_LAYERS)
+    layers = cfg.n_layers
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device="cuda", generator=gen)}
+    with _MoeRoutes(keep_input=True) as rec:
+        prefill(params, batch)                       # warm-up
+    if len(rec.dropped) != (layers if cfg.n_experts else 0):
+        raise AssertionError(f"{arch}: {len(rec.dropped)} MoE layer calls "
+                             f"in a prefill")
+    if cfg.n_experts:
+        print(f"moe prefill {cfg.name}: capacity {rec.first[2]} slots an "
+              f"expert (factor {cfg.capacity_factor}) for "
+              f"{PREFILL_B * PREFILL_S} tokens x top-{cfg.top_k}; dropped "
+              f"slots per layer {rec.dropped} (of "
+              f"{PREFILL_B * PREFILL_S * cfg.top_k}) [{card}]")
+    launches = _counted_prefill(prefill, params, batch, cfg,
+                                _flash_counts(layers, layers), card)
+    _profile_steps(lambda: prefill(params, batch), 1, f"{cfg.name} prefill",
+                   FLASH_PROFILE)
+    if cfg.n_experts:
+        _moe_split(rec, params, cfg, layers, card)
+        del rec
+        cfg32 = dataclasses.replace(
+            cfg, dtype="float32",
+            capacity_factor=float(cfg.n_experts) / cfg.top_k)
+        _moe_vs_ref(cfg32, params,
+                    {"tokens": batch["tokens"][:, :WIDE_MOE_S]}, card)
+        _decode_consistency(cfg32, build_model(cfg32), params, gen)
+    else:
+        del rec
+        _f32_checks(cfg, params, batch, gen, REF_PREFILL_TOL,
+                    _flash_counts(layers, 0))
+    del params, model, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{cfg.name} at full width, {layers} layers: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_moe(card: str) -> dict:
+    """Phase 20: granite-moe-1b-a400m at full width through the serving
+    and training entry points; qwen3-moe-235b-a22b, granite-34b and
+    qwen2.5-32b at full width and WIDE_LAYERS layers. Returns {path:
+    {kernel: launches}}."""
+    import dataclasses as dc
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.api import _layers
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    cfg, model, params, gen, n_params = _init_lm(MOE_ARCH)
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"{MOE_ARCH}: {n_params} parameters, expected "
+                             f"{MOE_PARAMS}")
+    layers = cfg.n_layers
+
+    # (a) the bf16 prefill at the config's capacity factor
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device="cuda", generator=gen)}
+    with _MoeRoutes(keep_input=True) as rec:
+        prefill(params, batch)                       # warm-up
+    if len(rec.dropped) != layers:
+        raise AssertionError(f"{MOE_ARCH}: {len(rec.dropped)} MoE layer "
+                             f"calls in a prefill, expected {layers}")
+    cap = rec.first[2]
+    print(f"moe prefill {MOE_ARCH}: capacity {cap} slots an expert "
+          f"(factor {cfg.capacity_factor}) for {PREFILL_B * PREFILL_S} "
+          f"tokens x top-{cfg.top_k}; dropped slots per layer "
+          f"{rec.dropped} (of {PREFILL_B * PREFILL_S * cfg.top_k}) [{card}]")
+    launches = _counted_prefill(prefill, params, batch, cfg,
+                                _flash_counts(layers, layers), card)
+    paths[f"{MOE_ARCH} prefill"] = launches
+    with torch.no_grad():
+        if not torch.equal(prefill(params, batch), prefill(params, batch)):
+            raise AssertionError(f"{MOE_ARCH}: two replays of the prefill "
+                                 f"differ")
+    print(f"moe prefill {MOE_ARCH}: two replays bitwise equal (the "
+          f"un-group sums each token's slots in a fixed order) [{card}]")
+    _profile_steps(lambda: prefill(params, batch), 1, f"{MOE_ARCH} prefill",
+                   FLASH_PROFILE)
+    _moe_split(rec, params, cfg, layers, card)
+    del rec
+
+    # (b) decode through the serving loop at its defaults
+    _serve_generate(model, params, cfg, gen, card)
+
+    # (c) the f32 drop-free copy: the prefill through the kernel against
+    # backend="ref", route by route; then decode against forward
+    cfg32 = dc.replace(cfg, dtype="float32",
+                       capacity_factor=float(cfg.n_experts) / cfg.top_k)
+    model32 = build_model(cfg32)
+    _moe_vs_ref(cfg32, params, batch, card)
+    _decode_consistency(cfg32, model32, params, gen)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) training: the f32 gradient through the kernels against
+    # backend="ref", then Adam steps in bf16 through launch/train.py
+    rng = np.random.default_rng(SEED)
+    gen.manual_seed(SEED)
+    cfg32 = dc.replace(cfg, dtype="float32")
+    params = build_model(cfg32).init(gen)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (GRAD_BATCH,
+                                                       TRAIN_SEQ)),
+                           device="cuda")
+
+    # the routes of this batch (the same forward as the gradient's): an
+    # expert that no token reaches has no gradient, in the reference too
+    with torch.no_grad(), _MoeRoutes() as routes:
+        build_model(cfg32).forward(params, {"tokens": toks})
+    reached = [c > 0 for c in routes.kept]
+
+    def every_expert(grads):
+        for li, lp in enumerate(_layers(model.program[0],
+                                        grads["stages"][0])):
+            for name, g in lp["moe"].items():
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{MOE_ARCH} layer {li} {name}: "
+                                         f"a gradient is not finite")
+                # the router's column of every expert (through the softmax
+                # and the aux loss), each reached expert's weights
+                nonzero = g.abs().amax(0) > 0 if name == "router" else \
+                    g.flatten(1).abs().amax(1) > 0
+                want = torch.ones_like(nonzero) if name == "router" else \
+                    reached[li]
+                if not torch.equal(nonzero, want):
+                    raise AssertionError(
+                        f"{MOE_ARCH} layer {li} {name}: experts with a "
+                        f"non-zero gradient {nonzero.int().tolist()}, "
+                        f"reached by a token {want.int().tolist()}")
+        print(f"training {MOE_ARCH}: every layer's router has a finite, "
+              f"non-zero gradient for all {cfg.n_experts} experts, and "
+              f"each expert has one exactly where a token reaches it; "
+              f"experts no token reaches, by layer: "
+              f"{[int((~r).sum()) for r in reached]}; dropped slots "
+              f"{routes.dropped} of {GRAD_BATCH * TRAIN_SEQ * cfg.top_k}")
+
+    _grad_check(f"training {MOE_ARCH} ({layers} layers, {n_params} "
+                f"parameters) gradient", cfg32, params, toks,
+                _flash_counts(layers, 0), card, check_tree=every_expert)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = _flash_counts(TRAIN_STEPS * layers, TRAIN_STEPS * layers)
+    with tempfile.TemporaryDirectory() as ck:
+        ttrain.train(cfg, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     device="cuda", log=lambda *_: None)          # warm-up
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(expect)
+        out = ttrain.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                           seq=TRAIN_SEQ, ckpt_dir=ck,
+                           ckpt_every=TRAIN_STEPS, device="cuda",
+                           log=lambda m: print(f"  {m}"))
+        torch.cuda.synchronize()
+        got = _counts(expect)
+        peak = torch.cuda.max_memory_allocated()
+        losses, auxes, times = out["losses"], out["aux"], out["step_s"]
+        if got != {k: v[2] for k, v in expect.items()}:
+            raise AssertionError(f"training {MOE_ARCH}: launches {got}, "
+                                 f"expected {layers} a step, all on the "
+                                 f"tensor cores")
+        if not (all(math.isfinite(x) for x in losses + auxes)
+                and losses[-1] < losses[0] and min(auxes) > 0):
+            raise AssertionError(f"training {MOE_ARCH}: losses {losses}, "
+                                 f"aux {auxes}")
+        back, meta = restore_checkpoint(latest_checkpoint(ck),
+                                        out["params"])
+        if meta.get("step") != TRAIN_STEPS or not all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(back), tree_leaves(out["params"]))):
+            raise AssertionError(f"training {MOE_ARCH}: the checkpoint did "
+                                 f"not restore bitwise")
+        del back, out
+    rate = TRAIN_STEPS / sum(times)
+    print(f"training {MOE_ARCH}: {TRAIN_STEPS} Adam steps (bf16 compute, "
+          f"f32 weights, batch {TRAIN_BATCH} x {TRAIN_SEQ}): {rate:.3f} "
+          f"steps/s, {rate * TRAIN_BATCH * TRAIN_SEQ:.1f} tokens/s (step "
+          f"walls {[round(x, 4) for x in times]} s), losses "
+          f"{[round(x, 4) for x in losses]}, aux (the load-balance term, "
+          f"x0.01 in the loss) {[round(x, 4) for x in auxes]}, peak memory "
+          f"{peak} B; flash_attention {got['flash_attention'] // TRAIN_STEPS}"
+          f" a step ({got['flash_attention tc'] // TRAIN_STEPS} tensor-core);"
+          f" the checkpoint restored bitwise [{card}]")
+    paths[f"{MOE_ARCH} training"] = got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the models whose whole depth does not fit one card, at full
+    # width and WIDE_LAYERS layers
+    for arch in WIDE_ARCHS:
+        paths[f"{arch} prefill ({WIDE_LAYERS} layers)"] = _wide_layers(arch,
+                                                                       card)
+    print(f"moe: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -4733,13 +5200,19 @@ def main() -> int:
         return 1
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    phase = "card"
     t_start = time.perf_counter()
+    marks = []          # (phase, the time it began)
+
+    def enter(name: str) -> str:
+        marks.append((name, time.perf_counter()))
+        return name
+
+    phase = enter("card")
     try:
         card = phase_card()
-        phase = "build"
+        phase = enter("build")
         phase_build()
-        phase = "kernels"
+        phase = enter("kernels")
         rows = [phase_mule_agg(card), phase_encounter_mix(),
                 phase_encounter_hop(card), phase_flash_attention(card),
                 phase_ssd_scan(card), phase_slstm_scan(card)]
@@ -4749,41 +5222,43 @@ def main() -> int:
         phase_kernel_grads(card)
         # each path: {kernel: launches in its counted run}
         paths = {}
-        phase = "main path"
+        phase = enter("main path")
         paths["mlmule on commuter"] = phase_main_path(card)
-        phase = "peer path"
+        phase = enter("peer path")
         paths["gossip on random_walk"] = phase_peer_path(card)
-        phase = "lm serve"
+        phase = enter("lm serve")
         paths[f"{LM_ARCH} prefill"] = phase_lm_serve(card)
-        phase = "hybrid serve"
+        phase = enter("hybrid serve")
         paths[f"{HYBRID_ARCH} prefill"] = phase_hybrid_serve(card)
-        phase = "xlstm serve"
+        phase = enter("xlstm serve")
         paths[f"{XLSTM_ARCH} prefill"] = phase_xlstm_serve(card)
-        phase = "ring path"
+        phase = enter("ring path")
         paths[f"gossip on the {RING_RANKS}-rank ring"] = \
             phase_ring_path(card)
-        phase = "Table 1 fixed path"
+        phase = enter("Table 1 fixed path")
         paths["Table 1 fixed path"] = phase_fixed_path(card)
-        phase = "HAR path"
+        phase = enter("HAR path")
         paths["HAR on har_commuter"] = phase_har_path(card)
-        phase = "multi-area path"
+        phase = enter("multi-area path")
         paths.update(phase_multi_area(card))
-        phase = "sweep"
+        phase = enter("sweep")
         paths.update(phase_sweep(card))
-        phase = "streamed path"
+        phase = enter("streamed path")
         paths.update(phase_streamed_path(card))
-        phase = "population scale"
+        phase = enter("population scale")
         scale_paths, scale_entry = phase_scale(card)
         paths.update(scale_paths)
         rows[0]["cases"].append(scale_entry)
-        phase = "distributed path and sweep"
+        phase = enter("distributed path and sweep")
         paths.update(phase_distributed(card))
-        phase = "training"
+        phase = enter("training")
         paths.update(phase_training(card))
-        phase = "LM population"
+        phase = enter("LM population")
         pop_paths, pop_entry = phase_lm_population(card)
         paths.update(pop_paths)
         rows[0]["cases"].append(pop_entry)
+        phase = enter("mixture-of-experts")
+        paths.update(phase_moe(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)
@@ -4808,6 +5283,9 @@ def main() -> int:
                    for k in needed):
             print(f"incomplete kernel row {row}", file=sys.stderr)
             return 1
+    ends = [t for _, t in marks[1:]] + [time.perf_counter()]
+    print("chip_smoke.py: seconds by phase " + json.dumps(
+        {name: round(end - t, 1) for (name, t), end in zip(marks, ends)}))
     print(f"chip_smoke.py: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

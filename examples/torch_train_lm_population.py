@@ -15,7 +15,12 @@ kernel of the model launched once for all of them.
 
 As in the reference, the config is the arch's reduced smoke config unless
 ``--full`` asks for the published one. ``lm_population`` is the body, which
-``chip_smoke.py`` calls with a full config.
+``chip_smoke.py`` calls with a full config. A MoE arch
+(``--arch granite-moe-1b-a400m``) trains its smoke config: the routing and
+sort-based dispatch run under ``torch.func.vmap`` like the rest of the
+model. At full width it does not fit one 80 GB card: ten models of 5.3 GB
+(1,334,578,176 f32 weights each), the fixed devices' vmapped gradients
+and ``masked_group_mean``'s ``[M, D]`` copy of the mules' weights.
 
 The population engine keeps each model as a flat dict of leaves (the CNN's
 layout); an LM's nested tree rides in it as ``{"00000": leaf, ...}``, the

@@ -5,10 +5,11 @@ config moves between the two packages as ``dataclasses.asdict``. Each
 architecture the port runs has a module here defining ``CONFIG`` (the
 full-scale config) and ``smoke_config()`` (a reduced variant of the same
 family for CPU tests). ``get_config`` and ``get_smoke_config`` return them
-for ``gemma3-4b``, ``stablelm-1.6b``, ``zamba2-2.7b``, ``xlstm-350m`` and
-the paper's ``mule-cnn`` and ``mule-lstm-cnn``; for the reference's other
-ids they raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+for ``gemma3-4b``, ``stablelm-1.6b``, ``granite-34b``, ``qwen2.5-32b``,
+``granite-moe-1b-a400m``, ``qwen3-moe-235b-a22b``, ``zamba2-2.7b``,
+``xlstm-350m`` and the paper's ``mule-cnn`` and ``mule-lstm-cnn``; for the
+reference's other two ids (``whisper-base``, ``qwen2-vl-72b``) they raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -165,6 +166,10 @@ ARCH_IDS = (
 _MODULE_FOR: dict[str, str] = {
     "stablelm-1.6b": "stablelm_1p6b",
     "gemma3-4b": "gemma3_4b",
+    "granite-34b": "granite_34b",
+    "qwen2.5-32b": "qwen2p5_32b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "zamba2-2.7b": "zamba2_2p7b",
     "xlstm-350m": "xlstm_350m",
     # the paper's own models
@@ -174,12 +179,8 @@ _MODULE_FOR: dict[str, str] = {
 
 # architectures of the reference that the port does not run yet
 _DEFERRED = {
-    "qwen3-moe-235b-a22b": "ROADMAP §1 item 14.3 (moe.py)",
-    "granite-moe-1b-a400m": "ROADMAP §1 item 14.3 (moe.py)",
     "whisper-base": "ROADMAP §1 item 14.4 (whisper.py and cross-attention)",
     "qwen2-vl-72b": "ROADMAP §1 item 14.5 (M-RoPE and the vision prefix)",
-    "granite-34b": "ROADMAP §1 item 14.7 (the other dense configs)",
-    "qwen2.5-32b": "ROADMAP §1 item 14.7 (the other dense configs)",
 }
 
 

@@ -15,8 +15,9 @@ reduced same-family config. Runs on the card unless ``--device cpu`` is
 given; there the forward of every attention, SSD and sLSTM layer is a
 hand-written kernel and the gradient the plain version's.
 
-The batch is assembled for the ``dense``, ``hybrid`` and ``xlstm``
-families; ``vlm`` and ``audio`` raise, naming the ROADMAP items that bring
+The batch is assembled for the ``dense``, ``moe``, ``hybrid`` and
+``xlstm`` families (a MoE model's loss carries its load-balance term at
+0.01, as the reference's); ``vlm`` and ``audio`` raise, naming the ROADMAP items that bring
 their models.
 """
 from __future__ import annotations
@@ -70,9 +71,10 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 4,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
           device="cuda", log=print
           ) -> Dict[str, Any]:
-    """The launcher's loop. Returns ``losses`` (one a step run), the final
-    ``params``, ``start`` (the restored step) and ``step_s`` (wall seconds
-    of each step, the device synchronised)."""
+    """The launcher's loop. Returns ``losses`` (one a step run), ``aux``
+    (each step's MoE load-balance term, 0 for a model without experts), the
+    final ``params``, ``start`` (the restored step) and ``step_s`` (wall
+    seconds of each step, the device synchronised)."""
     dev = resolve_device(device)
     model, params, opt, opt_state, step_fn = setup(
         cfg, seed=seed, lr=lr, steps=steps, device=dev)
@@ -87,7 +89,7 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 4,
     seqs, _ = make_lm_dataset(seed, n_seqs=max(batch * 8, 64), seq_len=seq,
                               vocab=cfg.vocab)
     rng = np.random.default_rng(seed)
-    losses, times = [], []
+    losses, auxes, times = [], [], []
     for step in range(start, steps):
         idx = rng.integers(0, len(seqs), size=batch)
         t0 = time.perf_counter()
@@ -96,13 +98,15 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 4,
         loss = float(metrics["loss"])           # synchronises the device
         times.append(time.perf_counter() - t0)
         losses.append(loss)
+        auxes.append(float(metrics["aux"]))
         if step % 5 == 0 or step == steps - 1:
-            log(f"step {step:5d} loss {loss:.4f} ({times[-1]:.2f}s/step)")
+            log(f"step {step:5d} loss {loss:.4f} aux {auxes[-1]:.4f} "
+                f"({times[-1]:.2f}s/step)")
         if ckpt_dir and (step + 1) % ckpt_every == 0:
             save_checkpoint(ckpt_dir, step + 1, params,
                             metadata={"arch": cfg.name, "loss": loss,
                                       "updated_at": step + 1})
-    return {"losses": losses, "params": params, "start": start,
+    return {"losses": losses, "aux": auxes, "params": params, "start": start,
             "step_s": times, "model": model}
 
 

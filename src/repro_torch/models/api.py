@@ -2,7 +2,9 @@
 init_cache / decode_step``.
 
 Port of ``repro.models.api`` for the stage kinds ``attn`` (GQA attention +
-gated MLP), ``mamba`` (the Mamba2/SSD mixer), ``shared_attn`` (zamba2's
+gated MLP), ``moe`` (GQA attention + the mixture-of-experts FFN of
+``models/moe.py``, whose load-balance aux loss ``forward`` sums over the
+layers), ``mamba`` (the Mamba2/SSD mixer), ``shared_attn`` (zamba2's
 attention block, one set of weights stored once as
 ``params["shared_attn"]`` and applied at every such stage, whose slot in
 ``params["stages"]`` is ``{}``) and ``xlstm_pair`` (an mLSTM block, then an
@@ -13,9 +15,8 @@ attention window form one stage whose parameters are stacked
 leaf. The reference scans a stage with ``lax.scan``; the port walks it
 with a Python loop (PyTorch runs eagerly).
 
-The ``moe`` stage kind and the ``audio`` and ``vlm`` families wait for
-their ROADMAP items: ``build_program`` gives their stage lists,
-``build_model`` raises for them.
+The ``audio`` and ``vlm`` families wait for their ROADMAP items:
+``build_program`` gives their stage lists, ``build_model`` raises for them.
 The reference's sharding options (``mesh``, ``dp_axes``, ``head_axis``,
 ``seq_axis``, ``moe_ep_axis``) and its dry-run helpers (``remat``,
 ``unroll``, ``input_specs``) have no meaning on one card and are not ported.
@@ -32,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.interop import tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
@@ -45,10 +47,7 @@ class Stage:
     window: Optional[int] = None
 
 
-# stage kinds and families of the reference that the port does not run yet
-_DEFERRED_KINDS = {
-    "moe": "ROADMAP §1 item 14.3 (moe.py)",
-}
+# families of the reference that the port does not run yet
 _DEFERRED_FAMILIES = {
     "audio": "ROADMAP §1 item 14.4 (whisper.py and cross-attention)",
     "vlm": "ROADMAP §1 item 14.5 (M-RoPE and the vision prefix)",
@@ -103,29 +102,37 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
     if kind == "xlstm_pair":
         return {"mlstm": xlstm_lib.init_mlstm(gen, cfg),
                 "slstm": xlstm_lib.init_slstm(gen, cfg)}
-    return {"norm1": init_norm(cfg.norm, cfg.d_model, device=dev),
-            "attn": attn_lib.init_attention(gen, cfg),
-            "norm2": init_norm(cfg.norm, cfg.d_model, device=dev),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff)}
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, device=dev),
+         "attn": attn_lib.init_attention(gen, cfg),
+         "norm2": init_norm(cfg.norm, cfg.d_model, device=dev)}
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                  window: Optional[int], backend: str, shared=None):
-    """Full-sequence forward for one layer."""
+    """Full-sequence forward for one layer. Returns (x, aux_loss or None:
+    only ``moe`` layers have one)."""
     if kind == "mamba":
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
         return x + mamba_lib.mamba2_forward(params["mixer"], h, cfg,
-                                            backend=backend)
+                                            backend=backend), None
     if kind == "xlstm_pair":
         x = xlstm_lib.mlstm_forward(params["mlstm"], x, cfg)
         return xlstm_lib.slstm_forward(params["slstm"], x, cfg,
-                                       backend=backend)
+                                       backend=backend), None
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
                                   window=window, backend=backend)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg))
+    if kind == "moe":
+        out, aux = moe_lib.apply_moe(p["moe"], h, cfg)
+        return x + out, aux
+    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg)), None
 
 
 def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
@@ -145,6 +152,8 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
                                   window=window)
     x = x + out
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+    if kind == "moe":       # the aux loss is dropped, as in the reference
+        return x + moe_lib.apply_moe(p["moe"], h, cfg)[0]
     return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg))
 
 
@@ -191,11 +200,6 @@ class Model:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} ({self.cfg.name}) arrives with "
                 f"{_DEFERRED_FAMILIES[self.cfg.family]}")
-        for stage in self.program:
-            if stage.kind in _DEFERRED_KINDS:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: stage kind {stage.kind!r} arrives "
-                    f"with {_DEFERRED_KINDS[stage.kind]}")
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -241,19 +245,22 @@ class Model:
     def forward(self, params, batch: Dict[str, Any]):
         """Returns (logits [B,S,V] f32, aux_loss). batch: {"tokens": [B,S]}.
 
-        The aux loss is the reference's MoE balance term, 0 for the kinds
-        ported."""
+        The aux loss is the sum of the ``moe`` layers' load-balance terms
+        (f32; 0 for a model without them)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         b, s, _ = x.shape
         positions = self._positions(b, s, x.device)
         shared = params.get("shared_attn")
+        aux_total = torch.zeros((), device=x.device)
         for stage, sp in zip(self.program, params["stages"]):
             for lp in _layers(stage, sp):
-                x = _apply_layer(lp, x, positions, cfg, stage.kind,
-                                 stage.window, self.backend, shared)
+                x, aux = _apply_layer(lp, x, positions, cfg, stage.kind,
+                                      stage.window, self.backend, shared)
+                if aux is not None:
+                    aux_total = aux_total + aux
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-        return self._unembed(params, x), torch.zeros((), device=x.device)
+        return self._unembed(params, x), aux_total
 
     # -- loss -----------------------------------------------------------------
     def loss(self, params, batch: Dict[str, Any]):

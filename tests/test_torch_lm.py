@@ -1,5 +1,7 @@
-"""Port's dense-attention LM stack (configs, layers, model, serving) against
-the JAX package.
+"""Port's LM stack (configs, layers, model, serving) against the JAX
+package: the dense models (gemma3-4b, stablelm-1.6b, granite-34b,
+qwen2.5-32b), the MoE models (granite-moe-1b-a400m, qwen3-moe-235b-a22b),
+the hybrid zamba2-2.7b and xlstm-350m.
 
 The reference's ``Model.init`` weights are carried across with
 ``tree_from_numpy``; tokens and layer inputs come from a numpy seed. The
@@ -9,7 +11,10 @@ models run at smoke size (2 layers, d_model 128). Tolerances:
   RoPE 1e-5 (angles up to 88 rad: an ulp of the angle is ~8e-6);
 - f32 forward and decode logits and caches against JAX 1e-4, and the
   port's own decode against its forward 2e-4 (the reference's own bound,
-  tests/test_decode_consistency.py);
+  tests/test_decode_consistency.py); a MoE model's decode checks run
+  drop-free (``capacity_factor = E / top_k``), as the reference's do,
+  since at decode the capacity is counted over the batch's one token a
+  row, not over the sequence; the MoE aux loss 1e-6;
 - a bf16 forward 3e-2 against JAX's bf16 forward: each layer's output and
   the final norm round to bf16, and the two frameworks accumulate bf16
   products in another order, so one bf16 ulp of the residual stream
@@ -41,7 +46,9 @@ from repro_torch.models.api import Stage, build_program  # noqa: E402
 
 torch.set_num_threads(1)
 
-ARCHS = ["gemma3-4b", "stablelm-1.6b", "zamba2-2.7b", "xlstm-350m"]
+ARCHS = ["gemma3-4b", "stablelm-1.6b", "zamba2-2.7b", "xlstm-350m",
+         "granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "granite-34b",
+         "qwen2.5-32b"]
 
 
 def _port_cfg(jcfg):
@@ -51,12 +58,16 @@ def _port_cfg(jcfg):
 _MODELS = {}
 
 
-def _models(arch, dtype="float32"):
-    """(JAX model, JAX params, port model, port params) at smoke size."""
-    key = (arch, dtype)
+def _models(arch, dtype="float32", drop_free=False):
+    """(JAX model, JAX params, port model, port params) at smoke size; with
+    ``drop_free`` a MoE model's experts take every token."""
+    key = (arch, dtype, drop_free)
     if key not in _MODELS:
         jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
                                    dtype=dtype)
+        if drop_free and jcfg.n_experts:
+            jcfg = dataclasses.replace(
+                jcfg, capacity_factor=float(jcfg.n_experts) / jcfg.top_k)
         jm = j_build_model(jcfg)
         jp = jm.init(jax.random.PRNGKey(0))
         tm = build_model(_port_cfg(jcfg))
@@ -100,9 +111,11 @@ def test_registry_ports_three_ids_and_names_the_rest():
         for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.get_config("mule-cnn").name == "mule-cnn"
     assert tconfigs.get_config("mule-lstm-cnn").name == "mule-lstm-cnn"
-    for arch in set(jconfigs.ARCH_IDS) - set(ARCHS):
+    left = {"whisper-base": "14.4", "qwen2-vl-72b": "14.5"}
+    assert set(jconfigs.ARCH_IDS) - set(ARCHS) == set(left)
+    for arch, item in left.items():
         for get in (tconfigs.get_config, tconfigs.get_smoke_config):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match=item):
                 get(arch)
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
@@ -125,8 +138,7 @@ def test_gemma3_program_is_five_local_one_global():
     assert sum(s.count for s in prog) == 34
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(ARCHS)
-                                        - {"granite-34b", "qwen2.5-32b"}))
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(ARCHS)))
 def test_build_model_raises_for_unported_kinds(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(_port_cfg(jconfigs.get_smoke_config(arch)))
@@ -223,23 +235,25 @@ def test_mlp_matches(act):
 def test_forward_matches_jax(arch):
     jm, jp, tm, tp = _models(arch)
     toks = _tokens(jm.cfg, 2, 12)
-    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    want, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks)})
     before = flash_attention.launches
     got, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
     assert flash_attention.launches == before     # CPU: the plain version
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
     _close(got, want, 1e-4)
+    _close(aux, jaux, 1e-6)
+    assert (float(aux) > 0) == bool(jm.cfg.n_experts)
     logits = make_prefill_step(tm)(tp, {"tokens": torch.from_numpy(toks)})
     torch.testing.assert_close(logits, got, atol=0, rtol=0)
     jloss, _ = jm.loss(jp, {"tokens": jnp.asarray(toks)})
     tloss, metrics = tm.loss(tp, {"tokens": torch.from_numpy(toks)})
     _close(tloss, jloss, 1e-5)
-    _close(metrics["nll"], jloss, 1e-5)
+    _close(metrics["nll"], jloss - 0.01 * jaux, 1e-5)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_jax_and_own_forward(arch):
-    jm, jp, tm, tp = _models(arch)
+    jm, jp, tm, tp = _models(arch, drop_free=True)
     b, s = 2, 12
     toks = _tokens(jm.cfg, b, s)
     jdecode = jax.jit(jm.decode_step)

@@ -64,7 +64,8 @@ from repro_torch.models import build_model  # noqa: E402
 torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-ARCHS = ["stablelm-1.6b", "gemma3-4b", "zamba2-2.7b", "xlstm-350m"]
+ARCHS = ["stablelm-1.6b", "gemma3-4b", "zamba2-2.7b", "xlstm-350m",
+         "granite-moe-1b-a400m"]
 OPT_TOL = 1e-6
 LOSS_REL = 1e-5
 GRAD_REL = 1e-4
@@ -191,6 +192,13 @@ def test_train_step_matches_the_reference(arch):
     assert abs(float(tl) - float(jl)) <= LOSS_REL * abs(float(jl))
     assert len(tree_leaves(tg)) == len(jax.tree.leaves(jg))
     _assert_grads_close(tg, jg)
+    if jm.cfg.n_experts:
+        # the router's gradient flows through the gates and the aux loss,
+        # every expert's through the dispatch's gathers
+        for name, g in tg["stages"][0]["moe"].items():
+            per = g.reshape(g.shape[0], -1).abs().amax(1) if name == \
+                "router" else g.flatten(2).abs().amax(2)
+            assert bool((per > 0).all()), name
 
     lr, n_steps = 1e-3, 3
     jo = joptim.adam(joptim.cosine_schedule(lr, n_steps, warmup=1))
@@ -419,6 +427,27 @@ def test_train_batch_names_the_deferred_families(arch, item):
         jconfigs.get_smoke_config(arch)))
     with pytest.raises(NotImplementedError, match=item):
         ttrain.lm_batch(cfg, np.zeros((1, 4), np.int32), "cpu")
+
+
+def test_train_launcher_reports_the_moe_aux_loss():
+    out = ttrain.main(["--arch", "granite-moe-1b-a400m", "--smoke",
+                       "--device", "cpu", "--steps", "2", "--batch", "2",
+                       "--seq", "16"])
+    assert len(out["losses"]) == len(out["aux"]) == 2
+    assert np.isfinite(out["losses"]).all()
+    assert all(a > 0 for a in out["aux"])
+
+
+def test_lm_population_example_trains_a_moe_model_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "torch_train_lm_population.py"),
+         "--device", "cpu", "--steps", "2", "--arch",
+         "granite-moe-1b-a400m"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "population of 4 fixed + 6 mule granite-moe-smoke" in out.stdout
 
 
 def test_lm_population_example_runs_on_the_cpu():
