@@ -221,7 +221,29 @@ Phases (any failure exits non-zero without the final result line):
    cores, a profile (and qwen3-moe's 128-expert layer timed piece by
    piece); the f32 copy through the kernel against ``backend="ref"``
    (qwen3-moe drop-free on 2 x 1024 tokens, route by route as in (c); the
-   dense two on 2 x 4096 within 2e-4); decode against forward (1e-3).
+   dense two on 2 x 4096 within 2e-4); decode against forward (1e-3);
+21. audio and vision: (a) whisper-base whole (6 encoder and 6 decoder
+   layers, d_model 512, 8 heads x 64, vocab 51865; 83,210,752 random f32
+   weights from a seed): ``make_prefill_step`` on 4 requests of 1500
+   frames (0.1 x normal, as serve.py draws them) and 448 decoder tokens
+   in bf16, which must launch ``flash_attention`` exactly 12 times (6
+   bidirectional encoder calls, 6 causal decoder calls), all on the
+   tensor cores, cross-attention none (it takes the plain version, as in
+   the reference); a profile; ``serve.generate`` at the launcher's
+   defaults with the frames encoded into the cache first; the f32 copy's
+   prefill through the kernel against ``backend="ref"`` (2e-4) and decode
+   against forward (1e-3); the f32 gradient at 2 x 128 through the kernels
+   against ``backend="ref"`` (every leaf non-zero, within 2e-4 of its
+   largest); 5 Adam steps through ``launch/train.py`` at 4 x 128 with its
+   zero frames, 12 tensor-core launches a step, a falling loss. (b)
+   qwen2-vl-72b at full width cut to 2 layers (64 heads on 8 KV heads x
+   128, QKV bias, M-RoPE sections (16, 24, 24); 4,246,794,240 f32
+   weights): M-RoPE with three equal position streams against plain RoPE
+   on the card, bitwise; a 2 x 4096 bf16 prefill of 256 vision rows (0.1 x
+   normal) and 3,840 tokens with both attention launches on the tensor
+   cores, a profile; the f32 copy against ``backend="ref"`` (2e-4); decode
+   of the text-only copy (no prefix, plain RoPE) against its forward
+   (1e-3), as the reference's test holds it.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -236,8 +258,11 @@ a fully masked first block at gemma3's GQA group) and at gemma3-4b's and
 zamba2-2.7b's per-layer prefill shapes (in f32, and in bf16 against the
 fp32 oracle on the same inputs), and at the layer shapes of
 granite-moe-1b-a400m (GQA group 2, head dim 64; also f32), qwen3-moe-235b-a22b
-(64 heads on 4 KV heads), granite-34b (48 heads on one KV head) and
-qwen2.5-32b (40 on 8), head dim 128, in bf16, checks every call's route (bf16 at head
+(64 heads on 4 KV heads), granite-34b (48 heads on one KV head),
+qwen2.5-32b (40 on 8) and qwen2-vl-72b (64 on 8), head dim 128, in bf16, and
+Whisper's encoder layer (bidirectional, 4 x 1500 frames, 8 heads x 64,
+group 1; also f32), and Whisper's encoder call (1 x 1500, bidirectional)
+among the tensor-core cases, checks every call's route (bf16 at head
 dims 64, 80, 128 and 256 on the tensor-core kernel, the rest on the SIMT
 one), counts the ``HGMMA`` instructions of the built tensor-core library
 (``cuobjdump -sass``; none fails), and times the tensor-core kernel beside
@@ -336,13 +361,19 @@ FLASH_CASES = [
     (1, 200, 4, 2, 128, None, True), (1, 300, 2, 1, 256, 100, True),
     (2, 130, 4, 4, 80, None, True), (1, 200, 2, 1, 80, 70, True)]
 # The tensor-core route (bf16, head dims 64, 80, 128, 256) also at the
-# right-aligned decode shape, a ragged Sk with S < Sk, a bidirectional call
-# and gemma3-4b's GQA group with a window whose first visited block is fully
-# masked for some rows: (b, s, sk, h, kv, d, window, causal)
+# right-aligned decode shape, a ragged Sk with S < Sk, a bidirectional call,
+# gemma3-4b's GQA group with a window whose first visited block is fully
+# masked for some rows, Whisper's encoder call (bidirectional, S = Sk =
+# 1500, not a multiple of the kernel's 64-row blocks, group 1) and its
+# decoder's self-attention calls (causal, group 1) in the prefill (4 x 448)
+# and in a training step (4 x 128):
+# (b, s, sk, h, kv, d, window, causal)
 FLASH_TC_CASES = [
     (2, 4, 64, 4, 2, 64, None, True), (1, 4, 300, 8, 4, 256, None, True),
     (1, 100, 300, 4, 4, 80, None, True), (1, 128, 128, 4, 2, 128, None, False),
-    (2, 200, 200, 8, 4, 256, 64, True)]
+    (2, 200, 200, 8, 4, 256, 64, True),
+    (1, 1500, 1500, 8, 8, 64, None, False),
+    (4, 448, 448, 8, 8, 64, None, True), (4, 128, 128, 8, 8, 64, None, True)]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # the prefill profiles' attention line: every flash_attention kernel
 FLASH_PROFILE = {"attention": "flash_attention"}
@@ -544,9 +575,10 @@ LM_POP_FIXED, LM_POP_MULES = 4, 6
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_PARAMS = 1_334_628_352
 # flash_attention at the layer shapes of the MoE and the other dense
-# models (phase 3): GQA groups 2 (head dim 64), 16, 48 and 5 (head dim 128)
+# models (phase 3): GQA groups 2 (head dim 64), 16, 48, 5 and qwen2-vl's 8
+# (head dim 128)
 FLASH_LAYER_ARCHS = (MOE_ARCH, "qwen3-moe-235b-a22b", "granite-34b",
-                     "qwen2.5-32b")
+                     "qwen2.5-32b", "qwen2-vl-72b")
 # the f32 drop-free prefill through the kernel vs backend="ref": the two
 # differ in the order of attention's sums, and a token whose k-th and
 # (k+1)-th router probabilities are that close may take another expert
@@ -567,6 +599,18 @@ WIDE_ARCHS = ("qwen3-moe-235b-a22b", "granite-34b", "qwen2.5-32b")
 WIDE_LAYERS = 2
 WIDE_MOE_S = 1024
 DIST_TIMEOUT = 900
+# audio and vision (phase 21): whisper-base whole (6 encoder and 6 decoder
+# layers, the embedding tied; its leaves as the reference's init counts
+# them), its prefill on AUDIO_B requests of encoder_seq = 1500 frames and
+# AUDIO_S = 448 decoder tokens (Whisper's decoder context,
+# arXiv:2212.04356); qwen2-vl-72b at full width with WIDE_LAYERS layers
+# (its leaves at that depth, the reference's init), whose 2 x 4096 prefill
+# is its 256 vision rows and 3,840 tokens
+AUDIO_ARCH = "whisper-base"
+AUDIO_PARAMS = 83_210_752
+AUDIO_B, AUDIO_S = 4, 448
+VISION_ARCH = "qwen2-vl-72b"
+VISION_PARAMS = 4_246_794_240
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -1682,60 +1726,70 @@ def phase_flash_attention(card: str) -> dict:
     row["layer_shapes"] = [
         _flash_layer_shape(card, inputs, check, arch, f32=arch == MOE_ARCH)
         for arch in FLASH_LAYER_ARCHS]
+    # Whisper's encoder layer (bidirectional, 4 x 1500 frames) and its
+    # decoder's self-attention in the prefill (causal, 4 x 448), group 1
+    row["layer_shapes"] += [
+        _flash_layer_shape(card, inputs, check, AUDIO_ARCH, b=AUDIO_B,
+                           s=get_config(AUDIO_ARCH).encoder_seq,
+                           causal=False),
+        _flash_layer_shape(card, inputs, check, AUDIO_ARCH, b=AUDIO_B,
+                           s=AUDIO_S)]
     return row
 
 
 def _flash_layer_shape(card: str, inputs, check, arch: str,
-                       f32: bool = True) -> dict:
-    """flash_attention at ``arch``'s per-layer prefill shape (q [2, 4096, H,
-    D], k/v [2, 4096, KV, D], causal, no window): bf16 on the tensor-core
-    route held to its oracles and timed beside SDPA and its bound; with
-    ``f32`` also the same (bf16-valued) inputs in f32 on the SIMT route.
-    Returns the shape's entry of row 4."""
+                       f32: bool = True, b: int = PREFILL_B,
+                       s: int = PREFILL_S, causal: bool = True) -> dict:
+    """flash_attention at ``arch``'s per-layer prefill shape (q [b, s, H,
+    D], k/v [b, s, KV, D], no window; causal or bidirectional): bf16 on the
+    tensor-core route held to its oracles and timed beside SDPA and its
+    bound; with ``f32`` also the same (bf16-valued) inputs in f32 on the
+    SIMT route. Returns the shape's entry of row 4."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      mha_reference)
     cfg = get_config(arch)
-    b, s, h, kv, d = (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.resolved_head_dim)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = inputs(b, s, s, h, kv, d, torch.bfloat16)
-    label = (f"{arch} layer q {list(q.shape)} k/v {list(k.shape)} (GQA "
-             f"group {h // kv})")
+    kind = "causal" if causal else "bidirectional"
+    label = (f"{arch} layer q {list(q.shape)} k/v {list(k.shape)} {kind} "
+             f"(GQA group {h // kv})")
     q32, k32, v32 = q.float(), k.float(), v.float()
-    oracle = mha_reference(q32, k32, v32, causal=True)
+    oracle = mha_reference(q32, k32, v32, causal=causal)
     if f32:
         check(label + " f32 vs mha_reference",
-              _flash_routed(q32, k32, v32, causal=True), oracle,
+              _flash_routed(q32, k32, v32, causal=causal), oracle,
               FLASH_MHA_TOL_F32)
         check(label + " f32 vs flash_reference",
-              _flash_routed(q32, k32, v32, causal=True),
-              flash_attention(q32, k32, v32, causal=True, backend="ref"),
+              _flash_routed(q32, k32, v32, causal=causal),
+              flash_attention(q32, k32, v32, causal=causal, backend="ref"),
               FLASH_TOL["float32"])
     del q32, k32, v32
-    out = _flash_routed(q, k, v, causal=True)
+    out = _flash_routed(q, k, v, causal=causal)
     torch.cuda.synchronize()
     _hold(f"flash_attention {label} bf16 vs fp32 mha_reference of the same "
           f"inputs", out, oracle, *FLASH_BF16_VS_F32)
     del oracle
     err = _hold(f"flash_attention {label} bf16 vs flash_reference", out,
-                flash_attention(q, k, v, causal=True, backend="ref"),
+                flash_attention(q, k, v, causal=causal, backend="ref"),
                 *FLASH_BF16_VS_BF16)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def lib():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
                                               enable_gqa=True)
 
     lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max()
     del out
-    ms = _median_ms(lambda: flash_attention(q, k, v, causal=True), reps=10)
-    plain_ms = _median_ms(lambda: flash_attention(q, k, v, causal=True,
+    ms = _median_ms(lambda: flash_attention(q, k, v, causal=causal),
+                    reps=10)
+    plain_ms = _median_ms(lambda: flash_attention(q, k, v, causal=causal,
                                                   backend="ref"),
                           reps=3, warm=1)
     library_ms = _median_ms(lib, reps=10)
-    pairs = _unmasked_pairs(s, s, None, True) * b * h
+    pairs = _unmasked_pairs(s, s, None, causal) * b * h
     n_flop = 4 * d * pairs
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
@@ -1744,13 +1798,13 @@ def _flash_layer_shape(card: str, inputs, check, arch: str,
     print(f"flash_attention timing {label} bf16: tensor-core kernel "
           f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
           f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p split), "
-          f"plain {plain_ms:.4f} ms, SDPA "
-          f"(is_causal=True, enable_gqa) {library_ms:.4f} ms (max |SDPA - kernel| "
+          f"plain {plain_ms:.4f} ms, SDPA (is_causal={causal}, enable_gqa) "
+          f"{library_ms:.4f} ms (max |SDPA - kernel| "
           f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
           f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
           f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
           f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
-    return {"shape": f"q {list(q.shape)}, k/v {list(k.shape)} causal "
+    return {"shape": f"q {list(q.shape)}, k/v {list(k.shape)} {kind} "
                      f"({arch})",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
@@ -2228,7 +2282,9 @@ def _init_lm(arch: str, n_layers: Optional[int] = None):
           f"{len(model.program)} stages, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}) x "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-          f"window {cfg.sliding_window}, ssm state {cfg.ssm_state}: "
+          f"window {cfg.sliding_window}, ssm state {cfg.ssm_state}, "
+          f"encoder {cfg.encoder_layers} layers x {cfg.encoder_seq} frames, "
+          f"vision prefix {cfg.vision_tokens}: "
           f"{n_params} f32 parameters initialised in "
           f"{time.perf_counter() - t0:.2f} s")
     return cfg, model, params, gen, n_params
@@ -2284,7 +2340,8 @@ def _counted_prefill(prefill, params, batch, cfg, expect: dict,
     """The prefill with every count in ``expect`` ({name: (wrapper,
     attribute, n)}) set to 0 just before and read just after; each must be
     n. Then the median wall of PREFILL_REPS prefills, tokens/s and peak
-    memory."""
+    memory. The logits cover the batch's tokens, and a vision prefix;
+    tokens/s counts the positions of those logits."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2299,7 +2356,9 @@ def _counted_prefill(prefill, params, batch, cfg, expect: dict,
     if launches != want:
         raise AssertionError(f"{cfg.name}: one prefill launched {launches}, "
                              f"expected {want}")
-    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) \
+    b, s = batch["tokens"].shape
+    s += cfg.vision_tokens
+    if tuple(logits.shape) != (b, s, cfg.vocab) \
             or logits.dtype != torch.float32:
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                              f"{logits.dtype}")
@@ -2313,8 +2372,10 @@ def _counted_prefill(prefill, params, batch, cfg, expect: dict,
         walls.append(time.perf_counter() - t0)
         del logits
     wall = statistics.median(walls)
-    n_tok = PREFILL_B * PREFILL_S
-    print(f"lm serve prefill {cfg.name}: {PREFILL_B} x {PREFILL_S} tokens, "
+    n_tok = b * s
+    extra = "".join(f", {k} {list(v.shape)}" for k, v in batch.items()
+                    if k != "tokens")
+    print(f"lm serve prefill {cfg.name}: {b} x {s} positions{extra}, "
           f"bf16: {n_tok / wall:.1f} tokens/s, {wall * 1e3:.3f} ms per "
           f"prefill (median of {['%.3f' % (w * 1e3) for w in walls]} ms), "
           f"peak memory {peak} B, launches per prefill {launches} (must be "
@@ -2322,26 +2383,42 @@ def _counted_prefill(prefill, params, batch, cfg, expect: dict,
     return launches
 
 
+def _frames(cfg, b: int, gen):
+    """Whisper's stand-in audio, as serve.py draws it: 0.1 x normal frames
+    [b, encoder_seq, d_model] (None for a model without an encoder)."""
+    import torch
+    if cfg.family != "audio":
+        return None
+    return 0.1 * torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                             device="cuda", generator=gen)
+
+
 def _serve_generate(model, params, cfg, gen, card: str) -> None:
-    """Decode through the serving loop at its defaults."""
+    """Decode through the serving loop at its defaults (Whisper's frames
+    encoded into the cache first)."""
     import torch
     from repro_torch.launch import serve
     prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                            device="cuda", generator=gen)
-    serve.generate(model, params, prompt[:, :2], 2)          # warm-up
-    out = serve.generate(model, params, prompt, SERVE_GEN)
+    audio = _frames(cfg, SERVE_BATCH, gen)
+    serve.generate(model, params, prompt[:, :2], 2,
+                   audio_embed=audio)                          # warm-up
+    out = serve.generate(model, params, prompt, SERVE_GEN, audio_embed=audio)
     toks = out["tokens"]
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN) or not out["finite"] \
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
         raise AssertionError(f"decode: tokens {tuple(toks.shape)}, every "
                              f"logit finite: {out['finite']}")
-    print(f"lm serve decode {cfg.name}: batch {SERVE_BATCH}, prompt "
+    enc = (f"{cfg.encoder_seq} frames encoded into the cross-attention "
+           f"cache in {out['encode_s']:.3f} s, " if audio is not None else "")
+    print(f"lm serve decode {cfg.name}: batch {SERVE_BATCH}, {enc}prompt "
           f"{SERVE_PROMPT} replayed in {out['prefill_s']:.3f} s, {SERVE_GEN} "
           f"tokens in {out['decode_s']:.3f} s: "
           f"{SERVE_BATCH * SERVE_GEN / out['decode_s']:.2f} tokens/s "
           f"({out['decode_s'] / SERVE_GEN * 1e3:.3f} ms per step), every "
           f"logit finite, tokens of row 0 {toks[0, :8].tolist()} [{card}]")
-    _profile_steps(lambda: serve.generate(model, params, prompt[:, :2], 2), 4,
+    _profile_steps(lambda: serve.generate(model, params, prompt[:, :2], 2,
+                                          audio_embed=audio), 4,
                    f"{cfg.name} decode")
 
 
@@ -2363,8 +2440,8 @@ def _f32_checks(cfg, params, batch, gen, ref_tol: float, expect: dict,
         launches = _counts(expect)
         want, _ = build_model(cfg32, backend="ref").forward(params, batch)
         err = (got - want).abs().max().item()
-    print(f"lm serve {cfg.name} f32 prefill {PREFILL_B} x {PREFILL_S}, "
-          f"through the kernels ({launches}) vs backend='ref' over every "
+    print(f"lm serve {cfg.name} f32 prefill "
+          f"{' x '.join(map(str, got.shape[:2]))}, through the kernels ({launches}) vs backend='ref' over every "
           f"logit: max diff {err:.3e} (tol {ref_tol}; logits up to "
           f"{want.abs().max().item():.3f})")
     if launches != {name: n for name, (_, _, n) in expect.items()}:
@@ -2390,14 +2467,27 @@ def _f32_checks(cfg, params, batch, gen, ref_tol: float, expect: dict,
 
 def _decode_consistency(cfg, model32, params, gen) -> None:
     """The f32 model's ``forward`` logits on DECODE_B x DECODE_S tokens
-    against its ``decode_step`` replay, within DECODE_TOL."""
+    against its ``decode_step`` replay, within DECODE_TOL. Whisper's cross
+    K/V come from frames through ``prefill_cross_kv``; a vision-language
+    model is held through its text-only copy (no prefix, plain RoPE), as
+    the reference's test holds it (tests/test_decode_consistency.py)."""
     import torch
+    from repro_torch.models import build_model
+    if cfg.family == "vlm":
+        model32 = build_model(dataclasses.replace(
+            model32.cfg, vision_tokens=0, family="dense",
+            mrope_sections=None))
     toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_S), device="cuda",
                          generator=gen)
+    audio = _frames(cfg, DECODE_B, gen)
+    batch = {"tokens": toks} if audio is None else {"tokens": toks,
+                                                    "audio_embed": audio}
     with torch.no_grad():
-        full, _ = model32.forward(params, {"tokens": toks})
+        full, _ = model32.forward(params, batch)
         cache = model32.init_cache(DECODE_B, DECODE_S, dtype=torch.float32,
                                    device="cuda")
+        if audio is not None:
+            cache = model32.prefill_cross_kv(params, audio, cache)
         errs = []
         for t in range(DECODE_S):
             lg, cache = model32.decode_step(params, cache, toks[:, t:t + 1], t)
@@ -4434,17 +4524,18 @@ def phase_kernel_grads(card: str) -> None:
 
 
 def _grad_check(label: str, cfg, params, tokens, expect: dict,
-                card: str, check_tree=None) -> None:
+                card: str, check_tree=None, extra=None) -> None:
     """One f32 loss and gradient through the kernels (``backend="auto"``)
     against ``backend="ref"`` on the same weights and tokens: every leaf a
     finite, non-zero gradient, the loss within GRAD_LOSS_REL, each leaf's
     largest gap within GRAD_LEAF_REL of its largest gradient, the kernels
     launched as ``expect`` says; ``check_tree`` (if given) is called on the
-    gradient tree through the kernels."""
+    gradient tree through the kernels; ``extra`` joins the batch (Whisper's
+    frames)."""
     import torch
     from repro_torch.interop import tree_leaves
     from repro_torch.models import build_model
-    batch = {"tokens": tokens}
+    batch = {"tokens": tokens, **(extra or {})}
     _zero_counts(expect)
     ga, (la, _) = torch.func.grad_and_value(
         build_model(cfg).loss, has_aux=True)(params, batch)
@@ -4908,23 +4999,36 @@ def _moe_vs_ref(cfg32, params, batch, card: str) -> None:
                              "through the plain version disagree")
 
 
-def _wide_layers(arch: str, card: str) -> dict:
+def _wide_layers(arch: str, card: str,
+                 expect_params: Optional[int] = None) -> dict:
     """``arch`` at full width with WIDE_LAYERS layers: the bf16 prefill on
     PREFILL_B x PREFILL_S tokens (a MoE model at its capacity factor) with
     every attention launch on the tensor cores, and a profile; the f32 copy
     through the kernel against backend="ref" (a MoE model drop-free on
     WIDE_MOE_S tokens a row, route by route) and decode against forward.
-    Returns the prefill's launches."""
+    A vision-language model's PREFILL_S positions are its vision prefix
+    (0.1 x normal rows) and PREFILL_S - vision_tokens tokens; its decode is
+    held to its text-only copy. With ``expect_params``, the parameter count
+    at WIDE_LAYERS layers must equal it. Returns the prefill's launches."""
     import gc
     import torch
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
     t0 = time.perf_counter()
-    cfg, model, params, gen, _ = _init_lm(arch, WIDE_LAYERS)
+    cfg, model, params, gen, n_params = _init_lm(arch, WIDE_LAYERS)
+    if expect_params is not None and n_params != expect_params:
+        raise AssertionError(f"{arch}: {n_params} parameters at "
+                             f"{WIDE_LAYERS} layers, expected "
+                             f"{expect_params}")
     layers = cfg.n_layers
     prefill = make_prefill_step(model)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                                     device="cuda", generator=gen)}
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S - cfg.vision_tokens),
+        device="cuda", generator=gen)}
+    if cfg.family == "vlm":
+        batch["vision_embed"] = 0.1 * torch.randn(
+            (PREFILL_B, cfg.vision_tokens, cfg.d_model), device="cuda",
+            generator=gen)
     with _MoeRoutes(keep_input=True) as rec:
         prefill(params, batch)                       # warm-up
     if len(rec.dropped) != (layers if cfg.n_experts else 0):
@@ -5131,16 +5235,153 @@ def phase_moe(card: str) -> dict:
     return paths
 
 
+def phase_audio_vision(card: str) -> dict:
+    """Phase 21: whisper-base whole through the serving and training entry
+    points (its encoder's bidirectional and its decoder's causal
+    self-attention on the tensor cores, cross-attention on the plain
+    version), then qwen2-vl-72b at full width and WIDE_LAYERS layers (the
+    vision prefix, M-RoPE). Returns {path: {kernel: launches}}."""
+    import dataclasses as dc
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import rope_angles
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    last = [t_phase]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"audio and vision: {what} {now - last[0]:.1f} s")
+        last[0] = now
+
+    # (a) whisper-base: the bf16 prefill, its 12 self-attention layers on
+    # the tensor cores (cross-attention launches nothing)
+    cfg, model, params, gen, n_params = _init_lm(AUDIO_ARCH)
+    if n_params != AUDIO_PARAMS:
+        raise AssertionError(f"{AUDIO_ARCH}: {n_params} parameters, "
+                             f"expected {AUDIO_PARAMS}")
+    layers = cfg.encoder_layers + cfg.n_layers
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (AUDIO_B, AUDIO_S),
+                                     device="cuda", generator=gen),
+             "audio_embed": _frames(cfg, AUDIO_B, gen)}
+    prefill(params, batch)                           # warm-up
+    paths[f"{AUDIO_ARCH} prefill"] = _counted_prefill(
+        prefill, params, batch, cfg, _flash_counts(layers, layers), card)
+    _profile_steps(lambda: prefill(params, batch), 1,
+                   f"{AUDIO_ARCH} prefill", FLASH_PROFILE)
+    lap(f"{AUDIO_ARCH} prefill and its profile")
+    # decode through the serving loop (the frames encoded into the cache
+    # first); the f32 copy through the kernel (SIMT) against
+    # backend="ref", then decode against forward
+    _serve_generate(model, params, cfg, gen, card)
+    lap(f"{AUDIO_ARCH} decode and its profile")
+    _f32_checks(cfg, params, batch, gen, REF_PREFILL_TOL,
+                _flash_counts(layers, 0))
+    lap(f"{AUDIO_ARCH} f32 checks")
+    del params, model, prefill, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: the f32 gradient through the kernels (the encoder's
+    # bidirectional calls among them) against backend="ref", then Adam
+    # steps in bf16 through launch/train.py with its zero frames
+    rng = np.random.default_rng(SEED)
+    gen.manual_seed(SEED)
+    cfg32 = dc.replace(cfg, dtype="float32")
+    params = build_model(cfg32).init(gen)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (GRAD_BATCH,
+                                                       TRAIN_SEQ)),
+                           device="cuda")
+    _grad_check(f"training {AUDIO_ARCH} ({cfg.encoder_layers} + "
+                f"{cfg.n_layers} layers, {n_params} parameters) gradient",
+                cfg32, params, toks, _flash_counts(layers, 0), card,
+                extra={"audio_embed": _frames(cfg, GRAD_BATCH, gen)})
+    lap(f"{AUDIO_ARCH} gradient check")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = _flash_counts(TRAIN_STEPS * layers, TRAIN_STEPS * layers)
+    ttrain.train(cfg, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 device="cuda", log=lambda *_: None)          # warm-up
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(expect)
+    out = ttrain.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, device="cuda",
+                       log=lambda m: print(f"  {m}"))
+    torch.cuda.synchronize()
+    got = _counts(expect)
+    peak = torch.cuda.max_memory_allocated()
+    losses, times = out["losses"], out["step_s"]
+    del out
+    if got != {k: v[2] for k, v in expect.items()}:
+        raise AssertionError(f"training {AUDIO_ARCH}: launches {got}, "
+                             f"expected {layers} a step, all on the tensor "
+                             f"cores")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"training {AUDIO_ARCH}: losses {losses}")
+    rate = TRAIN_STEPS / sum(times)
+    print(f"training {AUDIO_ARCH}: {TRAIN_STEPS} Adam steps (bf16 compute, "
+          f"f32 weights, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens and "
+          f"{cfg.encoder_seq} zero frames): {rate:.3f} steps/s, "
+          f"{rate * TRAIN_BATCH * TRAIN_SEQ:.1f} tokens/s (step walls "
+          f"{[round(x, 4) for x in times]} s), losses "
+          f"{[round(x, 4) for x in losses]}, peak memory {peak} B; "
+          f"flash_attention {got['flash_attention'] // TRAIN_STEPS} a step "
+          f"({got['flash_attention tc'] // TRAIN_STEPS} tensor-core) "
+          f"[{card}]")
+    paths[f"{AUDIO_ARCH} training"] = got
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap(f"{AUDIO_ARCH} training")
+
+    # (b) qwen2-vl-72b at full width, WIDE_LAYERS layers: M-RoPE with three
+    # equal streams is plain RoPE bit for bit on the card; the prefill with
+    # its vision prefix, the f32 copy, decode through the text-only copy
+    vcfg = get_config(VISION_ARCH)
+    pos = torch.arange(PREFILL_S, dtype=torch.int32,
+                       device="cuda")[None].expand(PREFILL_B, PREFILL_S)
+    hd = vcfg.resolved_head_dim
+    same = torch.equal(
+        rope_angles(pos[None].expand(3, PREFILL_B, PREFILL_S), hd,
+                    vcfg.rope_theta, vcfg.mrope_sections),
+        rope_angles(pos, hd, vcfg.rope_theta))
+    print(f"{VISION_ARCH} M-RoPE {vcfg.mrope_sections} with three equal "
+          f"streams [3, {PREFILL_B}, {PREFILL_S}] vs plain RoPE on the card: "
+          f"{'bitwise equal' if same else 'DIFFERENT'} [{card}]")
+    if not same:
+        raise AssertionError("M-RoPE with equal streams is not plain RoPE")
+    paths[f"{VISION_ARCH} prefill ({WIDE_LAYERS} layers)"] = _wide_layers(
+        VISION_ARCH, card, expect_params=VISION_PARAMS)
+    lap(VISION_ARCH)
+    print(f"audio and vision: phase wall {time.perf_counter() - t_phase:.1f}"
+          f" s")
+    return paths
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
     run of a path (torch.profiler); with ``parts`` ({label: substring of
-    kernel names}), the summed time of the kernels each part names."""
+    kernel names}), the summed time of the kernels each part names. Only
+    the device is traced: every reading is of kernels, and tracing the
+    host's operators too slowed a launch-bound run under the profiler
+    about twofold (Whisper's prefill on the H100: 102.9 ms against 56.3
+    unprofiled) and took seconds to process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5259,6 +5500,8 @@ def main() -> int:
         rows[0]["cases"].append(pop_entry)
         phase = enter("mixture-of-experts")
         paths.update(phase_moe(card))
+        phase = enter("audio and vision")
+        paths.update(phase_audio_vision(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

@@ -5,11 +5,9 @@ config moves between the two packages as ``dataclasses.asdict``. Each
 architecture the port runs has a module here defining ``CONFIG`` (the
 full-scale config) and ``smoke_config()`` (a reduced variant of the same
 family for CPU tests). ``get_config`` and ``get_smoke_config`` return them
-for ``gemma3-4b``, ``stablelm-1.6b``, ``granite-34b``, ``qwen2.5-32b``,
-``granite-moe-1b-a400m``, ``qwen3-moe-235b-a22b``, ``zamba2-2.7b``,
-``xlstm-350m`` and the paper's ``mule-cnn`` and ``mule-lstm-cnn``; for the
-reference's other two ids (``whisper-base``, ``qwen2-vl-72b``) they raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+for every id of the reference (``ARCH_IDS``: the dense, MoE, hybrid, xLSTM,
+vision-language and audio models) and the paper's ``mule-cnn`` and
+``mule-lstm-cnn``.
 """
 from __future__ import annotations
 
@@ -172,26 +170,17 @@ _MODULE_FOR: dict[str, str] = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "zamba2-2.7b": "zamba2_2p7b",
     "xlstm-350m": "xlstm_350m",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-base": "whisper_base",
     # the paper's own models
     "mule-cnn": "mule_cnn",
     "mule-lstm-cnn": "mule_lstm_cnn",
 }
 
-# architectures of the reference that the port does not run yet
-_DEFERRED = {
-    "whisper-base": "ROADMAP §1 item 14.4 (whisper.py and cross-attention)",
-    "qwen2-vl-72b": "ROADMAP §1 item 14.5 (M-RoPE and the vision prefix)",
-}
-
-
 def _module(arch_id: str):
-    if arch_id in _DEFERRED:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet; it arrives with "
-            f"{_DEFERRED[arch_id]}")
     if arch_id not in _MODULE_FOR:
         raise KeyError(f"unknown arch {arch_id!r}; known: "
-                       f"{sorted(set(_MODULE_FOR) | set(_DEFERRED))}")
+                       f"{sorted(_MODULE_FOR)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
 
 

@@ -27,13 +27,20 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent        # src/repro_torch
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# mule_agg's 32 template instances are the build's long pole.
+# -split-compile=0 runs the device compiler's optimisation passes over them
+# in parallel, one thread a core: 14.8 s instead of 38.1 (nvcc 12.9, 8
+# cores of the H100 machine), to the same SASS. It is not passed for every
+# source: slstm_scan's shared arrays land at other offsets under it
+# (tools/split_compile_check.py prints both for each source).
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"mule_agg": ("-split-compile=0",)}
 
 # kernel name -> source, relative to the package
 SOURCES: Dict[str, str] = {
@@ -62,10 +69,14 @@ def nvcc_path() -> str:
         f"{home}/bin (set CUDA_HOME to the CUDA toolkit)")
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = _PKG / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -86,7 +97,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_PKG / SOURCES[name])]
+        cmd = [nvcc, *_flags(name), "-o", tmp, str(_PKG / SOURCES[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

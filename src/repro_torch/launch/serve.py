@@ -7,13 +7,16 @@
 Port of ``repro.launch.serve``: random weights from ``--seed``, a random
 prompt, the prompt replayed through ``decode_step`` to fill the cache
 (cache-correct for rolling windows), then greedy decode. The cache is f32,
-as in the reference. Runs on the card unless ``--device cpu`` is given.
+as in the reference. For Whisper (the ``audio`` family) ``0.1 * normal``
+frames from the seed stand in for the audio; ``prefill_cross_kv`` encodes
+them into the cache's cross-attention K/V before the replay. Runs on the
+card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -30,21 +33,36 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(model: Model, params, prompt: torch.Tensor, gen: int,
-             cache_dtype=torch.float32) -> Dict[str, Any]:
+             cache_dtype=torch.float32,
+             audio_embed: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Replay ``prompt`` [B, P] through decode, then ``gen`` greedy tokens.
+    An ``audio`` model needs ``audio_embed`` [B, encoder_seq, D]: it is
+    encoded into the fresh cache (``prefill_cross_kv``) first.
 
     Returns ``tokens`` [B, gen], the last step's ``logits`` [B, V],
     ``finite`` (whether every step's logits were finite, reduced on the
-    device), and the wall seconds of the replay (``prefill_s``) and of the
-    greedy loop (``decode_s``), each ending in a device synchronise.
+    device), and the wall seconds of the encoding (``encode_s``, 0 without
+    audio), of the replay (``prefill_s``) and of the greedy loop
+    (``decode_s``), each ending in a device synchronise.
     """
     dev = prompt.device
     b, n_prompt = prompt.shape
     if n_prompt < 1:
         raise ValueError("generate needs a prompt of at least one token")
+    audio = model.cfg.family == "audio"
+    if audio != (audio_embed is not None):
+        raise ValueError(f"{model.cfg.name}: audio_embed is "
+                         f"{'needed' if audio else 'only for audio models'}")
     max_seq = n_prompt + gen
     decode = make_serve_step(model)
     cache = model.init_cache(b, max_seq, dtype=cache_dtype, device=dev)
+    t_encode = 0.0
+    if audio:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache = model.prefill_cross_kv(params, audio_embed, cache)
+        _sync(dev)
+        t_encode = time.perf_counter() - t0
 
     finite = torch.ones((), dtype=torch.bool, device=dev)
     t0 = time.perf_counter()
@@ -67,7 +85,7 @@ def generate(model: Model, params, prompt: torch.Tensor, gen: int,
     tokens = torch.cat(generated, dim=1) if generated else \
         prompt.new_zeros((b, 0))
     return {"tokens": tokens, "logits": logits, "finite": bool(finite),
-            "prefill_s": t_prefill, "decode_s": t_gen}
+            "encode_s": t_encode, "prefill_s": t_prefill, "decode_s": t_gen}
 
 
 def main(argv=None):
@@ -90,10 +108,17 @@ def main(argv=None):
     b = args.batch
     prompt = torch.randint(0, cfg.vocab, (b, args.prompt_len), generator=gen,
                            device=dev)
-    out = generate(model, params, prompt, args.gen)
+    audio = None
+    if cfg.family == "audio":
+        audio = 0.1 * torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                  generator=gen, device=dev)
+    out = generate(model, params, prompt, args.gen, audio_embed=audio)
 
     print(f"arch={cfg.name} batch={b} prompt={args.prompt_len} gen={args.gen} "
           f"device={dev}")
+    if audio is not None:
+        print(f"encoded {cfg.encoder_seq} frames into the cross-attention "
+              f"cache in {out['encode_s']:.2f}s")
     print(f"prefill {out['prefill_s']:.2f}s | decode {out['decode_s']:.2f}s "
           f"({b * args.gen / max(out['decode_s'], 1e-9):.1f} tok/s)")
     print("sample tokens:", out["tokens"][0, :16].tolist(),

@@ -62,7 +62,9 @@ def make_train_step(model: Model, optimizer: Optimizer,
 
 
 def make_prefill_step(model: Model) -> Callable:
-    """(params, batch) -> logits [B, S, V]: the full-sequence forward."""
+    """(params, batch) -> logits [B, S, V]: the full-sequence forward. The
+    batch goes to ``forward`` whole (``vision_embed``, ``audio_embed``,
+    ``positions`` beside ``tokens``)."""
     @torch.no_grad()
     def prefill(params, batch):
         logits, _ = model.forward(params, batch)

@@ -15,14 +15,15 @@ reduced same-family config. Runs on the card unless ``--device cpu`` is
 given; there the forward of every attention, SSD and sLSTM layer is a
 hand-written kernel and the gradient the plain version's.
 
-The batch is assembled for the ``dense``, ``moe``, ``hybrid`` and
-``xlstm`` families (a MoE model's loss carries its load-balance term at
-0.01, as the reference's); ``vlm`` and ``audio`` raise, naming the ROADMAP items that bring
-their models.
+The batch is assembled for every family, as the reference's loop does (a
+MoE model's loss carries its load-balance term at 0.01): a ``vlm`` model's
+tokens are cut to ``seq - vision_tokens`` behind a zero ``vision_embed``
+prefix, an ``audio`` model gets zero ``audio_embed`` frames, both in bf16.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Any, Dict, Optional
 
@@ -38,20 +39,29 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import adam, cosine_schedule
 
-# families whose batch needs a model the port does not have yet
-_DEFERRED = {"vlm": "ROADMAP §1 item 14.5 (the vision prefix)",
-             "audio": "ROADMAP §1 item 14.4 (the Whisper encoder)"}
-
-
 def lm_batch(cfg: ModelConfig, tokens: np.ndarray,
              device) -> Dict[str, torch.Tensor]:
-    """The train batch of ``tokens`` [B, S] for ``cfg``'s family."""
-    if cfg.family in _DEFERRED:
-        raise NotImplementedError(
-            f"training a {cfg.family!r} model ({cfg.name}) arrives with "
-            f"{_DEFERRED[cfg.family]}")
-    return {"tokens": torch.as_tensor(tokens, dtype=torch.int64,
-                                      device=device)}
+    """The train batch of ``tokens`` [B, S] for ``cfg``'s family: for
+    ``vlm`` the first ``S - vision_tokens`` tokens and a zero
+    ``vision_embed`` [B, vision_tokens, d_model], for ``audio`` a zero
+    ``audio_embed`` [B, encoder_seq, d_model], both bf16 (the stubs'
+    inputs, as in the reference's loop)."""
+    b, s = tokens.shape
+    zeros = functools.partial(torch.zeros, dtype=torch.bfloat16,
+                              device=device)
+    batch = {}
+    if cfg.family == "vlm":
+        if s <= cfg.vision_tokens:
+            raise ValueError(f"{cfg.name}: a sequence of {s} leaves no "
+                             f"token after its {cfg.vision_tokens} vision "
+                             f"tokens")
+        tokens = tokens[:, :s - cfg.vision_tokens]
+        batch["vision_embed"] = zeros((b, cfg.vision_tokens, cfg.d_model))
+    if cfg.family == "audio":
+        batch["audio_embed"] = zeros((b, cfg.encoder_seq, cfg.d_model))
+    batch["tokens"] = torch.as_tensor(tokens, dtype=torch.int64,
+                                      device=device)
+    return batch
 
 
 def setup(cfg: ModelConfig, *, seed: int = 0, lr: float = 3e-4,

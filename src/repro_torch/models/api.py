@@ -15,8 +15,13 @@ attention window form one stage whose parameters are stacked
 leaf. The reference scans a stage with ``lax.scan``; the port walks it
 with a Python loop (PyTorch runs eagerly).
 
-The ``audio`` and ``vlm`` families wait for their ROADMAP items:
-``build_program`` gives their stage lists, ``build_model`` raises for them.
+The ``vlm`` family (qwen2-vl) runs through ``Model`` too: ``_embed`` puts
+the batch's ``vision_embed`` [B, vision_tokens, D] in front of the token
+embeddings, ``_positions`` gives M-RoPE's three streams [3, B, S] (all
+equal), and ``loss`` drops the prefix's logits. The ``audio`` family
+(Whisper) is ``models/whisper.py``'s ``WhisperModel``, which
+``build_model`` returns for it. ``forward`` takes ``batch["positions"]``
+where the caller passes them, as the reference does.
 The reference's sharding options (``mesh``, ``dp_axes``, ``head_axis``,
 ``seq_axis``, ``moe_ep_axis``) and its dry-run helpers (``remat``,
 ``unroll``, ``input_specs``) have no meaning on one card and are not ported.
@@ -45,13 +50,6 @@ class Stage:
     kind: str            # attn | moe | mamba | shared_attn | xlstm_pair
     count: int           # number of layers folded into this stage
     window: Optional[int] = None
-
-
-# families of the reference that the port does not run yet
-_DEFERRED_FAMILIES = {
-    "audio": "ROADMAP §1 item 14.4 (whisper.py and cross-attention)",
-    "vlm": "ROADMAP §1 item 14.5 (M-RoPE and the vision prefix)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +171,14 @@ def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
     return c
 
 
+def unstack(tree, count: int) -> list:
+    """The per-layer slices (views) of a stacked [count, ...] tree."""
+    return [tree_map(lambda l, _i=i: l[_i], tree) for i in range(count)]
+
+
 def _layers(stage: Stage, tree):
-    """The per-layer slices (views) of a stage's stacked [count, ...] tree."""
-    if stage.count == 1:
-        return [tree]
-    return [tree_map(lambda l, _i=i: l[_i], tree) for i in range(stage.count)]
+    """The per-layer slices of a stage's tree, stacked unless count is 1."""
+    return [tree] if stage.count == 1 else unstack(tree, stage.count)
 
 
 # ---------------------------------------------------------------------------
@@ -196,10 +197,6 @@ class Model:
             raise ValueError(f"unknown kernel backend {self.backend!r}: "
                              f"'auto' (the kernel on the card) or 'ref' "
                              f"(the plain version)")
-        if self.cfg.family in _DEFERRED_FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} ({self.cfg.name}) arrives with "
-                f"{_DEFERRED_FAMILIES[self.cfg.family]}")
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -230,27 +227,42 @@ class Model:
         return params
 
     # -- embedding helpers ----------------------------------------------------
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(compute_dtype_of(self.cfg))
+    def _embed(self, params, tokens: torch.Tensor,
+               batch: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """Token embeddings; for ``vlm`` with a ``batch``, its
+        ``vision_embed`` [B, vision_tokens, D] in front of them."""
+        x = params["embed"][tokens].to(compute_dtype_of(self.cfg))
+        if batch is not None and self.cfg.family == "vlm":
+            x = torch.cat([batch["vision_embed"].to(x.dtype), x], dim=1)
+        return x
 
     def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return x.float() @ w.float()
 
     def _positions(self, batch_size: int, seq: int, device) -> torch.Tensor:
-        return torch.arange(seq, dtype=torch.int32, device=device)[None] \
+        """[B, S], or [3, B, S] (three equal streams) under M-RoPE."""
+        pos = torch.arange(seq, dtype=torch.int32, device=device)[None] \
             .expand(batch_size, seq)
+        if self.cfg.mrope_sections is not None:
+            pos = pos[None].expand(3, batch_size, seq)
+        return pos
 
     # -- full-sequence forward ------------------------------------------------
     def forward(self, params, batch: Dict[str, Any]):
-        """Returns (logits [B,S,V] f32, aux_loss). batch: {"tokens": [B,S]}.
+        """Returns (logits [B,S,V] f32, aux_loss). batch: ``tokens`` [B, S]
+        (S counts the vision prefix for ``vlm``), ``vision_embed`` for
+        ``vlm``, and optionally ``positions`` ([B, S], or [3, B, S] under
+        M-RoPE) in place of 0..S-1.
 
         The aux loss is the sum of the ``moe`` layers' load-balance terms
         (f32; 0 for a model without them)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], batch)
         b, s, _ = x.shape
-        positions = self._positions(b, s, x.device)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = self._positions(b, s, x.device)
         shared = params.get("shared_attn")
         aux_total = torch.zeros((), device=x.device)
         for stage, sp in zip(self.program, params["stages"]):
@@ -266,6 +278,8 @@ class Model:
     def loss(self, params, batch: Dict[str, Any]):
         logits, aux = self.forward(params, batch)
         tokens = batch["tokens"]
+        if self.cfg.family == "vlm":    # no loss on the vision prefix
+            logits = logits[:, self.cfg.vision_tokens:]
         lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
         tgt = tokens[:, 1:].long()
         nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
@@ -297,5 +311,10 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, *, backend: str = "auto") -> Model:
-    """The model of ``cfg``; raises for the kinds and families not ported."""
-    return Model(cfg=cfg, program=build_program(cfg), backend=backend)
+    """The model of ``cfg``: a ``WhisperModel`` for the ``audio`` family,
+    else a ``Model``."""
+    kw = dict(cfg=cfg, program=build_program(cfg), backend=backend)
+    if cfg.family == "audio":
+        from repro_torch.models.whisper import WhisperModel
+        return WhisperModel(**kw)
+    return Model(**kw)

@@ -1,15 +1,19 @@
-"""GQA attention layer: full-sequence (prefill) and KV-cache decode.
+"""GQA attention layer: full-sequence (prefill), KV-cache decode, and
+cross-attention.
 
-Port of ``repro.models.attention`` for self-attention: QKV bias (qwen),
-sliding windows (gemma3's local layers, with a rolling KV cache at decode)
-and RoPE. The full-sequence path goes through ``flash_attention``, which
-launches the hand-written kernel for CUDA tensors and differentiates
-through the reference's blockwise backward. The reference's
+Port of ``repro.models.attention``: QKV bias (qwen), sliding windows
+(gemma3's local layers, with a rolling KV cache at decode), RoPE and M-RoPE
+(qwen2-vl: positions [3, B, S]), bidirectional and RoPE-free layers
+(``causal=False``, ``rope=False``: Whisper's encoder and decoder) and
+Whisper's cross-attention (``cross_kv``, ``cross_attn_forward``). The
+self-attention of the full-sequence path goes through ``flash_attention``,
+which launches the hand-written kernel for CUDA tensors and differentiates
+through the reference's blockwise backward. Cross-attention takes the
+plain chunked version (``backend="ref"``) on every device, as the
+reference's does, so it launches no kernel. The reference's
 ``_constrain_heads`` and ``_constrain_seq`` are GSPMD sharding hints with no
-meaning on one card, so the port leaves them out. Cross-attention
-(``cross_attn_forward``, ``cross_kv``), the bidirectional encoder and the
-``d_model``/``rope`` arguments that Whisper uses wait for it (ROADMAP §1
-item 14.4), M-RoPE for qwen2-vl (item 14.5).
+meaning on one card, and its ``d_model`` argument of ``init_attention`` is
+used by no model, so the port leaves them out.
 """
 from __future__ import annotations
 
@@ -60,22 +64,26 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, compute_dtype):
             v.reshape(b, s, cfg.n_kv_heads, hd))
 
 
-def _roped_qkv(params, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig):
-    """q, k, v of x with RoPE applied to q and k (at ``positions`` [B, S])."""
-    q, k, v = _qkv(params, x, cfg, compute_dtype_of(cfg))
+def _rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+          cfg: ModelConfig):
+    """q and k rotated at ``positions`` ([B, S], or [3, B, S] under
+    M-RoPE)."""
     ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
                       cfg.mrope_sections)
-    return apply_rope(q, ang), apply_rope(k, ang), v
+    return apply_rope(q, ang), apply_rope(k, ang)
 
 
-def attn_forward(params, x: torch.Tensor, positions: torch.Tensor,
+def attn_forward(params, x: torch.Tensor, positions: Optional[torch.Tensor],
                  cfg: ModelConfig, *, window: Optional[int] = None,
-                 backend: str = "auto") -> torch.Tensor:
-    """Full-sequence causal self-attention. positions: [B, S]."""
+                 causal: bool = True, backend: str = "auto",
+                 rope: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention. positions: [B, S] or [3, B, S]
+    (M-RoPE); unused with ``rope=False``."""
     compute_dtype = compute_dtype_of(cfg)
-    q, k, v = _roped_qkv(params, x, positions, cfg)
-    out = flash_attention(q, k, v, causal=True, window=window,
+    q, k, v = _qkv(params, x, cfg, compute_dtype)
+    if rope:
+        q, k = _rope(q, k, positions, cfg)
+    out = flash_attention(q, k, v, causal=causal, window=window,
                           backend=backend)
     b, s, _, _ = out.shape
     out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) \
@@ -100,8 +108,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
-                *, window: Optional[int] = None):
-    """One-token decode. x: [B, 1, D]; pos: the current position (int).
+                *, window: Optional[int] = None, rope: bool = True):
+    """One-token decode. x: [B, 1, D]; pos: the current position (int),
+    the same in all three streams under M-RoPE.
 
     Cached K/V are stored post-RoPE. For windowed layers the cache is a
     rolling buffer of ``window`` slots written at ``pos % window``. Where
@@ -111,8 +120,13 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
     compute_dtype = compute_dtype_of(cfg)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _roped_qkv(params, x, positions, cfg)   # [B,1,H|KV,hd]
+    q, k, v = _qkv(params, x, cfg, compute_dtype)     # [B,1,H|KV,hd]
+    if rope:
+        positions = torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        if cfg.mrope_sections is not None:
+            positions = positions.expand(3, b, 1)
+        q, k = _rope(q, k, positions, cfg)
 
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[1]
@@ -138,3 +152,39 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
     out = out.reshape(b, 1, cfg.n_heads * hd).to(compute_dtype)
     out = (out @ params["wo"].to(compute_dtype)).to(x.dtype)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_forward(params, x: torch.Tensor, enc_k: torch.Tensor,
+                       enc_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: [B, S, D] queries; enc_k, enc_v: [B, Se, KV, hd] from ``cross_kv``
+    (or a cache of another dtype). Bidirectional, through the plain chunked
+    version on every device, as in the reference. The plain version
+    computes in float32 whatever its inputs' dtype, so q, k and v are
+    widened to the wider of their dtypes (exactly) rather than k and v
+    rounded to q's."""
+    compute_dtype = compute_dtype_of(cfg)
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    xc = x.to(compute_dtype)
+    q = (xc @ params["wq"].to(compute_dtype)).reshape(b, s, cfg.n_heads, hd)
+    wide = torch.promote_types(q.dtype, enc_k.dtype)
+    out = flash_attention(q.to(wide), enc_k.to(wide), enc_v.to(wide),
+                          causal=False, backend="ref")
+    out = out.reshape(b, s, cfg.n_heads * hd).to(compute_dtype)
+    return (out @ params["wo"].to(compute_dtype)).to(x.dtype)
+
+
+def cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V [B, Se, KV, hd] of the encoder's output."""
+    compute_dtype = compute_dtype_of(cfg)
+    b, se, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    e = enc_out.to(compute_dtype)
+    k = (e @ params["wk"].to(compute_dtype)).reshape(b, se, cfg.n_kv_heads, hd)
+    v = (e @ params["wv"].to(compute_dtype)).reshape(b, se, cfg.n_kv_heads, hd)
+    return k, v

@@ -1,10 +1,12 @@
-"""Shared building blocks of the LM stack: init, norms, activations, RoPE, MLP.
+"""Shared building blocks of the LM stack: init, norms, activations, RoPE
+and M-RoPE, MLP, sinusoidal positions.
 
 Port of ``repro.models.layers``. Parameters are plain tensors in the
 reference's layouts (dense ``[in, out]``), held in nested dicts. Norms and
 RoPE compute in float32 and cast back to the input's dtype, as the
-reference does. M-RoPE and ``sinusoidal_positions`` wait for the
-architectures that use them (ROADMAP §1 items 14.5 and 14.4).
+reference does. ``rope_angles`` takes M-RoPE's three position streams
+(qwen2-vl), ``sinusoidal_positions`` gives Whisper's fixed positional
+embeddings. The reference's asserts on M-RoPE's inputs are ``ValueError``s.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ def activation(name: str):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -72,13 +74,30 @@ def rope_freqs(head_dim: int, theta: float, *, device) -> torch.Tensor:
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                 mrope_sections: Optional[Tuple[int, int, int]] = None
                 ) -> torch.Tensor:
-    """Rotation angles [B, S, head_dim // 2] for positions [B, S]."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet; it arrives with ROADMAP §1 item 14.5 "
-            "(qwen2-vl)")
+    """Rotation angles [B, S, head_dim // 2].
+
+    positions: [B, S] for plain RoPE, or [3, B, S] (t/h/w streams) for
+    M-RoPE, whose frequency slots are split into ``mrope_sections``, each
+    fed by one stream (Qwen2-VL Sec 3.2); the sections must sum to
+    ``head_dim // 2``.
+    """
     inv = rope_freqs(head_dim, theta, device=positions.device)
-    return positions[..., None].float() * inv
+    if mrope_sections is None:
+        return positions[..., None].float() * inv
+    if positions.dim() != 3 or positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE wants [3, B, S] positions, got "
+                         f"{tuple(positions.shape)}")
+    if sum(mrope_sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(mrope_sections)} do not "
+                         f"sum to head_dim // 2 = {head_dim // 2}")
+    # which stream feeds each frequency slot [hd/2]: 0 below the first
+    # section's end, 1 below the second's, else 2; built on the device from
+    # Python ints, so no host tensor is copied (and no stream synchronised)
+    s0, s1, _ = mrope_sections
+    slot = torch.arange(head_dim // 2, device=positions.device)
+    sec_id = (slot >= s0).long() + (slot >= s0 + s1).long()
+    ang = positions[sec_id].float() * inv[:, None, None]   # [hd/2, B, S]
+    return torch.movedim(ang, 0, -1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -116,7 +135,25 @@ def apply_mlp(params, x: torch.Tensor, act: str,
 # ---------------------------------------------------------------------------
 
 
-def sinusoidal_positions(seq: int, dim: int) -> torch.Tensor:
-    raise NotImplementedError(
-        "sinusoidal positions are not ported yet; they arrive with ROADMAP "
-        "§1 item 14.4 (whisper)")
+def sinusoids(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """[len(positions), dim] f32: sin of position x frequency in the even
+    columns, cos in the odd ones, frequencies 10000^(-i / dim) for even
+    i. ``sinusoidal_positions`` is its rows 0..seq-1; Whisper's decode
+    takes the row of its one position."""
+    dev = positions.device
+    # -log(10000) / dim in float32, as the reference computes it
+    rate = -torch.log(torch.tensor(10000.0, device=dev)) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=dev) * rate)
+    ang = positions.float()[:, None] * div
+    pe = torch.zeros((positions.shape[0], dim), device=dev)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoidal_positions(seq: int, dim: int, *, device="cpu"
+                         ) -> torch.Tensor:
+    """Whisper's fixed positional embeddings [seq, dim] f32."""
+    return sinusoids(torch.arange(seq, dtype=torch.float32, device=device),
+                     dim)

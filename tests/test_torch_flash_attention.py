@@ -264,9 +264,13 @@ def _tc_emulate(q, k, v, *, causal, window, split=True):
     return out.permute(0, 2, 1, 3).bfloat16()
 
 
-# the JAX tests' cases and gemma3-4b's width (D = 256, GQA 8:4) at S = 512
+# the JAX tests' cases, gemma3-4b's width (D = 256, GQA 8:4) at S = 512 and
+# Whisper's encoder call
 EMULATED = CASES + [(1, 512, 8, 4, 256, None, True),
-                    (1, 512, 8, 4, 256, 128, True)]
+                    (1, 512, 8, 4, 256, 128, True),
+                    # Whisper's encoder call: bidirectional, S = 1500 not a
+                    # multiple of the 64-key blocks, group 1
+                    (1, 1500, 8, 8, 64, None, False)]
 
 
 def _worst_vs_f32_oracle(case, split):

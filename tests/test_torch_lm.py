@@ -1,14 +1,22 @@
 """Port's LM stack (configs, layers, model, serving) against the JAX
 package: the dense models (gemma3-4b, stablelm-1.6b, granite-34b,
 qwen2.5-32b), the MoE models (granite-moe-1b-a400m, qwen3-moe-235b-a22b),
-the hybrid zamba2-2.7b and xlstm-350m.
+the hybrid zamba2-2.7b, xlstm-350m, the vision-language qwen2-vl-72b
+(M-RoPE, a vision prefix) and the encoder-decoder whisper-base.
 
 The reference's ``Model.init`` weights are carried across with
-``tree_from_numpy``; tokens and layer inputs come from a numpy seed. The
-models run at smoke size (2 layers, d_model 128). Tolerances:
+``tree_from_numpy``; tokens, layer inputs and the stubs' ``vision_embed``
+and ``audio_embed`` come from a numpy seed. The models run at smoke size
+(2 layers, d_model 128). Tolerances:
 
 - f32 layer functions 1e-6 (elementwise float32, sums in another order);
-  RoPE 1e-5 (angles up to 88 rad: an ulp of the angle is ~8e-6);
+  RoPE and M-RoPE 1e-5 (angles up to 88 rad: an ulp of the angle is
+  ~8e-6); M-RoPE with three equal streams equals plain RoPE bitwise;
+- Whisper's sinusoids within ``SINUSOID_ULPS`` ulps of float32 times the
+  largest angle: XLA's CPU ``exp``, ``sin`` and ``cos`` and PyTorch's round
+  differently (neither is correctly rounded: against a float64 run, 5,697
+  and 17,363 of 384,000 ``sin`` values at 1500 x 512 are off by an ulp),
+  and an ulp of a frequency moves an angle by up to its position's ulps;
 - f32 forward and decode logits and caches against JAX 1e-4, and the
   port's own decode against its forward 2e-4 (the reference's own bound,
   tests/test_decode_consistency.py); a MoE model's decode checks run
@@ -48,7 +56,8 @@ torch.set_num_threads(1)
 
 ARCHS = ["gemma3-4b", "stablelm-1.6b", "zamba2-2.7b", "xlstm-350m",
          "granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "granite-34b",
-         "qwen2.5-32b"]
+         "qwen2.5-32b", "whisper-base", "qwen2-vl-72b"]
+SINUSOID_ULPS = 4
 
 
 def _port_cfg(jcfg):
@@ -81,6 +90,33 @@ def _tokens(cfg, b, s, seed=5):
     return rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
 
 
+def _batch(cfg, toks, audio=None, seed=6):
+    """(JAX batch, port batch) of ``toks``: for ``audio`` ``audio_embed``
+    [B, encoder_seq, D] (``audio`` if given, else 0.1 x normal from a numpy
+    seed), for ``vlm`` a 0.1 x normal ``vision_embed`` [B, vision_tokens,
+    D] prefix."""
+    rng = np.random.default_rng(seed)
+    b = toks.shape[0]
+    extra = {}
+    if cfg.family == "audio":
+        extra["audio_embed"] = audio if audio is not None else (
+            0.1 * rng.normal(size=(b, cfg.encoder_seq, cfg.d_model))
+        ).astype(np.float32)
+    if cfg.family == "vlm":
+        extra["vision_embed"] = (0.1 * rng.normal(
+            size=(b, cfg.vision_tokens, cfg.d_model))).astype(np.float32)
+    arrays = {"tokens": toks, **extra}
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(np.asarray(v)) for k, v in arrays.items()})
+
+
+def _text_only(cfg):
+    """qwen2-vl without its prefix and M-RoPE: the model its decode is
+    held to (tests/test_decode_consistency.py)."""
+    return dataclasses.replace(cfg, vision_tokens=0, family="dense",
+                               mrope_sections=None)
+
+
 def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(to_numpy(got), np.float32),
                                np.asarray(want, np.float32),
@@ -105,18 +141,21 @@ def test_config_copies_match(arch, size):
 
 
 def test_registry_ports_three_ids_and_names_the_rest():
+    """Every id of the reference is ported (the name is from when three
+    were); an unknown id raises."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert tconfigs.INPUT_SHAPES == {
         k: tconfigs.InputShape(**dataclasses.asdict(v))
         for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.get_config("mule-cnn").name == "mule-cnn"
     assert tconfigs.get_config("mule-lstm-cnn").name == "mule-lstm-cnn"
-    left = {"whisper-base": "14.4", "qwen2-vl-72b": "14.5"}
-    assert set(jconfigs.ARCH_IDS) - set(ARCHS) == set(left)
-    for arch, item in left.items():
-        for get in (tconfigs.get_config, tconfigs.get_smoke_config):
-            with pytest.raises(NotImplementedError, match=item):
-                get(arch)
+    assert set(jconfigs.ARCH_IDS) == set(ARCHS)
+    for arch in jconfigs.ARCH_IDS:
+        for get_t, get_j in ((tconfigs.get_config, jconfigs.get_config),
+                             (tconfigs.get_smoke_config,
+                              jconfigs.get_smoke_config)):
+            assert dataclasses.asdict(get_t(arch)) == \
+                dataclasses.asdict(get_j(arch))
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 
@@ -138,10 +177,25 @@ def test_gemma3_program_is_five_local_one_global():
     assert sum(s.count for s in prog) == 34
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(ARCHS)))
-def test_build_model_raises_for_unported_kinds(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_port_cfg(jconfigs.get_smoke_config(arch)))
+@pytest.mark.parametrize("arch,layers,const", [
+    ("whisper-base", None, "AUDIO_PARAMS"),
+    ("qwen2-vl-72b", 2, "VISION_PARAMS")])
+def test_full_width_parameter_counts_match_chip_smoke(arch, layers, const):
+    """The reference's init at full width (shapes only; qwen2-vl at the 2
+    layers the card runs) counts the parameters chip_smoke.py checks on
+    the card."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_consts", path)
+    consts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(consts)
+    jcfg = jconfigs.get_config(arch)
+    if layers is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=layers)
+    shapes = jax.eval_shape(j_build_model(jcfg).init, jax.random.PRNGKey(0))
+    assert sum(int(np.prod(l.shape)) for l in jax.tree.leaves(shapes)) == \
+        getattr(consts, const)
 
 
 def test_build_model_backend_option():
@@ -208,9 +262,40 @@ def test_rope_matches():
         _close(ta, ja, 1e-5)
         _close(tl.apply_rope(torch.from_numpy(x), ta),
                jl.apply_rope(jnp.asarray(x), ja), 1e-5)
-    with pytest.raises(NotImplementedError, match="14.5"):
-        tl.rope_angles(torch.zeros(3, 1, 4, dtype=torch.int32), 32, 1e4,
+        # M-RoPE at the smoke sections, three different streams (t, h, w)
+        streams = np.stack([pos, (7 * pos) % 13, pos[:, ::-1]])
+        ja = jl.rope_angles(jnp.asarray(streams), 32, theta, (4, 6, 6))
+        ta = tl.rope_angles(torch.from_numpy(streams.copy()), 32, theta,
+                            (4, 6, 6))
+        assert tuple(ta.shape) == ja.shape == (2, 88, 16)
+        _close(ta, ja, 1e-5)
+        _close(tl.apply_rope(torch.from_numpy(x), ta),
+               jl.apply_rope(jnp.asarray(x), ja), 1e-5)
+        # three equal streams are plain RoPE, bit for bit
+        same = torch.from_numpy(pos)[None].expand(3, 2, 88)
+        torch.testing.assert_close(
+            tl.rope_angles(same, 32, theta, (4, 6, 6)),
+            tl.rope_angles(torch.from_numpy(pos), 32, theta), atol=0, rtol=0)
+    with pytest.raises(ValueError, match=r"\[3, B, S\]"):
+        tl.rope_angles(torch.zeros(2, 4, dtype=torch.int32), 32, 1e4,
                        (4, 6, 6))
+    with pytest.raises(ValueError, match="sum"):
+        tl.rope_angles(torch.zeros(3, 1, 4, dtype=torch.int32), 32, 1e4,
+                       (4, 6, 5))
+
+
+@pytest.mark.parametrize("seq,dim", [(64, 128), (12, 128), (1500, 512)])
+def test_sinusoidal_positions_match(seq, dim):
+    """Whisper's fixed positions against the reference's; the one-position
+    rows of decode equal the table's rows bitwise."""
+    got = tl.sinusoidal_positions(seq, dim)
+    want = np.asarray(jl.sinusoidal_positions(seq, dim))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got[0].numpy(), want[0])   # sin 0, cos 0
+    _close(got, want, SINUSOID_ULPS * np.finfo(np.float32).eps * (seq - 1))
+    for p in (0, 1, seq // 2, seq - 1):
+        row = tl.sinusoids(torch.full((1,), p, dtype=torch.float32), dim)
+        torch.testing.assert_close(row[0], got[p], atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])
@@ -226,6 +311,123 @@ def test_mlp_matches(act):
     _close(got, want, 1e-5)
 
 
+def _attn_params(cfg, rng):
+    hd = cfg.resolved_head_dim
+    p = {"wq": (cfg.d_model, cfg.n_heads * hd),
+         "wk": (cfg.d_model, cfg.n_kv_heads * hd),
+         "wv": (cfg.d_model, cfg.n_kv_heads * hd),
+         "wo": (cfg.n_heads * hd, cfg.d_model)}
+    if cfg.qkv_bias:
+        p.update(bq=(cfg.n_heads * hd,), bk=(cfg.n_kv_heads * hd,),
+                 bv=(cfg.n_kv_heads * hd,))
+    return {k: (0.05 * rng.normal(size=s)).astype(np.float32)
+            for k, s in p.items()}
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-72b"])
+@pytest.mark.parametrize("causal,rope", [(False, False), (True, False),
+                                         (False, True)])
+def test_attn_forward_causal_and_rope_options(arch, causal, rope):
+    """``attn_forward``'s ``causal`` and ``rope`` arguments against the
+    reference's (Whisper's encoder: bidirectional, no RoPE; its decoder:
+    causal, no RoPE); qwen2-vl's with M-RoPE positions [3, B, S]."""
+    from repro.models import attention as ja
+    from repro_torch.models import attention as ta
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
+                               dtype="float32")
+    rng = np.random.default_rng(11)
+    p = _attn_params(jcfg, rng)
+    x = rng.normal(size=(2, 20, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(3, 23, dtype=np.int32), (2, 20))
+    if jcfg.mrope_sections is not None:
+        pos = np.stack([pos, pos // 4, pos % 5])
+    want = ja.attn_forward({k: jnp.asarray(v) for k, v in p.items()},
+                           jnp.asarray(x), jnp.asarray(pos), jcfg,
+                           causal=causal, rope=rope)
+    got = ta.attn_forward({k: torch.from_numpy(v) for k, v in p.items()},
+                          torch.from_numpy(x),
+                          torch.from_numpy(np.ascontiguousarray(pos)),
+                          _port_cfg(jcfg), causal=causal, rope=rope)
+    _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("s,se", [(12, 64), (1, 64), (5, 3)])
+def test_cross_attention_matches(s, se):
+    """``cross_kv`` and ``cross_attn_forward`` against the reference's (the
+    plain chunked version, bidirectional, S against the encoder's Se); a
+    cache of another dtype is widened, not k and v rounded to q's."""
+    from repro.models import attention as ja
+    from repro_torch.models import attention as ta
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("whisper-base"),
+                               dtype="float32")
+    rng = np.random.default_rng(12)
+    p = _attn_params(jcfg, rng)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    enc = rng.normal(size=(2, se, jcfg.d_model)).astype(np.float32)
+    x = rng.normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+    jk, jv = ja.cross_kv(jp, jnp.asarray(enc), jcfg)
+    tk, tv = ta.cross_kv(tp, torch.from_numpy(enc), _port_cfg(jcfg))
+    _close(tk, jk, 1e-6)
+    _close(tv, jv, 1e-6)
+    before = flash_attention.launches
+    got = ta.cross_attn_forward(tp, torch.from_numpy(x), tk, tv,
+                                _port_cfg(jcfg))
+    assert flash_attention.launches == before
+    _close(got, ja.cross_attn_forward(jp, jnp.asarray(x), jk, jv, jcfg),
+           1e-6)
+    # bf16 compute against an f32 cache, as serving holds it
+    jcfg16 = dataclasses.replace(jcfg, dtype="bfloat16")
+    want = ja.cross_attn_forward(jp, jnp.asarray(x), jk, jv, jcfg16)
+    got = ta.cross_attn_forward(tp, torch.from_numpy(x), tk, tv,
+                                _port_cfg(jcfg16))
+    assert got.dtype == torch.float32
+    _close(got, want, 3e-2)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-vl-72b"])
+def test_forward_takes_the_batch_positions(arch):
+    """``forward`` uses ``batch["positions"]`` where the caller passes
+    them, as the reference does: shifted and spread positions (RoPE sees
+    only their differences), and for qwen2-vl three different M-RoPE
+    streams [3, B, S] over prefix and text."""
+    jm, jp, tm, tp = _models(arch)
+    cfg = jm.cfg
+    toks = _tokens(cfg, 2, 12)
+    jbatch, tbatch = _batch(cfg, toks)
+    s = 12 + cfg.vision_tokens
+    pos = np.stack([5 + 2 * np.arange(s), 3 + np.arange(s)]).astype(np.int32)
+    if cfg.mrope_sections is not None:
+        pos = np.stack([pos, (pos * 3) % 7, pos[:, ::-1]])
+    pos = np.ascontiguousarray(pos)
+    want, _ = jm.forward(jp, {**jbatch, "positions": jnp.asarray(pos)})
+    got, _ = tm.forward(tp, {**tbatch, "positions": torch.from_numpy(pos)})
+    _close(got, want, 1e-4)
+    plain, _ = tm.forward(tp, tbatch)
+    assert float((got - plain).abs().max()) > 1e-3   # the positions count
+
+
+def test_whisper_needs_its_frames():
+    """Whisper's cache takes frames of its own [B, Se]; ``generate`` needs
+    them for an audio model and refuses them for another."""
+    _, _, tm, tp = _models("whisper-base")
+    cfg = tm.cfg
+    cache = tm.init_cache(2, 4, dtype=torch.float32, device="cpu")
+    assert tuple(cache["cross_k"].shape) == (cfg.n_layers, 2,
+                                             cfg.encoder_seq,
+                                             cfg.n_kv_heads,
+                                             cfg.resolved_head_dim)
+    with pytest.raises(ValueError, match="audio_embed"):
+        tm.prefill_cross_kv(tp, torch.zeros(2, 3, cfg.d_model), cache)
+    prompt = torch.zeros(2, 3, dtype=torch.long)
+    with pytest.raises(ValueError, match="needed"):
+        serve.generate(tm, tp, prompt, 2)
+    _, _, sm, sp = _models("stablelm-1.6b")
+    with pytest.raises(ValueError, match="only for audio"):
+        serve.generate(sm, sp, prompt, 2,
+                       audio_embed=torch.zeros(2, 4, sm.cfg.d_model))
+
+
 # ---------------------------------------------------------------------------
 # the model at smoke size, on the reference's weights
 # ---------------------------------------------------------------------------
@@ -235,31 +437,49 @@ def test_mlp_matches(act):
 def test_forward_matches_jax(arch):
     jm, jp, tm, tp = _models(arch)
     toks = _tokens(jm.cfg, 2, 12)
-    want, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    jbatch, tbatch = _batch(jm.cfg, toks)
+    want, jaux = jm.forward(jp, jbatch)
     before = flash_attention.launches
-    got, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    got, aux = tm.forward(tp, tbatch)
     assert flash_attention.launches == before     # CPU: the plain version
     assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert tuple(got.shape) == (2, 12 + jm.cfg.vision_tokens, jm.cfg.vocab)
     _close(got, want, 1e-4)
     _close(aux, jaux, 1e-6)
     assert (float(aux) > 0) == bool(jm.cfg.n_experts)
-    logits = make_prefill_step(tm)(tp, {"tokens": torch.from_numpy(toks)})
+    logits = make_prefill_step(tm)(tp, tbatch)
     torch.testing.assert_close(logits, got, atol=0, rtol=0)
-    jloss, _ = jm.loss(jp, {"tokens": jnp.asarray(toks)})
-    tloss, metrics = tm.loss(tp, {"tokens": torch.from_numpy(toks)})
+    jloss, _ = jm.loss(jp, jbatch)
+    tloss, metrics = tm.loss(tp, tbatch)
     _close(tloss, jloss, 1e-5)
     _close(metrics["nll"], jloss - 0.01 * jaux, 1e-5)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_jax_and_own_forward(arch):
+    """Decode against JAX's (logits and every cache leaf) and against the
+    port's own forward. Whisper's cross K/V are prefilled from frames drawn
+    as the reference's own test draws them; qwen2-vl's decode (M-RoPE, three
+    equal streams) is held to the forward of its text-only copy, as the
+    reference's test holds it (tests/test_decode_consistency.py)."""
     jm, jp, tm, tp = _models(arch, drop_free=True)
+    cfg = jm.cfg
     b, s = 2, 12
-    toks = _tokens(jm.cfg, b, s)
+    toks = _tokens(cfg, b, s)
     jdecode = jax.jit(jm.decode_step)
     jcache = jm.init_cache(b, s, dtype=jnp.float32)
     tcache = tm.init_cache(b, s, dtype=torch.float32, device="cpu")
-    full, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    if cfg.family == "audio":
+        audio = np.array(0.1 * jax.random.normal(
+            jax.random.PRNGKey(2), (b, cfg.encoder_seq, cfg.d_model)))
+        jcache = jm.prefill_cross_kv(jp, jnp.asarray(audio), jcache)
+        tcache = tm.prefill_cross_kv(tp, torch.from_numpy(audio), tcache)
+        full, _ = tm.forward(tp, _batch(cfg, toks, audio)[1])
+    elif cfg.family == "vlm":
+        full, _ = build_model(_port_cfg(_text_only(cfg))).forward(
+            tp, {"tokens": torch.from_numpy(toks)})
+    else:
+        full, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
     step = make_serve_step(tm)
     errs = []
     for t in range(s):
@@ -304,6 +524,9 @@ def test_generate_matches_reference_loop(arch):
     prompt = _tokens(jm.cfg, b, n_prompt, seed=9)
     decode = jax.jit(jm.decode_step)
     cache = jm.init_cache(b, n_prompt + n_gen, dtype=jnp.float32)
+    audio = _batch(jm.cfg, prompt)[1].get("audio_embed")
+    if audio is not None:
+        cache = jm.prefill_cross_kv(jp, jnp.asarray(audio.numpy()), cache)
     jprompt = jnp.asarray(prompt)
     for t in range(n_prompt):
         logits, cache = decode(jp, cache, jprompt[:, t:t + 1], jnp.int32(t))
@@ -315,7 +538,7 @@ def test_generate_matches_reference_loop(arch):
         tok = jnp.argmax(logits, axis=-1)[:, None]
     want = np.asarray(jnp.concatenate(generated, axis=1))
     out = serve.generate(tm, tp, torch.from_numpy(prompt).long(), n_gen,
-                         cache_dtype=torch.float32)
+                         cache_dtype=torch.float32, audio_embed=audio)
     np.testing.assert_array_equal(out["tokens"].numpy(), want)
     _close(out["logits"], logits, 1e-4)
 
@@ -323,18 +546,20 @@ def test_generate_matches_reference_loop(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_forward_within_bound(arch):
     jm, jp, tm, tp = _models(arch, "bfloat16")
-    toks = _tokens(jm.cfg, 2, 12)
-    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
-    got, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jbatch, tbatch = _batch(jm.cfg, _tokens(jm.cfg, 2, 12))
+    want, _ = jm.forward(jp, jbatch)
+    got, _ = tm.forward(tp, tbatch)
     assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
     _close(got, want, 3e-2)
 
 
 def test_serve_main_runs_on_cpu_and_needs_a_card_by_default(monkeypatch):
-    out = serve.main(["--arch", "gemma3-4b", "--smoke", "--device", "cpu",
-                      "--batch", "2", "--prompt-len", "3", "--gen", "4"])
-    assert tuple(out["tokens"].shape) == (2, 4)
-    assert out["finite"] and bool(torch.isfinite(out["logits"]).all())
+    for arch in ("gemma3-4b", "whisper-base", "qwen2-vl-72b"):
+        out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "3", "--gen", "4"])
+        assert tuple(out["tokens"].shape) == (2, 4)
+        assert out["finite"] and bool(torch.isfinite(out["logits"]).all())
+        assert (out["encode_s"] > 0) == (arch == "whisper-base")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "gemma3-4b", "--smoke"])

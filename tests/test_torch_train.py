@@ -65,7 +65,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 ARCHS = ["stablelm-1.6b", "gemma3-4b", "zamba2-2.7b", "xlstm-350m",
-         "granite-moe-1b-a400m"]
+         "granite-moe-1b-a400m", "whisper-base", "qwen2-vl-72b"]
 OPT_TOL = 1e-6
 LOSS_REL = 1e-5
 GRAD_REL = 1e-4
@@ -173,6 +173,24 @@ def _tokens(cfg, b=2, s=12, seed=5):
         .astype(np.int32)
 
 
+def _batches(cfg, toks, seed=6):
+    """(JAX batch, port batch) of ``toks`` with the stubs' inputs from a
+    numpy seed: ``audio_embed`` for ``audio``, a ``vision_embed`` prefix
+    for ``vlm`` (0.1 x normal)."""
+    rng = np.random.default_rng(seed)
+    arrays = {"tokens": toks}
+    if cfg.family == "audio":
+        arrays["audio_embed"] = 0.1 * rng.normal(
+            size=(toks.shape[0], cfg.encoder_seq, cfg.d_model))
+    if cfg.family == "vlm":
+        arrays["vision_embed"] = 0.1 * rng.normal(
+            size=(toks.shape[0], cfg.vision_tokens, cfg.d_model))
+    arrays = {k: v.astype(np.float32) if k != "tokens" else v
+              for k, v in arrays.items()}
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
 def _assert_grads_close(got, want):
     for g, w in zip(_np(got), _jleaves(want)):
         scale = max(float(np.abs(w).max()), 1e-12)
@@ -185,10 +203,9 @@ def test_train_step_matches_the_reference(arch):
     three Adam steps of ``make_train_step``."""
     jm, jp, tm, tp = _models(arch)
     j_grad = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))
-    toks = _tokens(jm.cfg)
-    (jl, _), jg = j_grad(jp, {"tokens": jnp.asarray(toks)})
-    tg, (tl, _) = torch.func.grad_and_value(tm.loss, has_aux=True)(
-        tp, {"tokens": torch.from_numpy(toks)})
+    jb, tb = _batches(jm.cfg, _tokens(jm.cfg))
+    (jl, _), jg = j_grad(jp, jb)
+    tg, (tl, _) = torch.func.grad_and_value(tm.loss, has_aux=True)(tp, tb)
     assert abs(float(tl) - float(jl)) <= LOSS_REL * abs(float(jl))
     assert len(tree_leaves(tg)) == len(jax.tree.leaves(jg))
     _assert_grads_close(tg, jg)
@@ -211,14 +228,13 @@ def test_train_step_matches_the_reference(arch):
     # division by the root second moment decides the step's size and sign
     resolved = None
     for i in range(n_steps):
-        b = {"tokens": jnp.asarray(_tokens(jm.cfg, seed=10 + i))}
+        b, tb = _batches(jm.cfg, _tokens(jm.cfg, seed=10 + i), seed=20 + i)
         g = [np.abs(x) / max(float(np.abs(x).max()), 1e-30)
              for x in _jleaves(j_grad(jp, b)[1])]
         resolved = g if resolved is None else [np.minimum(r, x) for r, x
                                                in zip(resolved, g)]
         jp, js, jmet = jstep(jp, js, b)
-        tp, ts, tmet = tstep(tp, ts, {"tokens": torch.from_numpy(
-            np.asarray(b["tokens"]))})
+        tp, ts, tmet = tstep(tp, ts, tb)
         assert abs(float(tmet["loss"]) - float(jmet["loss"])) <= \
             LOSS_REL * abs(float(jmet["loss"]))
     n_apart = 0
@@ -420,13 +436,43 @@ def test_train_launcher_runs_and_resumes_on_the_cpu(tmp_path):
     assert again["start"] == 6 and len(again["losses"]) == 1
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2-vl-72b", "14.5"),
-                                       ("whisper-base", "14.4")])
-def test_train_batch_names_the_deferred_families(arch, item):
-    cfg = tconfigs.ModelConfig(**dataclasses.asdict(
-        jconfigs.get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.lm_batch(cfg, np.zeros((1, 4), np.int32), "cpu")
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
+def test_lm_batch_matches_the_reference(arch):
+    """The launcher's batch for the stubbed families, as the reference's
+    loop builds it (``repro/launch/train.py``): ``vlm`` tokens cut to
+    ``seq - vision_tokens`` behind a zero bf16 ``vision_embed``, ``audio``
+    zero bf16 ``audio_embed`` frames; a sequence the prefix fills raises."""
+    jcfg = jconfigs.get_smoke_config(arch)
+    cfg = tconfigs.ModelConfig(**dataclasses.asdict(jcfg))
+    b, seq = 3, 40
+    toks = _tokens(cfg, b, seq)
+    batch = ttrain.lm_batch(cfg, toks, "cpu")
+    want = {"tokens": ((b, seq - jcfg.vision_tokens) if jcfg.family == "vlm"
+                       else (b, seq), torch.int64)}
+    if jcfg.family == "vlm":
+        want["vision_embed"] = ((b, jcfg.vision_tokens, jcfg.d_model),
+                                torch.bfloat16)
+    if jcfg.family == "audio":
+        want["audio_embed"] = ((b, jcfg.encoder_seq, jcfg.d_model),
+                               torch.bfloat16)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} == want
+    np.testing.assert_array_equal(batch["tokens"].numpy(),
+                                  toks[:, :want["tokens"][0][1]])
+    for k in set(batch) - {"tokens"}:
+        assert not bool(batch[k].any())
+    if jcfg.family == "vlm":
+        with pytest.raises(ValueError, match="vision tokens"):
+            ttrain.lm_batch(cfg, toks[:, :jcfg.vision_tokens], "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
+def test_train_launcher_trains_the_stubbed_families(arch):
+    """``--smoke`` on the CPU for the vision-language and audio models: a
+    finite loss every step through the launcher's batch."""
+    out = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--steps", "3", "--batch", "2", "--seq", "32"])
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    assert out["aux"] == [0.0] * 3
 
 
 def test_train_launcher_reports_the_moe_aux_loss():
