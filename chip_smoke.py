@@ -71,7 +71,7 @@ Phases (any failure exits non-zero without the final result line):
    f64-sLSTM copy), and decode against forward;
 9. the ring peer path: ``spawn_local_cluster`` starts 4 ranks on the one
    card, joined over gloo; each holds its 64-mule block of phase 5's walk,
-   bucket-ordered by area (T = 30), at the paper CNN's full width, and runs
+   bucket-ordered by area (T = 18), at the paper CNN's full width, and runs
    ``gossip`` and then ``oppcl`` through ``gossip_step(ring=...)`` and
    ``oppcl_step(ring=...)`` with the single-host engine's batches and
    global-split keys. Each rank must launch ``encounter_hop`` once per hop
@@ -152,7 +152,7 @@ Phases (any failure exits non-zero without the final result line):
    ``cases`` entry of row 1);
 16. the distributed path: ``spawn_local_cluster`` starts 4 ranks of this
    script (``--dist-rank``) on the one card over gloo, each a 64-mule
-   block of phase 9's bucket-ordered walk at the CNN's full width, T = 30.
+   block of phase 9's bucket-ordered walk at the CNN's full width, T = 18.
    ``run_population_distributed`` runs the five ``METHODS_MOBILE`` with the
    histogram sketch: ``mule_agg`` 30 launches a rank for ``mlmule`` and
    ``mlmule+gossip``, ``encounter_hop`` once per kept hop for the peer
@@ -162,14 +162,14 @@ Phases (any failure exits non-zero without the final result line):
    bound, the aggregation in lockstep with training off within 1e-5 over
    the first 10 steps;
    ``mlmule`` with ``cross_pod=False`` on a 2 x 2 mesh. Then ``gossip`` on
-   ``multi_area_migratory`` through the streamed distributed engine,
-   re-bucketing every 10 steps: at least one swap, a permutation, the
+   ``multi_area_migratory`` (T = 30) through the streamed distributed
+   engine, re-bucketing every 10 steps: at least one swap, a permutation, the
    same drift readings on every rank, bitwise
    ``run_population_distributed(rebucket_every=10)``; steps/s, bytes sent
    a step and hops pruned before and after the swap;
 17. the seed sweep over the ranks, in phase 16's world: each rank runs
    ``run_sweep_distributed`` over 4 seeds of the walk (each bucket-ordered
-   by its own areas) for ``mlmule`` and ``gossip``, T = 12, then each lane
+   by its own areas) for ``mlmule`` and ``gossip``, T = 9, then each lane
    alone through ``run_population_distributed``. One ``ordered_psum`` a
    ``mlmule`` step and one ``encounter_hop`` launch a hop that any lane
    keeps, for all lanes; every lane's replicated state bitwise on every
@@ -243,7 +243,23 @@ Phases (any failure exits non-zero without the final result line):
    normal) and 3,840 tokens with both attention launches on the tensor
    cores, a profile; the f32 copy against ``backend="ref"`` (2e-4); decode
    of the text-only copy (no prefix, plain RoPE) against its forward
-   (1e-3), as the reference's test holds it.
+   (1e-3), as the reference's test holds it;
+22. the tooling (``repro_torch.launch``): (a) every launch candidate of the
+   tuned kernels (``mule_agg``'s grid at 1/2, 1, 2, 4 waves; the sums
+   kernel's two shapes times its dense switch at 4, 8, 16, 32 for
+   ``encounter_mix`` and ``encounter_hop``) at the paths' shapes, each
+   output bitwise the default's; (b) the tune at those shapes, each pick's
+   ms beside the default's and ``tuned_speedup_vs_default`` (printed, not
+   checked); (c) the committed tuning cache's picks are the launches'
+   choices, and the main and peer paths run T = 6 with it and without it
+   with the same launches and bits; (d) one step of the main path and one
+   stablelm-1.6b training step at 4 x 128 counted (``CostCounter``) on the
+   card and on ``meta``, the FLOPs equal, their roofline terms beside the
+   step times phases 4 and 18 measured, the compute term at most the
+   measured time; (e) the dry run's peak memory of that training step
+   within 20% of phase 18's ``max_memory_allocated``; (f) the engine's
+   roofline row of ``mlmule`` (M = 64, T = 24) on phase 16's 4 ranks and
+   ``suggest_mesh_shape``'s pick from the committed cache.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -343,11 +359,12 @@ PEER_REPLAY_ATOL = 5e-2
 # phase 3: the JAX package's kernel tolerances
 # (tests/test_kernels_mule_agg.py, tests/test_kernels_encounter.py)
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
-# H100 SXM peaks (NVIDIA data sheet): memory rate, fp32 outside the
-# tensor cores (the kernel's FMAs), dense bf16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_TENSOR_FLOP_PER_S = 989e12
+# The H100 SXM's peaks (NVIDIA's data sheet) and each kernel's work are
+# src/repro_torch/launch/roofline.py's: HBM_BYTES_PER_S (3.35 TB/s),
+# FP32_FLOP_PER_S (67 TFLOP/s outside the tensor cores, the kernels' FMAs),
+# BF16_TENSOR_FLOP_PER_S (989 TFLOP/s dense), and mule_agg_work,
+# encounter_mix_work, encounter_hop_work, flash_attention_work, ssd_work and
+# slstm_work, whose Work.bound_ms is every bound line below
 
 # flash_attention (phase 3): tests/test_kernels_flash.py's cases (b, s, h,
 # kv, d, window, causal) and tolerances (test_kernels_flash.py:38), plus
@@ -480,11 +497,12 @@ XLSTM_SHORT_PREFILL_TOL = 4e-3
 
 # encounter_hop (phase 3) and the ring peer path (phase 9): the walk of
 # phase 5, bucket-ordered by area and split into RING_RANKS equal blocks of
-# 64 mules, T = 30 steps (10 exchanges). Each hop is held to
-# encounter_block as encounter_mix is (TOL), and the ring-order sum of the
-# hops, normalised, to the single-host encounter_mix: both sum the same
-# terms in other orders, and the normalisation divides by an exact count.
-RING_RANKS, RING_STEPS = 4, 30
+# 64 mules, T = 18 steps (6 exchanges; cut from 30 for phase 22). Each hop
+# is held to encounter_block as encounter_mix is (TOL), and the ring-order
+# sum of the hops, normalised, to the single-host encounter_mix: both sum
+# the same terms in other orders, and the normalisation divides by an
+# exact count.
+RING_RANKS, RING_STEPS = 4, 18
 RING_MIX_TOL = 2e-5
 RING_TIMEOUT = 600
 # Table 1 fixed path (phase 10): the paper's 8 fixed devices and 20 mules,
@@ -530,22 +548,27 @@ STREAM_CHUNK = EVAL_EVERY
 SCALE_MULES = (100_000, 1_000_000)
 SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 24, 8, 2, 0.05
 # the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
-# bucket-ordered walk of phase 9 at the CNN's full width, T = 30; then the
+# bucket-ordered walk of phase 9 at the CNN's full width, T = 18 (cut from
+# 30 for phase 22; at most phase 9's T, whose walk it runs); then the
 # streamed engine on multi_area_migratory, re-bucketing every 10 steps.
 # At M = 256 that schedule's drift from its build-time buckets is 0 at
 # step 10 and 2 mules of 256 (0.0078) at step 20: the threshold lets the
 # second check swap
-DIST_RANKS, DIST_STEPS = 4, 30
+DIST_RANKS, DIST_STEPS = 4, 18
 # the distributed mlmule's lockstep with agg_backend="ref": the first 10
 # steps (cut from 30, to keep the script inside its time)
 DIST_LOCKSTEP_STEPS = 10
 REBUCKET_EVERY, REBUCKET_THRESHOLD = 10, 0.005
+# the re-bucketed run keeps T = 30: at T = 24 the migratory schedule's drift
+# stays under the threshold at both checks (no swap)
+REBUCKET_STEPS = 30
 # the seed sweep over the ranks (phase 17, in phase 16's world): S seeds of
-# that walk as lanes inside each rank's block, T = 12 (cut from 30 to keep
-# the script inside its time with the checks below)
+# that walk as lanes inside each rank's block, T = 9 (cut from 30 to keep
+# the script inside its time with the checks below, and from 12 for phase
+# 22)
 DIST_LANES = 4
 DIST_SWEEP_METHODS = ("mlmule", "gossip")
-DIST_SWEEP_STEPS = 12
+DIST_SWEEP_STEPS = 9
 # its lanes against their sequential runs with training off (the
 # collectives, aggregation and hops alone: bitwise; two gossip exchanges)
 # and with training alone (method "local", with and without cuDNN)
@@ -768,15 +791,13 @@ def _mule_agg_timing(g, f, m, d, what: str, dtype, card: str,
     bound; the kernel over ``reps`` readings."""
     import torch
     from repro_torch.kernels.mule_agg import mule_agg, mule_agg_plain
+    from repro_torch.launch.roofline import mule_agg_work
     size = torch.tensor([], dtype=dtype).element_size()
     w_bytes = m * d * size
     inputs = [_mule_agg_case(g, f, m, d, dtype)
               for _ in range(max(1, math.ceil(COLD_BYTES / w_bytes)))]
-    n_bytes = 4 * f * m + w_bytes + f * d * size
-    n_flop = 2 * f * m * d
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
-    graph = max(t_bytes, t_ops) < GRAPH_BELOW_MS
+    work = mule_agg_work(f, m, d, size)
+    graph = work.bound_ms < GRAPH_BELOW_MS
     ms = _cold_ms(mule_agg, inputs, graph, reps)
     plain_ms = _cold_ms(mule_agg_plain, inputs, graph)
     library_ms = (_cold_ms(torch.matmul, inputs, graph)
@@ -785,15 +806,14 @@ def _mule_agg_timing(g, f, m, d, what: str, dtype, card: str,
               else "CUDA events, one call each")
     entry = {"shape": f"F={f} M={m} D={d} {str(dtype).split('.')[1]}",
              "path": what, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bound_ms": work.bound_ms, "bound_by": work.bound_by,
              "library_ms": library_ms, "timed_by": method,
              "w_copies": len(inputs)}
     lib = "" if library_ms is None else \
         f", torch.matmul {library_ms:.4f} ms"
     print(f"mule_agg timing {entry['shape']} ({what}): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms{lib}, bound {entry['bound_ms']:.4f} ms "
-          f"({entry['bound_by']}; {n_bytes} B, {n_flop} FLOP), "
+          f"({entry['bound_by']}; {work.n_bytes} B, {work.n_flop} FLOP), "
           f"{ms / entry['bound_ms']:.3f}x its bound; {method}, W in "
           f"{len(inputs)} cop{'y' if len(inputs) == 1 else 'ies'} [{card}]")
     return entry
@@ -956,23 +976,22 @@ def _check_pairs(label, pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
 
 def _same_bits_across_modes(label, fn) -> None:
     """``fn()`` -> (out, mass) with every strip summed densely, with none,
-    and with the default switch: the same bits each time."""
+    and with the launch's own switch (the tuned cache's or the hand
+    pick's): the same bits each time."""
     import torch
     from repro_torch.kernels.encounter_mix import ops
-    default = ops.DENSE_PAIRS_PER_ROW
     outs = {}
     try:
-        for dense_min in (default, 0, 33):
-            ops.DENSE_PAIRS_PER_ROW = dense_min
+        for dense_min in (None, 0, 33):
+            ops.DENSE_MIN = dense_min
             outs[dense_min] = fn()
     finally:
-        ops.DENSE_PAIRS_PER_ROW = default
+        ops.DENSE_MIN = None
     torch.cuda.synchronize()
-    same = all(torch.equal(o, outs[default][0])
-               and torch.equal(m, outs[default][1]) for o, m in outs.values())
-    print(f"{label}: every strip dense, none dense and the default switch "
-          f"({default} pairs a row) give "
-          f"{'the same bits' if same else 'DIFFERENT results'}")
+    same = all(torch.equal(o, outs[None][0])
+               and torch.equal(m, outs[None][1]) for o, m in outs.values())
+    print(f"{label}: every strip dense, none dense and the launch's own "
+          f"switch give {'the same bits' if same else 'DIFFERENT results'}")
     if not same:
         raise AssertionError(f"{label}: the sparse and dense modes disagree")
 
@@ -980,6 +999,8 @@ def _same_bits_across_modes(label, fn) -> None:
 def phase_encounter_mix() -> dict:
     """encounter_mix against its plain version; returns its JSON row."""
     import torch
+    from repro_torch.launch.roofline import (FP32_FLOP_PER_S,
+                                             encounter_mix_work)
     from repro_torch.baselines.gossip import (encounter_matrix,
                                               unflatten_population)
     from repro_torch.configs.mule_cnn import CONFIG
@@ -1056,15 +1077,11 @@ def phase_encounter_mix() -> dict:
                 dense_ms = _median_ms(lambda: _dense_mix(models, pos, area,
                                                          active))
                 del models
-                # bytes: W read once, the mix and mass written once, the
-                # geometry (pos f32 x2, area int64, active bool) read once
-                n_bytes = 4 * m * d + 4 * m * d + 4 * m + 17 * m
-                # operations the data needs: one multiply-add per met pair
-                # and column; a dense strip would do M*M*D
-                n_flop = 2 * nnz * d
+                # W read once, the mix and mass written once, the geometry
+                # read once; one multiply-add per met pair and column (a
+                # dense strip would do M*M*D)
+                work = encounter_mix_work(m, d, nnz)
                 dense_flop = 2 * m * m * d
-                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-                t_ops = n_flop / FP32_FLOP_PER_S * 1e3
                 row = {
                     "name": "encounter_mix", "route": "cuda",
                     "source": "src/repro_torch/kernels/encounter_mix/csrc/"
@@ -1072,8 +1089,7 @@ def phase_encounter_mix() -> dict:
                     "replaces": "src/repro/kernels/encounter_mix/kernel.py:79",
                     "launches": None, "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bound_ms": work.bound_ms, "bound_by": work.bound_by,
                     "library_ms": library_ms,
                 }
                 print(f"encounter_mix timing M={m} D={d} f32 ({nnz} "
@@ -1081,18 +1097,19 @@ def phase_encounter_mix() -> dict:
                       f"ms, torch.matmul on a dense e {library_ms:.4f} ms, "
                       f"gossip_step_dense's mix {dense_ms:.4f} ms, bound "
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                      f"{n_bytes} B, {n_flop} FLOP for the met pairs); the "
+                      f"{work.n_bytes} B, {work.n_flop} FLOP for the met "
+                      f"pairs); the "
                       f"dense strip's {dense_flop} FLOP take "
                       f"{dense_flop / FP32_FLOP_PER_S * 1e3:.4f} ms")
             elif geo == "walk":
                 bf_ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
                                                          radius=radius))
-                bf_bound = 4 * m * d / HBM_BYTES_PER_S * 1e3
-                row["bf16"] = {"ms": bf_ms, "bound_ms": bf_bound,
-                               "bound_by": "bytes", "max_abs_err": err}
+                bf = encounter_mix_work(m, d, nnz, 2)
+                row["bf16"] = {"ms": bf_ms, "bound_ms": bf.bound_ms,
+                               "bound_by": bf.bound_by, "max_abs_err": err}
                 print(f"encounter_mix timing M={m} D={d} bf16: kernel "
-                      f"{bf_ms:.4f} ms, bound {bf_bound:.4f} ms (W and "
-                      f"mix bytes)")
+                      f"{bf_ms:.4f} ms, bound {bf.bound_ms:.4f} ms "
+                      f"({bf.bound_by}; W and mix in bf16)")
             elif geo == "dense strip" and dtype == torch.float32:
                 ms = _median_ms(lambda: encounter_mix(pos, area, active, w,
                                                       radius=radius))
@@ -1100,22 +1117,19 @@ def phase_encounter_mix() -> dict:
                     pos, area, active, w, radius=radius))
                 e = encounter_matrix(pos, area, radius, active).float()
                 library_ms = _median_ms(lambda: torch.matmul(e, w))
-                n_flop = 2 * nnz * d
-                t_bytes = (8 * m * d + 21 * m) / HBM_BYTES_PER_S * 1e3
-                t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+                work = encounter_mix_work(m, d, nnz)
                 dense = {"shape": f"M={m}, D={d}, pos 0, two areas "
                                   f"({nnz} met pairs)",
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": ("bytes" if t_bytes >= t_ops
-                                      else "operations"),
+                         "bound_ms": work.bound_ms,
+                         "bound_by": work.bound_by,
                          "library_ms": library_ms}
                 print(f"encounter_mix timing M={m} D={d} f32, dense strip "
                       f"(pos 0, two areas; {nnz} encounters): kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
                       f"on a dense e {library_ms:.4f} ms, bound "
                       f"{dense['bound_ms']:.4f} ms ({dense['bound_by']}; "
-                      f"{n_flop} FLOP for the met pairs)")
+                      f"{work.n_flop} FLOP for the met pairs)")
             del out, w
     row["dense_strip"] = dense
     return row
@@ -1139,25 +1153,23 @@ def _check_seed_folds() -> None:
           f"the host's bits ({len(seeds)} seeds x 5 folds)")
 
 
-def _lane_timing(label: str, lanes, singles, library, plain,
-                 n_bytes: int, n_flop: int, err: float) -> dict:
+def _lane_timing(label: str, lanes, singles, library, plain, work,
+                 err: float) -> dict:
     """The lanes entry's timings: one lane-batched call, S single-lane
-    calls, the library call and the plain version; and its bound."""
+    calls, the library call and the plain version; and its bound (``work``,
+    a ``roofline.Work``)."""
     ms = _median_ms(lanes, reps=20)
     single_ms = _median_ms(singles, reps=20)
     library_ms = _median_ms(library, reps=20)
     plain_ms = _median_ms(plain, reps=10)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
     entry = {"shape": label, "max_abs_err": err, "ms": ms,
              "single_launches_ms": single_ms, "plain_ms": plain_ms,
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bound_ms": work.bound_ms, "bound_by": work.bound_by,
              "library_ms": library_ms}
     print(f"  {label}: lanes {ms:.4f} ms, {LANES} single launches "
           f"{single_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-          f"({entry['bound_by']}; {n_bytes} B, {n_flop} FLOP)")
+          f"({entry['bound_by']}; {work.n_bytes} B, {work.n_flop} FLOP)")
     return entry
 
 
@@ -1171,6 +1183,8 @@ def phase_lanes() -> dict:
         encounter_mix, encounter_mix_lanes, encounter_mix_lanes_reference)
     from repro_torch.kernels.mule_agg import (mule_agg, mule_agg_lanes,
                                               mule_agg_lanes_plain)
+    from repro_torch.launch.roofline import (encounter_mix_work,
+                                             mule_agg_work)
     from repro_torch.scenarios import walk_colocation
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1208,8 +1222,7 @@ def phase_lanes() -> dict:
             label, lambda: mule_agg_lanes(a, w),
             lambda: [mule_agg(a[i], w[i]) for i in range(LANES)],
             lambda: torch.bmm(a, w), lambda: mule_agg_lanes_plain(a, w),
-            4 * LANES * (f * m + m * d_main + f * d_main),
-            2 * LANES * f * m * d_main, err))
+            mule_agg_work(f, m, d_main, 4, LANES), err))
         del a, w
 
     mix_cases = []
@@ -1270,7 +1283,7 @@ def phase_lanes() -> dict:
             lambda: torch.bmm(e, w),
             lambda: encounter_mix_lanes_reference(pos, area, act, w,
                                                   radius=RADIUS),
-            LANES * (8 * N_MULES * d + 21 * N_MULES), 2 * nnz * d, err))
+            encounter_mix_work(N_MULES, d, nnz, 4, LANES), err))
         del w, e
     entry = {"lanes": LANES, "library": "torch.bmm of the dense [S, F, M] "
              "or [S, M, M] gate", "cases": None}
@@ -1379,6 +1392,8 @@ def phase_encounter_hop(card: str) -> dict:
     blocks of the ring path's population; returns its JSON row, timed at
     the ring path's hop shape (R = V = 64, D = 546,484, f32)."""
     import torch
+    from repro_torch.launch.roofline import (FP32_FLOP_PER_S,
+                                             encounter_hop_work)
     from repro_torch.baselines.gossip import ring_hop_mask
     from repro_torch.kernels.encounter_mix import (encounter_block,
                                                    encounter_block_hop,
@@ -1429,12 +1444,9 @@ def phase_encounter_hop(card: str) -> dict:
     d2, gate = encounter_gate(*args[:8])
     e = ((d2 <= radius_sq(RADIUS).cuda()) & gate).float()
     library_ms = _median_ms(lambda: torch.matmul(e, args[8]))
-    # bytes: W_v read once, acc and mass written once, the two blocks'
-    # geometry (pos f32 x2, area int64, active bool) read once
-    n_bytes = 4 * m_loc * d_main * 2 + 4 * m_loc + 2 * 17 * m_loc
-    n_flop = 2 * nnz * d_main          # one multiply-add per met pair, column
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+    # W_v read once, acc and mass written once, the two blocks' geometry
+    # read once; one multiply-add per met pair and column
+    work = encounter_hop_work(m_loc, m_loc, d_main, nnz)
     row = {
         "name": "encounter_hop", "route": "cuda",
         "source": "src/repro_torch/kernels/encounter_mix/csrc/"
@@ -1442,23 +1454,22 @@ def phase_encounter_hop(card: str) -> dict:
         "replaces": "src/repro/kernels/encounter_mix/kernel.py:166",
         "launches": None, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": work.bound_ms, "bound_by": work.bound_by,
         "library_ms": library_ms,
     }
     print(f"encounter_hop timing R=V={m_loc} D={d_main} f32, hop (rows "
           f"{i}, visiting {j}; {nnz} encounters): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, torch.matmul on the dense e [{m_loc}, "
           f"{m_loc}] {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}; {n_bytes} B, {n_flop} FLOP for the met "
-          f"pairs; the dense strip's {2 * m_loc * m_loc * d_main} FLOP take "
-          f"{2 * m_loc * m_loc * d_main / FP32_FLOP_PER_S * 1e3:.4f} ms) "
-          f"[{card}]")
-    row["lanes"] = _hop_lanes(pos, area, w, (i, j), n_bytes, card)
+          f"({row['bound_by']}; {work.n_bytes} B, {work.n_flop} FLOP for the "
+          f"met pairs; the dense strip's {2 * m_loc * m_loc * d_main} FLOP "
+          f"take {2 * m_loc * m_loc * d_main / FP32_FLOP_PER_S * 1e3:.4f} "
+          f"ms) [{card}]")
+    row["lanes"] = _hop_lanes(pos, area, w, (i, j), card)
     return row
 
 
-def _hop_lanes(pos, area, w, busiest, hop_bytes: int, card: str) -> dict:
+def _hop_lanes(pos, area, w, busiest, card: str) -> dict:
     """``encounter_block_hop_lanes``, the hop of a seed sweep over the
     ranks, at S = 1, 2 and 4 lanes of the ring path's remote hops (lane 0
     the busiest; every lane with the busiest hop's row0 and col0): each lane
@@ -1467,6 +1478,7 @@ def _hop_lanes(pos, area, w, busiest, hop_bytes: int, card: str) -> dict:
     single launches and ``torch.bmm`` over the dense gates (the ``lanes``
     entry of row 3)."""
     import torch
+    from repro_torch.launch.roofline import encounter_hop_work
     from repro_torch.kernels.encounter_mix import (
         encounter_block_hop, encounter_block_hop_lanes,
         encounter_block_lanes_reference, encounter_gate)
@@ -1533,17 +1545,7 @@ def _hop_lanes(pos, area, w, busiest, hop_bytes: int, card: str) -> dict:
         lambda: [encounter_block_hop(*single(k)) for k in range(LANES)],
         lambda: torch.bmm(e, args[8]),
         lambda: encounter_block_lanes_reference(*args),
-        LANES * hop_bytes, 2 * nnz * w.shape[1], worst)
-
-
-def _unmasked_pairs(s: int, sk: int, window, causal: bool) -> int:
-    """(query, key) pairs the masks leave, for one batch row and head
-    (right-aligned queries)."""
-    import numpy as np
-    qpos = np.arange(s, dtype=np.int64) + (sk - s)
-    hi = np.minimum(qpos, sk - 1) if causal else np.full(s, sk - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+        encounter_hop_work(m_loc, m_loc, w.shape[1], nnz, LANES), worst)
 
 
 def _sass_count(kernel: str, opcode: str) -> int:
@@ -1581,6 +1583,10 @@ def phase_flash_attention(card: str) -> dict:
     """flash_attention against its plain versions; returns its JSON row
     (timed at gemma3-4b's global-layer prefill shape)."""
     import torch
+    from repro_torch.launch.roofline import (BF16_TENSOR_FLOP_PER_S,
+                                             HBM_BYTES_PER_S,
+                                             flash_attention_work,
+                                             unmasked_pairs)
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1684,24 +1690,23 @@ def phase_flash_attention(card: str) -> dict:
         plain_ms = _median_ms(lambda: flash_attention(
             q, k, v, causal=True, window=win, backend="ref"), reps=3, warm=1)
         library_ms = _median_ms(lib, reps=10)
-        pairs = _unmasked_pairs(s, s, win, True) * b * h
-        n_flop = 4 * d * pairs
-        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # bf16 q,k,v,out
-        t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        work = flash_attention_work(b, s, s, h, kv, d, True, win,
+                                    torch.bfloat16)
+        pairs, n_flop, n_bytes = (unmasked_pairs(s, s, win, True) * b * h,
+                                  work.n_flop, work.n_bytes)
+        bound_by = work.bound_by
         print(f"flash_attention timing {label} bf16: tensor-core kernel "
               f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
               f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p "
               f"split), plain {plain_ms:.4f} ms, "
               f"SDPA ({note}, enable_gqa) "
               f"{library_ms:.4f} ms (max |SDPA - kernel| "
-              f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
+              f"{lib_err.item():.3e}), bound {work.bound_ms:.4f} ms "
               f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
               f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
               f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
         timed = {"ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
+                 "bound_ms": work.bound_ms, "bound_by": bound_by,
                  "library_ms": library_ms}
         if win is None:
             row = {
@@ -1746,6 +1751,10 @@ def _flash_layer_shape(card: str, inputs, check, arch: str,
     bound; with ``f32`` also the same (bf16-valued) inputs in f32 on the
     SIMT route. Returns the shape's entry of row 4."""
     import torch
+    from repro_torch.launch.roofline import (BF16_TENSOR_FLOP_PER_S,
+                                             HBM_BYTES_PER_S,
+                                             flash_attention_work,
+                                             unmasked_pairs)
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1789,25 +1798,24 @@ def _flash_layer_shape(card: str, inputs, check, arch: str,
                                                   backend="ref"),
                           reps=3, warm=1)
     library_ms = _median_ms(lib, reps=10)
-    pairs = _unmasked_pairs(s, s, None, causal) * b * h
-    n_flop = 4 * d * pairs
-    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    t_ops = n_flop / BF16_TENSOR_FLOP_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    work = flash_attention_work(b, s, s, h, kv, d, causal, None,
+                                torch.bfloat16)
+    pairs, n_flop, n_bytes = (unmasked_pairs(s, s, None, causal) * b * h,
+                              work.n_flop, work.n_bytes)
+    bound_by = work.bound_by
     print(f"flash_attention timing {label} bf16: tensor-core kernel "
           f"{ms:.4f} ms ({n_flop / ms / 1e9:.2f} TFLOP/s useful, "
           f"{1.5 * n_flop / ms / 1e9:.2f} on the tensor cores with p split), "
           f"plain {plain_ms:.4f} ms, SDPA (is_causal={causal}, enable_gqa) "
           f"{library_ms:.4f} ms (max |SDPA - kernel| "
-          f"{lib_err.item():.3e}), bound {max(t_ops, t_bytes):.4f} ms "
+          f"{lib_err.item():.3e}), bound {work.bound_ms:.4f} ms "
           f"({bound_by}; {pairs} unmasked pairs, {n_flop} FLOP at "
           f"{BF16_TENSOR_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 dense, "
           f"{n_bytes} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
     return {"shape": f"q {list(q.shape)}, k/v {list(k.shape)} {kind} "
                      f"({arch})",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": bound_by,
+            "bound_ms": work.bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
@@ -1825,21 +1833,12 @@ def _ssd_inputs(g, b, s, h, p, n, a=None):
     return x, dt, A, normal(b, s, n), normal(b, s, n)
 
 
-def _ssd_work(b, s, h, p, n):
-    """(bytes, fp32 operations) the scan needs: each input read once and y
-    written once; the least work of its forms, the recurrence's, where each
-    (batch row, head, step) takes one state update s = dA s + (dt x) Bᵀ and
-    one read-out y = C s, 2 P N FLOP each, and one exp for dA (the chunked
-    form the kernel runs does more)."""
-    n_ops = 4 * b * h * s * p * n + b * h * s
-    n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
-    return n_bytes, n_ops
-
-
 def phase_ssd_scan(card: str) -> dict:
     """ssd_scan against its plain versions; returns its JSON row (timed at
     zamba2-2.7b's prefill shape)."""
     import torch
+    from repro_torch.launch.roofline import (FP32_FLOP_PER_S,
+                                             HBM_BYTES_PER_S, ssd_work)
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssm_scan import (ssd_chunked_reference,
                                               ssd_reference, ssd_scan)
@@ -1890,16 +1889,15 @@ def phase_ssd_scan(card: str) -> dict:
     ms = _median_ms(lambda: ssd_scan(*args, chunk=chunk), reps=10)
     plain_ms = _median_ms(lambda: ssd_chunked_reference(*args, chunk=chunk),
                           reps=3, warm=1)
-    n_bytes, n_ops = _ssd_work(b, s, h, p, n)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    work = ssd_work(b, s, h, p, n)
+    n_bytes, n_ops = work.n_bytes, work.n_flop
+    t_bytes, t_ops = work.t_bytes_ms, work.t_ops_ms
     row = {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:95",
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": work.bound_ms, "bound_by": work.bound_by,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
         "kernels_per_call": 2,
@@ -1934,6 +1932,8 @@ def phase_slstm_scan(card: str) -> dict:
     """slstm_scan against its plain version; returns its JSON row (timed
     at xlstm-350m's prefill shape)."""
     import torch
+    from repro_torch.launch.roofline import (FP32_FLOP_PER_S,
+                                             HBM_BYTES_PER_S, slstm_work)
     from repro_torch.configs import get_config
     from repro_torch.kernels.slstm_fused import slstm_reference, slstm_scan
     from repro_torch.kernels.slstm_fused.ops import (CLUSTER, slstm_geometry,
@@ -1972,17 +1972,15 @@ def phase_slstm_scan(card: str) -> dict:
     plain_ms = _median_ms(lambda: slstm_reference(pre, r), reps=3, warm=1)
     # the products h_{t-1} @ r of every step, and each input and output
     # moved once
-    n_flop = 2 * b * s * 4 * h * p * p
-    n_bytes = 4 * (pre.numel() + b * s * h * p + r.numel())
-    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    work = slstm_work(b, s, h, p)
+    n_flop, n_bytes = work.n_flop, work.n_bytes
+    t_ops, t_bytes = work.t_ops_ms, work.t_bytes_ms
     row = {
         "name": "slstm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/slstm_fused/csrc/slstm_scan.cu",
         "replaces": "src/repro/kernels/slstm_fused/kernel.py:75",
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": work.bound_ms, "bound_by": work.bound_by,
         "library_ms": None,
         "library": "none: no PyTorch call computes the sLSTM cell "
                    "(torch.nn.LSTM and cuDNN have sigmoid gates, no m "
@@ -2091,6 +2089,7 @@ def phase_main_path(card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = mule_agg.launches
     peak = torch.cuda.max_memory_allocated()
+    MEASURED["main step s"] = wall / N_STEPS
 
     if launches != N_STEPS:
         raise AssertionError(f"mule_agg launched {launches} times in a "
@@ -4017,7 +4016,7 @@ def dist_rank(out_dir: str) -> None:
 
     # the re-bucketed streamed engine on the migratory schedule
     spec = get_scenario("multi_area_migratory")
-    mco = spec.colocation(SEED, N_MULES, DIST_STEPS)
+    mco = spec.colocation(SEED, N_MULES, REBUCKET_STEPS)
     morder = bucket_mule_order(mco["area"])
     mco = reorder_colocation(mco, morder)
     mX, mY, _, _ = image_data_mobile(
@@ -4062,12 +4061,12 @@ def dist_rank(out_dir: str) -> None:
     except AssertionError:
         rec["equal_to_distributed"] = False
     swap_t = next(((k + 1) * REBUCKET_EVERY for k, d in enumerate(rb["drift"])
-                   if d > REBUCKET_THRESHOLD), DIST_STEPS)
+                   if d > REBUCKET_THRESHOLD), REBUCKET_STEPS)
     rec.update(checks=rb["checks"], swaps=rb["swaps"], drift=rb["drift"],
                order=[int(x) for x in rb["order"]], swap_t=swap_t,
                pruned_by_chunk=by_chunk,
                pruned_host=_pruned_hops(mco, rb["order"], n, swap_t,
-                                        DIST_STEPS),
+                                        REBUCKET_STEPS),
                digest=_replicated_digest(fin_s), finite=bool(all(
                    bool(torch.isfinite(v).all())
                    for v in fin_s["mule_models"].values())))
@@ -4076,6 +4075,9 @@ def dist_rank(out_dir: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     report["sweep"] = _dist_sweep(mesh, counted, whole, init_fn, train_fn)
+    # phase 22 (f): one row of the engine's roofline on these ranks
+    from repro_torch.launch.autotune import engine_step_rank
+    report["roofline"] = engine_step_rank("mlmule", 64, 24, 1, n, "cuda")
     reports = [None] * n if i == 0 else None
     dist.gather_object(report, reports, dst=0)
     if i == 0:
@@ -4347,6 +4349,10 @@ def phase_distributed(card: str) -> dict:
         ranks = json.loads((Path(out_dir) / "dist.json").read_text())
     for line in outs[0].stdout.splitlines():
         print(f"  rank 0: {line}")
+    from repro_torch.launch import autotune
+    MEASURED["dist roofline"] = autotune.engine_row(
+        "mlmule", 64, 24, f"1x{DIST_RANKS}", DIST_RANKS,
+        autotune.RankSums([r["roofline"] for r in ranks]))
     want = {"mlmule": {"mule_agg": DIST_STEPS, "encounter_hop": 0},
             "gossip": {"mule_agg": 0, "encounter_hop": n_ex * kept},
             "oppcl": {"mule_agg": 0, "encounter_hop": 0},
@@ -4375,10 +4381,11 @@ def phase_distributed(card: str) -> dict:
             raise AssertionError(f"distributed {label}: no mule changed")
         wall = max(r["wall_s"] for r in recs)
         sent = sum(r["ring_bytes"] + r["psum_bytes"] for r in recs)
+        t = REBUCKET_STEPS if label == "rebucket gossip" else DIST_STEPS
         print(f"distributed path: {label}, {DIST_RANKS} ranks x "
-              f"{N_MULES // DIST_RANKS} mules, T={DIST_STEPS}: "
-              f"{DIST_STEPS / wall:.3f} steps/s ({wall:.3f} s), launches by "
-              f"rank {got}, {sent} B sent ({sent // DIST_STEPS} B a step; "
+              f"{N_MULES // DIST_RANKS} mules, T={t}: "
+              f"{t / wall:.3f} steps/s ({wall:.3f} s), launches by "
+              f"rank {got}, {sent} B sent ({sent // t} B a step; "
               f"ring {sum(r['ring_bytes'] for r in recs)}, psum "
               f"{sum(r['psum_bytes'] for r in recs)}), "
               f"{sum(r['pruned'] for r in recs)} hops pruned; replicated "
@@ -4426,7 +4433,7 @@ def phase_distributed(card: str) -> dict:
                              f"{rb['pruned_host']}")
     moved = int((np.asarray(rb["order"]) != np.arange(N_MULES)).sum())
     n_before = len(range(PEER_EVERY - 1, rb["swap_t"], PEER_EVERY))
-    n_after = DIST_STEPS // PEER_EVERY - n_before
+    n_after = REBUCKET_STEPS // PEER_EVERY - n_before
     print(f"distributed rebucket: gossip on multi_area_migratory, streamed "
           f"in chunks of {REBUCKET_EVERY}, threshold {REBUCKET_THRESHOLD}: "
           f"{rb['checks']} checks, drift {rb['drift']}, {rb['swaps']} "
@@ -4667,6 +4674,8 @@ def phase_training(card: str) -> dict:
         got = _counts(expect)
         peak = torch.cuda.max_memory_allocated()
         losses, times = out["losses"], out["step_s"]
+        MEASURED["train step s"] = statistics.median(times)
+        MEASURED["train peak B"] = peak
         if got != {k: v[2] for k, v in expect.items()}:
             raise AssertionError(f"training {cfg.name}: launches {got}, "
                                  f"expected {cfg.n_layers} a step, {n_tc} "
@@ -5369,6 +5378,332 @@ def phase_audio_vision(card: str) -> dict:
     return paths
 
 
+# phase 22, the tooling: the main and peer paths run TOOL_STEPS steps with
+# the committed tuning cache and without it (the same bits and launches);
+# the dry run's peak memory of phase 18's training step is held to the
+# measured peak within TOOL_PEAK_GAP of it
+TOOL_STEPS = 6
+TOOL_PEAK_GAP = 0.2
+# what phases 4, 16 and 18 measured, for phase 22
+MEASURED: dict = {}
+
+
+def _cache_off(off: bool):
+    """Run with the tuning cache switched off (``off``) or as committed:
+    a context manager that repoints ``REPRO_TORCH_TUNE_CACHE``."""
+    import contextlib
+    import os
+    from repro_torch.launch import autotune
+
+    @contextlib.contextmanager
+    def ctx():
+        old = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+        if off:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = ""
+        autotune.tuning_cache_clear()
+        try:
+            yield
+        finally:
+            if off:
+                if old is None:
+                    del os.environ["REPRO_TORCH_TUNE_CACHE"]
+                else:
+                    os.environ["REPRO_TORCH_TUNE_CACHE"] = old
+            autotune.tuning_cache_clear()
+    return ctx()
+
+
+def _cnn_path(scenario: str, device: str = "cuda"):
+    """(pop0, co, batch_fn, train_fn, pcfg) of phase 4's main path
+    (``commuter``) or phase 5's walk, at the paper CNN's full width."""
+    import torch
+    from repro_torch.configs.mule_cnn import CONFIG
+    from repro_torch.core.population import PopulationConfig, init_population
+    from repro_torch.experiment import (batch_sampler, cnn_model_fns,
+                                        image_data_mobile)
+    from repro_torch.scenarios import get_scenario, walk_colocation
+    if scenario == "commuter":
+        spec = get_scenario("commuter")
+        co, n_fixed = spec.colocation(SEED, N_MULES, N_STEPS), spec.n_fixed
+    else:
+        co = walk_colocation(SEED, N_MULES, N_STEPS, p_cross=P_CROSS)
+        n_fixed = N_FIXED
+    Xtr, Ytr, _, _ = image_data_mobile(
+        SEED, N_MULES, n_fixed, co["init_space"], co["init_area"],
+        n_super=CONFIG.n_classes, image_size=CONFIG.image_size,
+        device=device)
+    init_fn, train_fn, _ = cnn_model_fns(CONFIG, LR)
+    pcfg = PopulationConfig(mode="mobile", n_fixed=n_fixed, n_mules=N_MULES)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    pop0 = init_population(pcfg, init_fn, gen, device=device)
+    return pop0, co, batch_sampler(Xtr, Ytr, BATCH), train_fn, pcfg
+
+
+def _first_steps(co: dict, n: int) -> dict:
+    keys = ("fixed_id", "exchange", "pos")
+    return {**{k: co[k][:n] for k in keys if k in co}, "area": co["area"]} \
+        if "pos" in co else {k: co[k][:n] for k in ("fixed_id", "exchange")}
+
+
+def _tooling_tunes(card: str) -> dict:
+    """(a) and (b): every candidate of the three tuned kernels at the
+    paths' shapes, bitwise the default's; the picks' ms beside the
+    default's (printed, not checked: timings)."""
+    from repro_torch.launch import autotune
+    tuned = autotune.run_tunes(reps=10)
+    entries = [e for es in tuned.values() for e in es]
+    excluded = [x for e in entries for x in e["excluded"]]
+    for kernel, es in tuned.items():
+        for e in es:
+            shape = {k: e[k] for k in ("f", "m", "r", "d") if k in e}
+            pick = e.get("waves", (e.get("shape"), e.get("dense_min")))
+            print(f"tooling tune {kernel} {shape}: {len(e['candidates_ms'])} "
+                  f"candidates, every one bitwise the default's; pick {pick} "
+                  f"{e['ms']:.4f} ms, default {e['default_ms']:.4f} ms, "
+                  f"speedup {e['speedup_vs_default']:.4f}; all "
+                  f"{ {k: round(v, 4) for k, v in e['candidates_ms'].items()} }"
+                  f" [{card}]")
+    if excluded:
+        raise AssertionError(f"tooling: candidates not bitwise the "
+                             f"default's: {excluded}")
+    speedup = autotune.geomean([e["speedup_vs_default"] for e in entries])
+    print(f"tooling tune: tuned_speedup_vs_default {speedup:.4f} this run; "
+          f"the committed cache's "
+          f"{autotune.load_tuning_cache()['tuned_speedup_vs_default']:.4f} "
+          f"[{card}]")
+    return tuned
+
+
+def _tooling_cache_drives(card: str) -> None:
+    """(c): the committed cache's picks are the launches' choices, and the
+    main and peer paths give the same launches and bits with it and
+    without it."""
+    import torch
+    from repro_torch.kernels.encounter_mix import encounter_mix
+    from repro_torch.kernels.encounter_mix import ops as enc
+    from repro_torch.kernels.mule_agg import mule_agg
+    from repro_torch.kernels.mule_agg import ops as agg
+    from repro_torch.launch import autotune
+    from repro_torch.scenarios import run_population
+    cache = autotune.load_tuning_cache()
+    if cache is None or "H100" not in cache.get("card", ""):
+        raise AssertionError("tooling: no committed tuning cache from the "
+                             "H100")
+    dev = torch.device("cuda", 0)
+    code = {None: 0, "small": 1, "big": 2}
+    for e in cache["tuned"]["mule_agg"]:
+        f, m, d = e["f"], e["m"], e["d"]
+        with _cache_off(True):
+            hand = agg.grid_blocks(f, m, d, torch.float32, dev)
+        got = agg.grid_blocks(f, m, d, torch.float32, dev)
+        want = (0 if e["waves"] == 1.0 else
+                round(e["waves"] * agg.wave_blocks(f, torch.float32, dev)))
+        print(f"tooling cache mule_agg F={f} M={m} D={d}: {e['waves']} "
+              f"waves -> grid_blocks {got} (hand pick {hand})")
+        if got != want or hand != 0:
+            raise AssertionError("tooling: mule_agg's launch is not the "
+                                 "cache's pick")
+    for kernel, key, hop in (("encounter_mix", "m", False),
+                             ("encounter_hop", "r", True)):
+        for e in cache["tuned"][kernel]:
+            with _cache_off(True):
+                hand = enc.launch_choice(e[key], e["d"], hop)
+            got = enc.launch_choice(e[key], e["d"], hop)
+            print(f"tooling cache {kernel} {key.upper()}={e[key]} "
+                  f"D={e['d']}: {e['shape']}/{e['dense_min']} -> launch "
+                  f"{got} (hand pick {hand})")
+            if got != (code[e["shape"]], e["dense_min"]) or \
+                    hand != (0, enc.DENSE_PAIRS_PER_ROW):
+                raise AssertionError(f"tooling: {kernel}'s launch is not "
+                                     f"the cache's pick")
+    torch.backends.cudnn.deterministic = True
+    try:
+        for scenario, method in (("commuter", "mlmule"), ("walk", "gossip")):
+            pop0, co, batch_fn, train_fn, pcfg = _cnn_path(scenario)
+            window = _first_steps(co, TOOL_STEPS)
+            outs = {}
+            for off in (False, True):
+                with _cache_off(off):
+                    mule_agg.launches = encounter_mix.launches = 0
+                    final, _ = run_population(pop0, window, batch_fn,
+                                              train_fn, pcfg, SEED,
+                                              method=method)
+                    torch.cuda.synchronize()
+                    outs[off] = (final, (mule_agg.launches,
+                                         encounter_mix.launches))
+            same = _max_diff(outs[False][0], outs[True][0],
+                             ("mule_models", "fixed_models")) == 0.0
+            print(f"tooling cache {method} on {scenario}, T={TOOL_STEPS}: "
+                  f"launches (mule_agg, encounter_mix) {outs[False][1]} with "
+                  f"the cache, {outs[True][1]} without; final weights "
+                  f"{'bitwise equal' if same else 'DIFFERENT'} [{card}]")
+            if not same or outs[False][1] != outs[True][1] \
+                    or sum(outs[False][1]) == 0:
+                raise AssertionError(f"tooling: {method} differs with the "
+                                     f"cache")
+            del outs, pop0
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _meta_tree(tree):
+    import torch
+    from repro_torch.interop import tree_map
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def _tooling_counts(card: str) -> dict:
+    """(d): one step of the main path and one stablelm-1.6b training step
+    counted on the card and on meta (the FLOPs equal), their roofline terms
+    beside phases 4 and 18's measured step times; returns the terms."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adam, cosine_schedule
+    from repro_torch.scenarios import run_population
+    counts = {}
+    # the main path: one mlmule step at M = 256, D = 546,484
+    pop0, co, batch_fn, train_fn, pcfg = _cnn_path("commuter")
+    one = _first_steps(co, 1)
+    xb, yb = batch_fn(SEED, 0)["mule"]
+
+    def meta_batches(seed, t):
+        return {"fixed": None, "mule": (torch.empty_like(xb, device="meta"),
+                                        torch.empty_like(yb, device="meta"))}
+    for dev in ("cuda", "meta"):
+        state = pop0 if dev == "cuda" else _meta_tree(pop0)
+        with CostCounter() as cc:
+            cc.hold(state)
+            run_population(state, one, batch_fn if dev == "cuda"
+                           else meta_batches, train_fn, pcfg, SEED,
+                           device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts[("main", dev)] = cc
+    del pop0, state
+    # stablelm-1.6b: one Adam step, bf16 compute, batch 4 x 128
+    cfg = get_config(TRAIN_ARCH)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))
+    for dev in ("cuda", "meta"):
+        if dev == "cuda":
+            model, params, _, opt_state, step_fn = ttrain.setup(
+                cfg, steps=TRAIN_STEPS, device="cuda")
+        else:
+            opt = adam(cosine_schedule(3e-4, TRAIN_STEPS,
+                                       warmup=TRAIN_STEPS // 10))
+            params = meta_params(model)
+            opt_state = opt.init(params)
+            step_fn = make_train_step(model, opt)
+        batch = ttrain.lm_batch(cfg, toks, dev)
+        with CostCounter() as cc:
+            cc.hold(params, opt_state, batch)
+            step_fn(params, opt_state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts[("train", dev)] = cc
+        del params, opt_state
+    torch.cuda.empty_cache()
+    terms = {}
+    for path, measured, label in (
+            ("main", MEASURED.get("main step s"),
+             "main path: one mlmule step, M=256, D=546,484"),
+            ("train", MEASURED.get("train step s"),
+             f"{TRAIN_ARCH} Adam step, bf16 compute, {TRAIN_BATCH} x "
+             f"{TRAIN_SEQ}")):
+        card_cc, meta_cc = counts[(path, "cuda")], counts[(path, "meta")]
+        rl = roofline.analyze(label, path, "1", 1, card_cc, 0.0)
+        terms[path] = rl
+        print(f"tooling count {label}: {card_cc.flops:.6e} FLOP on the card, "
+              f"{meta_cc.flops:.6e} on meta, by kind {card_cc.flops_by}; "
+              f"{card_cc.bytes:.6e} B ({meta_cc.bytes:.6e} on meta); "
+              f"kernels {card_cc.kernels}; t_compute {rl.t_compute * 1e3:.4f}"
+              f" ms, t_memory {rl.t_memory * 1e3:.4f} ms -> {rl.dominant}; "
+              f"measured {None if measured is None else measured * 1e3} ms "
+              f"a step (TF32 matmul "
+              f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+              f"{torch.backends.cudnn.allow_tf32}) [{card}]")
+        for line in card_cc.breakdown(6).splitlines():
+            print(f"  {line}")
+        if card_cc.flops != meta_cc.flops or card_cc.flops == 0:
+            raise AssertionError(f"tooling: the {path} step's FLOPs differ "
+                                 f"on the card and on meta")
+        if measured is None:
+            raise AssertionError(f"tooling: no measured {path} step time "
+                                 f"(its phase did not run)")
+        if not rl.t_compute <= measured:
+            raise AssertionError(f"tooling: the {path} step's compute term "
+                                 f"{rl.t_compute} s exceeds its measured "
+                                 f"{measured} s: the count is wrong")
+    return terms
+
+
+def _tooling_peak(card: str) -> None:
+    """(e): the dry run's peak memory of phase 18's training step against
+    the peak phase 18 measured."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import dryrun_one
+    row = dryrun_one(TRAIN_ARCH, InputShape("phase 18", TRAIN_SEQ,
+                                            TRAIN_BATCH, "train"),
+                     verbose=False)
+    measured = MEASURED.get("train peak B")
+    if measured is None:
+        raise AssertionError("tooling: no measured training peak")
+    gap = abs(row["peak_memory_gb"] * 2**30 - measured) / measured
+    print(f"tooling dry run {TRAIN_ARCH} train {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"on meta ({row['t_count_s']} s): peak {row['peak_memory_gb']:.4f} "
+          f"GiB, {row['peak_memory_gb'] * 2**30:.6e} B; phase 18 measured "
+          f"{measured} B (torch.cuda.max_memory_allocated); gap {gap:.4f} of "
+          f"the measured (bound {TOOL_PEAK_GAP}); t_compute "
+          f"{row['t_compute_s'] * 1e3:.4f} ms, t_memory "
+          f"{row['t_memory_s'] * 1e3:.4f} ms, useful FLOPs "
+          f"{row['useful_flops_ratio']:.4f} [{card}]")
+    if not gap <= TOOL_PEAK_GAP:
+        raise AssertionError(f"tooling: the dry run's peak is {gap:.3f} "
+                             f"from the measured")
+
+
+def phase_tooling(card: str) -> None:
+    """Phase 22: the tuned launches, the count, the dry run and the mesh
+    suggestion (the module docstring's (a)-(f))."""
+    import torch
+    from repro_torch.launch import autotune, roofline
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # as phases 4 and 18
+    torch.backends.cudnn.allow_tf32 = False
+    line, rate = roofline.query_host_link()
+    print(f"tooling host link: nvidia-smi pcie.link.gen.max,width.max "
+          f"'{line}' -> {rate}; the collective term's rate "
+          f"{roofline.HOST_LINK_BYTES_PER_S:.6e} B/s (PCIe Gen"
+          f"{roofline.HOST_LINK_GEN} x{roofline.HOST_LINK_WIDTH}, the data "
+          f"sheet's) [{card}]")
+    _tooling_tunes(card)
+    _tooling_cache_drives(card)
+    _tooling_counts(card)
+    _tooling_peak(card)
+    row = MEASURED.get("dist roofline")
+    if row is None:
+        raise AssertionError("tooling: phase 16 wrote no roofline row")
+    print(f"tooling engine roofline on phase 16's {row['chips']} ranks "
+          f"({row['mesh']}): mlmule M={row['n_mules']} T={row['steps']}: "
+          f"{row['flops_per_device']:.6e} FLOP, {row['bytes_per_device']:.6e}"
+          f" B, {row['coll_bytes_per_device']:.6e} collective B "
+          f"{row['coll_breakdown']}, kernels {row['kernels']}; per step "
+          f"compute {row['t_compute_us_per_step']:.4f} us, memory "
+          f"{row['t_memory_us_per_step']:.4f} us, collective "
+          f"{row['t_collective_us_per_step']:.4f} us -> {row['dominant']}")
+    for method in ("mlmule", "gossip"):
+        print(f"tooling suggest_mesh_shape({method!r}, 64) on the committed "
+              f"cache: {autotune.suggest_mesh_shape(method, 64)}")
+    print(f"tooling: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -5502,6 +5837,8 @@ def main() -> int:
         paths.update(phase_moe(card))
         phase = enter("audio and vision")
         paths.update(phase_audio_vision(card))
+        phase = enter("tooling")
+        phase_tooling(card)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

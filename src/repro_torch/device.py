@@ -1,7 +1,9 @@
 """Device selection for the port's entry points.
 
 Entry points take ``device="cuda"`` by default and raise when no card is
-present: work moves to the CPU only when the caller asks for it.
+present: work moves to the CPU only when the caller asks for it. ``"meta"``
+runs a step on shapes alone, for a count (``launch.cost_analysis``, the dry
+run): nothing is computed and no card is touched.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ def resolve_device(device="cuda") -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port on the CPU")
-    elif dev.type != "cpu":
-        raise ValueError(f"the port runs on cuda or cpu, not {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"the port runs on cuda or cpu (meta for a "
+                         f"count), not {dev}")
     return dev

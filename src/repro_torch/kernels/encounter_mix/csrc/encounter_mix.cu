@@ -662,6 +662,11 @@ int launch_pairs(int lanes, const void* pos_r, const void* area_r,
 using BigShape = Shape<16, 8, 4, 2, false>;
 using SmallShape = Shape<4, 16, 3, 4, true>;
 
+// The sums kernel's shape: kShapeAuto takes SmallShape for R <= 64 rows and
+// BigShape above; the tuned launches (autotune.py) name one. The bits do not
+// depend on it.
+constexpr int kShapeAuto = 0, kShapeSmall = 1, kShapeBig = 2;
+
 // Rows [R] against visiting mules [V], in each of `lanes` lanes: the pairs,
 // then the sums.
 template <typename T, bool kNormalize>
@@ -669,22 +674,24 @@ int launch(int lanes, const void* pos_r, const void* area_r,
            const void* active_r, int R, long long row_id0, const void* pos_v,
            const void* area_v, const void* active_v, int V, long long col_id0,
            const void* W, void* out, void* mass, void* words, long long D,
-           float r2, int dense_min, void* stream) {
-  if (lanes < 1 || lanes > 65535 || R < 1 || V < 0 || D < 0 || dense_min < 0)
+           float r2, int dense_min, int shape, void* stream) {
+  if (lanes < 1 || lanes > 65535 || R < 1 || V < 0 || D < 0 ||
+      dense_min < 0 || shape < kShapeAuto || shape > kShapeBig)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = launch_pairs(lanes, pos_r, area_r, active_r, R, row_id0, pos_v,
                          area_v, active_v, V, col_id0, r2, words, mass, s);
   if (err != 0 || D == 0) return err;
+  const bool small = shape == kShapeAuto ? R <= 64 : shape == kShapeSmall;
   if (lanes > 1)
-    return R <= 64 ? launch_sums<T, kNormalize, SmallShape, true>(
-                         lanes, words, mass, R, V, W, out, D, dense_min, s)
-                   : launch_sums<T, kNormalize, BigShape, true>(
-                         lanes, words, mass, R, V, W, out, D, dense_min, s);
-  return R <= 64 ? launch_sums<T, kNormalize, SmallShape, false>(
-                       1, words, mass, R, V, W, out, D, dense_min, s)
-                 : launch_sums<T, kNormalize, BigShape, false>(
-                       1, words, mass, R, V, W, out, D, dense_min, s);
+    return small ? launch_sums<T, kNormalize, SmallShape, true>(
+                       lanes, words, mass, R, V, W, out, D, dense_min, s)
+                 : launch_sums<T, kNormalize, BigShape, true>(
+                       lanes, words, mass, R, V, W, out, D, dense_min, s);
+  return small ? launch_sums<T, kNormalize, SmallShape, false>(
+                     1, words, mass, R, V, W, out, D, dense_min, s)
+               : launch_sums<T, kNormalize, BigShape, false>(
+                     1, words, mass, R, V, W, out, D, dense_min, s);
 }
 
 }  // namespace
@@ -699,7 +706,8 @@ extern "C" int encounter_mix_f32(const void* pos, const void* area,
                                  void* mass, void* words, int M, long long D,
                                  float r2, int dense_min, void* stream) {
   return launch<float, true>(1, pos, area, active, M, 0, pos, area, active, M,
-                             0, W, out, mass, words, D, r2, dense_min, stream);
+                             0, W, out, mass, words, D, r2, dense_min,
+                             kShapeAuto, stream);
 }
 
 extern "C" int encounter_mix_bf16(const void* pos, const void* area,
@@ -709,29 +717,33 @@ extern "C" int encounter_mix_bf16(const void* pos, const void* area,
                                   void* stream) {
   return launch<__nv_bfloat16, true>(1, pos, area, active, M, 0, pos, area,
                                      active, M, 0, W, out, mass, words, D, r2,
-                                     dense_min, stream);
+                                     dense_min, kShapeAuto, stream);
 }
 
 // S lanes of the mix in one call: pos [S, M, 2], area [S, M], active [S, M]
 // (or null), W [S, M, D] -> out [S, M, D], mass [S, M]; words is scratch of
-// [S, M, ceil(M / 32)] int32
+// [S, M, ceil(M / 32)] int32; shape: the sums kernel's (kShapeAuto,
+// kShapeSmall, kShapeBig)
 extern "C" int encounter_mix_lanes_f32(const void* pos, const void* area,
                                        const void* active, const void* W,
                                        void* out, void* mass, void* words,
                                        int S, int M, long long D, float r2,
-                                       int dense_min, void* stream) {
+                                       int dense_min, int shape,
+                                       void* stream) {
   return launch<float, true>(S, pos, area, active, M, 0, pos, area, active, M,
-                             0, W, out, mass, words, D, r2, dense_min, stream);
+                             0, W, out, mass, words, D, r2, dense_min, shape,
+                             stream);
 }
 
 extern "C" int encounter_mix_lanes_bf16(const void* pos, const void* area,
                                         const void* active, const void* W,
                                         void* out, void* mass, void* words,
                                         int S, int M, long long D, float r2,
-                                        int dense_min, void* stream) {
+                                        int dense_min, int shape,
+                                        void* stream) {
   return launch<__nv_bfloat16, true>(S, pos, area, active, M, 0, pos, area,
                                      active, M, 0, W, out, mass, words, D, r2,
-                                     dense_min, stream);
+                                     dense_min, shape, stream);
 }
 
 // S lanes of one ring hop in one call (a seed sweep over the ranks): pos_r
@@ -745,11 +757,15 @@ extern "C" int encounter_hop_lanes_f32(
     long long row0, const void* pos_v, const void* area_v,
     const void* active_v, int V, long long col0, const void* W_v, void* acc,
     void* mass, void* words, int S, long long D, float r2, int dense_min,
-    void* stream) {
+    int shape, void* stream) {
   return launch<float, false>(S, pos_r, area_r, active_r, R, row0, pos_v,
                               area_v, active_v, V, col0, W_v, acc, mass,
-                              words, D, r2, dense_min, stream);
+                              words, D, r2, dense_min, shape, stream);
 }
+
+// The sums kernel's shapes a launch may name (kShapeSmall, kShapeBig): a
+// source with the shape argument on its lanes entries exports this.
+extern "C" int encounter_sums_shapes(void) { return kShapeBig; }
 
 // the pairs alone: words [R, ceil(V / 32)] int32 and mass [R] f32
 extern "C" int encounter_pairs(const void* pos_r, const void* area_r,

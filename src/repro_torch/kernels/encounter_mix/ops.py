@@ -55,7 +55,18 @@ bit ``b`` of ``words[i, w]`` set where row ``i`` meets visiting mule ``32 w
 ``DENSE_PAIRS_PER_ROW`` sets where the sums kernel switches a strip (a
 warp's rows x 32 visiting mules) from gathering the met rows to a dense
 register-tiled loop: at that many met pairs per row of the strip. Both
-modes give the same bits; 0 makes every strip dense and 33 none.
+modes give the same bits; 0 makes every strip dense and 33 none. It is the
+hand pick; the committed tuning cache (``launch.autotune``:
+``tuned_encounter_launch`` for the mix, ``tuned_hop_launch`` for a hop)
+may name another switch and the sums kernel's shape (``"small"``: 4 warps
+of 16 rows, or ``"big"``: 16 warps of 8; by hand the small one for at most
+64 rows) for the nearest tuned shape. ``DENSE_MIN`` and ``SUMS_SHAPE``
+force either over the cache. Neither choice changes the bits.
+
+On ``meta`` tensors the wrappers return empty results of the right shapes
+and launch nothing. Under a ``launch.cost_analysis`` count each call is
+priced by ``launch.roofline.encounter_mix_work`` /
+``encounter_hop_work`` at the pairs that met, read from its masses.
 """
 from __future__ import annotations
 
@@ -70,28 +81,50 @@ from repro_torch.kernels.encounter_mix.ref import (
     encounter_mix_lanes_reference, encounter_mix_reference,
     encounter_pairs_reference, n_words)
 from repro_torch.kernels.mule_agg.ops import MAX_LANES, lanes_first
+from repro_torch.launch import autotune
+from repro_torch.launch.cost_analysis import met_pairs, priced
+from repro_torch.launch.roofline import (encounter_hop_work,
+                                         encounter_mix_work)
 
 # The sums kernel's switch from sparse to dense strips, in met pairs per
 # row of a 32-mule strip: a gathered pair costs a 512-byte shared-memory
 # read per warp, about four times a dense (row, mule) step's FMAs, so dense
 # pays from a quarter full. tools/ab_encounter_mix.py sweeps it (PERF.md).
 DENSE_PAIRS_PER_ROW = 8
+# forced launch choices over the tuned cache's (None: the cache, else the
+# hand pick): the dense switch, and the sums kernel's shape
+DENSE_MIN = None
+SUMS_SHAPE = None
+_SHAPE_CODE = {None: 0, "small": 1, "big": 2}   # encounter_mix.cu kShape*
 
-# pos, area, active, W, out, mass, words, S, M, D, r2, dense_min, stream
+# pos, area, active, W, out, mass, words, S, M, D, r2, dense_min, shape,
+# stream
 _LANES_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_longlong, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
 _LANES_ENTRY = {torch.float32: "encounter_mix_lanes_f32",
                 torch.bfloat16: "encounter_mix_lanes_bf16"}
 # pos_r, area_r, act_r, R, row0, pos_v, area_v, act_v, V, col0
 _SIDES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
           + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong])
-# ..., W_v, acc, mass, words, S, D, r2, dense_min, stream
+# ..., W_v, acc, mass, words, S, D, r2, dense_min, shape, stream
 _HOP_ARGTYPES = _SIDES + [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_void_p]
 # ..., r2, words, mass, stream
 _PAIRS_ARGTYPES = _SIDES + [ctypes.c_float] + [ctypes.c_void_p] * 3
+
+
+def launch_choice(rows: int, d: int, hop: bool) -> Tuple[int, int]:
+    """(shape code, dense_min) of a call on ``rows`` rows and D columns:
+    forced, else tuned, else the hand pick (code 0: by the rows)."""
+    shape, dense = (autotune.tuned_hop_launch(rows, d) if hop
+                    else autotune.tuned_encounter_launch(rows, d))
+    shape = SUMS_SHAPE if SUMS_SHAPE is not None else shape
+    dense = DENSE_MIN if DENSE_MIN is not None else dense
+    return (_SHAPE_CODE[shape],
+            DENSE_PAIRS_PER_ROW if dense is None else dense)
 
 
 def _entry(name: str, argtypes):
@@ -160,9 +193,12 @@ def encounter_mix(pos: torch.Tensor, area: torch.Tensor,
     kernels)."""
     _check(pos, area, active, weights)
     if weights.device.type == "cpu":
-        mix, mass = encounter_mix_reference(pos, area, active, weights,
-                                            radius=radius)
-        return mix.to(weights.dtype), mass
+        def plain():
+            mix, mass = encounter_mix_reference(pos, area, active, weights,
+                                                radius=radius)
+            return mix.to(weights.dtype), mass
+        return priced("encounter_mix", plain, lambda out: encounter_mix_work(
+            *weights.shape, met_pairs(out[1]), weights.element_size()))
     mix, mass = encounter_mix_lanes(
         pos[None], area[None], None if active is None else active[None],
         weights[None], radius=radius)
@@ -181,10 +217,21 @@ def encounter_mix_lanes(pos: torch.Tensor, area: torch.Tensor,
     dtype, mass [S, M] f32): lane s is ``encounter_mix`` on lane s's
     inputs, all S lanes in one call."""
     _check(pos, area, active, weights, lanes=True)
+    s, m, d = weights.shape
+    return priced("encounter_mix",
+                  lambda: _mix_lanes(pos, area, active, weights, radius),
+                  lambda out: encounter_mix_work(
+                      m, d, met_pairs(out[1]), weights.element_size(), s))
+
+
+def _mix_lanes(pos, area, active, weights, radius):
     if weights.device.type == "cpu":
         mix, mass = encounter_mix_lanes_reference(pos, area, active, weights,
                                                   radius=radius)
         return mix.to(weights.dtype), mass
+    if weights.device.type == "meta":
+        return (torch.empty_like(weights),
+                weights.new_empty(weights.shape[:2], dtype=torch.float32))
     if weights.device.type != "cuda":
         raise ValueError(f"encounter_mix runs on cuda or cpu, not "
                          f"{weights.device}")
@@ -203,12 +250,13 @@ def encounter_mix_lanes(pos: torch.Tensor, area: torch.Tensor,
     area64, on = _side(area, active)
     words = torch.empty((s, m, n_words(m)), dtype=torch.int32, device=dev)
     fn = _entry(_LANES_ENTRY[weights.dtype], _LANES_ARGTYPES)
+    shape, dense_min = launch_choice(m, d, hop=False)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pos.data_ptr(), area64.data_ptr(), _ptr(on),
                  weights.data_ptr(), out.data_ptr(), mass.data_ptr(),
                  words.data_ptr(), s, m, d, ctypes.c_float(radius ** 2),
-                 DENSE_PAIRS_PER_ROW, stream)
+                 dense_min, shape, stream)
     if err != 0:
         raise RuntimeError(f"encounter_mix_lanes kernel launch failed: CUDA "
                            f"error {err} (S={s}, M={m}, D={d}, "
@@ -307,11 +355,18 @@ def encounter_block_hop(pos_r: torch.Tensor, area_r: torch.Tensor,
     dev = weights_v.device
     _check_block("r", pos_r, area_r, act_r, r, dev)
     _check_block("v", pos_v, area_v, act_v, v, dev)
-    if backend == "ref" or dev.type == "cpu":
+    if backend == "ref":
         return encounter_block(pos_r, area_r, act_r, row0, pos_v, area_v,
                                act_v, col0, weights_v, radius)
-    return _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
-                       weights_v, radius)
+
+    def run():
+        if dev.type == "cpu":
+            return encounter_block(pos_r, area_r, act_r, row0, pos_v, area_v,
+                                   act_v, col0, weights_v, radius)
+        return _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
+                           col0, weights_v, radius)
+    return priced("encounter_hop", run, lambda out: encounter_hop_work(
+        r, v, d, met_pairs(out[1])))
 
 
 encounter_block_hop.launches = 0
@@ -350,12 +405,20 @@ def encounter_block_hop_lanes(pos_r: torch.Tensor, area_r: torch.Tensor,
         if s:       # lane 0 stands for the others: same shapes and types
             _check_block(name, pos[0], area[0], None if act is None
                          else act[0], n, dev, "encounter_block_hop_lanes")
-    if backend == "ref" or dev.type == "cpu":
+    if backend == "ref":
         return encounter_block_lanes_reference(pos_r, area_r, act_r, row0,
                                                pos_v, area_v, act_v, col0,
                                                weights_v, radius)
-    return _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
-                       col0, weights_v, radius)
+
+    def run():
+        if dev.type == "cpu":
+            return encounter_block_lanes_reference(
+                pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
+                weights_v, radius)
+        return _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
+                           col0, weights_v, radius)
+    return priced("encounter_hop", run, lambda out: encounter_hop_work(
+        r, v, d, met_pairs(out[1]), s))
 
 
 def _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
@@ -366,6 +429,9 @@ def _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
     *lanes, v, d = weights_v.shape
     s, r = (lanes[0] if lanes else 1), pos_r.shape[-2]
     dev = weights_v.device
+    if dev.type == "meta":
+        return (weights_v.new_empty((*lanes, r, d)),
+                weights_v.new_empty((*lanes, r)))
     if dev.type != "cuda":
         raise ValueError(f"encounter_block_hop runs on cuda or cpu, not "
                          f"{dev}")
@@ -382,11 +448,12 @@ def _hop_launch(pos_r, area_r, act_r, row0, pos_v, area_v, act_v, col0,
     args, _keep = _sides(pos_r, area_r, act_r, row0, pos_v, area_v, act_v,
                          col0)
     fn = _entry("encounter_hop_lanes_f32", _HOP_ARGTYPES)
+    shape, dense_min = launch_choice(r, d, hop=True)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*args, weights_v.data_ptr(), acc.data_ptr(),
                  mass.data_ptr(), words.data_ptr(), s, d,
-                 ctypes.c_float(radius ** 2), DENSE_PAIRS_PER_ROW, stream)
+                 ctypes.c_float(radius ** 2), dense_min, shape, stream)
     if err != 0:
         raise RuntimeError(f"encounter_hop_lanes kernel launch failed: CUDA "
                            f"error {err} (S={s}, R={r}, V={v}, D={d})")

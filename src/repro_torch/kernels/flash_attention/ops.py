@@ -27,7 +27,9 @@ the reference's custom VJP (``ref.flash_backward``: the per-row statistics
 recomputed by the plain forward, then the two blockwise float32 passes,
 with the plain version's blocks of 256) on either route; the reference has
 no backward kernel. Its ``torch.func.vmap`` rule folds the lanes into B, so
-a vmapped population launches the kernel once.
+a vmapped population launches the kernel once. On a ``meta`` tensor the
+``"auto"`` forward returns an empty result and launches nothing (the
+backward is plain ops, which run on ``meta``).
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (flash_backward,
                                                      flash_reference)
 from repro_torch.kernels.mule_agg.ops import lanes_first
+from repro_torch.launch.cost_analysis import priced
+from repro_torch.launch.roofline import flash_attention_work
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)   # the head dims of both routes
 TC_HEAD_DIMS = (64, 80, 128, 256)           # the tensor-core kernel's
@@ -120,14 +124,35 @@ flash_attention.tc_launches = 0
 
 def _flash_forward(q, k, v, causal: bool, window: Optional[int],
                    scale: Optional[float], backend: str) -> torch.Tensor:
-    """The forward of ``flash_attention``: the plain version or a kernel."""
+    """The forward of ``flash_attention``: the plain version or a kernel.
+    Under a ``launch.cost_analysis`` count the kernel's route (``"auto"``,
+    on any device) is one call priced by ``flash_attention_work``."""
     _check(q, k, v, causal, window)
     if backend not in ("auto", "ref"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "ref" or q.device.type == "cpu":
-        return flash_reference(q, k, v, causal=causal, window=window,
-                               block_q=REF_BLOCK, block_k=REF_BLOCK,
-                               scale=scale)
+    if backend == "ref":
+        return _flash_plain(q, k, v, causal, window, scale)
+    b, s, h, d = q.shape
+    return priced("flash_attention",
+                  lambda: _flash_auto(q, k, v, causal, window, scale),
+                  lambda _: flash_attention_work(
+                      b, s, k.shape[1], h, k.shape[2], d, causal, window,
+                      q.dtype))
+
+
+def _flash_plain(q, k, v, causal, window, scale):
+    return flash_reference(q, k, v, causal=causal, window=window,
+                           block_q=REF_BLOCK, block_k=REF_BLOCK, scale=scale)
+
+
+def _flash_auto(q, k, v, causal: bool, window: Optional[int],
+                scale: Optional[float]) -> torch.Tensor:
+    """The plain version on a CPU tensor, an empty result on a ``meta``
+    one (nothing launched), the kernel on a CUDA one."""
+    if q.device.type == "cpu":
+        return _flash_plain(q, k, v, causal, window, scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")

@@ -421,12 +421,13 @@ int wave(int* blocks) {
 
 template <int FT, typename T>
 int launch_ft(const float* A, const T* W, T* out, int S, int F, int M,
-              long long D, int tiles, cudaStream_t stream) {
+              long long D, int tiles, int grid_blocks, cudaStream_t stream) {
   int blocks = 0;
   const int err = wave<FT, T>(&blocks);
   if (err != 0) return err;
-  // one wave of resident blocks for all (lane, tile) pairs, each pair an
-  // equal share of it, every block at least 4 columns
+  if (grid_blocks > 0) blocks = grid_blocks;  // a tuned grid (autotune.py)
+  // one wave of resident blocks (or grid_blocks) for all (lane, tile)
+  // pairs, each pair an equal share of it, every block at least 4 columns
   const long long n_vec = (D + kVec - 1) / kVec;
   const long long pairs = (long long)S * tiles;
   long long gx = (blocks + pairs - 1) / pairs;
@@ -451,14 +452,18 @@ int launch_ft(const float* A, const T* W, T* out, int S, int F, int M,
   return (int)cudaGetLastError();
 }
 
+// ceil(F / 16) row tiles of equal height FT <= 16, none empty
+int tile_height(int F) {
+  const int tiles0 = (F + kFMax - 1) / kFMax;
+  return (F + tiles0 - 1) / tiles0;
+}
+
 template <typename T>
 int launch(const void* A, const void* W, void* out, int S, int F, int M,
-           long long D, void* stream) {
-  if (S < 1 || S > 65535 || F < 1 || M < 1 || D < 1)
+           long long D, int grid_blocks, void* stream) {
+  if (S < 1 || S > 65535 || F < 1 || M < 1 || D < 1 || grid_blocks < 0)
     return (int)cudaErrorInvalidValue;
-  // ceil(F / 16) tiles of equal height FT <= 16, none empty
-  const int tiles0 = (F + kFMax - 1) / kFMax;
-  const int ft = (F + tiles0 - 1) / tiles0;
+  const int ft = tile_height(F);
   const int tiles = (F + ft - 1) / ft;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;  // gridDim.z
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -468,7 +473,23 @@ int launch(const void* A, const void* W, void* out, int S, int F, int M,
   switch (ft) {
 #define MULE_AGG_FT(n) \
   case n:              \
-    return launch_ft<n, T>(a, w, o, S, F, M, D, tiles, s);
+    return launch_ft<n, T>(a, w, o, S, F, M, D, tiles, grid_blocks, s);
+    MULE_AGG_FT(1) MULE_AGG_FT(2) MULE_AGG_FT(3) MULE_AGG_FT(4)
+    MULE_AGG_FT(5) MULE_AGG_FT(6) MULE_AGG_FT(7) MULE_AGG_FT(8)
+    MULE_AGG_FT(9) MULE_AGG_FT(10) MULE_AGG_FT(11) MULE_AGG_FT(12)
+    MULE_AGG_FT(13) MULE_AGG_FT(14) MULE_AGG_FT(15) MULE_AGG_FT(16)
+#undef MULE_AGG_FT
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int wave_of(int F, int* blocks) {
+  if (F < 1) return (int)cudaErrorInvalidValue;
+  switch (tile_height(F)) {
+#define MULE_AGG_FT(n) \
+  case n:              \
+    return wave<n, T>(blocks);
     MULE_AGG_FT(1) MULE_AGG_FT(2) MULE_AGG_FT(3) MULE_AGG_FT(4)
     MULE_AGG_FT(5) MULE_AGG_FT(6) MULE_AGG_FT(7) MULE_AGG_FT(8)
     MULE_AGG_FT(9) MULE_AGG_FT(10) MULE_AGG_FT(11) MULE_AGG_FT(12)
@@ -481,15 +502,23 @@ int launch(const void* A, const void* W, void* out, int S, int F, int M,
 }  // namespace
 
 // S lanes in one launch (S = 1: a single call): A [S, F, M], W [S, M, D]
-// -> out [S, F, D]
+// -> out [S, F, D]. grid_blocks: the blocks shared by all (lane, row tile)
+// pairs, 0 for one persistent wave (mule_agg_wave_blocks); the bits do not
+// depend on it.
 extern "C" int mule_agg_lanes_f32(const void* A, const void* W, void* out,
                                   int S, int F, int M, long long D,
-                                  void* stream) {
-  return launch<float>(A, W, out, S, F, M, D, stream);
+                                  int grid_blocks, void* stream) {
+  return launch<float>(A, W, out, S, F, M, D, grid_blocks, stream);
 }
 
 extern "C" int mule_agg_lanes_bf16(const void* A, const void* W, void* out,
                                    int S, int F, int M, long long D,
-                                   void* stream) {
-  return launch<__nv_bfloat16>(A, W, out, S, F, M, D, stream);
+                                   int grid_blocks, void* stream) {
+  return launch<__nv_bfloat16>(A, W, out, S, F, M, D, grid_blocks, stream);
+}
+
+// The blocks of one persistent wave of the instance that runs F rows, in W's
+// type (bf16 != 0: bfloat16), on the current device.
+extern "C" int mule_agg_wave_blocks(int F, int bf16, int* blocks) {
+  return bf16 ? wave_of<__nv_bfloat16>(F, blocks) : wave_of<float>(F, blocks);
 }

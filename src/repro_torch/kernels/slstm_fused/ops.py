@@ -26,6 +26,10 @@ differentiates (neither has a backward kernel); its ``torch.func.vmap``
 rule folds the lanes into the heads (each head is its own recurrence with
 its own r), so a vmapped population launches the kernel once, with each
 lane's bits.
+
+On a ``meta`` tensor the ``"auto"`` route returns an empty h and launches
+nothing; under a ``launch.cost_analysis`` count it is one call priced by
+``launch.roofline.slstm_work``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.mule_agg.ops import lanes_first
 from repro_torch.kernels.slstm_fused.ref import slstm_reference
+from repro_torch.launch.cost_analysis import priced
+from repro_torch.launch.roofline import slstm_work
 
 MAX_P = 256         # the largest head width the kernel's registers take
 MAX_ROWS = 4        # batch rows one cluster takes
@@ -118,15 +124,27 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, *,
     _check(pre, r)
     if backend not in ("auto", "ref"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "ref" or pre.device.type == "cpu":
+    if backend == "ref" or state is not None and pre.device.type == "cpu":
+        return slstm_reference(pre, r, state)[0]
+    b, s, _, h, p = pre.shape
+    return priced("slstm_scan", lambda: _slstm_auto(pre, r, state),
+                  lambda _: slstm_work(b, s, h, p))
+
+
+def _slstm_auto(pre, r, state):
+    """The plain version on a CPU tensor, an empty h on a ``meta`` one
+    (nothing launched), the kernel on a CUDA one."""
+    if pre.device.type == "cpu":
         return slstm_reference(pre, r, state)[0]
     if state is not None:
         raise ValueError("slstm_scan: the kernel starts from the zero state "
                          "and takes no state (the plain version does: "
                          "backend='ref')")
+    b, s, _, h, p = pre.shape
+    if pre.device.type == "meta":
+        return pre.new_empty((b, s, h, p))
     if pre.device.type != "cuda":
         raise ValueError(f"slstm_scan runs on cuda or cpu, not {pre.device}")
-    b, s, _, h, p = pre.shape
     lib = _build.load("slstm_scan")
     with torch.cuda.device(pre.device):
         _require_fit(lib, b, p, pre.device)

@@ -25,6 +25,10 @@ backward the vector-Jacobian product of the plain chunked version
 reference's training differentiates (neither has a backward kernel); its
 ``torch.func.vmap`` rule folds the lanes into B, each lane's A a row of
 A [L * B, H], so a vmapped population launches the kernel once.
+
+On a ``meta`` tensor the ``"auto"`` route returns an empty y and launches
+nothing; under a ``launch.cost_analysis`` count it is one call priced by
+``launch.roofline.ssd_work``.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.mule_agg.ops import lanes_first
 from repro_torch.kernels.ssm_scan.ref import ssd_chunked_reference
+from repro_torch.launch.cost_analysis import priced
+from repro_torch.launch.roofline import ssd_work
 
 MAX_DIM = 64        # the largest P, N and chunk the kernel takes
 SLICE = 32          # state columns a scan block takes (the kernel's kPW)
@@ -107,9 +113,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bmat, Cmat, chunk)
     if backend not in ("auto", "ref"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "ref" or x.device.type == "cpu":
+    if backend == "ref" or init_state is not None and x.device.type == "cpu":
         return ssd_chunked_reference(x, dt, A, Bmat, Cmat, chunk=chunk,
                                      init_state=init_state)
+    return priced("ssd_scan",
+                  lambda: _ssd_auto(x, dt, A, Bmat, Cmat, chunk, init_state),
+                  lambda _: ssd_work(*x.shape, Bmat.shape[2]))
+
+
+def _ssd_auto(x, dt, A, Bmat, Cmat, chunk, init_state):
+    """The plain version on a CPU tensor, an empty y on a ``meta`` one
+    (nothing launched), the kernel on a CUDA one."""
+    if x.device.type == "cpu":
+        return ssd_chunked_reference(x, dt, A, Bmat, Cmat, chunk=chunk,
+                                     init_state=init_state)
+    if x.device.type == "meta" and init_state is None:
+        return torch.empty_like(x), None
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     if init_state is not None:

@@ -309,6 +309,30 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self._unembed(params, x)[:, 0], cache
 
+    # -- dry-run inputs -------------------------------------------------------
+    def input_specs(self, shape, device="meta") -> Dict[str, Any]:
+        """Inputs of one step at ``shape`` (a ``configs.InputShape``) on
+        ``device``, by default ``meta`` (shapes only, nothing allocated):
+        the batch of a train or prefill step, or a decode step's ``token``,
+        ``pos`` (the last position) and ``cache``."""
+        cfg = self.cfg
+        b = shape.global_batch
+        if shape.kind in ("train", "prefill"):
+            s = shape.seq_len
+            if cfg.family == "vlm":
+                return {"tokens": torch.zeros(
+                            (b, s - cfg.vision_tokens), dtype=torch.int32,
+                            device=device),
+                        "vision_embed": torch.zeros(
+                            (b, cfg.vision_tokens, cfg.d_model),
+                            dtype=torch.bfloat16, device=device)}
+            return {"tokens": torch.zeros((b, s), dtype=torch.int32,
+                                          device=device)}
+        return {"token": torch.zeros((b, 1), dtype=torch.int32,
+                                     device=device),
+                "pos": shape.seq_len - 1,
+                "cache": self.init_cache(b, shape.seq_len, device=device)}
+
 
 def build_model(cfg: ModelConfig, *, backend: str = "auto") -> Model:
     """The model of ``cfg``: a ``WhisperModel`` for the ``audio`` family,

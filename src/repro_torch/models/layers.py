@@ -142,7 +142,7 @@ def sinusoids(positions: torch.Tensor, dim: int) -> torch.Tensor:
     takes the row of its one position."""
     dev = positions.device
     # -log(10000) / dim in float32, as the reference computes it
-    rate = -torch.log(torch.tensor(10000.0, device=dev)) / dim
+    rate = -torch.log(torch.full((), 10000.0, device=dev)) / dim
     div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
                                  device=dev) * rate)
     ang = positions.float()[:, None] * div

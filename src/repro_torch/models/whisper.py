@@ -140,6 +140,19 @@ class WhisperModel(Model):
                                     ("cross_k", cross_shape),
                                     ("cross_v", cross_shape))}
 
+    def input_specs(self, shape, device="meta") -> Dict[str, Any]:
+        """``Model.input_specs`` with the encoder's frames: ``audio_embed``
+        [B, encoder_seq, d_model] bf16 beside the tokens of a train or
+        prefill step."""
+        if shape.kind in ("train", "prefill"):
+            b, cfg = shape.global_batch, self.cfg
+            return {"audio_embed": torch.zeros(
+                        (b, cfg.encoder_seq, cfg.d_model),
+                        dtype=torch.bfloat16, device=device),
+                    "tokens": torch.zeros((b, shape.seq_len),
+                                          dtype=torch.int32, device=device)}
+        return super().input_specs(shape, device)
+
     def prefill_cross_kv(self, params, audio_embed: torch.Tensor, cache):
         """Encode ``audio_embed`` and write every decoder layer's
         cross-attention K/V into ``cache`` (in place; run once a request).

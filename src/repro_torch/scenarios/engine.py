@@ -433,16 +433,27 @@ def _check_mule_sharding(n_mules: int, mesh, dcfg) -> None:
 def _auto_mesh(method: str, n_mules: int, dcfg):
     """The mesh of ``run_population_distributed(mesh=None)``.
 
-    The widest data axis that divides both ``n_mules`` and the world size,
-    the remaining ranks as pods (which hold copies of the blocks). The
-    reference first consults a roofline-ranked suggestion from its
-    autotune cache (``suggest_mesh_shape``); the port has no autotune yet
-    (ROADMAP item 15), so this is its fallback rule alone. Every rank must
-    sit in the mesh, so a world that needs pods needs ``dcfg.pod_axis``.
+    As in the reference, ``launch.autotune.suggest_mesh_shape`` first: the
+    roofline-ranked (pod, data) shape of the committed tuning cache's mesh
+    rows. A suggestion that does not fit (its ranks are not the world's, its
+    data axis does not divide ``n_mules``, or it needs pods and the config
+    has no pod axis) is dropped, like an absent cache, for the fallback
+    rule: the widest data axis that divides both ``n_mules`` and the world
+    size, the remaining ranks as pods (which hold copies of the blocks).
+    Every rank must sit in the mesh, so a world that needs pods needs
+    ``dcfg.pod_axis``.
     """
+    from repro_torch.launch.autotune import suggest_mesh_shape
     from repro_torch.launch.mesh import make_mule_mesh
     import torch.distributed as dist
     world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = suggest_mesh_shape(method, n_mules)
+    if shape is not None:
+        pod, data = shape
+        if (pod * data == world and n_mules % data == 0
+                and (dcfg.pod_axis or pod == 1)):
+            return make_mule_mesh(pod, data, pod_axis=dcfg.pod_axis,
+                                  data_axis=dcfg.data_axis)
     data = max(d for d in range(1, world + 1)
                if n_mules % d == 0 and world % d == 0)
     pod = world // data

@@ -143,13 +143,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         slstm_scan(pre[:, :0], r)
     with pytest.raises(ValueError, match="backend"):
         slstm_scan(pre, r, backend="pallas")
-    # the kernel route (any tensor off the CPU) takes no state
+    # the kernel route (any tensor off the CPU) takes no state; on meta it
+    # returns an empty h of the right shape and launches nothing (a count)
     meta = (pre.to("meta"), r.to("meta"))
     _, st = slstm_reference(pre, r)
     with pytest.raises(ValueError, match="zero state"):
         slstm_scan(*meta, state=st)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        slstm_scan(*meta)
+    out = slstm_scan(*meta)
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    assert tuple(out.shape) == (1, 4, 2, 8)
     assert _build.SOURCES["slstm_scan"] == \
         "kernels/slstm_fused/csrc/slstm_scan.cu"
 

@@ -8,7 +8,10 @@ source, in one process on one NVIDIA GPU.
 ``git show <commit>:src/repro_torch/kernels/encounter_mix/csrc/encounter_mix.cu
 > OTHER.cu``. It is built with the port's nvcc flags; a source without the
 ``encounter_pairs`` entry takes the older interface (no pair scratch, no
-dense switch). Three inputs, f32, seeded weights:
+dense switch), and one without ``encounter_sums_shapes`` a hop entry
+without the sums kernel's shape. Both sides take their hand-picked launches:
+the tuning cache is switched off (``REPRO_TORCH_TUNE_CACHE`` empty). Three
+inputs, f32, seeded weights:
 
 - ``walk``: the peer path's first exchange (M = 256 mules of the random
   walk, D = 546,484), through ``encounter_mix_f32``;
@@ -22,7 +25,7 @@ For each, the script checks that both sources give the same bits (mix or
 sums, and mass), then times them in turns (other, tree, tree, other), five
 rounds of medians of CUDA-event timings, and prints every reading and the
 medians. Then it sweeps this tree's dense switch
-(``ops.DENSE_PAIRS_PER_ROW``: 0 makes every strip dense, 33 none) on the
+(forced through ``ops.DENSE_MIN``: 0 makes every strip dense, 33 none) on the
 walk and the dense strip, checking the bits at each setting. Last, the
 tree's hop against ``encounter_block``: after the allocator's next
 blocks are filled with NaN (a cell the kernel never writes would show),
@@ -34,6 +37,7 @@ two results differ.
 from __future__ import annotations
 
 import ctypes
+import os
 import statistics
 import subprocess
 import sys
@@ -55,6 +59,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = ""    # the hand picks, both sides
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -73,16 +78,20 @@ def main() -> int:
                        capture_output=True)
         lib = ctypes.CDLL(str(lib_path))
     new_abi = hasattr(lib, "encounter_pairs")
+    shape_abi = hasattr(lib, "encounter_sums_shapes")
     # a source whose only hop entry takes S lanes is called with S = 1
     lanes_hop = not hasattr(lib, "encounter_hop_f32")
     mix_fn = lib.encounter_mix_f32
     hop_fn = lib.encounter_hop_lanes_f32 if lanes_hop else \
         lib.encounter_hop_f32
     if new_abi:
-        # ops._HOP_ARGTYPES's fifth from last entry is the lane count S
+        # ops._HOP_ARGTYPES ends S, D, r2, dense_min, shape, stream: a
+        # source without the shape argument takes it without, one without
+        # the lanes entry without S too
+        hop = (ops._HOP_ARGTYPES if shape_abi
+               else ops._HOP_ARGTYPES[:-2] + ops._HOP_ARGTYPES[-1:])
         mix_fn.argtypes = MIX_ARGTYPES
-        hop_fn.argtypes = ops._HOP_ARGTYPES if lanes_hop else (
-            ops._HOP_ARGTYPES[:-5] + ops._HOP_ARGTYPES[-4:])
+        hop_fn.argtypes = hop if lanes_hop else hop[:-5] + hop[-4:]
     else:
         mix_fn.argtypes = ([ctypes.c_void_p] * 6
                            + [ctypes.c_int, ctypes.c_longlong,
@@ -146,7 +155,7 @@ def main() -> int:
                          on_v.data_ptr(), v, col0, wv.data_ptr(),
                          acc.data_ptr(), mass.data_ptr(), *extra[0],
                          *([1] if lanes_hop else []), d, r2,
-                         *extra[1], stream())
+                         *extra[1], *([0] if shape_abi else []), stream())
             if err != 0:
                 raise RuntimeError(f"the other hop failed: CUDA error {err}")
             return acc, mass
@@ -193,13 +202,12 @@ def main() -> int:
                   f"median {statistics.median(ms):.4f} ms [{card}]")
 
     ok &= _hop_checks(hop_args, walk, on, w, card)
-    default = ops.DENSE_PAIRS_PER_ROW
     try:
         for name in ("walk", "dense strip"):
             tree = inputs[name][1]
             want, want_mass = tree()
             for dense_min in SWEEP:
-                ops.DENSE_PAIRS_PER_ROW = dense_min
+                ops.DENSE_MIN = dense_min
                 got, got_mass = tree()
                 torch.cuda.synchronize()
                 same = torch.equal(got, want) and torch.equal(got_mass,
@@ -213,7 +221,7 @@ def main() -> int:
                 del got
             del want
     finally:
-        ops.DENSE_PAIRS_PER_ROW = default
+        ops.DENSE_MIN = None
     return 0 if ok else 1
 
 

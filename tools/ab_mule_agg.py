@@ -6,9 +6,12 @@ in one process on one NVIDIA GPU, and time both.
 
 ``OTHER.cu`` is ``mule_agg.cu`` from another commit with the lane-batched C
 entries ``mule_agg_lanes_f32`` / ``mule_agg_lanes_bf16`` (A, W, out, S, F,
-M, D, stream), for example ``git show <commit>:src/repro_torch/kernels/
-mule_agg/csrc/mule_agg.cu > build/other_mule_agg.cu``. It is built with the
-port's nvcc flags. At the paths' shapes (F, M, D):
+M, D, stream; with ``grid_blocks`` before the stream in a source that
+exports ``mule_agg_wave_blocks``, called with 0: one wave), for example
+``git show <commit>:src/repro_torch/kernels/mule_agg/csrc/mule_agg.cu >
+build/other_mule_agg.cu``. It is built with the port's nvcc flags. Both
+sides launch their hand-picked grid: the tuning cache is switched off
+(``REPRO_TORCH_TUNE_CACHE`` empty). At the paths' shapes (F, M, D):
 
 - (8, 256, 546,484): the main path, the sweep;
 - (12, 256, 546,484): the multi-area scenarios;
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +50,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = ""    # the hand picks, both sides
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -62,17 +67,21 @@ def main() -> int:
                         str(lib_path), sys.argv[1]], check=True,
                        capture_output=True)
         lib = ctypes.CDLL(str(lib_path))
+    # a source without the wave query takes no grid_blocks argument
+    grid_abi = hasattr(lib, "mule_agg_wave_blocks")
     entries = {}
     for dtype, name in _LANES_ENTRY.items():
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _LANES_ARGTYPES, ctypes.c_int
+        fn.argtypes = (_LANES_ARGTYPES if grid_abi
+                       else _LANES_ARGTYPES[:-2] + _LANES_ARGTYPES[-1:])
+        fn.restype = ctypes.c_int
         entries[dtype] = fn
 
     def other(a, w):
         s, f, m = a.shape
         out = torch.empty((s, f, w.shape[2]), dtype=w.dtype, device="cuda")
         err = entries[w.dtype](a.data_ptr(), w.data_ptr(), out.data_ptr(), s,
-                               f, m, w.shape[2],
+                               f, m, w.shape[2], *([0] if grid_abi else []),
                                torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"the other kernel failed: CUDA error {err}")
