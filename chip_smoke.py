@@ -71,7 +71,7 @@ Phases (any failure exits non-zero without the final result line):
    f64-sLSTM copy), and decode against forward;
 9. the ring peer path: ``spawn_local_cluster`` starts 4 ranks on the one
    card, joined over gloo; each holds its 64-mule block of phase 5's walk,
-   bucket-ordered by area (T = 18), at the paper CNN's full width, and runs
+   bucket-ordered by area (T = 12), at the paper CNN's full width, and runs
    ``gossip`` and then ``oppcl`` through ``gossip_step(ring=...)`` and
    ``oppcl_step(ring=...)`` with the single-host engine's batches and
    global-split keys. Each rank must launch ``encounter_hop`` once per hop
@@ -152,7 +152,7 @@ Phases (any failure exits non-zero without the final result line):
    ``cases`` entry of row 1);
 16. the distributed path: ``spawn_local_cluster`` starts 4 ranks of this
    script (``--dist-rank``) on the one card over gloo, each a 64-mule
-   block of phase 9's bucket-ordered walk at the CNN's full width, T = 18.
+   block of phase 9's bucket-ordered walk at the CNN's full width, T = 12.
    ``run_population_distributed`` runs the five ``METHODS_MOBILE`` with the
    histogram sketch: ``mule_agg`` 30 launches a rank for ``mlmule`` and
    ``mlmule+gossip``, ``encounter_hop`` once per kept hop for the peer
@@ -169,15 +169,15 @@ Phases (any failure exits non-zero without the final result line):
    a step and hops pruned before and after the swap;
 17. the seed sweep over the ranks, in phase 16's world: each rank runs
    ``run_sweep_distributed`` over 4 seeds of the walk (each bucket-ordered
-   by its own areas) for ``mlmule`` and ``gossip``, T = 9, then each lane
+   by its own areas) for ``mlmule`` and ``gossip``, T = 6, then each lane
    alone through ``run_population_distributed``. One ``ordered_psum`` a
    ``mlmule`` step and one ``encounter_hop`` launch a hop that any lane
    keeps, for all lanes; every lane's replicated state bitwise on every
    rank; each lane within the growth bound of its sequential run, and
    bitwise it over 4 steps with training off (the collectives, the
    aggregation and the hops alone); the lanes' distance from their
-   sequential runs with training alone (``local``, 2 steps) with cuDNN
-   and without; lane-steps/s beside the sequential runs and the bytes a
+   sequential runs with training alone (``local``, 2 steps) with cuDNN;
+   lane-steps/s beside the sequential runs and the bytes a
    step through host memory;
 18. training: stablelm-1.6b at full width (24 layers, 1.64 B f32 weights)
    through ``launch/train.py``'s functions: an f32 copy's loss and
@@ -192,7 +192,7 @@ Phases (any failure exits non-zero without the final result line):
    width;
 19. the LM population: ``examples/torch_train_lm_population.py``'s body
    with xlstm-350m at full width, 4 fixed devices training under
-   ``torch.func.vmap`` and 6 mules on the walk, seq 64, batch 4, T = 3:
+   ``torch.func.vmap`` and 6 mules on the walk, seq 64, batch 4, T = 2:
    ``mule_agg`` once a step over whole parameter vectors (D =
    468,260,864), ``slstm_scan`` once a layer a step for all 4 models; the
    aggregation of every step's state in lockstep with
@@ -259,7 +259,36 @@ Phases (any failure exits non-zero without the final result line):
    measured time; (e) the dry run's peak memory of that training step
    within 20% of phase 18's ``max_memory_allocated``; (f) the engine's
    roofline row of ``mlmule`` (M = 64, T = 24) on phase 16's 4 ranks and
-   ``suggest_mesh_shape``'s pick from the committed cache.
+   ``suggest_mesh_shape``'s pick from the committed cache;
+23. the LM stack on a mesh of ranks: ``spawn_local_cluster`` starts 4
+   ranks of this script (``--mesh-rank``) on the one card over gloo; each
+   builds the ``(data, model)`` mesh (``launch.mesh.make_lm_mesh``) and
+   granite-moe-1b-a400m whole with ``mesh=``, draws the full weights from
+   the seed and keeps its experts (``launch.lm_ranks``). (a) On 2 x 2 (2
+   expert-parallel peers, 16 experts a rank): a bf16 prefill of 2 x 4096
+   at the config's capacity factor (each data rank 1 x 4096, 2,048 tokens
+   and 640 slots an expert a peer) with 24 tensor-core ``flash_attention``
+   launches a rank and the all-to-all bytes of a layer exactly 2 E C d x 2;
+   ``serve.generate`` of 16 tokens at batch 4; 3 Adam steps at 4 x 128
+   with the gradients averaged over ``data``, the update in place
+   (``donate=True``) and each layer recomputed in the backward
+   (``remat=True``), a falling loss, and every
+   rank's replicated weights (and each model index's experts) bitwise
+   equal after them. (b) The f32 drop-free copy (capacity factor E / k):
+   a 2 x 256 prefill against the local path (``mesh=None``) on the same
+   weights, route by route as phase 20 holds it (rows no flip reaches
+   within 2e-4), and the f32 gradient of a data rank's nll (its 1 x 128
+   of 2 x 128) within 2e-4 of each leaf's largest from the local path's
+   on the same rows, none zero. (c) The same f32 prefill on 1 x 4 (4 peers,
+   8 experts a rank) and on 4 x 1 with ``moe_ep_axis=None`` (the
+   data-parallel path), each against the local path. (d)
+   qwen3-moe-235b-a22b at full width with 2 layers on 1 x 4 (32 of 128
+   experts a rank; the ranks draw the whole weights two at a time): a bf16
+   prefill of 2 x 2048. Tokens/s, steps/s, the all-to-all bytes and each
+   rank's peak memory are printed. Phase 18 also trains stablelm-1.6b
+   with ``remat`` (full and "dots"): its f32 gradients at 2 x 128 bitwise
+   those without, and 2 Adam steps of each at 4 x 128 beside its plain
+   steps, with their peaks and the gradient's peak alone.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -497,12 +526,13 @@ XLSTM_SHORT_PREFILL_TOL = 4e-3
 
 # encounter_hop (phase 3) and the ring peer path (phase 9): the walk of
 # phase 5, bucket-ordered by area and split into RING_RANKS equal blocks of
-# 64 mules, T = 18 steps (6 exchanges; cut from 30 for phase 22). Each hop
+# 64 mules, T = 12 steps (4 exchanges; cut from 30 for phases 22 and 23).
+# Each hop
 # is held to encounter_block as encounter_mix is (TOL), and the ring-order
 # sum of the hops, normalised, to the single-host encounter_mix: both sum
 # the same terms in other orders, and the normalisation divides by an
 # exact count.
-RING_RANKS, RING_STEPS = 4, 18
+RING_RANKS, RING_STEPS = 4, 12
 RING_MIX_TOL = 2e-5
 RING_TIMEOUT = 600
 # Table 1 fixed path (phase 10): the paper's 8 fixed devices and 20 mules,
@@ -548,13 +578,13 @@ STREAM_CHUNK = EVAL_EVERY
 SCALE_MULES = (100_000, 1_000_000)
 SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 24, 8, 2, 0.05
 # the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
-# bucket-ordered walk of phase 9 at the CNN's full width, T = 18 (cut from
-# 30 for phase 22; at most phase 9's T, whose walk it runs); then the
-# streamed engine on multi_area_migratory, re-bucketing every 10 steps.
+# bucket-ordered walk of phase 9 at the CNN's full width, T = 12 (cut from
+# 30 for phases 22 and 23; at most phase 9's T, whose walk it runs); then
+# the streamed engine on multi_area_migratory, re-bucketing every 10 steps.
 # At M = 256 that schedule's drift from its build-time buckets is 0 at
 # step 10 and 2 mules of 256 (0.0078) at step 20: the threshold lets the
 # second check swap
-DIST_RANKS, DIST_STEPS = 4, 18
+DIST_RANKS, DIST_STEPS = 4, 12
 # the distributed mlmule's lockstep with agg_backend="ref": the first 10
 # steps (cut from 30, to keep the script inside its time)
 DIST_LOCKSTEP_STEPS = 10
@@ -563,15 +593,15 @@ REBUCKET_EVERY, REBUCKET_THRESHOLD = 10, 0.005
 # stays under the threshold at both checks (no swap)
 REBUCKET_STEPS = 30
 # the seed sweep over the ranks (phase 17, in phase 16's world): S seeds of
-# that walk as lanes inside each rank's block, T = 9 (cut from 30 to keep
-# the script inside its time with the checks below, and from 12 for phase
-# 22)
+# that walk as lanes inside each rank's block, T = 6 (cut from 30 to keep
+# the script inside its time with the checks below, from 12 for phase 22
+# and from 9 for phase 23)
 DIST_LANES = 4
 DIST_SWEEP_METHODS = ("mlmule", "gossip")
-DIST_SWEEP_STEPS = 9
+DIST_SWEEP_STEPS = 6
 # its lanes against their sequential runs with training off (the
 # collectives, aggregation and hops alone: bitwise; two gossip exchanges)
-# and with training alone (method "local", with and without cuDNN)
+# and with training alone (method "local", with cuDNN)
 DIST_SWEEP_OFF_STEPS, DIST_LOCAL_STEPS = 4, 2
 # the kernels' autograd ops (phase 3): each lane of vmap(grad) against its
 # single gradient, and the single gradient against backend="ref"'s (both
@@ -587,9 +617,16 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "stablelm-1.6b", 5, 4, 128
 GRAD_BATCH, GRAD_SEQ = 2, 64
 GRAD_HYBRID_LAYERS, GRAD_XLSTM_LAYERS = 6, 4
 GRAD_LOSS_REL, GRAD_LEAF_REL = 2e-4, 2e-4
+# the Adam steps of each remat policy (phase 18); a remat step's peak may
+# pass the plain step's by at most REMAT_PEAK_SLACK (the update, not the
+# activations, sets both), and one remat gradient's peak must be below the
+# plain one's
+REMAT_STEPS = 2
+REMAT_PEAK_SLACK = 1 << 30
 # the LM population (phase 19): examples/torch_train_lm_population.py's
-# F 4 / M 6 with xlstm-350m at full width, T = 3 (4 until phase 20 came)
-LM_POP_ARCH, LM_POP_STEPS, LM_POP_SEQ, LM_POP_BATCH = "xlstm-350m", 3, 64, 4
+# F 4 / M 6 with xlstm-350m at full width, T = 2 (4 until phase 20 came, 3
+# until phase 23)
+LM_POP_ARCH, LM_POP_STEPS, LM_POP_SEQ, LM_POP_BATCH = "xlstm-350m", 2, 64, 4
 LM_POP_FIXED, LM_POP_MULES = 4, 6
 # mixture-of-experts (phase 20): granite-moe-1b-a400m at full width, 24
 # layers of attention (16 heads x 64, KV 8) and 32 experts of 512, top-8.
@@ -622,6 +659,24 @@ WIDE_ARCHS = ("qwen3-moe-235b-a22b", "granite-34b", "qwen2.5-32b")
 WIDE_LAYERS = 2
 WIDE_MOE_S = 1024
 DIST_TIMEOUT = 900
+# the LM stack on a mesh of ranks (phase 23): granite-moe-1b-a400m whole on
+# MESH_RANKS ranks of one card. (a) on 2 x 2: the bf16 prefill, decode at
+# MESH_DECODE (batch, tokens) after a prompt of MESH_PROMPT, Adam steps at
+# MESH_TRAIN on one batch of make_lm_dataset's streams at MESH_LR (a fixed
+# batch, so the loss falls over 3 steps); (b), (c) the f32 drop-free copy
+# on 2 x MESH_F32_S tokens (each all-to-all moves the whole [E, t_ep, d]
+# in f32 there, 67 MB a peer at 2 x 1024) and a data rank's gradient at
+# GRAD_BATCH x TRAIN_SEQ; (d) qwen3-moe at full width with WIDE_LAYERS
+# layers, a bf16 prefill of 2 x MESH_WIDE_S
+MESH_RANKS, MESH_TIMEOUT = 4, 600
+MESH_PREFILL = (2, 4096)
+MESH_PROMPT, MESH_DECODE = 1, (4, 16)
+MESH_TRAIN, MESH_TRAIN_STEPS, MESH_LR = (4, 128), 3, 1e-3
+MESH_F32_S = 256
+MESH_WIDE_ARCH, MESH_WIDE_S = "qwen3-moe-235b-a22b", 2048
+# (a)'s drop-free f32 gradient against the local path: each leaf's largest
+# gap over its largest gradient
+MESH_GRAD_REL = 2e-4
 # audio and vision (phase 21): whisper-base whole (6 encoder and 6 decoder
 # layers, the embedding tied; its leaves as the reference's init counts
 # them), its prefill on AUDIO_B requests of encoder_seq = 1500 frames and
@@ -4110,8 +4165,8 @@ def _dist_sweep(mesh, counted, whole, init_fn, train_fn) -> dict:
     distance from its sequential run. Then the same comparison over
     DIST_SWEEP_OFF_STEPS steps with training off (the collectives, the
     aggregation and the hops alone) for both methods, and over
-    DIST_LOCAL_STEPS for ``local`` (training alone) with cuDNN and
-    without; each with its wall seconds."""
+    DIST_LOCAL_STEPS for ``local`` (training alone) with cuDNN; each with
+    its wall seconds."""
     import numpy as np
     import torch
     from repro_torch.configs.mule_cnn import CONFIG
@@ -4226,14 +4281,10 @@ def _dist_sweep(mesh, counted, whole, init_fn, train_fn) -> dict:
         torch.cuda.empty_cache()
         rec["off"] = lanes_gap(method, DIST_SWEEP_OFF_STEPS, keep)
     # training alone: the vmapped CNN steps over lanes and mules (cuDNN
-    # sees S times the groups), and the same without cuDNN
+    # sees S times the groups)
     torch.cuda.empty_cache()
     out["local"] = {"cudnn": lanes_gap("local", DIST_LOCAL_STEPS,
                                        train_fn)}
-    with torch.backends.cudnn.flags(enabled=False, benchmark=False,
-                                    deterministic=True, allow_tf32=False):
-        out["local"]["no cudnn"] = lanes_gap("local", DIST_LOCAL_STEPS,
-                                             train_fn)
     del states
     torch.cuda.empty_cache()
     return out
@@ -4315,13 +4366,11 @@ def _check_dist_sweep(ranks: list, card: str) -> dict:
     local = {k: (max(r["sweep"]["local"][k][0] for r in ranks),
                  all(r["sweep"]["local"][k][1] for r in ranks),
                  max(r["sweep"]["local"][k][2] for r in ranks))
-             for k in ("cudnn", "no cudnn")}
+             for k in ("cudnn",)}
     print(f"distributed sweep S={DIST_LANES} local (training alone), "
           f"T={DIST_LOCAL_STEPS}: lanes vs sequential runs max diff "
           f"{local['cudnn'][0]:.3e} (bitwise {local['cudnn'][1]}; "
-          f"{local['cudnn'][2]:.1f} s) with cuDNN, "
-          f"{local['no cudnn'][0]:.3e} (bitwise {local['no cudnn'][1]}; "
-          f"{local['no cudnn'][2]:.1f} s) without [{card}]")
+          f"{local['cudnn'][2]:.1f} s) with cuDNN [{card}]")
     return paths
 
 
@@ -4611,6 +4660,120 @@ def _flash_backward_cost(cfg, card: str) -> None:
           f"({100 * stats_ms / bwd_ms:.1f}%) [{card}]")
 
 
+def _remat_training(cfg, card: str) -> None:
+    """Phase 18's remat steps: the f32 gradient of ``cfg`` at GRAD_BATCH x
+    TRAIN_SEQ bitwise with and without ``remat`` (full and "dots"), then
+    REMAT_STEPS Adam steps at TRAIN_BATCH x TRAIN_SEQ in bf16 with each
+    policy, their steps/s and peak memory (within REMAT_PEAK_SLACK of the
+    plain steps'), and the peak of one gradient alone (no Adam state) with
+    and without remat (lower with it)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.data import make_lm_dataset
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adam, cosine_schedule
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen.manual_seed(SEED)
+    params = build_model(cfg32).init(gen)
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (GRAD_BATCH, TRAIN_SEQ)), device="cuda")}
+    g0, (l0, _) = torch.func.grad_and_value(build_model(cfg32).loss,
+                                            has_aux=True)(params, batch)
+    same = {}
+    for policy in ("full", "dots"):
+        g1, (l1, _) = torch.func.grad_and_value(build_model(
+            cfg32, remat=True, remat_policy=policy).loss, has_aux=True)(
+                params, batch)
+        same[policy] = bool(torch.equal(l0, l1)) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g0),
+                                              tree_leaves(g1)))
+        del g1
+    del g0, params
+    free()
+    print(f"training {cfg.name} remat: the f32 loss and gradient at "
+          f"{GRAD_BATCH} x {TRAIN_SEQ} with remat bitwise those without: "
+          f"{same} [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"training {cfg.name}: remat changed the "
+                             f"gradient's bits {same}")
+    t_bits = time.perf_counter() - t_start
+    seqs, _ = make_lm_dataset(SEED, n_seqs=max(TRAIN_BATCH * 8, 64),
+                              seq_len=TRAIN_SEQ, vocab=cfg.vocab)
+    idx = np.random.default_rng(SEED).integers(0, len(seqs), TRAIN_BATCH)
+    batch = {"tokens": torch.as_tensor(seqs[idx], dtype=torch.int64,
+                                       device="cuda")}
+    report = {}
+    for policy in (None, "full", "dots"):
+        model = build_model(cfg, remat=policy is not None,
+                            remat_policy=policy or "full")
+        gen.manual_seed(SEED)
+        start = model.init(gen)
+        free()
+        g, _ = torch.func.grad_and_value(model.loss, has_aux=True)(start,
+                                                                   batch)
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated()
+        del g
+        if policy is None:      # phase 18's plain steps are measured above
+            report["plain"] = {"grad_peak": grad_peak}
+            del start
+            continue
+        opt = adam(cosine_schedule(3e-4, REMAT_STEPS, warmup=0))
+        state = opt.init(start)
+        step = make_train_step(model, opt)
+        free()
+        params, times, losses = start, [], []
+        del start
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+            times.append(time.perf_counter() - t0)
+        report[policy] = {"steps_s": REMAT_STEPS / sum(times),
+                          "walls": [round(x, 4) for x in times],
+                          "losses": [round(x, 4) for x in losses],
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "grad_peak": grad_peak}
+        del params, state, opt, step
+        free()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"training {cfg.name} remat {policy}: "
+                                 f"losses {losses}")
+    plain_rate = 1.0 / MEASURED["train step s"]
+    print(f"training {cfg.name} remat, {REMAT_STEPS} Adam steps at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} (bf16): plain (the steps above) "
+          f"{plain_rate:.3f} steps/s at the median step, peak "
+          f"{MEASURED['train peak B']} B, one gradient's peak "
+          f"{report['plain']['grad_peak']} B; "
+          + "; ".join(f"remat {p} {r['steps_s']:.3f} steps/s (walls "
+                      f"{r['walls']} s, losses {r['losses']}), peak "
+                      f"{r['peak']} B, one gradient's peak {r['grad_peak']} B"
+                      for p, r in report.items() if p != "plain")
+          + f"; the bit checks {t_bits:.1f} s, the steps "
+          f"{time.perf_counter() - t_start - t_bits:.1f} s [{card}]")
+    for policy, r in report.items():
+        if policy != "plain" and (
+                r["peak"] > MEASURED["train peak B"] + REMAT_PEAK_SLACK
+                or r["grad_peak"] >= report["plain"]["grad_peak"]):
+            raise AssertionError(
+                f"training {cfg.name} remat {policy}: step peak {r['peak']} "
+                f"B against the plain step's {MEASURED['train peak B']} "
+                f"(+{REMAT_PEAK_SLACK} allowed), one gradient's peak "
+                f"{r['grad_peak']} B against {report['plain']['grad_peak']}")
+
+
 def phase_training(card: str) -> dict:
     """Phase 18: stablelm-1.6b at full width through ``launch/train.py``'s
     functions (the f32 gradient check through the kernels, then Adam steps
@@ -4706,6 +4869,7 @@ def phase_training(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _flash_backward_cost(cfg, card)
+    _remat_training(cfg, card)
 
     # (c) zamba2-2.7b and xlstm-350m, full width, reduced depth, f32
     for arch, layers, expect_fn in (
@@ -5704,6 +5868,556 @@ def phase_tooling(card: str) -> None:
     print(f"tooling: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _spec_leaves(specs) -> list:
+    """A spec tree's leaves (tuples) in tree_leaves' order."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [specs]
+
+
+def _wide_rank_params(cfg, mesh) -> dict:
+    """This rank's block of ``Model.init``'s weights for ``cfg`` (one stage
+    of MoE layers), drawn from the seed on the card in ``init``'s order but
+    one layer at a time: a layer's experts are cut to the rank's block
+    before the next is drawn, so the whole stack is never held at once."""
+    import torch
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.sharding import shard_of
+    from repro_torch.models import build_model
+    from repro_torch.models.api import _init_layer
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    first = build_model(dataclasses.replace(cfg, n_layers=1)).init(gen)
+
+    def own(layer):
+        moe = {k: v if k == "router" else
+               shard_of(v, ("model", None, None), mesh).clone()
+               for k, v in layer.pop("moe").items()}
+        return {**layer, "moe": moe}
+
+    layers = [own(first["stages"][0])]
+    for _ in range(cfg.n_layers - 1):
+        layers.append(own(_init_layer(gen, cfg, "moe")))
+    first["stages"] = [tree_map(lambda *ls: torch.stack(ls), *layers)]
+    return first
+
+
+def _mesh_routes(mesh_rec: "_MoeRoutes", local_rec: "_MoeRoutes",
+                 start: int) -> list:
+    """The flips of a mesh prefill's routes against the local path's on
+    the same tokens: [layer, flat index in the rank's block, gap of the
+    k-th over the (k+1)-th local probability relative to the k-th]. The
+    mesh rank routed the block's tokens from ``start`` on (its slice on
+    the expert-parallel path), the local run the whole block."""
+    flips = []
+    for layer, (em, el, pl) in enumerate(zip(mesh_rec.top_e,
+                                             local_rec.top_e,
+                                             local_rec.top_p)):
+        n = em.shape[0]
+        el, pl = el[start:start + n], pl[start:start + n]
+        k = pl.shape[-1] - 1
+        gap = (pl[:, k - 1] - pl[:, k]) / pl[:, k - 1]
+        at = (em != el).any(-1).nonzero()[:, 0]
+        flips += [[layer, start + i, g] for i, g in zip(
+            at.tolist(), gap[at].tolist())]
+    return flips
+
+
+def _params_digest(tree) -> str:
+    """sha256 of a fingerprint of a tree's bits, in tree_leaves' order: each
+    leaf's 32-bit words summed exactly (int64) over blocks of 2^20 on the
+    card, so that ranks compare gigabytes without moving them; two trees
+    differ in it unless their differences cancel inside a block."""
+    import hashlib
+    import torch
+    from repro_torch.interop import tree_leaves
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        words = leaf.detach().reshape(-1).view(torch.int32).long()
+        n = words.numel() // (1 << 20) * (1 << 20)
+        sums = torch.cat([words[:n].view(-1, 1 << 20).sum(1),
+                          words[n:].sum().reshape(1)])
+        h.update(sums.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(out_dir: str) -> None:
+    """One rank of phase 23, run as ``chip_smoke.py --mesh-rank DIR`` by
+    ``spawn_local_cluster``; writes its report to DIR/rank<r>.json."""
+    import gc
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_dataset
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.launch import collectives, lm_ranks
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.multiprocess import initialize_from_env
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import moe_specs, shard_of, shard_tree
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity_of
+    from repro_torch.optim import adam
+
+    if not initialize_from_env():
+        raise RuntimeError("--mesh-rank needs the REPRO_MP_* environment of "
+                           "spawn_local_cluster")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared: each rank's transfers fold on the host
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
+    rank = dist.get_rank()
+    rep = {"rank": rank, "laps": {"start": time.time()}}
+    t_lap = [time.perf_counter()]
+
+    def lap(part: str):
+        now = time.perf_counter()
+        rep["laps"][part] = now - t_lap[0]
+        t_lap[0] = now
+
+    # the train step's gradient mean over data, timed apart
+    mean_s = []
+    _mesh_mean = steps_mod._mesh_mean
+
+    def timed_mean(*args):
+        t0 = time.perf_counter()
+        out = _mesh_mean(*args)
+        torch.cuda.synchronize()
+        mean_s.append(time.perf_counter() - t0)
+        return out
+    steps_mod._mesh_mean = timed_mean
+
+    def a2a() -> int:
+        return collectives.COLLECTIVE_COUNTS["all-to-all"]["sent_bytes"]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def note(part: str):
+        # progress, in the output a failing rank leaves
+        lap(part)
+        print(f"mesh rank {rank}: {part} done, "
+              f"{torch.cuda.max_memory_allocated()} B peak", flush=True)
+
+    # (a) granite-moe on 2 x 2, bf16 at the config's capacity factor
+    cfg = get_config(MOE_ARCH)
+    mesh, model = lm_ranks.rank_model(cfg, 2, 2)
+    rep["coords"] = dict(mesh.coords)
+    t0 = time.perf_counter()
+    params = lm_ranks.rank_params(model, lm_ranks.full_params(model, SEED,
+                                                              "cuda"))
+    free()
+    rep["init_s"] = time.perf_counter() - t0
+    lap("(a) weights")
+    rep["rank_params"] = sum(t.numel() for t in tree_leaves(params))
+    b, s = MESH_PREFILL
+    toks = lm_ranks.tokens(cfg, b, s, SEED + 1, "cuda")
+    prefill = make_prefill_step(model)
+    prefill(params, lm_ranks.rank_batch(cfg, {"tokens": toks[:, :256]},
+                                        mesh))             # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    free()
+    expect = _flash_counts(cfg.n_layers, cfg.n_layers)
+    batch = lm_ranks.rank_batch(cfg, {"tokens": toks}, mesh)
+    _zero_counts(expect)
+    sent = a2a()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    rep["prefill"] = {
+        "wall_s": time.perf_counter() - t0, "launches": _counts(expect),
+        "a2a_bytes": a2a() - sent,
+        "capacity": capacity_of(batch["tokens"].numel() // 2, cfg),
+        "finite": bool(torch.isfinite(logits).all()),
+        "shape": list(logits.shape),
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+    del logits
+    note("(a) prefill")
+    free()
+    db, dg = MESH_DECODE
+    prompt = lm_ranks.rank_batch(cfg, {"tokens": lm_ranks.tokens(
+        cfg, db, MESH_PROMPT, SEED + 2, "cuda")}, mesh)["tokens"]
+    sent = a2a()
+    out = generate(model, params, prompt, dg)
+    rep["decode"] = {"decode_s": out["decode_s"], "finite": out["finite"],
+                     "a2a_bytes": a2a() - sent,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    del out
+    note("(a) decode")
+    free()
+    tb, ts = MESH_TRAIN
+    seqs, _ = make_lm_dataset(SEED, n_seqs=64, seq_len=ts, vocab=cfg.vocab)
+    batch = lm_ranks.rank_batch(cfg, {"tokens": torch.as_tensor(
+        seqs[:tb], dtype=torch.int64, device="cuda")}, mesh)
+    opt = adam(MESH_LR)
+    state = opt.init(params)
+    # two data replicas of granite-moe's weights, gradients and Adam state
+    # fill the card: the update runs in place (no second copy) and each
+    # layer is recomputed in the backward (no whole graph of activations)
+    step = make_train_step(dataclasses.replace(model, remat=True), opt,
+                           donate=True)
+    # each layer's attention runs twice a step: the forward and its
+    # recomputation in the backward
+    expect = _flash_counts(2 * MESH_TRAIN_STEPS * cfg.n_layers,
+                           2 * MESH_TRAIN_STEPS * cfg.n_layers)
+    _zero_counts(expect)
+    losses, times, sent_steps = [], [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        sent = a2a()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+        sent_steps.append(a2a() - sent)
+    specs = moe_specs(cfg, params, mesh)
+    experts = tree_map(lambda t, sp: t if sp else None, params, specs)
+    whole = tree_map(lambda t, sp: None if sp else t, params, specs)
+    rep["train"] = {"losses": losses, "step_s": times, "mean_s": mean_s,
+                    "a2a_bytes": sent_steps, "launches": _counts(expect),
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "digest": _params_digest([x for x in tree_leaves(whole)
+                                              if x is not None]),
+                    "expert_digest": _params_digest(
+                        [x for x in tree_leaves(experts) if x is not None])}
+    del params, state, opt, step, experts, whole
+    note("(a) training")
+    free()
+
+    # (b), (c) the f32 drop-free copy against the local path
+    cfg32 = dataclasses.replace(cfg, dtype="float32", capacity_factor=float(
+        cfg.n_experts) / cfg.top_k)
+    local = build_model(cfg32)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    toks = lm_ranks.tokens(cfg, 2, MESH_F32_S, SEED + 3, "cuda")
+    with torch.no_grad(), _MoeRoutes() as rec_local:
+        want = local.forward(full, {"tokens": toks})[0]
+    rep["f32"] = {}
+    for name, (dp, ep, ep_axis) in (("2x2", (2, 2, "model")),
+                                    ("1x4", (1, 4, "model")),
+                                    ("4x1", (4, 1, None))):
+        mesh_m, model_m = lm_ranks.rank_model(cfg32, dp, ep,
+                                              moe_ep_axis=ep_axis)
+        p = shard_tree(full, moe_specs(cfg32, full, mesh_m, ep_axis),
+                       mesh_m)
+        blk = lm_ranks.rank_batch(cfg, {"tokens": toks}, mesh_m)["tokens"]
+        rows = blk.shape[0]
+        row0 = mesh_m.coords["data"] * rows if rows < toks.shape[0] else 0
+        t0 = time.perf_counter()
+        with torch.no_grad(), _MoeRoutes() as rec:
+            got = model_m.forward(p, {"tokens": blk})[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the local run's routes over this block's rows, and where this
+        # rank's own tokens start in them
+        sub = _MoeRoutes()
+        n_blk = rows * MESH_F32_S
+        sub.top_e = [e[row0 * MESH_F32_S:][:n_blk] for e in rec_local.top_e]
+        sub.top_p = [q[row0 * MESH_F32_S:][:n_blk] for q in rec_local.top_p]
+        n_own = rec.top_e[0].shape[0]
+        start = mesh_m.axis_index("model") * n_own if ep_axis and \
+            n_own < n_blk else 0
+        rep["f32"][name] = {
+            "wall_s": wall, "rows": [row0, rows],
+            "dropped": sum(rec.dropped),
+            "flips": _mesh_routes(rec, sub, start),
+            "diff": (got - want[row0:row0 + rows]).abs().amax(-1).tolist(),
+            "logit_max": want.abs().max().item()}
+        del got, p
+    del want
+    note("(b), (c) f32 prefills")
+    free()
+    # the f32 gradient at GRAD_BATCH x TRAIN_SEQ on 2 x 2: each data
+    # rank's own (its block's nll; the mesh's aux loss is the mean of its
+    # shards', the reference's, which no drop-free capacity makes the
+    # whole batch's), held on the ranks of data index 0 (one a model
+    # index) to the local path's gradient on the same block, while the
+    # others free the whole weights (each local gradient, with its graph,
+    # takes ~20 GB)
+    gtoks = lm_ranks.tokens(cfg, GRAD_BATCH, TRAIN_SEQ, SEED + 4, "cuda")
+
+    def nll(model):
+        return lambda p, batch: model.loss(p, batch)[1]["nll"]
+
+    mesh_m, model_m = lm_ranks.rank_model(cfg32, 2, 2)
+    specs = moe_specs(cfg32, full, mesh_m)
+    blk = lm_ranks.rank_batch(cfg, {"tokens": gtoks}, mesh_m)
+    g_mesh = tree_leaves(torch.func.grad(nll(model_m))(
+        shard_tree(full, specs, mesh_m), blk))
+    rep["grad"] = {"leaves": len(g_mesh), "rows": blk["tokens"].shape[0]}
+    if mesh_m.coords["data"] != 0:
+        del full, local
+    free()
+    if mesh_m.coords["data"] == 0:
+        g_local = torch.func.grad(nll(local))(full, blk)
+        worst, zero = 0.0, 0
+        for gl, gm, sp in zip(tree_leaves(g_local), g_mesh,
+                              _spec_leaves(specs)):
+            gl = shard_of(gl, sp, mesh_m)
+            scale = gl.abs().max().item()
+            if gm.abs().max().item() == 0.0 or scale == 0.0:
+                zero += 1
+                continue
+            worst = max(worst, (gm - gl).abs().max().item() / scale)
+        rep["grad"].update(worst=worst, zero=zero)
+        note("(b) gradient")
+        del g_local, full, local
+    dist.barrier()
+    del g_mesh
+    free()
+
+    # (d) qwen3-moe at full width, WIDE_LAYERS layers, on 1 x 4; the ranks
+    # draw the whole weights two at a time, each keeping its experts
+    wcfg = dataclasses.replace(get_config(MESH_WIDE_ARCH),
+                               n_layers=WIDE_LAYERS)
+    mesh_w, model_w = lm_ranks.rank_model(wcfg, 1, 4)
+    params = None
+    for turn in range(0, MESH_RANKS, 2):
+        if rank in (turn, turn + 1):
+            params = _wide_rank_params(wcfg, mesh_w)
+            free()
+        dist.barrier()
+    lap("(d) weights")
+    rep["wide_rank_params"] = sum(t.numel() for t in tree_leaves(params))
+    rep["wide_experts"] = params["stages"][0]["moe"]["wi_gate"].shape[1]
+    wtoks = lm_ranks.tokens(wcfg, 2, MESH_WIDE_S, SEED + 5, "cuda")
+    prefill = make_prefill_step(model_w)
+    prefill(params, {"tokens": wtoks[:, :256]})           # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    expect = _flash_counts(WIDE_LAYERS, WIDE_LAYERS)
+    _zero_counts(expect)
+    sent = a2a()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": wtoks})
+    torch.cuda.synchronize()
+    rep["wide"] = {"wall_s": time.perf_counter() - t0,
+                   "launches": _counts(expect), "a2a_bytes": a2a() - sent,
+                   "finite": bool(torch.isfinite(logits).all()),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+    del logits, params
+    free()
+    lap("(d) prefill")
+    rep["laps"]["end"] = time.time()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
+
+
+def _mesh_held(ranks: list, name: str, ep: int) -> dict:
+    """The f32 drop-free prefill of mesh ``name`` against the local path,
+    gathered from the ranks: the flips of every data block (its peers'
+    slices together), whether each is a first flip, and the largest gap on
+    the rows no flip can reach (from the block's model-index-0 rank)."""
+    flips, err, rest, n_held, n_all = [], 0.0, 0.0, 0, 0
+    for d in range(len(ranks) // ep):
+        group = [r["f32"][name] for r in ranks[d * ep:(d + 1) * ep]]
+        rows = group[0]["rows"][1]
+        reach = [MESH_F32_S] * rows
+        by_layer = {}
+        for g in group:
+            for layer, flat, gap in g["flips"]:
+                by_layer.setdefault(layer, []).append((flat, gap))
+        for layer in sorted(by_layer):
+            seen = list(reach)
+            for flat, gap in by_layer[layer]:
+                row, pos = divmod(flat, MESH_F32_S)
+                flips.append((d, layer, row, pos, gap, pos < seen[row]))
+                reach[row] = min(reach[row], pos)
+        for row, diffs in enumerate(group[0]["diff"]):
+            held = diffs[:reach[row]]
+            err = max([err] + held)
+            rest = max([rest] + diffs[reach[row]:])
+            n_held += len(held)
+            n_all += len(diffs)
+    return {"flips": flips, "err": err, "rest": rest, "held": n_held,
+            "rows": n_all}
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 23: the LM stack on MESH_RANKS ranks of the card
+    (``spawn_local_cluster``, gloo, ``--mesh-rank``): holds what the ranks
+    report and returns {path: {kernel: launches of all ranks}}."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.multiprocess import spawn_local_cluster
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh: this process holds {torch.cuda.memory_allocated()} B "
+          f"({torch.cuda.memory_reserved()} B reserved) on the card as the "
+          f"ranks start")
+    t_spawn = time.time()
+    with tempfile.TemporaryDirectory() as out_dir:
+        outs = spawn_local_cluster(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             out_dir], MESH_RANKS, timeout=MESH_TIMEOUT, base_env={
+                 **os.environ,
+                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    t_done = time.time()
+    for line in outs[0].stdout.splitlines():
+        print(f"  rank 0: {line}")
+    laps = ranks[0]["laps"]
+    print(f"mesh laps, rank 0: {laps['start'] - t_spawn:.1f} s to start "
+          f"(imports, the card, the process groups), then "
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()
+                      if k not in ("start", "end"))
+          + f" s; {t_done - laps['end']:.1f} s to exit")
+    cfg = get_config(MOE_ARCH)
+    e, k, d, n = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.n_layers
+    peaks = lambda part: [r[part]["peak_bytes"] for r in ranks]  # noqa: E731
+    paths = {}
+
+    # (a) 2 x 2: the bf16 prefill, decode, Adam steps
+    b, s = MESH_PREFILL
+    pre = [r["prefill"] for r in ranks]
+    cap = pre[0]["capacity"]
+    layer_bytes = 2 * e * cap * d * 2           # the pair, bf16
+    for r, p in zip(ranks, pre):
+        want = {"flash_attention": n, "flash_attention tc": n}
+        if p["launches"] != want or not p["finite"] or \
+                p["shape"] != [b // 2, s, cfg.vocab]:
+            raise AssertionError(f"mesh prefill, rank {r['rank']}: launches "
+                                 f"{p['launches']} (expected {want}), "
+                                 f"finite {p['finite']}, logits {p['shape']}")
+        if p["a2a_bytes"] != n * layer_bytes:
+            raise AssertionError(f"mesh prefill, rank {r['rank']}: "
+                                 f"{p['a2a_bytes']} B through all-to-all, "
+                                 f"expected {n} x {layer_bytes}")
+    wall = max(p["wall_s"] for p in pre)
+    print(f"mesh {MOE_ARCH} on 2 x 2 ranks ({e // 2} of {e} experts a rank, "
+          f"{ranks[0]['rank_params']} weights a rank, drawn and cut in "
+          f"{max(r['init_s'] for r in ranks):.1f} s): bf16 prefill "
+          f"{b} x {s}, {b * s / wall:.1f} tokens/s ({wall:.3f} s); each "
+          f"peer routes {b // 2 * s // 2} tokens into {cap} slots an "
+          f"expert; all-to-all {layer_bytes} B a layer a rank "
+          f"(2 E C d x 2 B), {pre[0]['a2a_bytes']} B a prefill a rank; "
+          f"flash_attention {n} a rank, all tensor-core; peak by rank "
+          f"{peaks('prefill')} B [{card}]")
+    paths[f"{MOE_ARCH} prefill on 2 x 2 ranks"] = {
+        "flash_attention": sum(p["launches"]["flash_attention"]
+                               for p in pre)}
+    dec = [r["decode"] for r in ranks]
+    if not all(x["finite"] for x in dec):
+        raise AssertionError("mesh decode: non-finite logits")
+    db, dg = MESH_DECODE
+    dwall = max(x["decode_s"] for x in dec)
+    print(f"mesh {MOE_ARCH} decode on 2 x 2: serve.generate at batch {db} "
+          f"(2 a data rank), prompt {MESH_PROMPT}, {dg} tokens: "
+          f"{db * dg / dwall:.2f} tokens/s ({dwall:.3f} s); all-to-all "
+          f"{dec[0]['a2a_bytes']} B a rank in all; peak by rank "
+          f"{peaks('decode')} B [{card}]")
+    tr = [r["train"] for r in ranks]
+    losses = tr[0]["losses"]
+    want = {"flash_attention": 2 * MESH_TRAIN_STEPS * n,
+            "flash_attention tc": 2 * MESH_TRAIN_STEPS * n}
+    if any(t["losses"] != losses or t["launches"] != want for t in tr):
+        raise AssertionError(f"mesh training: losses by rank "
+                             f"{[t['losses'] for t in tr]}, launches "
+                             f"{[t['launches'] for t in tr]}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"mesh training: losses {losses}")
+    if len({t["digest"] for t in tr}) != 1:
+        raise AssertionError("mesh training: the replicated weights differ "
+                             "between ranks")
+    by_model = {}
+    for r, t in zip(ranks, tr):
+        by_model.setdefault(r["coords"]["model"], set()).add(
+            t["expert_digest"])
+    if any(len(v) != 1 for v in by_model.values()) or len(by_model) != 2:
+        raise AssertionError(f"mesh training: expert digests by model "
+                             f"index {by_model}")
+    steps = [max(t["step_s"][i] for t in tr) for i in range(MESH_TRAIN_STEPS)]
+    means = [round(max(t["mean_s"][i] for t in tr), 4)
+             for i in range(MESH_TRAIN_STEPS)]
+    tb, ts = MESH_TRAIN
+    rate = MESH_TRAIN_STEPS / sum(steps)
+    print(f"mesh {MOE_ARCH} training on 2 x 2: {MESH_TRAIN_STEPS} Adam "
+          f"steps at {tb} x {ts} (bf16 compute, f32 weights, the gradients "
+          f"averaged over data, in place, remat): {rate:.3f} steps/s, "
+          f"{rate * tb * ts:.1f} tokens/s (step walls "
+          f"{[round(x, 4) for x in steps]} s), losses "
+          f"{[round(x, 4) for x in losses]}; the gradient mean over data "
+          f"{means} s a step; all-to-all "
+          f"{tr[0]['a2a_bytes']} B a step a rank; flash_attention "
+          f"{2 * n} a step a rank (the forward and its recomputation), "
+          f"tensor-core; the replicated weights bitwise equal "
+          f"on every rank, each model index's experts on its data peers; "
+          f"peak by rank {peaks('train')} B [{card}]")
+    paths[f"{MOE_ARCH} training on 2 x 2 ranks"] = {
+        "flash_attention": sum(t["launches"]["flash_attention"] for t in tr)}
+
+    # (b), (c) the f32 drop-free copy against the local path
+    for name, ep in (("2x2", 2), ("1x4", 4), ("4x1", 1)):
+        res = _mesh_held(ranks, name, ep)
+        if any(r["f32"][name]["dropped"] for r in ranks):
+            raise AssertionError(f"mesh f32 {name}: the drop-free prefill "
+                                 f"dropped slots")
+        bad = [f for f in res["flips"] if f[5]
+               and not f[4] < MOE_FLIP_GAP_REL]
+        for blk, layer, row, pos, gap, first in res["flips"][:20]:
+            print(f"  route flip ({name}): data block {blk}, layer {layer},"
+                  f" row {row}, position {pos}, gap {gap:.3e} "
+                  f"({'first' if first else 'after an earlier flip'})")
+        print(f"mesh {MOE_ARCH} f32 drop-free prefill 2 x {MESH_F32_S} on "
+              f"{name.replace('x', ' x ')}"
+              f"{' (moe_ep_axis=None, the data-parallel path)' if ep == 1 else ''}"
+              f" vs the local path: {len(res['flips'])} route flips "
+              f"({sum(f[5] for f in res['flips'])} first), {res['held']} of "
+              f"{res['rows']} positions no flip reaches, max diff there "
+              f"{res['err']:.3e} (tol {REF_PREFILL_TOL}), elsewhere "
+              f"{res['rest']:.3e}; logits up to "
+              f"{ranks[0]['f32'][name]['logit_max']:.3f}; wall "
+              f"{max(r['f32'][name]['wall_s'] for r in ranks):.3f} s "
+              f"[{card}]")
+        if bad or not res["err"] <= REF_PREFILL_TOL:
+            raise AssertionError(f"mesh f32 {name}: the mesh and the local "
+                                 f"path disagree (first flips at gaps of "
+                                 f"{MOE_FLIP_GAP_REL} or more: {bad})")
+    held = [r["grad"] for r in ranks if "worst" in r["grad"]]
+    if len(held) != 2:
+        raise AssertionError(f"mesh gradient: {len(held)} ranks held it")
+    worst = max(g["worst"] for g in held)
+    zero = sum(g["zero"] for g in held)
+    print(f"mesh {MOE_ARCH} f32 drop-free gradient of the nll of a data "
+          f"rank's {held[0]['rows']} x {TRAIN_SEQ} of {GRAD_BATCH} x "
+          f"{TRAIN_SEQ} on 2 x 2 (its experts' blocks) vs the local path on "
+          f"the same rows: "
+          f"{ranks[0]['grad']['leaves']} leaves a rank, {zero} zero, "
+          f"largest gap {worst:.3e} of its leaf's largest (tol "
+          f"{MESH_GRAD_REL}) [{card}]")
+    if zero or not worst <= MESH_GRAD_REL:
+        raise AssertionError("mesh gradient: the mesh and the local path "
+                             "disagree")
+
+    # (d) qwen3-moe at full width, WIDE_LAYERS layers, on 1 x 4
+    wide = [r["wide"] for r in ranks]
+    want = {"flash_attention": WIDE_LAYERS,
+            "flash_attention tc": WIDE_LAYERS}
+    if any(w["launches"] != want or not w["finite"] for w in wide):
+        raise AssertionError(f"mesh {MESH_WIDE_ARCH}: {wide}")
+    wwall = max(w["wall_s"] for w in wide)
+    print(f"mesh {MESH_WIDE_ARCH} at full width, {WIDE_LAYERS} layers, on "
+          f"1 x 4 ranks ({ranks[0]['wide_experts']} experts a rank, "
+          f"{ranks[0]['wide_rank_params']} weights a rank): bf16 prefill "
+          f"2 x {MESH_WIDE_S}, {2 * MESH_WIDE_S / wwall:.1f} tokens/s "
+          f"({wwall:.3f} s), all-to-all {wide[0]['a2a_bytes']} B a rank; "
+          f"peak by rank {peaks('wide')} B [{card}]")
+    paths[f"{MESH_WIDE_ARCH} prefill on 1 x 4 ranks ({WIDE_LAYERS} "
+          f"layers)"] = {"flash_attention": sum(
+              w["launches"]["flash_attention"] for w in wide)}
+    print(f"mesh: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -5769,6 +6483,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--dist-rank"]:
         dist_rank(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2])
         return 0
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA GPU",
@@ -5839,6 +6556,8 @@ def main() -> int:
         paths.update(phase_audio_vision(card))
         phase = enter("tooling")
         phase_tooling(card)
+        phase = enter("mesh of ranks")
+        paths.update(phase_mesh(card))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

@@ -24,8 +24,10 @@ step while it runs, op by op, in a ``TorchDispatchMode``:
 - **Collective bytes**, by the reference's kinds: ``repro_torch::
   ordered_psum`` (an all-reduce of its operand), ``repro_torch::ring_shift``
   (a collective-permute), ``repro_torch::ring_need`` (the all-reduce of
-  the ring's area table), and the raw ``torch.distributed`` ops the mode
-  sees (``c10d``), each by its operand bytes.
+  the ring's area table), ``repro_torch::all_to_all`` and
+  ``repro_torch::all_gather`` (``launch.collectives``: the MoE's
+  all-to-all pair and its gather), and the raw ``torch.distributed`` ops
+  the mode sees (``c10d``), each by its operand bytes.
 - **Peak live bytes**, tracked by storage: every storage the step's ops
   create, and every one they read (or ``hold`` names), is live from then
   until it is freed. On the ``meta`` device this is the peak a run would
@@ -300,7 +302,9 @@ class CostCounter(TorchDispatchMode):
 def _collective_kind(ns: str, name: str) -> Optional[str]:
     if ns == "repro_torch":
         return {"ordered_psum": "all-reduce", "ring_need": "all-reduce",
-                "ring_shift": "collective-permute"}.get(name)
+                "ring_shift": "collective-permute",
+                "all_to_all": "all-to-all",
+                "all_gather": "all-gather"}.get(name)
     if ns == "c10d":
         return _C10D.get(name)
     return None

@@ -20,8 +20,10 @@ within the card's 80 GB), the kernels' calls and the count's seconds; its
 Departures from the reference: one card, so the production meshes,
 ``--fsdp``, ``--tp``, ``--multi`` / ``--mesh``, the population layout and
 the sliding variant's multi-pod rows have no counterpart (the sliding
-variant itself runs, ``--sliding-variant``); ``remat`` has no port; the
-rows' mesh is ``"1"`` and their collective term 0.
+variant itself runs, ``--sliding-variant``); the rows' mesh is ``"1"``
+and their collective term 0. ``--remat`` (with ``--remat-policy``)
+checkpoints each layer (``Model.remat``), as the reference's ``remat``:
+the row's ``remat`` says which policy ran and its peak is the count's.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b \\
         --shape train_4k
@@ -86,6 +88,7 @@ def skip_reason(cfg, shape, sliding_variant: bool) -> Optional[str]:
 
 def dryrun_one(arch: str, shape: InputShape, *, smoke: bool = False,
                optimizer: str = "adam", sliding_variant: bool = False,
+               remat: bool = False, remat_policy: str = "full",
                verbose: bool = True) -> Dict:
     """One row: count one step of ``arch`` at ``shape`` on ``meta``."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -99,7 +102,8 @@ def dryrun_one(arch: str, shape: InputShape, *, smoke: bool = False,
         cfg = dataclasses.replace(cfg, sliding_window=4096,
                                   global_layer_interval=6)
         variant = "+sliding4k"
-    model = build_model(cfg, backend="auto")
+    model = build_model(cfg, backend="auto", remat=remat,
+                        remat_policy=remat_policy)
     t0 = time.perf_counter()
     params = meta_params(model)
     specs = model.input_specs(shape)
@@ -122,6 +126,7 @@ def dryrun_one(arch: str, shape: InputShape, *, smoke: bool = False,
                           roofline.model_flops_for(cfg, shape))
     row = rl.row()
     row.update(status="ok", t_count_s=round(t_count, 1),
+               remat=remat_policy if remat else None,
                fits_one_card=cc.peak_live_bytes <= roofline.CARD_MEMORY_BYTES,
                kernels=dict(cc.kernels))
     if verbose:
@@ -166,6 +171,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sliding-variant", action="store_true",
                     help="run long_500k on full-attention archs with a "
                          "4k sliding-window variant")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each layer (Model.remat)")
+    ap.add_argument("--remat-policy", default="full",
+                    choices=["full", "dots"])
     ap.add_argument("--out", default=None, help="append rows to this json")
     args = ap.parse_args(argv)
     archs = list(ARCH_IDS) if args.arch == "all" else args.arch.split(",")
@@ -173,15 +182,18 @@ def main(argv=None) -> int:
              else args.shape.split(","))
     rows = dryrun(archs, {n: INPUT_SHAPES[n] for n in names},
                   smoke=args.smoke, optimizer=args.optimizer,
-                  sliding_variant=args.sliding_variant)
+                  sliding_variant=args.sliding_variant, remat=args.remat,
+                  remat_policy=args.remat_policy)
     if args.out:
         existing = []
         if os.path.exists(args.out):
             with open(args.out) as f:
                 existing = json.load(f)
-        keys = {(r["arch"], r["shape"], r["mesh"]) for r in rows}
+        keys = {(r["arch"], r["shape"], r["mesh"], r.get("remat"))
+                for r in rows}
         existing = [r for r in existing
-                    if (r["arch"], r["shape"], r["mesh"]) not in keys]
+                    if (r["arch"], r["shape"], r["mesh"], r.get("remat"))
+                    not in keys]
         with open(args.out, "w") as f:
             json.dump(existing + rows, f, indent=1, default=str)
         print(f"wrote {len(rows)} rows -> {args.out}")

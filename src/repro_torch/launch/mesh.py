@@ -14,6 +14,11 @@ both, and ``MuleMesh.group`` gives the process group of each.
 every rank, and keeps each mesh it built: every rank asks for the same
 meshes in the same order, so they all find them again together. A
 one-rank mesh needs no process group at all ("k = 1 shards nothing").
+
+The LM stack's ``(data, model)`` mesh (``make_lm_mesh``) is the same
+layout under other names: rank ``r`` at ``(r // model, r % model)``, as
+``jax.sharding.Mesh`` lays ``devices.reshape(data, model)`` out, the batch
+cut over ``data`` and the mixture-of-experts' experts over ``model``.
 """
 from __future__ import annotations
 
@@ -50,6 +55,18 @@ class MuleMesh:
                              f"{sorted(unknown)}")
         # the mesh's own order, so ("data", "pod") folds as ("pod", "data")
         return tuple(a for a in self.shape if a in names)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    def axis_index(self, axes: Axes) -> int:
+        """This rank's index along ``axes``, row-major over them in the
+        mesh's order (``jax.lax.axis_index`` of a tuple of axes)."""
+        i = 0
+        for a in self._key(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
 
     def axis_size(self, axes: Axes) -> int:
         n = 1
@@ -126,3 +143,12 @@ def make_mule_mesh(pod: int, data: int, *, pod_axis: str = "pod",
                     data_axis=data_axis)
     _MESHES[key] = mesh
     return mesh
+
+
+def make_lm_mesh(data: int, model: int, *, data_axis: str = "data",
+                 model_axis: str = "model") -> MuleMesh:
+    """The ``(data, model)`` mesh of the LM stack over every rank of the
+    world: ``make_mule_mesh``'s groups with the data axis in the pod
+    axis's place and the model axis in the data axis's."""
+    return make_mule_mesh(data, model, pod_axis=data_axis,
+                          data_axis=model_axis)

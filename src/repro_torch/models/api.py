@@ -22,13 +22,22 @@ equal), and ``loss`` drops the prefix's logits. The ``audio`` family
 (Whisper) is ``models/whisper.py``'s ``WhisperModel``, which
 ``build_model`` returns for it. ``forward`` takes ``batch["positions"]``
 where the caller passes them, as the reference does.
-The reference's sharding options (``mesh``, ``dp_axes``, ``head_axis``,
-``seq_axis``, ``moe_ep_axis``) and its dry-run helpers (``remat``,
-``unroll``, ``input_specs``) have no meaning on one card and are not ported.
+On a mesh of ranks (``mesh``, ``dp_axes``, ``moe_ep_axis``, the
+reference's fields) every rank runs the model on its block of the batch
+with every weight whole but the experts, which ``models/moe.py``'s
+``shard_map`` paths take: expert-parallel over ``moe_ep_axis``, or
+data-parallel where it is ``None``. Decode passes ``mesh`` and ``dp_axes``
+but not ``moe_ep_axis``, as the reference's ``_decode_layer`` does, so it
+takes the expert-parallel path over ``"model"`` whatever ``moe_ep_axis``
+says. ``remat`` checkpoints each layer of ``forward`` (``models/remat.py``;
+``remat_policy`` "full" or "dots"). Not ported: ``head_axis`` and
+``seq_axis`` (attention's tensor and context parallelism) and ``unroll``
+(the port's stages are Python loops already).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -39,6 +48,7 @@ from repro_torch.interop import tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import remat as remat_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
@@ -111,7 +121,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
 
 
 def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
-                 window: Optional[int], backend: str, shared=None):
+                 window: Optional[int], backend: str, shared=None, mesh=None,
+                 dp_axes=("data",), moe_ep_axis="model"):
     """Full-sequence forward for one layer. Returns (x, aux_loss or None:
     only ``moe`` layers have one)."""
     if kind == "mamba":
@@ -128,13 +139,15 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                                   window=window, backend=backend)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
-        out, aux = moe_lib.apply_moe(p["moe"], h, cfg)
+        out, aux = moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
+                                     dp_axes=dp_axes, ep_axis=moe_ep_axis)
         return x + out, aux
     return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg)), None
 
 
 def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
-                  window: Optional[int], shared=None):
+                  window: Optional[int], shared=None, mesh=None,
+                  dp_axes=("data",)):
     """Single-token decode for one layer; updates ``cache`` in place."""
     if kind == "mamba":
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
@@ -151,7 +164,8 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
     x = x + out
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":       # the aux loss is dropped, as in the reference
-        return x + moe_lib.apply_moe(p["moe"], h, cfg)[0]
+        return x + moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
+                                     dp_axes=dp_axes)[0]
     return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg))
 
 
@@ -191,12 +205,21 @@ class Model:
     cfg: ModelConfig
     program: List[Stage]
     backend: str = "auto"         # kernel backend: auto | ref
+    remat: bool = False           # checkpoint each layer of forward
+    mesh: Any = None              # launch.mesh mesh of ranks (the MoE paths)
+    dp_axes: tuple = ("data",)    # mesh axes carrying the batch
+    remat_policy: str = "full"    # full | dots (keep the x @ w products)
+    moe_ep_axis: Any = "model"    # MoE expert-parallel axis; None: the
+                                  # data-parallel path, experts replicated
 
     def __post_init__(self):
         if self.backend not in ("auto", "ref"):
             raise ValueError(f"unknown kernel backend {self.backend!r}: "
                              f"'auto' (the kernel on the card) or 'ref' "
                              f"(the plain version)")
+        if self.remat_policy not in remat_lib.POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat_policy!r}: "
+                             f"one of {remat_lib.POLICIES}")
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -266,9 +289,19 @@ class Model:
         shared = params.get("shared_attn")
         aux_total = torch.zeros((), device=x.device)
         for stage, sp in zip(self.program, params["stages"]):
+            body = functools.partial(
+                _apply_layer, positions=positions, cfg=cfg, kind=stage.kind,
+                window=stage.window, backend=self.backend, mesh=self.mesh,
+                dp_axes=self.dp_axes, moe_ep_axis=self.moe_ep_axis)
             for lp in _layers(stage, sp):
-                x, aux = _apply_layer(lp, x, positions, cfg, stage.kind,
-                                      stage.window, self.backend, shared)
+                if self.remat:
+                    # the backward runs the layer again: bind this
+                    # stage's body, not the loop's last
+                    x, aux = remat_lib.checkpoint(
+                        lambda x, lp, sh, body=body: body(lp, x, shared=sh),
+                        x, lp, shared, policy=self.remat_policy)
+                else:
+                    x, aux = body(lp, x, shared=shared)
                 if aux is not None:
                     aux_total = aux_total + aux
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
@@ -305,7 +338,8 @@ class Model:
         for stage, sp, sc in zip(self.program, params["stages"], cache):
             for lp, lc in zip(_layers(stage, sp), _layers(stage, sc)):
                 x = _decode_layer(lp, x, lc, pos, cfg, stage.kind,
-                                  stage.window, shared)
+                                  stage.window, shared, self.mesh,
+                                  self.dp_axes)
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self._unembed(params, x)[:, 0], cache
 
@@ -334,10 +368,15 @@ class Model:
                 "cache": self.init_cache(b, shape.seq_len, device=device)}
 
 
-def build_model(cfg: ModelConfig, *, backend: str = "auto") -> Model:
+def build_model(cfg: ModelConfig, *, backend: str = "auto",
+                remat: bool = False, mesh: Any = None,
+                dp_axes: tuple = ("data",), remat_policy: str = "full",
+                moe_ep_axis: Any = "model") -> Model:
     """The model of ``cfg``: a ``WhisperModel`` for the ``audio`` family,
     else a ``Model``."""
-    kw = dict(cfg=cfg, program=build_program(cfg), backend=backend)
+    kw = dict(cfg=cfg, program=build_program(cfg), backend=backend,
+              remat=remat, mesh=mesh, dp_axes=dp_axes,
+              remat_policy=remat_policy, moe_ep_axis=moe_ep_axis)
     if cfg.family == "audio":
         from repro_torch.models.whisper import WhisperModel
         return WhisperModel(**kw)

@@ -22,13 +22,32 @@ not in value:
   atomics on CUDA, so two replays of a prefill would not be bitwise equal.
   The two orders differ by float32 rounding only.
 
-Not ported: the data-parallel ``shard_map`` (experts replicated, routing per
-data shard) and the expert-parallel ``shard_map`` with its ``all_to_all``
-pair. One card has no mesh, so ``apply_moe`` takes no ``mesh`` argument.
+On a mesh of ranks (``launch.mesh.make_lm_mesh``) ``apply_moe`` takes the
+reference's two ``shard_map`` paths, line for line, each rank running the
+body that ``shard_map`` runs on one device: ``x`` is the rank's block of
+the batch (cut over ``dp_axes`` where the batch divides, whole otherwise:
+``launch.sharding.batch_specs``, the reference's ``b_shard``), and the
+output is the rank's block.
+
+- data-parallel (``ep_axis=None``): experts replicated, routing and a
+  capacity per data shard, the aux loss averaged over ``dp_axes``;
+- expert-parallel: the rank holds ``E / ep`` experts (``launch.sharding.
+  moe_specs``); each of the ``ep`` peers takes ``t_ep = t_loc // ep`` of
+  the block's tokens, routes them with a capacity of its own, and an
+  ``all_to_all`` pair moves the groups ``[E, C, d] -> [E/ep, ep C, d]``
+  to the experts' owners and back; an ``all_gather`` over the peers
+  rebuilds the tokens.
+
+The collectives are ``launch.collectives``'s, whose backwards count each
+token once: the router and the input enter as ``replicated`` over the
+expert axis (each peer's gradient is partial, summed in rank order), the
+gathered output gives each peer its own block of the cotangent, and the
+aux loss is averaged over the expert axis by gathering (``mean_of_peers``)
+and over the data axes by ``pmean``. Transfers go through host memory.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -119,17 +138,81 @@ def _ungroup(out_g: torch.Tensor, dest: torch.Tensor, st: torch.Tensor,
     return per_slot.reshape(t, -1, d).sum(1)
 
 
-def apply_moe(params, x: torch.Tensor, cfg: ModelConfig
+def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, *, mesh: Any = None,
+              dp_axes: Tuple = ("data",), ep_axis: Optional[str] = "model"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> (out [B, S, D] in x's dtype, aux_loss f32 scalar)."""
+    """x: [B, S, D] -> (out [B, S, D] in x's dtype, aux_loss f32 scalar).
+
+    On a ``mesh``, ``x`` and ``out`` are this rank's block of the batch and
+    ``params`` its block of the weights (module docstring); ``ep_axis=None``
+    takes the data-parallel path, with every expert on every rank."""
     b, s, d = x.shape
     compute_dtype = compute_dtype_of(cfg)
-    t = b * s
-    xt = x.reshape(t, d).to(compute_dtype)
-    grouped, dest, st, sw, aux = _route_and_group(
-        xt, params["router"], cfg, capacity_of(t, cfg))
-    out_g = _expert_ffn(grouped, params["wi_gate"].to(compute_dtype),
+    e, k = cfg.n_experts, cfg.top_k
+
+    if mesh is not None and ep_axis is None:
+        from repro_torch.launch import collectives as coll
+        t_loc = b * s
+        capacity = capacity_of(t_loc, cfg)
+        xt = x.reshape(t_loc, d).to(compute_dtype)
+        grouped, dest, st, sw, aux = _route_and_group(
+            xt, params["router"], cfg, capacity)
+        out_g = _expert_ffn(grouped, params["wi_gate"].to(compute_dtype),
+                            params["wi_up"].to(compute_dtype),
+                            params["wo"].to(compute_dtype), cfg.act)
+        out = _ungroup(out_g, dest, st, sw, t_loc, d)
+        return (out.reshape(b, s, d).to(x.dtype),
+                coll.pmean(aux, mesh, dp_axes))
+
+    if mesh is None:
+        t = b * s
+        xt = x.reshape(t, d).to(compute_dtype)
+        grouped, dest, st, sw, aux = _route_and_group(
+            xt, params["router"], cfg, capacity_of(t, cfg))
+        out_g = _expert_ffn(grouped, params["wi_gate"].to(compute_dtype),
+                            params["wi_up"].to(compute_dtype),
+                            params["wo"].to(compute_dtype), cfg.act)
+        out = _ungroup(out_g, dest, st, sw, t, d)
+        return out.reshape(b, s, d).to(x.dtype), aux
+
+    # ---- expert-parallel path ---------------------------------------------
+    from repro_torch.launch import collectives as coll
+    ep = mesh.shape[ep_axis]
+    assert e % ep == 0, (e, ep)
+    el = e // ep
+    if params["wi_gate"].shape[0] != el:
+        raise ValueError(f"the expert-parallel path takes this rank's "
+                         f"{el} of {e} experts (launch.sharding.moe_specs); "
+                         f"got {params['wi_gate'].shape[0]}")
+    # activations arrive replicated over the expert axis; each peer takes
+    # a distinct 1/ep slice of the block's tokens
+    t_loc = b * s
+    if t_loc >= ep and t_loc % ep:
+        raise ValueError(f"{t_loc} tokens a rank do not split evenly over "
+                         f"{ep} expert-parallel peers")
+    t_ep = max(t_loc // ep, 1)
+    capacity = capacity_of(t_ep, cfg)
+    xt = coll.replicated(x.reshape(t_loc, d).to(compute_dtype), mesh,
+                         ep_axis)
+    idx = mesh.axis_index(ep_axis)
+    if t_loc >= ep:
+        xt = xt.narrow(0, idx * t_ep, t_ep)
+    router = coll.replicated(params["router"], mesh, ep_axis)
+    grouped, dest, st, sw, aux = _route_and_group(xt, router, cfg, capacity)
+    # [E, C, d] -> [E/ep, ep*C, d]: the groups to their experts' owners
+    g4 = coll.all_to_all(grouped.reshape(ep, el, capacity, d), mesh,
+                         ep_axis)                     # [peer, E/ep, C, d]
+    g4 = g4.movedim(0, 1)                             # [E/ep, peer, C, d]
+    out_g = _expert_ffn(g4.reshape(el, ep * capacity, d),
+                        params["wi_gate"].to(compute_dtype),
                         params["wi_up"].to(compute_dtype),
                         params["wo"].to(compute_dtype), cfg.act)
-    out = _ungroup(out_g, dest, st, sw, t, d)
+    o4 = out_g.reshape(el, ep, capacity, d).movedim(1, 0)
+    o4 = coll.all_to_all(o4.contiguous(), mesh,
+                         ep_axis)                     # [owner, E/ep, C, d]
+    out = _ungroup(o4.reshape(e, capacity, d), dest, st, sw, xt.shape[0], d)
+    if t_loc >= ep:
+        out = coll.all_gather(out, mesh, ep_axis)
+        out = out[: b * s]
+    aux = coll.pmean(coll.mean_of_peers(aux, mesh, ep_axis), mesh, dp_axes)
     return out.reshape(b, s, d).to(x.dtype), aux

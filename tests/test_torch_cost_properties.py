@@ -167,3 +167,57 @@ def test_vmapped_conv_grad_counts_each_lane_once(lanes, b, c_out, hw, k):
     fwd = 2 * b * c_out * 3 * k * k * (hw - k + 1) ** 2
     assert one.flops_by == {"conv:f32": 2.0 * fwd}     # forward, grad w
     assert many.flops == lanes * one.flops
+
+
+def _meta_mesh(dp, ep, index):
+    """A (data, model) mesh seen from the rank at model index ``index``,
+    with no process group: on ``meta`` the collectives move nothing."""
+    from repro_torch.launch.mesh import MuleMesh
+    return MuleMesh(shape={"data": dp, "model": ep},
+                    coords={"data": 0, "model": index}, groups={},
+                    data_axis="model")
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.sampled_from([(4, 2), (8, 2), (8, 4), (32, 8)]),
+       st.sampled_from([1, 2, 4]), st.integers(1, 3), st.integers(0, 10),
+       st.sampled_from([16, 64]), st.sampled_from(["float32", "bfloat16"]),
+       st.sampled_from([1.0, 1.25, 8.0]))
+def test_moe_layer_all_to_all_bytes_per_rank(ek, ep, b, m, d, dtype, cf):
+    """One expert-parallel MoE layer moves ``2 E C d`` elements through
+    all-to-all a rank (the pair), ``C`` the per-peer capacity, and gathers
+    its ``t_loc / ep`` f32 output rows and its aux loss; its gradient with
+    respect to the weights and the input moves the pair again."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    e, k = ek
+    if e % ep:
+        return
+    # the peers split the block's tokens evenly, or each takes them all
+    # (one token a row, fewer tokens than peers)
+    b, s = (b, m * ep) if m else (1, 1)
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"),
+                              n_experts=e, top_k=k, d_model=d, d_ff=8,
+                              dtype=dtype, capacity_factor=cf)
+    mesh = _meta_mesh(2, ep, ep - 1)
+    dt = getattr(torch, dtype)
+    params = {"router": torch.empty(d, e, device="meta"),
+              **{n: torch.empty((e // ep,) + shp, device="meta")
+                 for n, shp in (("wi_gate", (d, 8)), ("wi_up", (d, 8)),
+                                ("wo", (8, d)))}}
+    x = torch.empty(b, s, d, device="meta", dtype=dt)
+    t_loc = b * s
+    c = moe.capacity_of(max(t_loc // ep, 1), cfg)
+    pair = 2 * e * c * d * dt.itemsize if ep > 1 else 0
+    with CostCounter() as cc:
+        out, _ = moe.apply_moe(params, x, cfg, mesh=mesh)
+    assert out.shape == x.shape
+    assert cc.coll["all-to-all"] == pair
+    gathered = 4 * (t_loc // ep) * d if ep > 1 and t_loc >= ep else 0
+    aux_gather = 4 if ep > 1 else 0
+    assert cc.coll["all-gather"] == gathered + aux_gather
+    with CostCounter() as cc:
+        torch.func.grad(lambda p, x: moe.apply_moe(p, x, cfg, mesh=mesh)[0]
+                        .float().sum(), argnums=(0, 1))(params, x)
+    assert cc.coll["all-to-all"] == 2 * pair

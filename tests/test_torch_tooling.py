@@ -424,6 +424,29 @@ def test_dry_run_smoke_configs(arch):
             assert row["kernels"].get("flash_attention", 0) > 0
 
 
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-moe-1b-a400m",
+                                  "zamba2-2.7b"])
+def test_dry_run_remat_rows(arch):
+    """``--remat`` recomputes each layer's forward in the backward: the
+    rows say which policy ran, the kernels of the forward run twice, the
+    count's FLOPs rise (the "dots" policy keeps the ``x @ w`` products, so
+    by less) and the peak does not rise."""
+    shape = {"train_4k": SMALL_SHAPES["train_4k"]}
+    plain, full, dots = (dryrun.dryrun([arch], shape, smoke=True,
+                                       verbose=False, remat=r,
+                                       remat_policy=p)[0]
+                         for r, p in ((False, "full"), (True, "full"),
+                                      (True, "dots")))
+    assert (plain["remat"], full["remat"], dots["remat"]) == \
+        (None, "full", "dots")
+    assert plain["flops_per_device"] < dots["flops_per_device"] < \
+        full["flops_per_device"]
+    assert full["kernels"] == dots["kernels"] == {
+        k: 2 * v for k, v in plain["kernels"].items()}
+    assert full["peak_memory_gb"] <= plain["peak_memory_gb"]
+    assert dots["peak_memory_gb"] <= plain["peak_memory_gb"]
+
+
 def test_report_tables_match_the_reference():
     rows = [
         {"arch": "gemma3-4b", "shape": "train_4k", "mesh": "1",

@@ -20,6 +20,8 @@ numpy seed. Bounds:
   one element in a thousand may be more than 1e-5 apart;
 - the flash backward 1e-5 against ``jax.grad`` of ``flash_reference``;
 - ``make_lm_dataset`` and checkpoints bitwise;
+- ``remat`` (full and "dots") bitwise the gradient without it, and 2e-4
+  of each leaf's largest from the reference's ``remat=True``;
 - a vmapped op's lanes 1e-6 of their single calls (the CPU's batched
   products may block differently; on the card ``chip_smoke.py`` holds the
   kernels' lanes bitwise).
@@ -73,6 +75,7 @@ PARAM_TOL = 1e-5
 ADAM_RESOLVED = 1e-2
 FLASH_TOL = 1e-5
 LANE_TOL = 1e-6
+REMAT_REL = 2e-4
 
 
 def _np(tree):
@@ -264,6 +267,70 @@ def test_train_step_with_microbatches_matches_the_reference():
     with pytest.raises(ValueError, match="microbatches"):
         make_train_step(tm, to, microbatches=3)(
             tp, to.init(tp), {"tokens": torch.from_numpy(toks)})
+
+
+@pytest.mark.parametrize("opt", ["adam", "sgd-momentum"])
+def test_donated_train_step_is_bitwise_the_functional_one(opt):
+    """``donate=True`` writes each leaf's new weight and state into the old
+    tensors, one leaf at a time: the same bits as the whole-tree update,
+    and the caller's trees are the ones returned."""
+    _, _, tm, tp = _models("granite-moe-1b-a400m")
+    make = {"adam": lambda: toptim.adam(1e-3),
+            "sgd-momentum": lambda: toptim.sgd(0.1, momentum=0.9)}[opt]
+    o1, o2 = make(), make()
+    p1, s1 = tp, o1.init(tp)
+    p2 = tree_map(lambda t: t.clone(), tp)
+    s2 = o2.init(p2)
+    step1, step2 = make_train_step(tm, o1), make_train_step(tm, o2,
+                                                            donate=True)
+    for i in range(2):
+        _, tb = _batches(tm.cfg, _tokens(tm.cfg, seed=30 + i), seed=40 + i)
+        p1, s1, m1 = step1(p1, s1, tb)
+        leaf = tree_leaves(p2)[0]
+        p2, s2, m2 = step2(p2, s2, tb)
+        assert tree_leaves(p2)[0] is leaf
+        assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(tree_leaves(p1) + tree_leaves(s1),
+                    tree_leaves(p2) + tree_leaves(s2)):
+        assert torch.equal(a, b)
+
+
+REMAT_ARCHS = ["stablelm-1.6b", "granite-moe-1b-a400m", "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_gradients_are_bitwise_the_plain_ones(arch, policy):
+    """``remat`` recomputes each layer in the backward: the same ops on the
+    same inputs, so the loss and every gradient leaf keep their bits (the
+    "dots" policy takes the saved ``x @ w`` products in place of
+    recomputing them)."""
+    _, _, tm, tp = _models(arch)
+    tr = build_model(tm.cfg, remat=True, remat_policy=policy)
+    _, tb = _batches(tm.cfg, _tokens(tm.cfg))
+    g0, (l0, m0) = torch.func.grad_and_value(tm.loss, has_aux=True)(tp, tb)
+    g1, (l1, m1) = torch.func.grad_and_value(tr.loss, has_aux=True)(tp, tb)
+    assert torch.equal(l0, l1) and torch.equal(m0["aux"], m1["aux"])
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="remat policy"):
+        build_model(tm.cfg, remat=True, remat_policy="offload")
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_gradient_matches_the_reference_remat(arch):
+    """The reference's ``remat=True`` (``jax.checkpoint`` of each layer)
+    against the port's, each leaf within 2e-4 of its largest."""
+    jm, jp, tm, tp = _models(arch)
+    jr = j_build_model(jm.cfg, remat=True)
+    tr = build_model(tm.cfg, remat=True)
+    jb, tb = _batches(jm.cfg, _tokens(jm.cfg))
+    (jl, _), jg = jax.jit(jax.value_and_grad(jr.loss, has_aux=True))(jp, jb)
+    tg, (tl, _) = torch.func.grad_and_value(tr.loss, has_aux=True)(tp, tb)
+    assert abs(float(tl) - float(jl)) <= LOSS_REL * abs(float(jl))
+    for g, w in zip(_np(tg), _jleaves(jg)):
+        scale = max(float(np.abs(w).max()), 1e-12)
+        np.testing.assert_allclose(g, w, atol=REMAT_REL * scale, rtol=0)
 
 
 # ---------------------------------------------------------------------------
