@@ -152,7 +152,7 @@ Phases (any failure exits non-zero without the final result line):
    ``cases`` entry of row 1);
 16. the distributed path: ``spawn_local_cluster`` starts 4 ranks of this
    script (``--dist-rank``) on the one card over gloo, each a 64-mule
-   block of phase 9's bucket-ordered walk at the CNN's full width, T = 12.
+   block of phase 9's bucket-ordered walk at the CNN's full width, T = 6.
    ``run_population_distributed`` runs the five ``METHODS_MOBILE`` with the
    histogram sketch: ``mule_agg`` 30 launches a rank for ``mlmule`` and
    ``mlmule+gossip``, ``encounter_hop`` once per kept hop for the peer
@@ -265,11 +265,11 @@ Phases (any failure exits non-zero without the final result line):
    builds the ``(data, model)`` mesh (``launch.mesh.make_lm_mesh``) and
    granite-moe-1b-a400m whole with ``mesh=``, draws the full weights from
    the seed and keeps its experts (``launch.lm_ranks``). (a) On 2 x 2 (2
-   expert-parallel peers, 16 experts a rank): a bf16 prefill of 2 x 4096
-   at the config's capacity factor (each data rank 1 x 4096, 2,048 tokens
-   and 640 slots an expert a peer) with 24 tensor-core ``flash_attention``
+   expert-parallel peers, 16 experts a rank): a bf16 prefill of 2 x 2048
+   at the config's capacity factor (each data rank 1 x 2048, 1,024 tokens
+   and 320 slots an expert a peer) with 24 tensor-core ``flash_attention``
    launches a rank and the all-to-all bytes of a layer exactly 2 E C d x 2;
-   ``serve.generate`` of 16 tokens at batch 4; 3 Adam steps at 4 x 128
+   ``serve.generate`` of 8 tokens at batch 4; 2 Adam steps at 4 x 128
    with the gradients averaged over ``data``, the update in place
    (``donate=True``) and each layer recomputed in the backward
    (``remat=True``), a falling loss, and every
@@ -284,11 +284,44 @@ Phases (any failure exits non-zero without the final result line):
    data-parallel path), each against the local path. (d)
    qwen3-moe-235b-a22b at full width with 2 layers on 1 x 4 (32 of 128
    experts a rank; the ranks draw the whole weights two at a time): a bf16
-   prefill of 2 x 2048. Tokens/s, steps/s, the all-to-all bytes and each
+   prefill of 2 x 1024. Tokens/s, steps/s, the all-to-all bytes and each
    rank's peak memory are printed. Phase 18 also trains stablelm-1.6b
    with ``remat`` (full and "dots"): its f32 gradients at 2 x 128 bitwise
    those without, and 2 Adam steps of each at 4 x 128 beside its plain
-   steps, with their peaks and the gradient's peak alone.
+   steps, with their peaks and the gradient's peak alone. Every rank holds
+   ``launch.sharding.rank_specs``' blocks, so granite-moe's and
+   qwen3-moe's attention heads split over ``model`` too, and the prefill's
+   sums over ranks are exact: one all-reduce of [B, S, d] a layer (the
+   attention's output) and one of the aux loss;
+24. dense tensor parallelism, in phase 23's ranks (no second spawn): rank 0
+   first holds ``flash_attention`` and ``ssd_scan`` against their plain
+   versions at the per-rank shapes (stablelm-1.6b's 8 heads x 64 and
+   zamba2-2.7b's 8 x 80 causal at 2 x 2048; the scan at 20 heads x 64, N
+   64, with the last rank's A) and times them. (a) stablelm-1.6b whole in
+   bf16 on 1 x 4 (8 of 32 heads, 1,408 of 5,632 FFN columns and 25,088 of
+   100,352 vocabulary rows a rank): a 2 x 2048 prefill with 24 tensor-core
+   ``flash_attention`` launches a rank and exactly 2 x 24 + 1 all-reduces
+   of 2 x 2048 x 2048 bf16 values (attention and MLP outputs, the
+   vocabulary-parallel lookup), the rank's f32 logits gathered; 16 greedy
+   tokens of ``serve.generate`` at batch 2, equal on every rank; against
+   one process's bf16 run on the whole weights, the prefill logits within
+   ``TP_BF16_GAP`` and the tokens equal or apart first at a near tie within
+   it, one process's own bf16 rounding within it too.
+   (b) zamba2-2.7b at full width with 18 of its 54 layers on 1 x 4 (20 of
+   80 SSM heads, 8 of 32 shared-attention heads a rank; the whole weights
+   drawn two ranks at a time): the prefill with 15 ``ssd_scan`` and 3
+   tensor-core ``flash_attention`` launches a rank and its all-reduces
+   exact, and the
+   greedy tokens as (a)'s. (c) stablelm-1.6b on 2 x 2: 2 SGD steps (lr
+   0.01) at 4 x 128 with ``remat``, the step's collectives counted, every
+   leaf held whole bitwise equal on all ranks after them and each split
+   leaf on its data peers. (d) f32 copies with 2 layers: the 1 x 4 logits
+   of stablelm-1.6b and of zamba2-2.7b (a Mamba2 layer and the shared
+   attention) within 2e-4 of one process's on the same weights through the
+   same kernels, their 16 greedy tokens equal one process's (or apart
+   first at a near tie within 2e-4), and the 2 x 2 loss and gradient of
+   stablelm-1.6b within 1e-5 and 2e-4 of each leaf's largest. Tokens/s, steps/s, each rank's
+   peak and the seconds spent in the all-reduces are printed.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -578,16 +611,18 @@ STREAM_CHUNK = EVAL_EVERY
 SCALE_MULES = (100_000, 1_000_000)
 SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 24, 8, 2, 0.05
 # the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
-# bucket-ordered walk of phase 9 at the CNN's full width, T = 12 (cut from
-# 30 for phases 22 and 23; at most phase 9's T, whose walk it runs); then
+# bucket-ordered walk of phase 9 at the CNN's full width, T = 6 (cut from
+# 30 for phases 22 and 23, from 12 for phase 24; at most phase 9's T, whose
+# walk it runs); then
 # the streamed engine on multi_area_migratory, re-bucketing every 10 steps.
 # At M = 256 that schedule's drift from its build-time buckets is 0 at
 # step 10 and 2 mules of 256 (0.0078) at step 20: the threshold lets the
 # second check swap
-DIST_RANKS, DIST_STEPS = 4, 12
-# the distributed mlmule's lockstep with agg_backend="ref": the first 10
-# steps (cut from 30, to keep the script inside its time)
-DIST_LOCKSTEP_STEPS = 10
+DIST_RANKS, DIST_STEPS = 4, 6
+# the distributed mlmule's lockstep with agg_backend="ref": the first 6
+# steps (cut from 30, and from 10 for phase 24, to keep the script inside
+# its time)
+DIST_LOCKSTEP_STEPS = 6
 REBUCKET_EVERY, REBUCKET_THRESHOLD = 10, 0.005
 # the re-bucketed run keeps T = 30: at T = 24 the migratory schedule's drift
 # stays under the threshold at both checks (no swap)
@@ -600,9 +635,10 @@ DIST_LANES = 4
 DIST_SWEEP_METHODS = ("mlmule", "gossip")
 DIST_SWEEP_STEPS = 6
 # its lanes against their sequential runs with training off (the
-# collectives, aggregation and hops alone: bitwise; two gossip exchanges)
-# and with training alone (method "local", with cuDNN)
-DIST_SWEEP_OFF_STEPS, DIST_LOCAL_STEPS = 4, 2
+# collectives, aggregation and hops alone: bitwise; one gossip exchange)
+# and with training alone (method "local", with cuDNN); 4 and 2 steps
+# until phase 24
+DIST_SWEEP_OFF_STEPS, DIST_LOCAL_STEPS = 3, 1
 # the kernels' autograd ops (phase 3): each lane of vmap(grad) against its
 # single gradient, and the single gradient against backend="ref"'s (both
 # relative to the largest gradient; readings 8.6e-8 and 5.9e-7 on the H100)
@@ -663,20 +699,53 @@ DIST_TIMEOUT = 900
 # MESH_RANKS ranks of one card. (a) on 2 x 2: the bf16 prefill, decode at
 # MESH_DECODE (batch, tokens) after a prompt of MESH_PROMPT, Adam steps at
 # MESH_TRAIN on one batch of make_lm_dataset's streams at MESH_LR (a fixed
-# batch, so the loss falls over 3 steps); (b), (c) the f32 drop-free copy
+# batch, so the loss falls over 2 steps; 3 until phase 24); (b), (c) the f32 drop-free copy
 # on 2 x MESH_F32_S tokens (each all-to-all moves the whole [E, t_ep, d]
 # in f32 there, 67 MB a peer at 2 x 1024) and a data rank's gradient at
 # GRAD_BATCH x TRAIN_SEQ; (d) qwen3-moe at full width with WIDE_LAYERS
-# layers, a bf16 prefill of 2 x MESH_WIDE_S
+# layers, a bf16 prefill of 2 x MESH_WIDE_S (decode 16 tokens and 2 x 2048
+# until phase 24)
 MESH_RANKS, MESH_TIMEOUT = 4, 600
-MESH_PREFILL = (2, 4096)
-MESH_PROMPT, MESH_DECODE = 1, (4, 16)
-MESH_TRAIN, MESH_TRAIN_STEPS, MESH_LR = (4, 128), 3, 1e-3
+MESH_PREFILL = (2, 2048)      # 2 x 4096 until phase 24
+MESH_PROMPT, MESH_DECODE = 1, (4, 8)
+MESH_TRAIN, MESH_TRAIN_STEPS, MESH_LR = (4, 128), 2, 1e-3
 MESH_F32_S = 256
-MESH_WIDE_ARCH, MESH_WIDE_S = "qwen3-moe-235b-a22b", 2048
+MESH_WIDE_ARCH, MESH_WIDE_S = "qwen3-moe-235b-a22b", 1024
 # (a)'s drop-free f32 gradient against the local path: each leaf's largest
 # gap over its largest gradient
 MESH_GRAD_REL = 2e-4
+# dense tensor parallelism (phase 24), in phase 23's ranks: (a) TP_ARCH
+# whole in bf16 on 1 x MESH_RANKS, a TP_PREFILL prefill and TP_DECODE[1]
+# greedy tokens at batch TP_DECODE[0] after a prompt of MESH_PROMPT; (b)
+# TP_HYBRID_ARCH at full width, TP_HYBRID_LAYERS layers (of 54, for time:
+# 15 Mamba2 layers and 3 of the shared attention),
+# the same; (c) TP_ARCH on 2 x 2, TP_TRAIN_STEPS SGD steps at MESH_TRAIN
+# with remat; (d) f32 copies with TP_PARITY_LAYERS layers against one
+# process on the same weights: logits on 1 x 4 at 2 x TP_PARITY_S, the
+# loss and gradient on 2 x 2 at GRAD_BATCH x TRAIN_SEQ (the bounds: the f32
+# prefills' REF_PREFILL_TOL, LOSS_REL_TP, MESH_GRAD_REL)
+TP_ARCH, TP_HYBRID_ARCH = "stablelm-1.6b", "zamba2-2.7b"
+TP_PREFILL, TP_DECODE = (2, 2048), (2, 16)
+TP_HYBRID_LAYERS = 18
+TP_TRAIN_STEPS, TP_LR = 2, 0.01
+TP_PARITY_LAYERS, TP_PARITY_S = 2, 256
+LOSS_REL_TP = 1e-5
+# (a) and (b) against one process on the whole weights, both in bf16: the
+# prefill logits may differ by at most TP_BF16_GAP, and a greedy token may
+# differ only at a near tie, where one process's logits put the mesh's pick
+# below their top by at most TP_BF16_GAP. Each run rounds its partial sums
+# to bf16 in its own order; the gap between them reads the size of one
+# process's own bf16 rounding (its bf16 prefill logits against its f32
+# copy's, on the same tokens and weights), which must stay within
+# TP_BF16_GAP too, or the bound no longer fits the port's bf16 path.
+# Readings on the H100 80GB HBM3 at 700 W, the same in every call (PERF.md
+# section 6): one process's own rounding 1.8409e-01 (stablelm-1.6b) and
+# 1.7333e-01 (zamba2-2.7b, 18 layers); mesh against one process 1.8280e-01
+# and 1.6507e-01 (3.1263e-01 with zamba2's 54 layers); near ties
+# 1.1488e-02 and 3.4327e-02 (5.4581e-02 at 54 layers).
+TP_BF16_GAP = 0.25
+# (d)'s f32 greedy decode on 1 x 4 against one process: the tokens equal,
+# or apart first at a near tie within REF_PREFILL_TOL
 # audio and vision (phase 21): whisper-base whole (6 encoder and 6 decoder
 # layers, the embedding tied; its leaves as the reference's init counts
 # them), its prefill on AUDIO_B requests of encoder_seq = 1500 frames and
@@ -5879,27 +5948,30 @@ def _spec_leaves(specs) -> list:
 
 def _wide_rank_params(cfg, mesh) -> dict:
     """This rank's block of ``Model.init``'s weights for ``cfg`` (one stage
-    of MoE layers), drawn from the seed on the card in ``init``'s order but
-    one layer at a time: a layer's experts are cut to the rank's block
-    before the next is drawn, so the whole stack is never held at once."""
+    of MoE layers) under ``launch.sharding.rank_specs``, drawn from the
+    seed on the card in ``init``'s order but one layer at a time: a layer
+    is cut to the rank's block before the next is drawn, so the whole
+    stack is never held at once."""
     import torch
     from repro_torch.interop import tree_map
-    from repro_torch.launch.sharding import shard_of
+    from repro_torch.launch.sharding import rank_specs, shard_tree
     from repro_torch.models import build_model
     from repro_torch.models.api import _init_layer
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    first = build_model(dataclasses.replace(cfg, n_layers=1)).init(gen)
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    first = build_model(cfg1).init(gen)
+    # a one-layer stage is unstacked: its specs are a layer's
+    specs = rank_specs(cfg1, first, mesh)
 
-    def own(layer):
-        moe = {k: v if k == "router" else
-               shard_of(v, ("model", None, None), mesh).clone()
-               for k, v in layer.pop("moe").items()}
-        return {**layer, "moe": moe}
+    def own(tree, spec):
+        return tree_map(lambda t: t.clone(), shard_tree(tree, spec, mesh))
 
-    layers = [own(first["stages"][0])]
+    layers = [own(first["stages"][0], specs["stages"][0])]
     for _ in range(cfg.n_layers - 1):
-        layers.append(own(_init_layer(gen, cfg, "moe")))
+        layers.append(own(_init_layer(gen, cfg, "moe"), specs["stages"][0]))
+    first = own({k: v for k, v in first.items() if k != "stages"},
+                {k: v for k, v in specs.items() if k != "stages"})
     first["stages"] = [tree_map(lambda *ls: torch.stack(ls), *layers)]
     return first
 
@@ -5943,6 +6015,357 @@ def _params_digest(tree) -> str:
     return h.hexdigest()
 
 
+def _tp_kernel_shapes() -> dict:
+    """Phase 24 on rank 0: flash_attention and ssd_scan against their plain
+    versions at the shapes a rank of 1 x MESH_RANKS gives them, timed
+    beside the plain version, SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssd_chunked_reference, ssd_scan
+    from repro_torch.launch.roofline import flash_attention_work, ssd_work
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 8)
+    out = {"flash_attention": [], "ssd_scan": []}
+    b, s = TP_PREFILL
+    for arch in (TP_ARCH, TP_HYBRID_ARCH):
+        cfg = get_config(arch)
+        h, kv = cfg.n_heads // MESH_RANKS, cfg.n_kv_heads // MESH_RANKS
+        d = cfg.resolved_head_dim
+        q = torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+        k, v = (torch.randn(b, s, kv, d, device="cuda", generator=g)
+                .bfloat16() for _ in range(2))
+        got = _flash_routed(q, k, v, causal=True)
+        err = _hold(f"flash_attention {arch}'s rank of 1 x {MESH_RANKS} "
+                    f"q {list(q.shape)} bf16 causal vs flash_reference", got,
+                    flash_attention(q, k, v, causal=True, backend="ref"),
+                    *FLASH_BF16_VS_BF16)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        work = flash_attention_work(b, s, s, h, kv, d, True, None,
+                                    torch.bfloat16)
+        out["flash_attention"].append({
+            "arch": arch, "shape": [b, s, h, kv, d], "causal": True,
+            "max_abs_err": err,
+            "ms": _median_ms(lambda: flash_attention(q, k, v, causal=True),
+                             reps=10),
+            "plain_ms": _median_ms(lambda: flash_attention(
+                q, k, v, causal=True, backend="ref"), reps=3, warm=1),
+            "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), reps=10),
+            "bound_ms": work.bound_ms, "bound_by": work.bound_by})
+    cfg = get_config(TP_HYBRID_ARCH)
+    h_all = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    h, p, n = h_all // MESH_RANKS, cfg.ssm_head_dim, cfg.ssm_state
+    # the last rank's heads: A = -(61 .. 80), the largest in the model
+    a = -torch.arange(h_all - h + 1, h_all + 1, dtype=torch.float32,
+                      device="cuda")
+    args = _ssd_inputs(g, b, s, h, p, n, a)
+    y, _ = ssd_scan(*args, chunk=64)
+    err = _hold_scaled(f"ssd_scan {TP_HYBRID_ARCH}'s last rank of 1 x "
+                       f"{MESH_RANKS} x {[b, s, h, p]} n={n} vs "
+                       f"ssd_chunked_reference", y,
+                       ssd_chunked_reference(*args, chunk=64)[0],
+                       SSD_VS_CHUNKED_REL)
+    work = ssd_work(b, s, h, p, n)
+    out["ssd_scan"].append({
+        "arch": TP_HYBRID_ARCH, "shape": [b, s, h, p, n], "max_abs_err": err,
+        "ms": _median_ms(lambda: ssd_scan(*args, chunk=64), reps=10),
+        "plain_ms": _median_ms(lambda: ssd_chunked_reference(*args,
+                                                             chunk=64),
+                               reps=3, warm=1),
+        "library_ms": None, "bound_ms": work.bound_ms,
+        "bound_by": work.bound_by})
+    return out
+
+
+def _first_mismatch(model, params, prompt, mine, theirs) -> Optional[list]:
+    """Where two greedy runs' tokens part (None if they do not): [step,
+    row, one process's top logit minus its logit of the mesh's pick]. The
+    one-process logits at that step are replayed through ``decode_step``
+    on the prompt and the shared prefix."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    diff = (mine != theirs).nonzero()
+    if not len(diff):
+        return None
+    t = int(diff[:, 1].min())
+    row = int(diff[diff[:, 1] == t][0, 0])
+    seq = torch.cat([prompt, theirs[:, :t]], dim=1)
+    cache = model.init_cache(seq.shape[0], seq.shape[1] + 1,
+                             dtype=torch.float32, device="cuda")
+    decode = make_serve_step(model)
+    for i in range(seq.shape[1]):
+        logits, cache = decode(params, cache, seq[:, i:i + 1], i)
+    gap = logits[row].max() - logits[row, mine[row, t]]
+    return [t, row, float(gap)]
+
+
+def _tp_serve(rep: dict, cfg, mesh, model, params, prompt, toks,
+              expect: dict, one) -> None:
+    """Phase 24's counted prefill and greedy decode of one model on a
+    rank: launches, the sums over ranks (calls, bytes, seconds), the
+    gathered logits' bytes, walls, peaks, and the tokens against one
+    process's ``one`` (tokens, model, whole params) on rank 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import PSUM_COUNTS
+    from repro_torch.launch import collectives
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    def snap():
+        return (dict(PSUM_COUNTS),
+                collectives.COLLECTIVE_COUNTS["all-gather"]["sent_bytes"])
+
+    def since(before):
+        psum, gathered = before
+        return {"calls": PSUM_COUNTS["calls"] - psum["calls"],
+                "part_bytes": PSUM_COUNTS["part_bytes"] - psum["part_bytes"],
+                "seconds": PSUM_COUNTS["seconds"] - psum["seconds"],
+                "gathered": collectives.COLLECTIVE_COUNTS["all-gather"][
+                    "sent_bytes"] - gathered}
+
+    prefill = make_prefill_step(model)
+    prefill(params, {"tokens": toks[:, :256]})                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    _zero_counts(expect)
+    before = snap()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    rep["prefill"] = {
+        "wall_s": time.perf_counter() - t0, "launches": _counts(expect),
+        "sums": since(before), "shape": list(logits.shape),
+        "finite": bool(torch.isfinite(logits).all()),
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+    if one is not None:
+        # the bf16 runs' gap, and one process's own bf16 rounding (its f32
+        # copy on the same weights), on the same tokens
+        whole = make_prefill_step(one[1])(one[2], {"tokens": toks})
+        rep["prefill"]["one_process_diff"] = \
+            (logits - whole).abs().max().item()
+        del logits
+        f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        rep["prefill"]["one_f32_diff"] = (whole - make_prefill_step(f32)(
+            one[2], {"tokens": toks})).abs().max().item()
+        del whole
+    else:
+        del logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = snap()
+    out = generate(model, params, prompt, TP_DECODE[1])
+    rep["decode"] = {"decode_s": out["decode_s"],
+                     "prefill_s": out["prefill_s"], "finite": out["finite"],
+                     "tokens": out["tokens"].tolist(), "sums": since(before),
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    if one is not None:
+        mine = out["tokens"]
+        rep["decode"]["one_process"] = one[0].tolist()
+        rep["decode"]["mismatch"] = _first_mismatch(one[1], one[2], prompt,
+                                                    mine, one[0])
+
+
+def _tp_rank(rep: dict, note, free) -> None:
+    """Phase 24 in one rank of phase 23's world (``mesh_rank``): fills
+    ``rep["tp"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import PSUM_COUNTS, ordered_pmean
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels.ssm_scan import ssd_scan
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import rank_specs, shard_of, shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    rank = dist.get_rank()
+    tp = rep["tp"] = {}
+    if rank == 0:
+        tp["kernels"] = _tp_kernel_shapes()
+    dist.barrier()
+    free()
+    note("(24) kernels at the rank shapes")
+
+    # (a) stablelm-1.6b whole in bf16 on 1 x 4
+    cfg = get_config(TP_ARCH)
+    mesh, model = lm_ranks.rank_model(cfg, 1, MESH_RANKS)
+    full = lm_ranks.full_params(model, SEED, "cuda")
+    b, s = TP_PREFILL
+    toks = lm_ranks.tokens(cfg, b, s, SEED + 6, "cuda")
+    prompt = lm_ranks.tokens(cfg, TP_DECODE[0], MESH_PROMPT, SEED + 7,
+                             "cuda")
+    one = None
+    if rank == 0:           # one process on the whole weights
+        local = build_model(cfg)
+        one = (generate(local, full, prompt, TP_DECODE[1])["tokens"], local,
+               full)
+    params = lm_ranks.rank_params(model, full)
+    del full                # rank 0's one process keeps its own
+    free()
+    tp["a"] = {"rank_params": sum(t.numel() for t in tree_leaves(params))}
+    tp["a"]["blocks"] = {k: list(v.shape) for k, v in (
+        ("wq", params["stages"][0]["attn"]["wq"]),
+        ("wi_gate", params["stages"][0]["mlp"]["wi_gate"]),
+        ("embed", params["embed"]), ("head", params["head"]))}
+    _tp_serve(tp["a"], cfg, mesh, model, params, prompt, toks,
+              _flash_counts(cfg.n_layers, cfg.n_layers), one)
+    del one, params
+    free()
+    note("(24a) stablelm-1.6b on 1 x 4")
+
+    # (b) zamba2-2.7b at full width on 1 x 4, the whole weights drawn two
+    # ranks at a time and cut
+    hcfg = dataclasses.replace(get_config(TP_HYBRID_ARCH),
+                               n_layers=TP_HYBRID_LAYERS)
+    mesh, model = lm_ranks.rank_model(hcfg, 1, MESH_RANKS)
+    toks = lm_ranks.tokens(hcfg, b, s, SEED + 8, "cuda")
+    prompt = lm_ranks.tokens(hcfg, TP_DECODE[0], MESH_PROMPT, SEED + 9,
+                             "cuda")
+    params, one = None, None
+    for turn in range(0, MESH_RANKS, 2):
+        if rank in (turn, turn + 1):
+            full = lm_ranks.full_params(model, SEED, "cuda")
+            if rank == 0:
+                local = build_model(hcfg)
+                one = (generate(local, full, prompt, TP_DECODE[1])["tokens"],
+                       local, full)
+            params = lm_ranks.rank_params(model, full)
+            del full
+            free()
+        dist.barrier()
+    kinds = [st.kind for st in model.program for _ in range(st.count)]
+    n_scan, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    tp["b"] = {"rank_params": sum(t.numel() for t in tree_leaves(params)),
+               "scans": n_scan, "attns": n_attn}
+    _tp_serve(tp["b"], hcfg, mesh, model, params, prompt, toks,
+              {"ssd_scan": (ssd_scan, "launches", n_scan),
+               **_flash_counts(n_attn, n_attn)}, one)
+    del one, params
+    free()
+    note("(24b) zamba2-2.7b on 1 x 4")
+
+    # (c) stablelm-1.6b on 2 x 2: SGD steps with remat
+    mesh, model = lm_ranks.rank_model(cfg, 2, 2)
+    specs = rank_specs(cfg, meta_params(model), mesh)
+    params = lm_ranks.rank_params(model, lm_ranks.full_params(model, SEED,
+                                                              "cuda"))
+    free()
+    tb, ts = MESH_TRAIN
+    batch = lm_ranks.rank_batch(model, {"tokens": lm_ranks.tokens(
+        cfg, tb, ts, SEED + 10, "cuda")})
+    opt = sgd(TP_LR)
+    state = opt.init(params)
+    step = make_train_step(dataclasses.replace(model, remat=True), opt,
+                           donate=True)
+    # the mean over data, apart from the tensor-parallel sums
+    mean_psum = {"calls": 0, "part_bytes": 0, "seconds": 0.0}
+    inner = steps_mod._mesh_mean
+
+    def counted_mean(*args):
+        before = dict(PSUM_COUNTS)
+        out = inner(*args)
+        for k in mean_psum:
+            mean_psum[k] += PSUM_COUNTS[k] - before[k]
+        return out
+    steps_mod._mesh_mean = counted_mean
+    expect = _flash_counts(2 * TP_TRAIN_STEPS * cfg.n_layers,
+                           2 * TP_TRAIN_STEPS * cfg.n_layers)
+    torch.cuda.synchronize()
+    dist.barrier()
+    _zero_counts(expect)
+    before = dict(PSUM_COUNTS)
+    losses, walls = [], []
+    try:
+        for _ in range(TP_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+            walls.append(time.perf_counter() - t0)
+    finally:
+        steps_mod._mesh_mean = inner
+    split = [bool(any(e is not None for e in sp))
+             for sp in _spec_leaves(specs)]
+    leaves = tree_leaves(params)
+    tp["c"] = {
+        "losses": losses, "step_s": walls, "launches": _counts(expect),
+        "sums": {k: PSUM_COUNTS[k] - before[k] - mean_psum[k]
+                 for k in mean_psum},
+        "mean": mean_psum, "rows": batch["tokens"].shape[0],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "whole_digest": _params_digest([x for x, sp in zip(leaves, split)
+                                        if not sp]),
+        "split_digest": _params_digest([x for x, sp in zip(leaves, split)
+                                        if sp])}
+    del params, state, step, leaves
+    free()
+    note("(24c) stablelm-1.6b training on 2 x 2")
+
+    # (d) f32 parity, TP_PARITY_LAYERS layers, against one process
+    par = tp["d"] = {}
+    for arch, extra in ((TP_ARCH, {}),
+                        (TP_HYBRID_ARCH, {"attn_layer_interval": 2})):
+        cfg32 = dataclasses.replace(get_config(arch), dtype="float32",
+                                    n_layers=TP_PARITY_LAYERS, **extra)
+        mesh, model = lm_ranks.rank_model(cfg32, 1, MESH_RANKS)
+        local = build_model(cfg32)
+        full = lm_ranks.full_params(local, SEED, "cuda")
+        toks = lm_ranks.tokens(cfg32, 2, TP_PARITY_S, SEED + 11, "cuda")
+        shard = shard_tree(full, rank_specs(cfg32, full, mesh), mesh)
+        with torch.no_grad():
+            want = local.forward(full, {"tokens": toks})[0]
+            got = model.forward(shard, {"tokens": toks})[0]
+        par[arch] = {"diff": (got - want).abs().max().item(),
+                     "logit_max": want.abs().max().item()}
+        del want, got
+        # greedy decode through the rank's cache, against one process's
+        prompt = lm_ranks.tokens(cfg32, TP_DECODE[0], MESH_PROMPT,
+                                 SEED + 13, "cuda")
+        mine = generate(model, shard, prompt, TP_DECODE[1])["tokens"]
+        theirs = generate(local, full, prompt, TP_DECODE[1])["tokens"]
+        par[arch]["decode"] = {
+            "tokens": mine.tolist(),
+            "mismatch": _first_mismatch(local, full, prompt, mine, theirs)}
+        del full, shard
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=TP_PARITY_LAYERS)
+    mesh, model = lm_ranks.rank_model(cfg32, 2, 2)
+    local = build_model(cfg32)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    gtoks = {"tokens": lm_ranks.tokens(cfg32, GRAD_BATCH, TRAIN_SEQ,
+                                       SEED + 12, "cuda")}
+    specs = rank_specs(cfg32, full, mesh)
+    g_mesh, loss = torch.func.grad_and_value(
+        lambda p, bt: model.loss(p, bt)[0])(shard_tree(full, specs, mesh),
+                                            lm_ranks.rank_batch(
+                                                model, gtoks))
+    g_mesh = [ordered_pmean(x, mesh, "data") for x in tree_leaves(g_mesh)]
+    loss = ordered_pmean(loss, mesh, "data").item()
+    g_local, want = torch.func.grad_and_value(
+        lambda p, bt: local.loss(p, bt)[0])(full, gtoks)
+    worst, zero = 0.0, 0
+    for gl, gm, sp in zip(tree_leaves(g_local), g_mesh, _spec_leaves(specs)):
+        gl = shard_of(gl, sp, mesh)
+        scale = gl.abs().max().item()
+        if scale == 0.0 or gm.abs().max().item() == 0.0:
+            zero += 1
+            continue
+        worst = max(worst, (gm - gl).abs().max().item() / scale)
+    par["train"] = {"loss": loss, "local_loss": want.item(), "worst": worst,
+                    "zero": zero, "leaves": len(g_mesh)}
+    del full, g_mesh, g_local
+    free()
+    note("(24d) f32 parity")
+
+
 def mesh_rank(out_dir: str) -> None:
     """One rank of phase 23, run as ``chip_smoke.py --mesh-rank DIR`` by
     ``spawn_local_cluster``; writes its report to DIR/rank<r>.json."""
@@ -5957,7 +6380,9 @@ def mesh_rank(out_dir: str) -> None:
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.multiprocess import initialize_from_env
     from repro_torch.launch.serve import generate
-    from repro_torch.launch.sharding import moe_specs, shard_of, shard_tree
+    from repro_torch.core.distributed import PSUM_COUNTS
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.sharding import rank_specs, shard_of, shard_tree
     from repro_torch.launch.steps import make_prefill_step, make_train_step
     from repro_torch.models import build_model
     from repro_torch.models.moe import capacity_of
@@ -6018,21 +6443,22 @@ def mesh_rank(out_dir: str) -> None:
     b, s = MESH_PREFILL
     toks = lm_ranks.tokens(cfg, b, s, SEED + 1, "cuda")
     prefill = make_prefill_step(model)
-    prefill(params, lm_ranks.rank_batch(cfg, {"tokens": toks[:, :256]},
-                                        mesh))             # warm-up
+    prefill(params, lm_ranks.rank_batch(model, {"tokens": toks[:, :256]})
+            )                                             # warm-up
     torch.cuda.synchronize()
     dist.barrier()
     free()
     expect = _flash_counts(cfg.n_layers, cfg.n_layers)
-    batch = lm_ranks.rank_batch(cfg, {"tokens": toks}, mesh)
+    batch = lm_ranks.rank_batch(model, {"tokens": toks})
     _zero_counts(expect)
-    sent = a2a()
+    sent, psum0 = a2a(), dict(PSUM_COUNTS)
     t0 = time.perf_counter()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     rep["prefill"] = {
         "wall_s": time.perf_counter() - t0, "launches": _counts(expect),
         "a2a_bytes": a2a() - sent,
+        "psum": [PSUM_COUNTS[k] - psum0[k] for k in ("calls", "part_bytes")],
         "capacity": capacity_of(batch["tokens"].numel() // 2, cfg),
         "finite": bool(torch.isfinite(logits).all()),
         "shape": list(logits.shape),
@@ -6041,8 +6467,8 @@ def mesh_rank(out_dir: str) -> None:
     note("(a) prefill")
     free()
     db, dg = MESH_DECODE
-    prompt = lm_ranks.rank_batch(cfg, {"tokens": lm_ranks.tokens(
-        cfg, db, MESH_PROMPT, SEED + 2, "cuda")}, mesh)["tokens"]
+    prompt = lm_ranks.rank_batch(model, {"tokens": lm_ranks.tokens(
+        cfg, db, MESH_PROMPT, SEED + 2, "cuda")})["tokens"]
     sent = a2a()
     out = generate(model, params, prompt, dg)
     rep["decode"] = {"decode_s": out["decode_s"], "finite": out["finite"],
@@ -6053,8 +6479,8 @@ def mesh_rank(out_dir: str) -> None:
     free()
     tb, ts = MESH_TRAIN
     seqs, _ = make_lm_dataset(SEED, n_seqs=64, seq_len=ts, vocab=cfg.vocab)
-    batch = lm_ranks.rank_batch(cfg, {"tokens": torch.as_tensor(
-        seqs[:tb], dtype=torch.int64, device="cuda")}, mesh)
+    batch = lm_ranks.rank_batch(model, {"tokens": torch.as_tensor(
+        seqs[:tb], dtype=torch.int64, device="cuda")})
     opt = adam(MESH_LR)
     state = opt.init(params)
     # two data replicas of granite-moe's weights, gradients and Adam state
@@ -6075,9 +6501,9 @@ def mesh_rank(out_dir: str) -> None:
         losses.append(float(met["loss"]))
         times.append(time.perf_counter() - t0)
         sent_steps.append(a2a() - sent)
-    specs = moe_specs(cfg, params, mesh)
-    experts = tree_map(lambda t, sp: t if sp else None, params, specs)
-    whole = tree_map(lambda t, sp: None if sp else t, params, specs)
+    specs = rank_specs(cfg, meta_params(model), mesh)
+    experts = tree_map(lambda t, sp: t if any(sp) else None, params, specs)
+    whole = tree_map(lambda t, sp: None if any(sp) else t, params, specs)
     rep["train"] = {"losses": losses, "step_s": times, "mean_s": mean_s,
                     "a2a_bytes": sent_steps, "launches": _counts(expect),
                     "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -6103,9 +6529,9 @@ def mesh_rank(out_dir: str) -> None:
                                     ("4x1", (4, 1, None))):
         mesh_m, model_m = lm_ranks.rank_model(cfg32, dp, ep,
                                               moe_ep_axis=ep_axis)
-        p = shard_tree(full, moe_specs(cfg32, full, mesh_m, ep_axis),
+        p = shard_tree(full, rank_specs(cfg32, full, mesh_m, ep_axis),
                        mesh_m)
-        blk = lm_ranks.rank_batch(cfg, {"tokens": toks}, mesh_m)["tokens"]
+        blk = lm_ranks.rank_batch(model_m, {"tokens": toks})["tokens"]
         rows = blk.shape[0]
         row0 = mesh_m.coords["data"] * rows if rows < toks.shape[0] else 0
         t0 = time.perf_counter()
@@ -6145,8 +6571,8 @@ def mesh_rank(out_dir: str) -> None:
         return lambda p, batch: model.loss(p, batch)[1]["nll"]
 
     mesh_m, model_m = lm_ranks.rank_model(cfg32, 2, 2)
-    specs = moe_specs(cfg32, full, mesh_m)
-    blk = lm_ranks.rank_batch(cfg, {"tokens": gtoks}, mesh_m)
+    specs = rank_specs(cfg32, full, mesh_m)
+    blk = lm_ranks.rank_batch(model_m, {"tokens": gtoks})
     g_mesh = tree_leaves(torch.func.grad(nll(model_m))(
         shard_tree(full, specs, mesh_m), blk))
     rep["grad"] = {"leaves": len(g_mesh), "rows": blk["tokens"].shape[0]}
@@ -6202,7 +6628,8 @@ def mesh_rank(out_dir: str) -> None:
                    "peak_bytes": torch.cuda.max_memory_allocated()}
     del logits, params
     free()
-    lap("(d) prefill")
+    note("(d) prefill")
+    _tp_rank(rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
 
@@ -6237,10 +6664,11 @@ def _mesh_held(ranks: list, name: str, ep: int) -> dict:
             "rows": n_all}
 
 
-def phase_mesh(card: str) -> dict:
+def phase_mesh(card: str):
     """Phase 23: the LM stack on MESH_RANKS ranks of the card
     (``spawn_local_cluster``, gloo, ``--mesh-rank``): holds what the ranks
-    report and returns {path: {kernel: launches of all ranks}}."""
+    report and returns ({path: {kernel: launches of all ranks}}, the
+    ranks' reports, which phase 24's part of them is in)."""
     import gc
     import os
     import tempfile
@@ -6292,6 +6720,16 @@ def phase_mesh(card: str) -> dict:
             raise AssertionError(f"mesh prefill, rank {r['rank']}: "
                                  f"{p['a2a_bytes']} B through all-to-all, "
                                  f"expected {n} x {layer_bytes}")
+        # a layer: the attention's output summed over the model peers
+        # (bf16 [1, s, d]) and the aux loss over data (f32); the lookup
+        # where the vocabulary splits (granite-moe's 49,155 does not)
+        lookup = int(cfg.vocab % 2 == 0)
+        want = [2 * n + lookup,
+                (n + lookup) * b // 2 * s * d * 2 + n * 4]
+        if p["psum"] != want:
+            raise AssertionError(f"mesh prefill, rank {r['rank']}: sums over "
+                                 f"ranks (calls, part bytes) {p['psum']}, "
+                                 f"expected {want}")
     wall = max(p["wall_s"] for p in pre)
     print(f"mesh {MOE_ARCH} on 2 x 2 ranks ({e // 2} of {e} experts a rank, "
           f"{ranks[0]['rank_params']} weights a rank, drawn and cut in "
@@ -6300,6 +6738,11 @@ def phase_mesh(card: str) -> dict:
           f"peer routes {b // 2 * s // 2} tokens into {cap} slots an "
           f"expert; all-to-all {layer_bytes} B a layer a rank "
           f"(2 E C d x 2 B), {pre[0]['a2a_bytes']} B a prefill a rank; "
+          f"attention on {cfg.n_heads // 2} of {cfg.n_heads} heads a rank: "
+          f"{pre[0]['psum'][0]} sums over ranks a prefill, {n} of the "
+          f"attention's bf16 [1, {s}, {d}] output over model and {n} of the "
+          f"aux loss over data, {pre[0]['psum'][1]} B a rank (the "
+          f"vocabulary of {cfg.vocab} held whole); "
           f"flash_attention {n} a rank, all tensor-core; peak by rank "
           f"{peaks('prefill')} B [{card}]")
     paths[f"{MOE_ARCH} prefill on 2 x 2 ranks"] = {
@@ -6326,15 +6769,15 @@ def phase_mesh(card: str) -> dict:
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"mesh training: losses {losses}")
     if len({t["digest"] for t in tr}) != 1:
-        raise AssertionError("mesh training: the replicated weights differ "
+        raise AssertionError("mesh training: the weights held whole differ "
                              "between ranks")
     by_model = {}
     for r, t in zip(ranks, tr):
         by_model.setdefault(r["coords"]["model"], set()).add(
             t["expert_digest"])
     if any(len(v) != 1 for v in by_model.values()) or len(by_model) != 2:
-        raise AssertionError(f"mesh training: expert digests by model "
-                             f"index {by_model}")
+        raise AssertionError(f"mesh training: split weights' digests by "
+                             f"model index {by_model}")
     steps = [max(t["step_s"][i] for t in tr) for i in range(MESH_TRAIN_STEPS)]
     means = [round(max(t["mean_s"][i] for t in tr), 4)
              for i in range(MESH_TRAIN_STEPS)]
@@ -6349,8 +6792,9 @@ def phase_mesh(card: str) -> dict:
           f"{means} s a step; all-to-all "
           f"{tr[0]['a2a_bytes']} B a step a rank; flash_attention "
           f"{2 * n} a step a rank (the forward and its recomputation), "
-          f"tensor-core; the replicated weights bitwise equal "
-          f"on every rank, each model index's experts on its data peers; "
+          f"tensor-core; the weights held whole bitwise equal on every "
+          f"rank, each model index's split ones (experts, heads) on its "
+          f"data peers; "
           f"peak by rank {peaks('train')} B [{card}]")
     paths[f"{MOE_ARCH} training on 2 x 2 ranks"] = {
         "flash_attention": sum(t["launches"]["flash_attention"] for t in tr)}
@@ -6415,7 +6859,235 @@ def phase_mesh(card: str) -> dict:
           f"layers)"] = {"flash_attention": sum(
               w["launches"]["flash_attention"] for w in wide)}
     print(f"mesh: phase wall {time.perf_counter() - t_phase:.1f} s")
-    return paths
+    return paths, ranks
+
+
+def _tp_served(ranks: list, part: str, cfg, kinds: dict, sums: list,
+               card: str) -> dict:
+    """Phase 24's prefill and decode of one model on 1 x MESH_RANKS, held
+    from the ranks' reports: launches ``kinds`` ({name: per rank}), the
+    sums over ranks exactly ``sums`` ([(calls, bytes of each)]), the
+    logits whole on every rank, the greedy tokens equal on every rank and
+    to one process's (or the first mismatch a near tie). Returns the
+    path's launches of all ranks."""
+    rep = [r["tp"][part] for r in ranks]
+    b, s = TP_PREFILL
+    want_calls = sum(n for n, _ in sums)
+    want_bytes = sum(n * each for n, each in sums)
+    vl = cfg.vocab // MESH_RANKS
+    for r, x in zip(ranks, rep):
+        p = x["prefill"]
+        want = dict(kinds)
+        if p["launches"] != want or not p["finite"] or \
+                p["shape"] != [b, s, cfg.vocab]:
+            raise AssertionError(f"tp {cfg.name} prefill, rank {r['rank']}: "
+                                 f"launches {p['launches']} (expected "
+                                 f"{want}), finite {p['finite']}, logits "
+                                 f"{p['shape']}")
+        got = [p["sums"]["calls"], p["sums"]["part_bytes"],
+               p["sums"]["gathered"]]
+        if got != [want_calls, want_bytes, b * s * vl * 4]:
+            raise AssertionError(f"tp {cfg.name} prefill, rank {r['rank']}: "
+                                 f"(sums, their bytes, gathered bytes) {got}, "
+                                 f"expected {[want_calls, want_bytes,
+                                              b * s * vl * 4]}")
+    dec = [x["decode"] for x in rep]
+    if not all(x["finite"] for x in dec) or \
+            any(x["tokens"] != dec[0]["tokens"] for x in dec):
+        raise AssertionError(f"tp {cfg.name} decode: finite "
+                             f"{[x['finite'] for x in dec]}, tokens by rank "
+                             f"{[x['tokens'] for x in dec]}")
+    miss = dec[0]["mismatch"]
+    noise = rep[0]["prefill"]["one_process_diff"]
+    own = rep[0]["prefill"]["one_f32_diff"]
+    print(f"tp {cfg.name} bf16 prefill against one process: max |mesh - one "
+          f"process| {noise:.4e}, one process's bf16 - f32 {own:.4e} "
+          f"(bound {TP_BF16_GAP} each); greedy "
+          + ("equal" if miss is None else
+             f"first apart at step {miss[0]}, row {miss[1]}, gap "
+             f"{miss[2]:.4e} (bound {TP_BF16_GAP})") + f" [{card}]")
+    if not own <= TP_BF16_GAP:
+        raise AssertionError(f"tp {cfg.name}: one process's bf16 prefill is "
+                             f"{own:.4e} from its f32 copy's, past "
+                             f"{TP_BF16_GAP}: the bound no longer fits the "
+                             f"bf16 path")
+    if not noise <= TP_BF16_GAP:
+        raise AssertionError(f"tp {cfg.name} prefill: the mesh's bf16 logits "
+                             f"are {noise:.4e} from one process's, past "
+                             f"{TP_BF16_GAP}")
+    if miss is not None and not miss[2] <= TP_BF16_GAP:
+        raise AssertionError(f"tp {cfg.name} decode: the greedy tokens part "
+                             f"from one process's at step {miss[0]}, row "
+                             f"{miss[1]}, where one process's logits put the "
+                             f"mesh's pick {miss[2]:.4e} below their top, "
+                             f"past {TP_BF16_GAP}")
+    wall = max(x["prefill"]["wall_s"] for x in rep)
+    secs = max(x["prefill"]["sums"]["seconds"] for x in rep)
+    db, dg = TP_DECODE
+    dwall = max(x["decode_s"] for x in dec)
+    dsecs = max(x["sums"]["seconds"] for x in dec)
+    print(f"tp {cfg.name} on 1 x {MESH_RANKS} ranks "
+          f"({rep[0]['rank_params']} weights a rank): bf16 prefill {b} x {s}, "
+          f"{b * s / wall:.1f} tokens/s ({wall:.3f} s, {secs:.3f} s of it in "
+          f"the {want_calls} sums over ranks, {want_bytes} B a rank, and the "
+          f"rank's f32 logits [{b}, {s}, {vl}] gathered; max |mesh - one "
+          f"process| {noise:.4e}), launches a rank "
+          f"{rep[0]['prefill']['launches']}; peak by rank "
+          f"{[x['prefill']['peak_bytes'] for x in rep]} B [{card}]")
+    print(f"tp {cfg.name} decode on 1 x {MESH_RANKS}: serve.generate at batch "
+          f"{db}, prompt {MESH_PROMPT}, {dg} tokens: {db * dg / dwall:.2f} "
+          f"tokens/s ({dwall:.3f} s, {dsecs:.3f} s in "
+          f"{dec[0]['sums']['calls']} sums over ranks, prompt replay "
+          f"{max(x['prefill_s'] for x in dec):.3f} s); tokens equal on every "
+          f"rank; against one process on the whole weights: "
+          + ("equal" if miss is None else
+             f"first apart at step {miss[0]}, row {miss[1]}, a near tie "
+             f"(gap {miss[2]:.4e} <= {TP_BF16_GAP})")
+          + f"; peak by rank {[x['peak_bytes'] for x in dec]} B [{card}]")
+    return {k: sum(x["prefill"]["launches"][k] for x in rep) for k in kinds}
+
+
+def phase_tensor_parallel(card: str, ranks: list):
+    """Phase 24: dense tensor parallelism, run by phase 23's ranks
+    (``_tp_rank``); holds their reports. Returns ({path: {kernel: launches
+    of all ranks}}, the kernel checks at the rank shapes by kernel)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    shapes = ranks[0]["tp"]["kernels"]
+    for name, entries in shapes.items():
+        for e in entries:
+            print(f"tp kernel {name} at {e['arch']}'s rank shape {e['shape']}"
+                  f": max |kernel - plain| {e['max_abs_err']:.3e}, kernel "
+                  f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                  f"library {e['library_ms']} ms, bound {e['bound_ms']:.4f} "
+                  f"ms ({e['bound_by']}) [{card}]")
+    paths = {}
+    cfg = get_config(TP_ARCH)
+    n, b, s, d = cfg.n_layers, *TP_PREFILL, cfg.d_model
+    blocks = ranks[0]["tp"]["a"]["blocks"]
+    hd = cfg.resolved_head_dim
+    want = {"wq": [n, d, cfg.n_heads * hd // MESH_RANKS],     # stacked
+            "wi_gate": [n, d, cfg.d_ff // MESH_RANKS],
+            "embed": [cfg.vocab // MESH_RANKS, d],
+            "head": [d, cfg.vocab // MESH_RANKS]}
+    if blocks != want:
+        raise AssertionError(f"tp {cfg.name}: rank blocks {blocks}, expected "
+                             f"{want}")
+    # a layer: the attention's and the MLP's outputs; and the lookup
+    launches = _tp_served(ranks, "a", cfg, {"flash_attention": n,
+                                            "flash_attention tc": n},
+                          [(2 * n + 1, b * s * d * 2)], card)
+    paths[f"{TP_ARCH} prefill on 1 x {MESH_RANKS} ranks"] = launches
+
+    hcfg = dataclasses.replace(get_config(TP_HYBRID_ARCH),
+                               n_layers=TP_HYBRID_LAYERS)
+    hb = ranks[0]["tp"]["b"]
+    n_scan, n_attn, hd = hb["scans"], hb["attns"], hcfg.d_model
+    # a Mamba2 layer: out_proj's output and the gated norm's f32 sum of
+    # squares [B, S, 1]; a shared attention: attention and MLP; the lookup
+    launches = _tp_served(ranks, "b", hcfg, {
+        "ssd_scan": n_scan, "flash_attention": n_attn,
+        "flash_attention tc": n_attn},
+        [(n_scan + 2 * n_attn + 1, b * s * hd * 2), (n_scan, b * s * 4)],
+        card)
+    paths[f"{TP_HYBRID_ARCH} prefill on 1 x {MESH_RANKS} ranks "
+          f"({TP_HYBRID_LAYERS} layers)"] = launches
+
+    # (c) training on 2 x 2
+    tr = [r["tp"]["c"] for r in ranks]
+    tb, ts = MESH_TRAIN
+    rows = tr[0]["rows"]
+    losses = tr[0]["losses"]
+    want_l = {"flash_attention": 2 * TP_TRAIN_STEPS * n,
+              "flash_attention tc": 2 * TP_TRAIN_STEPS * n}
+    # a step: the forward's 2 n + 1 sums, the recomputation's 2 n, the
+    # backward's 2 n + 1 (the column splits' inputs), [rows, ts, d] bf16
+    calls = TP_TRAIN_STEPS * (6 * n + 2)
+    want_sums = [calls, calls * rows * ts * d * 2]
+    for r, t in zip(ranks, tr):
+        got = [t["sums"]["calls"], t["sums"]["part_bytes"]]
+        if t["launches"] != want_l or got != want_sums or \
+                t["losses"] != losses:
+            raise AssertionError(f"tp training, rank {r['rank']}: launches "
+                                 f"{t['launches']} (expected {want_l}), sums "
+                                 f"{got} (expected {want_sums}), losses "
+                                 f"{t['losses']} (rank 0 {losses})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tp training: losses {losses}")
+    if len({t["whole_digest"] for t in tr}) != 1:
+        raise AssertionError("tp training: the weights held whole differ "
+                             "between ranks")
+    by_model = {}
+    for r, t in zip(ranks, tr):
+        by_model.setdefault(r["rank"] % 2, set()).add(t["split_digest"])
+    if any(len(v) != 1 for v in by_model.values()) or \
+            len(set().union(*by_model.values())) != 2:
+        raise AssertionError(f"tp training: split weights' digests by model "
+                             f"index {by_model}")
+    steps = [max(t["step_s"][i] for t in tr) for i in range(TP_TRAIN_STEPS)]
+    rate = TP_TRAIN_STEPS / sum(steps)
+    print(f"tp {cfg.name} training on 2 x 2 ranks: {TP_TRAIN_STEPS} SGD "
+          f"steps (lr {TP_LR}) at {tb} x {ts} ({rows} rows a data rank, bf16 "
+          f"compute, remat, in place): {rate:.3f} steps/s, "
+          f"{rate * tb * ts:.1f} tokens/s (step walls "
+          f"{[round(x, 4) for x in steps]} s), losses "
+          f"{[round(x, 4) for x in losses]}; {tr[0]['sums']['calls']} sums "
+          f"over model a rank ({tr[0]['sums']['part_bytes']} B, "
+          f"{max(t['sums']['seconds'] for t in tr):.3f} s, waiting for "
+          f"the peers included), the mean over data "
+          f"{tr[0]['mean']['calls']} sums of {tr[0]['mean']['part_bytes']} "
+          f"B ({max(t['mean']['seconds'] for t in tr):.3f} s); "
+          f"flash_attention "
+          f"{2 * n} a step a rank, tensor-core; the weights held whole "
+          f"bitwise equal on every rank, the split ones on their data peers; "
+          f"peak by rank {[t['peak_bytes'] for t in tr]} B [{card}]")
+    paths[f"{TP_ARCH} training on 2 x 2 ranks"] = {
+        k: sum(t["launches"][k] for t in tr) for k in want_l}
+
+    # (d) f32 parity against one process
+    par = [r["tp"]["d"] for r in ranks]
+    for arch in (TP_ARCH, TP_HYBRID_ARCH):
+        diff = max(p[arch]["diff"] for p in par)
+        print(f"tp f32 {arch}, {TP_PARITY_LAYERS} layers, 2 x {TP_PARITY_S} "
+              f"on 1 x {MESH_RANKS} vs one process on the same weights: max "
+              f"|diff| {diff:.3e} (tol {REF_PREFILL_TOL}), logits up to "
+              f"{par[0][arch]['logit_max']:.3f} [{card}]")
+        if not diff <= REF_PREFILL_TOL:
+            raise AssertionError(f"tp f32 {arch}: the mesh and one process "
+                                 f"disagree")
+        dec = [p[arch]["decode"] for p in par]
+        miss = dec[0]["mismatch"]
+        same = all(x["tokens"] == dec[0]["tokens"] for x in dec)
+        print(f"tp f32 {arch} greedy decode on 1 x {MESH_RANKS}, batch "
+              f"{TP_DECODE[0]}, prompt {MESH_PROMPT}, {TP_DECODE[1]} tokens: "
+              f"equal on every rank {same}; against one process: "
+              + ("equal" if miss is None else
+                 f"first apart at step {miss[0]}, row {miss[1]}, gap "
+                 f"{miss[2]:.4e} (bound {REF_PREFILL_TOL})") + f" [{card}]")
+        if not same or (miss is not None and
+                        not miss[2] <= REF_PREFILL_TOL):
+            raise AssertionError(f"tp f32 {arch} decode: the mesh's greedy "
+                                 f"tokens and one process's disagree")
+    tr = [p["train"] for p in par]
+    worst = max(t["worst"] for t in tr)
+    zero = max(t["zero"] for t in tr)
+    loss_gap = max(abs(t["loss"] - t["local_loss"]) for t in tr)
+    print(f"tp f32 {TP_ARCH}, {TP_PARITY_LAYERS} layers, on 2 x 2: loss "
+          f"{tr[0]['loss']:.6f} vs one process's {tr[0]['local_loss']:.6f} "
+          f"(gap {loss_gap:.3e}, tol {LOSS_REL_TP} relative); gradient at "
+          f"{GRAD_BATCH} x {TRAIN_SEQ}, averaged over data: "
+          f"{tr[0]['leaves']} leaves a rank, {zero} zero, largest gap "
+          f"{worst:.3e} of its leaf's largest (tol {MESH_GRAD_REL}) [{card}]")
+    if zero or not worst <= MESH_GRAD_REL or \
+            not loss_gap <= LOSS_REL_TP * abs(tr[0]["local_loss"]):
+        raise AssertionError("tp f32 training: the mesh and one process "
+                             "disagree")
+    laps = ranks[0]["laps"]
+    print(f"tensor parallelism: the ranks' part "
+          f"{sum(v for k, v in laps.items() if k.startswith('(24')):.1f} s "
+          f"(rank 0's laps, in phase 23's wall), the checks here "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths, shapes
 
 
 def _profile_steps(fn, n_steps: int, label: str,
@@ -6557,7 +7229,13 @@ def main() -> int:
         phase = enter("tooling")
         phase_tooling(card)
         phase = enter("mesh of ranks")
-        paths.update(phase_mesh(card))
+        mesh_paths, ranks = phase_mesh(card)
+        paths.update(mesh_paths)
+        phase = enter("tensor parallelism")
+        tp_paths, tp_shapes = phase_tensor_parallel(card, ranks)
+        paths.update(tp_paths)
+        rows[3]["tp_shapes"] = tp_shapes["flash_attention"]
+        rows[4]["tp_shapes"] = tp_shapes["ssd_scan"]
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -92,9 +93,12 @@ def _tree_mix(a, b, gamma):
 
 
 # What this process's ordered_psum calls did, summed: "calls" that crossed
-# ranks and "sent_bytes" (its part times the other ranks that receive it).
-# Telemetry for chip_smoke.py's distributed phase; the engine never reads it.
-PSUM_COUNTS = {"calls": 0, "sent_bytes": 0}
+# ranks, "sent_bytes" (its part times the other ranks that receive it),
+# "part_bytes" (its part: the cost counter's measure) and "seconds" (wall
+# time from the part being ready on its device to the sum being back
+# there). Telemetry for chip_smoke.py's distributed and mesh phases; the
+# engine never reads it.
+PSUM_COUNTS = {"calls": 0, "sent_bytes": 0, "part_bytes": 0, "seconds": 0.0}
 
 
 def host_copy(x: torch.Tensor) -> torch.Tensor:
@@ -139,14 +143,19 @@ _EXCHANGE_PIECE = 32 << 20
 _EXCHANGE_WINDOW = 4
 
 
-def _gather_parts(host: torch.Tensor, group) -> list:
+def gather_parts(host: torch.Tensor, group, parts=None) -> list:
     """Every rank's ``host`` (contiguous, on the host), in the group's rank
-    order: an all-gather by pairwise exchange, piece by piece."""
+    order: an all-gather by pairwise exchange, piece by piece, into
+    ``parts`` (contiguous host buffers, one a rank, this rank's filled
+    from ``host``) or into new buffers and ``host`` itself."""
     ranks = (list(range(dist.get_world_size())) if group is None
              else dist.get_process_group_ranks(group))
     me = dist.get_rank()
-    parts = [host if r == me else host_empty(host.shape, host)
-             for r in ranks]
+    if parts is None:
+        parts = [host if r == me else host_empty(host.shape, host)
+                 for r in ranks]
+    else:
+        parts[ranks.index(me)].copy_(host)
     flat = [p.view(-1) for p in parts]
     mine = host.view(-1)
     step = max(1, _EXCHANGE_PIECE // host.element_size())
@@ -174,16 +183,25 @@ def ordered_psum_op(x: torch.Tensor, n: int, group: int) -> torch.Tensor:
     """``ordered_psum`` over the ``n`` ranks of the process group named
     ``group`` (``launch.mesh.group_handle``), a custom op so that
     ``torch.func.vmap`` can see it."""
+    if x.device.type == "cuda":
+        # the copy to the host waits for the part anyway; waiting first
+        # keeps the part's own compute out of "seconds"
+        torch.cuda.current_stream(x.device).synchronize()
+    t0 = time.perf_counter()
     host = host_copy(x)
-    parts = _gather_parts(host, group_of(group))
+    parts = gather_parts(host, group_of(group))
     PSUM_COUNTS["calls"] += 1
-    PSUM_COUNTS["sent_bytes"] += host.numel() * host.element_size() * (n - 1)
+    part = host.numel() * host.element_size()
+    PSUM_COUNTS["part_bytes"] += part
+    PSUM_COUNTS["sent_bytes"] += part * (n - 1)
     # left to right, in rank order, into a buffer of its own (this rank's
     # part may be ``x`` itself)
     total = torch.add(parts[0], parts[1], out=host_empty(host.shape, host))
     for part in parts[2:]:
         total.add_(part)
-    return total.to(x.device)
+    out = total.to(x.device)
+    PSUM_COUNTS["seconds"] += time.perf_counter() - t0
+    return out
 
 
 @ordered_psum_op.register_fake

@@ -24,15 +24,21 @@ Two layers:
 
 What a backward must do depends on what the axis carries:
 
-- a **model axis** (the experts' ``ep_axis``) splits one replicated
-  computation among its peers: every peer's loss is the same value, so the
-  cotangent a peer holds of a replicated tensor is the whole one. A
-  replicated input that each peer uses on its own tokens (``replicated``)
-  sums the peers' partial gradients; a gathered output (``all_gather``)
+- a **model axis** (the experts' ``ep_axis``, tensor parallelism's
+  ``"model"``) splits one replicated computation among its peers: every
+  peer's loss is the same value, so the cotangent a peer holds of a
+  replicated tensor is the whole one. A replicated input that each peer
+  uses on its own part of the work (``replicated``, Megatron's f: the
+  input of a column split, the experts' tokens) sums the peers' partial
+  gradients; a sum of the peers' partial outputs that every peer then
+  uses whole (``reduce_from_peers``, Megatron's g: after a row split)
+  passes its cotangent on as it is; a gathered output (``all_gather``)
   gives each peer back its own block of the cotangent, not a sum, which
   would count every token once a peer. JAX's ``shard_map`` transpose
   reaches the same gradients by dividing a replicated output's cotangent by
-  the axis size and summing (``psum_scatter``) in the backward;
+  the axis size and summing (``psum_scatter``) in the backward. A sum
+  whose result each peer uses on its own part only (the Mamba2 gated
+  norm's sum of squares) is a ``psum``: its cotangent is partial too;
 - **data axes** carry different examples: each rank's loss is its term of
   a mean that the train step completes (``ordered_pmean`` of the
   gradients), so ``psum``'s backward is the ordered sum of the cotangents,
@@ -48,8 +54,8 @@ import functools
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.distributed import (host_copy, host_empty,
-                                          ordered_psum_op)
+from repro_torch.core.distributed import (gather_parts, host_copy,
+                                          host_empty, ordered_psum_op)
 from repro_torch.launch.mesh import group_handle, group_of
 
 # What this process's transfers did, summed: "calls" that crossed ranks
@@ -96,7 +102,9 @@ def all_gather_op(x: torch.Tensor, n: int, group: int) -> torch.Tensor:
     order: [n * m, ...] (``jax.lax.all_gather(..., axis=0, tiled=True)``)."""
     host = host_copy(x)
     out = host_empty((n * host.shape[0],) + tuple(host.shape[1:]), host)
-    dist.all_gather(list(out.chunk(n)), host, group=group_of(group))
+    # the pipelined point-to-point exchange of ordered_psum's parts,
+    # received in place (about twice gloo's blocking all_gather's rate)
+    gather_parts(host, group_of(group), list(out.chunk(n)))
     _count("all-gather", host)
     return out.to(x.device)
 
@@ -176,6 +184,26 @@ class _Replicated(torch.autograd.Function):
         return _Replicated.apply(x, n, group), in_dims[0]
 
 
+class _ReduceFromPeers(torch.autograd.Function):
+    @staticmethod
+    def forward(x, n, group):
+        return ordered_psum_op(x, n, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        # every peer uses the sum whole and holds the same loss: its
+        # cotangent is already the whole one on every peer
+        return g, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, n, group):
+        return _ReduceFromPeers.apply(x, n, group), in_dims[0]
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(x, n, group):
@@ -227,9 +255,20 @@ def replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return x if n == 1 else _Replicated.apply(x, n, group)
 
 
+def reduce_from_peers(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The ordered sum of the peers' partial ``x`` over a model axis (the
+    output of a row split), which every peer then uses whole; the backward
+    is the identity (module docstring). The transfer is ``repro_torch::
+    ordered_psum``, so ``CostCounter`` prices it as an all-reduce of
+    ``x``'s bytes."""
+    n, group = _axis(mesh, axis)
+    return x if n == 1 else _ReduceFromPeers.apply(x, n, group)
+
+
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``core.distributed.ordered_psum`` with a gradient: the backward is
-    the ordered sum of the cotangents over ``axes`` (data axes)."""
+    the ordered sum of the cotangents over ``axes`` (data axes, or a model
+    axis whose sum each peer uses on its own part only)."""
     n, group = _axis(mesh, axes)
     return x if n == 1 else _PSum.apply(x, n, group)
 

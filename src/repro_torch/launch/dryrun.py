@@ -41,7 +41,6 @@ import traceback
 from typing import Dict, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, InputShape,
                                  get_config, get_smoke_config)
@@ -50,28 +49,10 @@ from repro_torch.launch.cost_analysis import CostCounter
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                       make_train_step)
 from repro_torch.models import build_model
+from repro_torch.models.api import meta_params
 from repro_torch.optim import adam, sgd
 
 MESH = "1"          # one card
-
-
-class _OnMeta(TorchDispatchMode):
-    """Every op lands on ``meta``: factories' ``device`` is replaced and
-    their generator dropped, so ``Model.init`` draws shapes, not numbers."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = dict(kwargs or {})
-        if "device" in kwargs:
-            kwargs["device"] = torch.device("meta")
-        if kwargs.get("generator") is not None:
-            kwargs["generator"] = None
-        return func(*args, **kwargs)
-
-
-def meta_params(model):
-    """``model.init``'s parameters on ``meta``."""
-    with _OnMeta():
-        return model.init(torch.Generator())
 
 
 def skip_reason(cfg, shape, sliding_variant: bool) -> Optional[str]:

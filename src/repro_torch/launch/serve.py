@@ -39,6 +39,11 @@ def generate(model: Model, params, prompt: torch.Tensor, gen: int,
     An ``audio`` model needs ``audio_embed`` [B, encoder_seq, D]: it is
     encoded into the fresh cache (``prefill_cross_kv``) first.
 
+    On a mesh of ranks (``model.mesh``), ``params`` and ``prompt`` are the
+    rank's blocks and the cache is the rank's (``Model.init_cache``);
+    ``decode_step`` returns the whole logits on every model peer (gathered
+    over ``"model"``), so every peer picks the same greedy token.
+
     Returns ``tokens`` [B, gen], the last step's ``logits`` [B, V],
     ``finite`` (whether every step's logits were finite, reduced on the
     device), and the wall seconds of the encoding (``encode_s``, 0 without

@@ -20,12 +20,19 @@ divisibility fallback:
 
 ``shard_of`` cuts a rank's block out of a whole leaf, ``unshard`` gathers
 the blocks back in rank order (the counterparts of ``to_named``, which
-hands a spec to XLA). What the port executes of these specs so far is the
-``/moe/`` rule: the experts' ``wi_gate``, ``wi_up`` and ``wo`` split over
-``model`` on their expert axis, which ``models.moe.apply_moe``'s
-expert-parallel path takes; every other leaf is held whole on every rank.
-Dense tensor parallelism under these specs (the ``model`` rules for
-attention, MLP, embed and the Mamba2 mixer) is not ported yet.
+hands a spec to XLA). ``rank_specs`` is what the port executes:
+``param_specs`` whole (no ``fsdp``), every ``model`` rule with its
+fallback. The layers read which split they hold from their leaves' shapes
+against the config (``models/attention.py``, ``layers.apply_mlp``,
+``models/mamba2.py``, ``models/api.py``'s vocabulary, ``models/moe.py``'s
+experts), so a leaf held whole runs whole, with no collective.
+
+The decode cache a rank holds (``Model.init_cache`` on a mesh) is the one
+its own compute needs, which is ``cache_specs``' block where that spec
+splits the kv heads or the SSM heads over ``model``. Where the kv heads do
+not divide, ``cache_specs`` splits ``head_dim`` (or, for a batch that
+does not divide, the sequence) instead; the port's rank holds the kv heads
+its query heads read, whole, since its attention runs on whole heads.
 """
 from __future__ import annotations
 
@@ -263,21 +270,25 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     return shard_of(tree, specs, mesh)
 
 
-def moe_specs(cfg: ModelConfig, params: Any, mesh,
-              ep_axis: Optional[str] = "model") -> Any:
-    """The specs this port executes: ``param_specs``' own for the ``/moe/``
-    leaves (the experts over ``model``, the router whole), every other leaf
-    whole. ``ep_axis=None`` (the data-parallel MoE) holds every leaf whole."""
-    if ep_axis not in (None, "model"):
+def rank_specs(cfg: ModelConfig, params: Any, mesh,
+               moe_ep_axis: Optional[str] = "model", *,
+               replicate: bool = False) -> Any:
+    """The blocks a rank of ``mesh`` holds: ``param_specs`` (``fsdp=False``)
+    executed whole, with every fallback. ``moe_ep_axis=None`` (the
+    data-parallel MoE) holds the experts whole; ``replicate=True`` (the
+    population layout) holds every leaf whole."""
+    if moe_ep_axis not in (None, "model"):
         raise ValueError(f"the experts split over 'model' or nothing, not "
-                         f"{ep_axis!r}")
-    full = param_specs(cfg, params, mesh)
+                         f"{moe_ep_axis!r}")
+    specs = param_specs(cfg, params, mesh, replicate=replicate)
+    if moe_ep_axis is not None:
+        return specs
 
-    def keep(tree, specs, path=()):
+    def whole_experts(tree, path=()):
+        # the specs' tree, its leaves tuples: walk the dicts and lists only
         if isinstance(tree, dict):
-            return {k: keep(v, specs[k], path + (k,)) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(keep(v, s, path + (i,))
-                              for i, (v, s) in enumerate(zip(tree, specs)))
-        return specs if ep_axis and "/moe/" in _leaf_name(path) else ()
-    return keep(params, full)
+            return {k: whole_experts(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [whole_experts(v, path + (i,)) for i, v in enumerate(tree)]
+        return () if "/moe/" in _leaf_name(path) else tree
+    return whole_experts(specs)

@@ -8,11 +8,15 @@ kernel), so on the card the forward runs the hand-written kernels.
 
 On a mesh of ranks (``Model.mesh``) each rank differentiates the loss of
 its block of the batch, and the float32 gradients are averaged over the
-model's data axes (``Model.dp_axes``) with ``core.distributed.
-ordered_pmean``, leaf by leaf in pieces: every rank then takes the same
-Adam step, so the weights and the optimizer state that ranks hold alike
-stay bitwise equal. The loss and the nll in the metrics are averaged the
-same way (the aux loss is already the mesh's).
+axes the batch is cut along (``Model.batch_axes``: the data axes, and
+``"model"`` where every leaf is held whole) with ``core.distributed.
+ordered_pmean``, leaf by leaf in pieces. A leaf split over ``"model"`` is
+so averaged over the data axes only, and a leaf held whole on the model
+peers has the same gradient on each already (tensor parallelism's
+collectives sum the peers' partial gradients in rank order): every rank
+then takes the same Adam step, so the weights and the optimizer state
+that ranks hold alike stay bitwise equal. The loss and the nll in the
+metrics are averaged the same way (the aux loss is already the mesh's).
 """
 from __future__ import annotations
 
@@ -45,16 +49,17 @@ def _replace_leaves(tree, fn) -> None:
 
 def _mesh_mean(model: Model, grads, metrics: Dict[str, Any]):
     """The gradients (in place in their tree) and the loss terms averaged
-    over the data axes of ``model.mesh`` (unchanged without one)."""
-    mesh = model.mesh
-    if mesh is None or mesh.axis_size(model.dp_axes) == 1:
+    over the axes of ``model.mesh`` that the batch is cut along
+    (``Model.batch_axes``; unchanged without a mesh)."""
+    mesh, axes = model.mesh, model.batch_axes
+    if mesh is None or mesh.axis_size(axes) == 1:
         return grads, metrics
     from repro_torch.core.distributed import ordered_pmean
 
     def mean(g):
         flat = g.reshape(-1)
         return torch.cat([ordered_pmean(flat[i: i + _PMEAN_CHUNK], mesh,
-                                        model.dp_axes)
+                                        axes)
                           for i in range(0, flat.numel(), _PMEAN_CHUNK)]
                          ).view(g.shape)
 

@@ -24,15 +24,34 @@ equal), and ``loss`` drops the prefix's logits. The ``audio`` family
 where the caller passes them, as the reference does.
 On a mesh of ranks (``mesh``, ``dp_axes``, ``moe_ep_axis``, the
 reference's fields) every rank runs the model on its block of the batch
-with every weight whole but the experts, which ``models/moe.py``'s
-``shard_map`` paths take: expert-parallel over ``moe_ep_axis``, or
-data-parallel where it is ``None``. Decode passes ``mesh`` and ``dp_axes``
-but not ``moe_ep_axis``, as the reference's ``_decode_layer`` does, so it
-takes the expert-parallel path over ``"model"`` whatever ``moe_ep_axis``
-says. ``remat`` checkpoints each layer of ``forward`` (``models/remat.py``;
-``remat_policy`` "full" or "dots"). Not ported: ``head_axis`` and
-``seq_axis`` (attention's tensor and context parallelism) and ``unroll``
-(the port's stages are Python loops already).
+and its block of the weights (``launch.sharding.rank_specs``: the
+reference's ``param_specs`` executed, every fallback held whole). Tensor
+parallelism over ``"model"``: attention on the rank's heads, the MLP on
+its ``d_ff`` block, the Mamba2 mixer on its SSM heads
+(``models/attention.py``, ``layers.apply_mlp``, ``models/mamba2.py``), each
+reading its split from its leaves' shapes, so a leaf held whole runs whole
+with no collective; the vocabulary split over
+``"model"`` where it divides: ``_embed`` looks up the rank's rows (ids
+elsewhere read zero) and sums over the peers (one nonzero term, so exact),
+``_unembed`` computes the rank's columns and ``all_gather``s them, so
+``forward`` and ``decode_step`` return the whole logits on every rank and
+``loss`` runs on them (each rank sends its B x S x V / tp f32 block and
+receives the others'). Tied embeddings use the split ``embed`` for both.
+The experts take ``models/moe.py``'s ``shard_map`` paths:
+expert-parallel over ``moe_ep_axis``, or data-parallel where it is
+``None``. Decode passes ``mesh`` and ``dp_axes`` but not ``moe_ep_axis``,
+as the reference's ``_decode_layer`` does, so it takes the expert-parallel
+path over ``"model"`` whatever ``moe_ep_axis`` says. The ``REPLICATED_ARCHS``
+(xlstm, audio) hold every leaf whole and cut the batch over ``(data,
+model)`` (``Model.batch_axes``, from ``batch_specs``), as does ``dp_axes``
+holding ``"model"`` (``Model.replicate``, the population layout). The
+decode cache a rank holds is sized from its blocks (``Model.init_cache``:
+the blocks of ``rank_specs`` on ``meta``). ``remat``
+checkpoints each layer of ``forward`` (``models/remat.py``;
+``remat_policy`` "full" or "dots"). Not ported: ``head_axis`` (the
+reference's GSPMD hint that pads head counts that do not divide; the port
+runs such a layer whole) and ``seq_axis`` (context parallelism), and
+``unroll`` (the port's stages are Python loops already).
 """
 from __future__ import annotations
 
@@ -41,10 +60,13 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_map
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.sharding import batch_specs, rank_specs, shard_tree
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -128,7 +150,8 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
     if kind == "mamba":
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
         return x + mamba_lib.mamba2_forward(params["mixer"], h, cfg,
-                                            backend=backend), None
+                                            backend=backend,
+                                            mesh=mesh), None
     if kind == "xlstm_pair":
         x = xlstm_lib.mlstm_forward(params["mlstm"], x, cfg)
         return xlstm_lib.slstm_forward(params["slstm"], x, cfg,
@@ -136,13 +159,15 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
-                                  window=window, backend=backend)
+                                  window=window, backend=backend,
+                                  mesh=mesh)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
         out, aux = moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
                                      dp_axes=dp_axes, ep_axis=moe_ep_axis)
         return x + out, aux
-    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg)), None
+    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg),
+                         mesh=mesh, d_ff=cfg.d_ff), None
 
 
 def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
@@ -151,7 +176,8 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
     """Single-token decode for one layer; updates ``cache`` in place."""
     if kind == "mamba":
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
-        out, _ = mamba_lib.mamba2_decode(params["mixer"], h, cache, cfg)
+        out, _ = mamba_lib.mamba2_decode(params["mixer"], h, cache, cfg,
+                                         mesh=mesh)
         return x + out
     if kind == "xlstm_pair":
         x, _ = xlstm_lib.mlstm_decode(params["mlstm"], x, cache["mlstm"], cfg)
@@ -160,25 +186,33 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     out, _ = attn_lib.attn_decode(p["attn"], h, cache, pos, cfg,
-                                  window=window)
+                                  window=window, mesh=mesh)
     x = x + out
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":       # the aux loss is dropped, as in the reference
         return x + moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
                                      dp_axes=dp_axes)[0]
-    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg))
+    return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg),
+                         mesh=mesh, d_ff=cfg.d_ff)
 
 
 def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
-                      max_seq: int, dtype, device):
+                      max_seq: int, dtype, device, block=None, mesh=None):
+    """One stage's decode cache; with ``block``, the rank's parameters of
+    the stage (its layer's, or the shared attention's, on ``meta``), the
+    heads and channels they hold."""
     if stage.kind == "mamba":     # f32 whatever ``dtype``, as the reference
-        c = mamba_lib.init_mamba2_cache(cfg, batch, device=device)
+        c = mamba_lib.init_mamba2_cache(
+            cfg, batch, device=device,
+            params=None if block is None else block["mixer"])
     elif stage.kind == "xlstm_pair":     # f32 too
         c = {"mlstm": xlstm_lib.init_mlstm_cache(cfg, batch, device=device),
              "slstm": xlstm_lib.init_slstm_cache(cfg, batch, device=device)}
     else:
-        c = attn_lib.init_kv_cache(cfg, batch, max_seq, window=stage.window,
-                                   dtype=dtype, device=device)
+        c = attn_lib.init_kv_cache(
+            cfg, batch, max_seq, window=stage.window, dtype=dtype,
+            device=device, kv_heads=None if block is None else
+            attn_lib.rank_kv_heads(block["attn"], cfg, mesh))
     if stage.count > 1:   # stacked [count, ...], a buffer of its own each
         c = tree_map(lambda l: l[None].repeat((stage.count,)
                                               + (1,) * l.dim()), c)
@@ -195,6 +229,25 @@ def _layers(stage: Stage, tree):
     return [tree] if stage.count == 1 else unstack(tree, stage.count)
 
 
+class _OnMeta(TorchDispatchMode):
+    """Every op lands on ``meta``: factories' ``device`` is replaced and
+    their generator dropped, so ``Model.init`` draws shapes, not numbers."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        if kwargs.get("generator") is not None:
+            kwargs["generator"] = None
+        return func(*args, **kwargs)
+
+
+def meta_params(model):
+    """``model.init``'s parameters on ``meta``."""
+    with _OnMeta():
+        return model.init(torch.Generator())
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
@@ -206,8 +259,9 @@ class Model:
     program: List[Stage]
     backend: str = "auto"         # kernel backend: auto | ref
     remat: bool = False           # checkpoint each layer of forward
-    mesh: Any = None              # launch.mesh mesh of ranks (the MoE paths)
-    dp_axes: tuple = ("data",)    # mesh axes carrying the batch
+    mesh: Any = None              # launch.mesh mesh of ranks
+    dp_axes: tuple = ("data",)    # mesh axes carrying the batch (the
+                                  # REPLICATED_ARCHS add "model")
     remat_policy: str = "full"    # full | dots (keep the x @ w products)
     moe_ep_axis: Any = "model"    # MoE expert-parallel axis; None: the
                                   # data-parallel path, experts replicated
@@ -220,6 +274,38 @@ class Model:
         if self.remat_policy not in remat_lib.POLICIES:
             raise ValueError(f"unknown remat policy {self.remat_policy!r}: "
                              f"one of {remat_lib.POLICIES}")
+
+    # -- the mesh -------------------------------------------------------------
+    @property
+    def replicate(self) -> bool:
+        """The population layout: ``"model"`` among ``dp_axes``, every leaf
+        held whole and the batch cut over the whole mesh (``launch.
+        sharding``'s ``replicate``)."""
+        return "model" in self.dp_axes
+
+    @property
+    def batch_axes(self) -> tuple:
+        """The mesh axes a batch that divides is cut along (``launch.
+        sharding.batch_specs``: the data axes, or the whole mesh for
+        ``REPLICATED_ARCHS`` and under ``replicate``); ``dp_axes`` without
+        a mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return tuple(self.dp_axes)
+        every = InputShape("axes", 1, mesh.axis_size(mesh.axis_names),
+                           "train")
+        axes = batch_specs(self.cfg, every, mesh,
+                           replicate=self.replicate)["tokens"][0]
+        return axes if isinstance(axes, tuple) else (axes,)
+
+    def rank_blocks(self) -> Dict[str, Any]:
+        """This rank's parameter blocks on ``meta`` (shapes only):
+        ``launch.sharding.rank_specs`` over the whole model's shapes."""
+        whole = meta_params(self)
+        return shard_tree(whole, rank_specs(self.cfg, whole, self.mesh,
+                                            self.moe_ep_axis,
+                                            replicate=self.replicate),
+                          self.mesh)
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -254,14 +340,34 @@ class Model:
                batch: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """Token embeddings; for ``vlm`` with a ``batch``, its
         ``vision_embed`` [B, vision_tokens, D] in front of them."""
-        x = params["embed"][tokens].to(compute_dtype_of(self.cfg))
+        cdt = compute_dtype_of(self.cfg)
+        embed, mesh = params["embed"], self.mesh
+        if mesh is None or embed.shape[0] == self.cfg.vocab:
+            x = embed[tokens].to(cdt)
+        else:
+            # the rank's rows; ids elsewhere read zero, and the sum over
+            # the peers has one nonzero term, so it is exact
+            rows = embed.shape[0]
+            local = tokens - mesh.axis_index("model") * rows
+            mine = (local >= 0) & (local < rows)
+            x = torch.where(mine[..., None],
+                            embed[local.clamp(0, rows - 1)], 0.0).to(cdt)
+            x = coll.reduce_from_peers(x, mesh, "model")
         if batch is not None and self.cfg.family == "vlm":
             x = torch.cat([batch["vision_embed"].to(x.dtype), x], dim=1)
         return x
 
     def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits [.., V]: whole on every rank, the rank's vocabulary
+        columns gathered over ``"model"`` where they are split."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return x.float() @ w.float()
+        mesh = self.mesh
+        if mesh is None or w.shape[-1] == self.cfg.vocab:
+            return x.float() @ w.float()
+        mine = coll.replicated(x, mesh, "model").float() @ w.float()
+        parts = coll.all_gather(mine[None], mesh, "model")  # [tp, .., V/tp]
+        return torch.movedim(parts, 0, -2).reshape(
+            mine.shape[:-1] + (self.cfg.vocab,))
 
     def _positions(self, batch_size: int, seq: int, device) -> torch.Tensor:
         """[B, S], or [3, B, S] (three equal streams) under M-RoPE."""
@@ -322,9 +428,19 @@ class Model:
     # -- decode ----------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device="cuda"):
+        """The decode cache; on a mesh, the rank's kv heads, SSM heads and
+        ``conv_x`` channels (the ones its own compute reads), sized from
+        its blocks (``rank_blocks``)."""
         dev = resolve_device(device)
-        return [_init_stage_cache(self.cfg, s, batch, max_seq, dtype, dev)
-                for s in self.program]
+        if self.mesh is None:
+            blocks = [None] * len(self.program)
+        else:
+            whole = self.rank_blocks()
+            blocks = [whole.get("shared_attn") if s.kind == "shared_attn"
+                      else sp for s, sp in zip(self.program, whole["stages"])]
+        return [_init_stage_cache(self.cfg, s, batch, max_seq, dtype, dev,
+                                  block, self.mesh)
+                for s, block in zip(self.program, blocks)]
 
     def decode_step(self, params, cache, token: torch.Tensor, pos: int):
         """token: [B,1] int; pos: int. Returns (logits [B,V] f32, cache).

@@ -7,6 +7,7 @@ RoPE compute in float32 and cast back to the input's dtype, as the
 reference does. ``rope_angles`` takes M-RoPE's three position streams
 (qwen2-vl), ``sinusoidal_positions`` gives Whisper's fixed positional
 embeddings. The reference's asserts on M-RoPE's inputs are ``ValueError``s.
+``apply_mlp`` runs its rank's block on a mesh of ranks (its docstring).
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch import collectives as coll
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -123,11 +126,24 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int):
 
 
 def apply_mlp(params, x: torch.Tensor, act: str,
-              compute_dtype=torch.bfloat16) -> torch.Tensor:
-    xc = x.to(compute_dtype)
+              compute_dtype=torch.bfloat16, *, mesh=None,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The gated MLP. On a ``mesh`` whose rank holds a column block of
+    ``wi_gate`` / ``wi_up`` (fewer than ``d_ff`` columns) and the matching
+    rows of ``wo`` (``launch.sharding.rank_specs``), the input enters
+    through ``replicated`` and the partial output leaves through
+    ``reduce_from_peers`` over ``"model"`` (Megatron's f and g); leaves
+    held whole run whole, with no collective."""
+    split = mesh is not None and d_ff is not None \
+        and params["wi_gate"].shape[-1] != d_ff
+    xc = (coll.replicated(x, mesh, "model") if split else x) \
+        .to(compute_dtype)
     g = activation(act)(xc @ params["wi_gate"].to(compute_dtype))
     u = xc @ params["wi_up"].to(compute_dtype)
-    return ((g * u) @ params["wo"].to(compute_dtype)).to(x.dtype)
+    out = (g * u) @ params["wo"].to(compute_dtype)
+    if split:
+        out = coll.reduce_from_peers(out, mesh, "model")
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,20 @@ is the plain version's. Decode is the
 plain O(1) recurrent step; where the reference returns an updated copy of
 the cache, ``mamba2_decode`` writes the new conv history and state into
 ``cache`` in place.
+
+On a mesh of ranks (``mesh``: ``launch.sharding.rank_specs``' head-parallel
+layout over ``"model"``) a rank whose ``w_x`` holds fewer than ``d_in``
+columns runs its block of heads: ``w_z``, ``w_x``, ``w_dt``, ``conv_x_*``,
+``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` are its heads' (their
+input enters through ``replicated``), ``out_proj`` its rows (the partial
+output summed by ``reduce_from_peers``). ``w_B``, ``w_C`` and their
+convolutions are whole: every peer computes B and C from the input as it
+is and passes them, after the convolution and SiLU, through
+``replicated``, since each peer uses them on its own heads. The gated
+norm's mean over the whole ``d_in`` is the f32 sum of squares ``psum``-ed
+over the peers (whose cotangent is partial too) over ``d_in``. A layout
+that splits the channels but not the heads (``d_in`` divides, the head
+count does not) is not run: it raises.
 """
 from __future__ import annotations
 
@@ -22,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.ssm_scan import ssd_scan_op
+from repro_torch.launch import collectives as coll
 from repro_torch.models.attention import compute_dtype_of
 from repro_torch.models.layers import dense_init
 
@@ -69,41 +84,77 @@ def _causal_depthwise_conv(x, w, b):
     return out + b[None, None, :]
 
 
-def _gated_norm(y, z, scale, eps=1e-6):
+def _gated_norm(y, z, scale, eps=1e-6, mesh=None, width=None):
+    """RMSNorm of ``y * silu(z)``; on a ``mesh``, of this rank's channels
+    of ``width`` in all."""
     g = y * F.silu(z)
     gf = g.float()
-    var = torch.mean(gf * gf, dim=-1, keepdim=True)
+    if mesh is None:
+        var = torch.mean(gf * gf, dim=-1, keepdim=True)
+    else:
+        var = coll.psum(torch.sum(gf * gf, dim=-1, keepdim=True), mesh,
+                        "model") / width
     return (gf * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
+def _split(params, cfg: ModelConfig, d_in: int, mesh):
+    """(mesh or None, the rank's heads): the mesh where this rank holds a
+    block of the heads (module docstring)."""
+    dl, hl = params["w_x"].shape[-1], params["w_dt"].shape[-1]
+    if mesh is None or dl == d_in:
+        return None, hl
+    if hl * cfg.ssm_head_dim != dl:
+        raise ValueError(f"{cfg.name}: {dl} of {d_in} mixer channels with "
+                         f"{hl} whole heads: a split inside heads is not "
+                         f"run")
+    return mesh, hl
+
+
+def _replicated(t, mesh):
+    if mesh is None:
+        return t
+    return coll.replicated(t, mesh, "model")
+
+
+def _out(params, y: torch.Tensor, compute_dtype, mesh) -> torch.Tensor:
+    out = y.to(compute_dtype) @ params["out_proj"].to(compute_dtype)
+    if mesh is not None:
+        out = coll.reduce_from_peers(out, mesh, "model")
+    return out
+
+
 def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
-                   backend: str = "auto", chunk: int = 64) -> torch.Tensor:
-    """x: [B,S,D] -> [B,S,D]."""
+                   backend: str = "auto", chunk: int = 64,
+                   mesh=None) -> torch.Tensor:
+    """x: [B,S,D] -> [B,S,D]. On a ``mesh``, the rank's heads (module
+    docstring)."""
     compute_dtype = compute_dtype_of(cfg)
     bsz, s, d = x.shape
-    _, d_in, h = _dims(cfg, d)
-    xc = x.to(compute_dtype)
+    _, d_in, _ = _dims(cfg, d)
+    mesh, h = _split(params, cfg, d_in, mesh)
+    xr = x.to(compute_dtype)
+    xc = _replicated(x, mesh).to(compute_dtype)
     z = xc @ params["w_z"].to(compute_dtype)
     xs = xc @ params["w_x"].to(compute_dtype)
-    Bm = xc @ params["w_B"].to(compute_dtype)
-    Cm = xc @ params["w_C"].to(compute_dtype)
+    Bm = xr @ params["w_B"].to(compute_dtype)
+    Cm = xr @ params["w_C"].to(compute_dtype)
     dt_raw = xc @ params["w_dt"].to(compute_dtype)
 
     xs = F.silu(_causal_depthwise_conv(
         xs.float(), params["conv_x_w"], params["conv_x_b"]))
-    Bm = F.silu(_causal_depthwise_conv(
-        Bm.float(), params["conv_B_w"], params["conv_B_b"]))
-    Cm = F.silu(_causal_depthwise_conv(
-        Cm.float(), params["conv_C_w"], params["conv_C_b"]))
+    Bm = _replicated(F.silu(_causal_depthwise_conv(
+        Bm.float(), params["conv_B_w"], params["conv_B_b"])), mesh)
+    Cm = _replicated(F.silu(_causal_depthwise_conv(
+        Cm.float(), params["conv_C_w"], params["conv_C_b"])), mesh)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])             # [B,S,H]
     A = -torch.exp(params["A_log"])                                  # [H]
     xh = xs.reshape(bsz, s, h, cfg.ssm_head_dim)
     y = ssd_scan_op(xh, dt, A, Bm, Cm, chunk, backend)
     y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(bsz, s, d_in)
-    y = _gated_norm(y, z.float(), params["norm_scale"])
-    return (y.to(compute_dtype)
-            @ params["out_proj"].to(compute_dtype)).to(x.dtype)
+    y = y.reshape(bsz, s, h * cfg.ssm_head_dim)
+    y = _gated_norm(y, z.float(), params["norm_scale"], mesh=mesh,
+                    width=d_in)
+    return _out(params, y, compute_dtype, mesh).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -111,10 +162,15 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def init_mamba2_cache(cfg: ModelConfig, batch: int, *, device):
+def init_mamba2_cache(cfg: ModelConfig, batch: int, *, device,
+                      params=None):
     """Conv histories and SSM state of ONE Mamba2 layer, in f32 whatever
-    the model's dtype (as the reference's ``Model.init_cache``)."""
+    the model's dtype (as the reference's ``Model.init_cache``); with
+    ``params`` (a rank's block of the mixer, or its shapes), of the heads
+    and ``conv_x`` channels it holds."""
     _, d_in, h = _dims(cfg)
+    if params is not None:
+        d_in, h = params["w_x"].shape[-1], params["w_dt"].shape[-1]
     n, k = cfg.ssm_state, cfg.ssm_conv
     return {
         "conv_x": torch.zeros((batch, k - 1, d_in), device=device),
@@ -131,17 +187,21 @@ def _conv_step(hist, new, w, b):
     return out, full[:, 1:]
 
 
-def mamba2_decode(params, x: torch.Tensor, cache, cfg: ModelConfig):
+def mamba2_decode(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
+                  mesh=None):
     """x: [B,1,D] -> (y [B,1,D], cache). O(1) in context length; the new
-    conv histories and state are written into ``cache`` in place."""
+    conv histories and state are written into ``cache`` in place. On a
+    ``mesh``, the rank's heads (``init_mamba2_cache(params=)``)."""
     compute_dtype = compute_dtype_of(cfg)
     bsz, _, d = x.shape
-    _, d_in, h = _dims(cfg, d)
-    xc = x[:, 0].to(compute_dtype)
+    _, d_in, _ = _dims(cfg, d)
+    mesh, h = _split(params, cfg, d_in, mesh)
+    xr = x[:, 0].to(compute_dtype)
+    xc = _replicated(x[:, 0], mesh).to(compute_dtype)
     z = xc @ params["w_z"].to(compute_dtype)
     xs_new = xc @ params["w_x"].to(compute_dtype)
-    B_new = xc @ params["w_B"].to(compute_dtype)
-    C_new = xc @ params["w_C"].to(compute_dtype)
+    B_new = xr @ params["w_B"].to(compute_dtype)
+    C_new = xr @ params["w_C"].to(compute_dtype)
     dt_raw = xc @ params["w_dt"].to(compute_dtype)
 
     xs, conv_x = _conv_step(cache["conv_x"], xs_new, params["conv_x_w"],
@@ -150,7 +210,8 @@ def mamba2_decode(params, x: torch.Tensor, cache, cfg: ModelConfig):
                             params["conv_B_b"])
     Cm, conv_C = _conv_step(cache["conv_C"], C_new, params["conv_C_w"],
                             params["conv_C_b"])
-    xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
+    xs = F.silu(xs)
+    Bm, Cm = _replicated(F.silu(Bm), mesh), _replicated(F.silu(Cm), mesh)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])             # [B,H]
     A = -torch.exp(params["A_log"])
@@ -161,9 +222,10 @@ def mamba2_decode(params, x: torch.Tensor, cache, cfg: ModelConfig):
         "bhp,bn->bhpn", dt[..., None] * xh, Bm)
     y = torch.einsum("bhpn,bn->bhp", state, Cm) \
         + params["D"][None, :, None] * xh
-    y = y.reshape(bsz, d_in)
-    y = _gated_norm(y, z.float(), params["norm_scale"])
-    y = y.to(compute_dtype) @ params["out_proj"].to(compute_dtype)
+    y = y.reshape(bsz, h * cfg.ssm_head_dim)
+    y = _gated_norm(y, z.float(), params["norm_scale"], mesh=mesh,
+                    width=d_in)
+    y = _out(params, y, compute_dtype, mesh)
     for key, new in (("conv_x", conv_x), ("conv_B", conv_B),
                      ("conv_C", conv_C), ("ssm", state)):
         cache[key].copy_(new)

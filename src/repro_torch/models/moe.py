@@ -32,7 +32,7 @@ output is the rank's block.
 - data-parallel (``ep_axis=None``): experts replicated, routing and a
   capacity per data shard, the aux loss averaged over ``dp_axes``;
 - expert-parallel: the rank holds ``E / ep`` experts (``launch.sharding.
-  moe_specs``); each of the ``ep`` peers takes ``t_ep = t_loc // ep`` of
+  rank_specs``); each of the ``ep`` peers takes ``t_ep = t_loc // ep`` of
   the block's tokens, routes them with a capacity of its own, and an
   ``all_to_all`` pair moves the groups ``[E, C, d] -> [E/ep, ep C, d]``
   to the experts' owners and back; an ``all_gather`` over the peers
@@ -182,7 +182,7 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, *, mesh: Any = None,
     el = e // ep
     if params["wi_gate"].shape[0] != el:
         raise ValueError(f"the expert-parallel path takes this rank's "
-                         f"{el} of {e} experts (launch.sharding.moe_specs); "
+                         f"{el} of {e} experts (launch.sharding.rank_specs); "
                          f"got {params['wi_gate'].shape[0]}")
     # activations arrive replicated over the expert axis; each peer takes
     # a distinct 1/ep slice of the block's tokens

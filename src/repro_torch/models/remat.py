@@ -19,10 +19,17 @@ without ``setup_context``), so the port has its own ``autograd.Function``:
 
 ``policy="dots"`` (``jax.checkpoint_policies.dots_with_no_batch_dims_
 saveable``) also keeps the outputs of the products with no batch
-dimension, ``aten.mm`` and ``aten.addmm`` (every ``x @ w``), and the
+dimension, ``aten.mm`` and ``aten.addmm`` (every ``x @ w``), and of the
+ordered sums over ranks (``repro_torch::ordered_psum``: tensor
+parallelism's ``reduce_from_peers``, the MoE aux loss's mean), and the
 recomputation takes them in the order the forward made them in place of
-computing them again; batched products (``bmm``: the experts, attention)
-and the flash kernel's output are recomputed.
+computing them again, so it moves nothing between ranks (skipping the
+tensor-parallel all-reduces is the reference's stated purpose for
+"dots"); batched products (``bmm``: the experts, attention), the flash
+kernel's output and the other transfers (the experts' ``all_to_all`` and
+``all_gather``) are recomputed. Under ``policy="full"`` the recomputation
+runs every collective of the layer again; every rank recomputes in the
+same order, so they stay matched.
 
 The recomputation runs the same ops on the same inputs, so a gradient with
 ``remat`` is bitwise the gradient without it.
@@ -36,8 +43,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.core.distributed import ordered_psum_op
+
 POLICIES = ("full", "dots")
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         ordered_psum_op._opoverload)
 
 
 class _Box:

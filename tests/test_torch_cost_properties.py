@@ -221,3 +221,39 @@ def test_moe_layer_all_to_all_bytes_per_rank(ek, ep, b, m, d, dtype, cf):
         torch.func.grad(lambda p, x: moe.apply_moe(p, x, cfg, mesh=mesh)[0]
                         .float().sum(), argnums=(0, 1))(params, x)
     assert cc.coll["all-to-all"] == 2 * pair
+
+
+@settings(max_examples=12, deadline=None)
+@given(st.integers(1, 3), st.integers(1, 3), st.integers(1, 8),
+       st.sampled_from([2, 4]), st.sampled_from([32, 64]),
+       st.sampled_from(["float32", "bfloat16"]), st.booleans())
+def test_tensor_parallel_forward_all_reduce_bytes(layers, b, s, tp, d, dtype,
+                                                   vocab_splits):
+    """A dense model's forward split over ``tp`` ranks of ``"model"``
+    (``launch.sharding.rank_specs``' blocks) all-reduces each layer's
+    attention and MLP outputs, [B, S, d] in the compute dtype the partial
+    sums cross in, 2 x layers x B x S x d x its bytes, and the embedding
+    lookup once more where the vocabulary splits; it gathers the rank's
+    f32 logits [B, S, V / tp] once, and nothing when the vocabulary stays
+    whole."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.lm_ranks import rank_params
+    from repro_torch.models import build_model
+    vocab = 256 if vocab_splits else 255
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"),
+                              n_layers=layers, d_model=d, n_heads=4,
+                              n_kv_heads=4, d_ff=8 * tp, vocab=vocab,
+                              dtype=dtype)
+    model = build_model(cfg, mesh=_meta_mesh(1, tp, tp - 1))
+    params = rank_params(model, meta_params(model))
+    tokens = torch.zeros((b, s), dtype=torch.int64, device="meta")
+    with CostCounter() as cc:
+        logits, _ = model.forward(params, {"tokens": tokens})
+    assert logits.shape == (b, s, vocab)
+    item = getattr(torch, dtype).itemsize
+    reduces = 2 * layers + (1 if vocab_splits else 0)
+    assert cc.coll["all-reduce"] == reduces * b * s * d * item
+    assert cc.coll["all-gather"] == (4 * b * s * vocab // tp
+                                     if vocab_splits else 0)

@@ -23,7 +23,9 @@ and inputs from a numpy seed, in float32, at the smoke granite-moe layer
   factor 1.25 (slots drop in each shard) and 8.0 (drop-free); drop-free,
   also 1e-5 of the port's own local path (``mesh=None``), as the
   reference's ``test_sharded_moe_matches_local``;
-- the smoke granite-moe's ``Model.loss`` on 2 x 2 1e-5 relative, and its
+- the smoke granite-moe's ``Model.loss`` on 2 x 2 (every rank holding
+  ``launch.sharding.rank_specs``' blocks: the experts and the attention's
+  heads split over ``model``, the vocabulary of 256 too) 1e-5 relative, and its
   gradient averaged over ``data`` as the train step averages it, 1e-4 of
   each leaf's largest, against ``jax.value_and_grad`` of the reference's
   ``build_model(cfg, mesh=mesh).loss`` (sums in another order through two
@@ -161,7 +163,7 @@ from repro_torch.launch import collectives
 from repro_torch.launch.lm_ranks import rank_params
 from repro_torch.launch.mesh import make_lm_mesh
 from repro_torch.launch.multiprocess import initialize_from_env
-from repro_torch.launch.sharding import moe_specs, shard_of, unshard
+from repro_torch.launch.sharding import rank_specs, shard_of, unshard
 from repro_torch.launch import steps
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model, moe
@@ -259,7 +261,7 @@ flat = [torch.from_numpy(data[f"model.{i}"]) for i in range(spec["n_leaves"])]
 # tree_leaves' order is the reference's: put its leaves in the port's tree
 by_id = {id(t): v for t, v in zip(tree_leaves(whole), flat)}
 whole = tree_map(lambda t: by_id[id(t)], whole)
-specs = moe_specs(cfg, whole, mesh)
+specs = rank_specs(cfg, whole, mesh)
 params = rank_params(model, whole)
 batch = {"tokens": shard_of(torch.from_numpy(data["tokens"]),
                             ("data", None), mesh)}

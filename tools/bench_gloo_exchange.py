@@ -15,11 +15,21 @@ Ways, each over the same 1 GiB a rank:
   theirs (``dist.batch_isend_irecv``), a window of pieces in flight;
 - ``ordered_psum``: the port's own, in its own pieces and window.
 
-Each rank prints one JSON line, GB/s by way (bytes moved to the peer over
-seconds, from a barrier to the last piece's arrival; ``ordered_psum`` also
-copies the sum back to the card); the launcher prints the card, then every
-rank's line. Every way is warmed up first (a custom op's first call
-imports ``torch._dynamo``).
+Then the all-gather over all 4 ranks (a ``1 x 4`` model axis, as
+``launch.collectives.all_gather`` gathers the vocabulary's logits), each
+rank's 256 MiB part staged in page-locked host memory:
+
+- ``gather4 all_gather whole``: one blocking ``dist.all_gather`` of the
+  whole part, the transport ``all_gather`` had before;
+- ``gather4 all_gather 32 MB``: one blocking call a 32 MB piece;
+- ``gather4 gather_parts``: ``core.distributed.gather_parts``, the
+  pairwise point-to-point exchange ``all_gather`` uses now.
+
+Each rank prints one JSON line, GB/s by way (bytes moved to the peer, or
+received from the other 3 for the gathers, over seconds, from a barrier
+to the last piece's arrival; ``ordered_psum`` also copies the sum back to
+the card); the launcher prints the card, then every rank's line. Every way
+is warmed up first (a custom op's first call imports ``torch._dynamo``).
 """
 from __future__ import annotations
 
@@ -37,8 +47,8 @@ RANKS, ELEMENTS = 4, 1 << 28
 def _rank() -> None:
     import torch
     import torch.distributed as dist
-    from repro_torch.core.distributed import (host_copy, host_empty,
-                                              ordered_psum)
+    from repro_torch.core.distributed import (gather_parts, host_copy,
+                                              host_empty, ordered_psum)
     from repro_torch.launch.mesh import make_lm_mesh
     from repro_torch.launch.multiprocess import initialize_from_env
 
@@ -90,17 +100,32 @@ def _rank() -> None:
             ordered_psum(g[at: at + (1 << 25)], mesh, "data")
             for at in range(0, ELEMENTS, 1 << 25)],
     }
+    part = g[: ELEMENTS // 4]
+
+    def gather4(piece: int):
+        for at in range(0, part.numel(), piece):
+            host = host_copy(part[at: at + piece])
+            dist.all_gather([host_empty(host.shape, host)
+                             for _ in range(RANKS)], host)
+
+    gathers = {
+        "gather4 all_gather whole": lambda: gather4(part.numel()),
+        "gather4 all_gather 32 MB": lambda: gather4(1 << 23),
+        "gather4 gather_parts": lambda: gather_parts(host_copy(part), None),
+    }
     gather(1 << 25)                 # the host allocator's blocks, warm
     ordered_psum(g[: 1 << 20], mesh, "data")   # its first call's imports
+    gather4(1 << 23)
     out = {"rank": rank}
-    for name, fn in ways.items():
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out[name] = round(ELEMENTS * 4 / (time.perf_counter() - t0) / 1e9,
-                          4)
+    for moved, table in ((ELEMENTS * 4, ways),
+                         ((RANKS - 1) * part.numel() * 4, gathers)):
+        for name, fn in table.items():
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name] = round(moved / (time.perf_counter() - t0) / 1e9, 4)
     print(json.dumps(out), flush=True)
 
 
