@@ -87,7 +87,7 @@ Phases (any failure exits non-zero without the final result line):
    ``experiment.run_with_models`` (``run_experiment``'s body) handed the
    paper CNN at full width, in fixed mode: F = 8 fixed devices, M = 20
    mules on the walk (P_cross = 0.1), ``dir0.01`` data, batch 16, lr 0.05,
-   120 pretraining steps, T = 60 (6 federated rounds of 2 local steps), an
+   30 pretraining steps, T = 60 (6 federated rounds of 2 local steps), an
    eval every 20 steps. ``mule_agg`` must launch 60 times for ``mlmule``
    and never for the other four; every accuracy finite and in [0, 1],
    every weight finite. ``mlmule`` is replayed bitwise, with
@@ -100,21 +100,23 @@ Phases (any failure exits non-zero without the final result line):
 11. the HAR path (Fig 8): ``mlmule`` and ``gossip`` on ``har_commuter``
    through ``run_with_models`` handed the LSTM-CNN at full width (window
    128, 6 channels, conv 32/64, LSTM 64, 4 classes), M = 256, F = 8, batch
-   12, lr 0.03, T = 21 (cut from 60), an eval every 20 steps.
+   12, lr 0.03, T = 21 (cut from 60), an eval every 20 steps, 30
+   pretraining steps a device (the harness's 120, cut).
    ``mule_agg`` must launch 21 times for ``mlmule``; ``encounter_mix`` 7
    times and ``mule_agg`` never for ``gossip``. Both are replayed bitwise and against their plain
    backend under the growth bound of phases 4 and 5, ``mlmule``'s
    aggregation and ``gossip``'s mix held in lockstep; each prints steps/s,
    peak memory, its accuracy trace and a profile. Then
    ``run_experiment(task="har")`` at its defaults for the five
-   ``METHODS_MOBILE``, T = 20;
+   ``METHODS_MOBILE``, T = 20, 30 pretraining steps;
 12. the multi-area path: ``mlmule`` and ``gossip`` on ``multi_area_3city``
    (12 fixed devices in 3 cities) and ``gossip`` on
    ``multi_area_migratory`` (its area a [T, M] column) at the paper CNN's
-   full width, M = 256, T = 60, an eval every 20. ``mule_agg`` must launch
-   60 times for ``mlmule`` (F = 12, the kernel's 12-row instance),
-   ``encounter_mix`` 20 times for ``gossip``; each run replayed bitwise
-   and against its plain backend under the growth bound, ``gossip``'s mix
+   full width, M = 256, T = 30 (60 until phase 25), an eval every 20.
+   ``mule_agg`` must launch 30 times for ``mlmule`` (F = 12, the kernel's
+   12-row instance), ``encounter_mix`` 10 times for ``gossip``; each run
+   replayed bitwise and against its plain backend under the growth bound,
+   ``gossip``'s mix
    in lockstep with the plain version at every exchange (1e-5), and no met
    pair across the step's areas;
 13. the seed sweep: ``run_sweep`` over S = 4 seeds of the walk (P_cross =
@@ -132,6 +134,7 @@ Phases (any failure exits non-zero without the final result line):
    runs', peak memory and a profile of the sweep step. Then
    ``run_sweep_experiment`` at Fig 8's config (har, walk P_cross = 0.1,
    batch 12, lr 0.03) at the harness's default sizes, seeds 0-3, T = 21,
+   30 pretraining steps,
    every accuracy in [0, 1];
 14. the streamed path: phase 4's ``mlmule`` run and phase 5's ``gossip``
    run, each through ``run_population`` and through
@@ -143,7 +146,7 @@ Phases (any failure exits non-zero without the final result line):
 15. population scale: the reference's scale workload (a linear model of
    8 weights, F = 8, ``mlmule``, 2 samples a mule a step) on
    ``streaming_commuter``'s procedural stream at M = 100,000 and
-   1,000,000, T = 24 (the reference's 96, cut), streamed in chunks of 8
+   1,000,000, T = 16 (the reference's 96, cut), streamed in chunks of 8
    and through ``run_population``
    over ``materialize_generator``'s schedule: final models and
    ``last_fid`` bitwise equal, ``mule_agg`` 24 launches a run; steps/s,
@@ -321,7 +324,30 @@ Phases (any failure exits non-zero without the final result line):
    same kernels, their 16 greedy tokens equal one process's (or apart
    first at a near tie within 2e-4), and the 2 x 2 loss and gradient of
    stablelm-1.6b within 1e-5 and 2e-4 of each leaf's largest. Tokens/s, steps/s, each rank's
-   peak and the seconds spent in the all-reduces are printed.
+   peak and the seconds spent in the all-reduces are printed;
+25. context parallelism, in phase 23's ranks too: rank 0 first holds
+   ``flash_attention`` against its plain version at the per-rank shapes
+   (stablelm-1.6b's 1024 queries of 32 heads against the prefix of 1024
+   (r + 1) keys, right-aligned and causal, for each r of 4 x 1; 2048 of 16
+   heads against 2048 (r + 1) on 2 x 2), every call tensor-core, timed
+   beside SDPA with a right-aligned mask and the bound. (a) stablelm-1.6b
+   whole in bf16 at batch 1, a 4096-token prompt (its context length),
+   on 4 x 1 with ``seq_axis="data"`` (1024 tokens a rank) and on 2 x 2
+   (2048 tokens and 16 heads a rank): the prefill with 24 tensor-core
+   ``flash_attention`` launches a rank, exactly 24 K/V gathers over
+   ``data`` of their bytes (and, on 2 x 2, the tensor-parallel sums and
+   the logits' gather), each rank's attention ms (rank r reads r + 1
+   blocks of keys) and peak; (c) decode at batch 1 from the cache split
+   over ``data`` (a 48-token prompt, 16 greedy tokens: 64 slots, 16 or 32
+   a rank), its bytes a rank exact, the tokens equal on every rank. (b)
+   f32 copies with 2 layers on both meshes against one process on the
+   same weights: the logits of 1 x 1024 and the loss within 2e-4, the
+   gradient (the ranks' shares summed over ``data``) within 2e-4 of each
+   leaf's largest, and on 4 x 1 the greedy tokens of (c)'s decode equal
+   one process's. (d) 2 SGD steps of stablelm-1.6b on 2 x 2 at 1 x 2048 with
+   remat "dots": the gathers and sums of a step exact, the loss falling,
+   every leaf held whole bitwise equal on all ranks after them and each
+   split leaf on its data peers.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -569,11 +595,17 @@ RING_RANKS, RING_STEPS = 4, 12
 RING_MIX_TOL = 2e-5
 RING_TIMEOUT = 600
 # Table 1 fixed path (phase 10): the paper's 8 fixed devices and 20 mules,
-# 120 pretraining steps a device, T = 60 (6 federated rounds of 2 local
-# steps); the batch, lr, eval cadence, walk and CNN of phases 4 and 5
-FIXED_MULES, FIXED_STEPS, FIXED_PRETRAIN = 20, 60, 120
+# 30 pretraining steps a device (120 until phase 25, cut for its time),
+# T = 60 (6 federated rounds of 2 local steps); the batch, lr, eval
+# cadence, walk and CNN of phases 4 and 5
+FIXED_MULES, FIXED_STEPS, FIXED_PRETRAIN = 20, 60, 30
 # HAR path (phase 11): Fig 8's batch and lr (examples/har_mobile_training.py)
 HAR_BATCH, HAR_LR = 12, 0.03
+# local pretraining steps a device on the HAR task (phase 11's runs, its
+# run_experiment defaults and phase 13's Fig 8 sweep), cut from the
+# harness's 120 (at the LSTM-CNN ~90 ms a step, most of those runs' wall)
+# to keep the script inside its time with phase 25
+HAR_PRETRAIN = 30
 # the HAR path's horizon, cut from 60 to keep the script inside its time
 # with phases 17-20 (one eval, after step 19; a multiple of the peer
 # cadence, 3)
@@ -590,6 +622,9 @@ LANES = 4
 # of the peer cadence, 3)
 SWEEP_STEPS = 21
 MULTI_AREA_FIXED = 12
+# the multi-area path's horizon (phase 12), cut from the other paths' 60
+# for phase 25 (one eval, after step 19; a multiple of the peer cadence)
+MULTI_AREA_STEPS = 30
 # the dense HAR strip of the lane-batched mix: the LSTM-CNN's D
 HAR_D = 44_580
 # mule_agg's timings (phase 3): a call whose bound is under GRAPH_BELOW_MS
@@ -605,11 +640,11 @@ STREAM_CHUNK = EVAL_EVERY
 # population scale (phase 15): the reference's scale workload
 # (benchmarks/engine_micro.py: _scale_workload), a linear model of D = 8
 # weights over F = 8 fixed devices, two samples a mule a step, lr 0.05, on
-# streaming_commuter's procedural stream, T = 24 (the reference's horizon
-# is 96; cut to keep the script inside its time with phases 17-20) in
-# chunks of 8
+# streaming_commuter's procedural stream, T = 16 (the reference's horizon
+# is 96; cut to 24 to keep the script inside its time with phases 17-20,
+# and to 16 with phase 25) in chunks of 8
 SCALE_MULES = (100_000, 1_000_000)
-SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 24, 8, 2, 0.05
+SCALE_D, SCALE_STEPS, SCALE_CHUNK, SCALE_BATCH, SCALE_LR = 8, 16, 8, 2, 0.05
 # the distributed engine (phase 16): 4 ranks, each a 64-mule block of the
 # bucket-ordered walk of phase 9 at the CNN's full width, T = 6 (cut from
 # 30 for phases 22 and 23, from 12 for phase 24; at most phase 9's T, whose
@@ -744,6 +779,20 @@ LOSS_REL_TP = 1e-5
 # and 1.6507e-01 (3.1263e-01 with zamba2's 54 layers); near ties
 # 1.1488e-02 and 3.4327e-02 (5.4581e-02 at 54 layers).
 TP_BF16_GAP = 0.25
+# context parallelism (phase 25), in phase 23's ranks: (a) CP_ARCH whole in
+# bf16 at batch 1, a CP_PREFILL-token prompt (stablelm-2's context length)
+# on each of CP_MESHES with the sequence over "data"; (c) decode at batch 1
+# from the split cache after a CP_PROMPT-token prompt, CP_GEN greedy
+# tokens (64 slots: 16 a rank on 4 x 1); (b) f32 copies with
+# CP_PARITY_LAYERS layers against one process on the same weights, at 1 x
+# CP_PARITY_S (bounds REF_PREFILL_TOL and MESH_GRAD_REL); (d) CP_TRAIN_STEPS
+# SGD steps of CP_ARCH on 2 x 2 at 1 x CP_TRAIN_S, remat "dots"
+CP_ARCH = "stablelm-1.6b"
+CP_MESHES = ((MESH_RANKS, 1), (2, 2))
+CP_PREFILL = 4096
+CP_PROMPT, CP_GEN = 48, 16
+CP_PARITY_LAYERS, CP_PARITY_S = 2, 1024
+CP_TRAIN_S, CP_TRAIN_STEPS, CP_LR = 2048, 2, 0.01
 # (d)'s f32 greedy decode on 1 x 4 against one process: the tokens equal,
 # or apart first at a near tie within REF_PREFILL_TOL
 # audio and vision (phase 21): whisper-base whole (6 encoder and 6 decoder
@@ -2093,7 +2142,8 @@ def phase_slstm_scan(card: str) -> dict:
                              f"oracle than twice the plain version")
     del out, want, oracle
     ms = _median_ms(lambda: slstm_scan(pre, r), reps=10)
-    plain_ms = _median_ms(lambda: slstm_reference(pre, r), reps=3, warm=1)
+    # one call of ~2 s (the check above warmed it); three until phase 25
+    plain_ms = _median_ms(lambda: slstm_reference(pre, r), reps=1, warm=0)
     # the products h_{t-1} @ r of every step, and each input and output
     # moved once
     work = slstm_work(b, s, h, p)
@@ -3245,13 +3295,15 @@ def _count_run(fn):
         torch.cuda.max_memory_allocated()
 
 
-def _short_defaults(label: str, task: str, mode: str, methods) -> None:
+def _short_defaults(label: str, task: str, mode: str, methods,
+                    **cut) -> None:
     """``run_experiment`` at the harness's own reduced defaults on the card
-    for each method, with a short T and an eval every 10 steps."""
+    for each method, with a short T, an eval every 10 steps and the fields
+    in ``cut``."""
     from repro_torch.experiment import ExperimentConfig, run_experiment
     for method in methods:
         cfg = ExperimentConfig(task=task, mode=mode, method=method,
-                               steps=SHORT_STEPS, eval_every=10)
+                               steps=SHORT_STEPS, eval_every=10, **cut)
         t0 = time.perf_counter()
         result = run_experiment(cfg, device="cuda")
         _check_result(f"{label} {method}", result,
@@ -3389,7 +3441,8 @@ def phase_har_path(card: str) -> dict:
     torch.cuda.empty_cache()
     base = ExperimentConfig(scenario="har_commuter", steps=HAR_STEPS,
                             eval_every=EVAL_EVERY, n_mules=N_MULES,
-                            batch=HAR_BATCH, lr=HAR_LR, seed=SEED)
+                            batch=HAR_BATCH, lr=HAR_LR, seed=SEED,
+                            pretrain_steps=HAR_PRETRAIN)
     fns = lstm_cnn_model_fns(CONFIG, HAR_LR)
     n_exchanges = HAR_STEPS // PEER_EVERY
     counts = {}
@@ -3432,7 +3485,8 @@ def phase_har_path(card: str) -> dict:
                                         PROFILE_STEPS),
             "eval_every": None, "eval_fn": None}), PROFILE_STEPS,
             f"HAR {method}")
-    _short_defaults("HAR defaults", "har", "mobile", METHODS_MOBILE)
+    _short_defaults("HAR defaults", "har", "mobile", METHODS_MOBILE,
+                    pretrain_steps=HAR_PRETRAIN)
     print(f"HAR path: phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"mule_agg": counts["mlmule"]["mule_agg"],
             "encounter_mix": counts["gossip"]["encounter_mix"]}
@@ -3442,8 +3496,9 @@ def phase_multi_area(card: str) -> dict:
     """The multi-area path: ``mlmule`` and ``gossip`` on
     ``multi_area_3city`` and ``gossip`` on ``multi_area_migratory`` (its
     area a [T, M] column) at the paper CNN's full width, F = 12, M = 256,
-    T = 60, an eval every 20; launches exact, replays bitwise and against
-    the plain backends, the mix in lockstep with no met pair across areas.
+    T = MULTI_AREA_STEPS, an eval every 20; launches exact, replays bitwise
+    and against the plain backends, the mix in lockstep with no met pair
+    across areas.
     Returns {path: {kernel: launches}}."""
     import gc
     import numpy as np
@@ -3461,7 +3516,7 @@ def phase_multi_area(card: str) -> dict:
     for scenario, methods in (("multi_area_3city", ("mlmule", "gossip")),
                               ("multi_area_migratory", ("gossip",))):
         spec = get_scenario(scenario)
-        co = spec.colocation(SEED, N_MULES, N_STEPS)
+        co = spec.colocation(SEED, N_MULES, MULTI_AREA_STEPS)
         if spec.n_fixed != MULTI_AREA_FIXED:
             raise AssertionError(f"{scenario}: {spec.n_fixed} fixed devices")
         area = np.asarray(co["area"])
@@ -3470,7 +3525,7 @@ def phase_multi_area(card: str) -> dict:
         print(f"{scenario}: areas {sorted(np.unique(area).tolist())}, area "
               f"column {area.shape}, {moved} mules change area, "
               f"{int((co['exchange'] & (co['fixed_id'] >= 0)).sum())} "
-              f"deliveries in T={N_STEPS}")
+              f"deliveries in T={MULTI_AREA_STEPS}")
         Xtr, Ytr, Xte, Yte = image_data_mobile(
             SEED, N_MULES, spec.n_fixed, co["init_space"], co["init_area"],
             n_super=CONFIG.n_classes, image_size=CONFIG.image_size)
@@ -3496,16 +3551,17 @@ def phase_multi_area(card: str) -> dict:
             (final, aux), got, peak = _count_run(
                 lambda: run_population(**run))
             wall = time.perf_counter() - t0
-            want = ({"mule_agg": N_STEPS, "encounter_mix": 0}
+            want = ({"mule_agg": MULTI_AREA_STEPS, "encounter_mix": 0}
                     if method == "mlmule" else
-                    {"mule_agg": 0, "encounter_mix": N_STEPS // PEER_EVERY})
+                    {"mule_agg": 0,
+                     "encounter_mix": MULTI_AREA_STEPS // PEER_EVERY})
             label = f"{scenario} {method}"
             if got != want:
                 raise AssertionError(f"{label}: kernel launches {got}, "
                                      f"expected {want}")
             evals = aux["evals"]
             if evals is None or tuple(evals.shape) != (
-                    N_STEPS // EVAL_EVERY, N_MULES) or \
+                    MULTI_AREA_STEPS // EVAL_EVERY, N_MULES) or \
                     not bool(torch.isfinite(evals).all()):
                 raise AssertionError(f"{label}: evals missing or not finite")
             _check_finite(label, {**final["mule_models"],
@@ -3515,7 +3571,8 @@ def phase_multi_area(card: str) -> dict:
             trace = [(int(s), float(a)) for s, a in
                      zip(aux["eval_steps"], evals.mean(1).tolist())]
             print(f"multi-area path: {label}, F={spec.n_fixed}, "
-                  f"M={N_MULES}, T={N_STEPS}: {N_STEPS / wall:.3f} steps/s "
+                  f"M={N_MULES}, T={MULTI_AREA_STEPS}: "
+                  f"{MULTI_AREA_STEPS / wall:.3f} steps/s "
                   f"({wall:.3f} s), peak memory {peak} B, launches {got}, "
                   f"accuracy trace {trace} [{card}]")
             paths[label] = got
@@ -3524,7 +3581,7 @@ def phase_multi_area(card: str) -> dict:
                 _replays(label, run, "agg_backend", REPLAY_ATOL)
             else:
                 _replays(label, run, "enc_backend", PEER_REPLAY_ATOL)
-                _mix_lockstep(label, run, N_STEPS)
+                _mix_lockstep(label, run, MULTI_AREA_STEPS)
         del pop0, Xtr, Xte
     print(f"multi-area path: phase wall {time.perf_counter() - t_phase:.1f} s")
     return paths
@@ -3672,7 +3729,8 @@ def phase_sweep(card: str) -> dict:
 
     # Fig 8's config through the harness's seeded sweep
     cfg = ExperimentConfig(task="har", mode="mobile", pattern=str(P_CROSS),
-                           steps=SWEEP_STEPS, batch=HAR_BATCH, lr=HAR_LR)
+                           steps=SWEEP_STEPS, batch=HAR_BATCH, lr=HAR_LR,
+                           pretrain_steps=HAR_PRETRAIN)
     t0 = time.perf_counter()
     result, got, peak = _count_run(lambda: run_sweep_experiment(
         cfg, seeds, methods=METHODS_MOBILE, device="cuda"))
@@ -6366,6 +6424,270 @@ def _tp_rank(rep: dict, note, free) -> None:
     note("(24d) f32 parity")
 
 
+def _cp_kernel_shapes() -> list:
+    """Phase 25 on rank 0: flash_attention against its plain version at the
+    shapes a rank of each of CP_MESHES gives it (its block of queries
+    against the prefix of keys, right-aligned and causal), every call
+    tensor-core, timed beside the plain version, SDPA with an explicit
+    right-aligned mask (``is_causal`` aligns to the top left when S != Sk)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.roofline import flash_attention_work
+    cfg = get_config(CP_ARCH)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 14)
+    out = []
+    for dp, tp in CP_MESHES:
+        s, h, kv = (CP_PREFILL // dp, cfg.n_heads // tp,
+                    cfg.n_kv_heads // tp)
+        d = cfg.resolved_head_dim
+        for r in range(dp):
+            sk = s * (r + 1)
+            q = torch.randn(1, s, h, d, device="cuda", generator=g).bfloat16()
+            k, v = (torch.randn(1, sk, kv, d, device="cuda", generator=g)
+                    .bfloat16() for _ in range(2))
+            got = _flash_routed(q, k, v, causal=True)
+            err = _hold(f"flash_attention {CP_ARCH}'s rank {r} of {dp} x {tp}"
+                        f" (seq over data) q {list(q.shape)} k/v "
+                        f"{list(k.shape)} bf16 causal, right-aligned, vs "
+                        f"flash_reference", got,
+                        flash_attention(q, k, v, causal=True, backend="ref"),
+                        *FLASH_BF16_VS_BF16)
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = (torch.arange(sk, device="cuda")[None, :]
+                    <= torch.arange(s, device="cuda")[:, None] + sk - s)
+
+            def lib():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+            lib_err = (lib().transpose(1, 2).float() - got.float()).abs() \
+                .max().item()
+            work = flash_attention_work(1, s, sk, h, kv, d, True, None,
+                                        torch.bfloat16)
+            out.append({
+                "mesh": [dp, tp], "rank": r, "shape": [1, s, sk, h, kv, d],
+                "causal": "right-aligned", "max_abs_err": err,
+                "sdpa_diff": lib_err,
+                "ms": _median_ms(lambda: flash_attention(q, k, v,
+                                                         causal=True),
+                                 reps=10),
+                "plain_ms": _median_ms(lambda: flash_attention(
+                    q, k, v, causal=True, backend="ref"), reps=3, warm=1),
+                "library_ms": _median_ms(lib, reps=10),
+                "bound_ms": work.bound_ms, "bound_by": work.bound_by})
+            del q, k, v, qh, kh, vh, got
+    return out
+
+
+def _cp_counts() -> dict:
+    """The transfers so far: the K/V gathers and their backward, the sums
+    over ranks and the other gathers (calls and bytes)."""
+    from repro_torch.core.distributed import PSUM_COUNTS
+    from repro_torch.launch import collectives
+    c = collectives.COLLECTIVE_COUNTS
+    return {"seq_gather": [c["seq-gather"][k] for k in
+                           ("calls", "sent_bytes", "received_bytes")],
+            "seq_scatter": [c["seq-scatter"][k] for k in
+                            ("calls", "sent_bytes")],
+            "psum": [PSUM_COUNTS[k] for k in ("calls", "part_bytes")],
+            "gather": [c["all-gather"][k] for k in ("calls", "sent_bytes")]}
+
+
+def _cp_since(before: dict) -> dict:
+    now = _cp_counts()
+    return {k: [a - b for a, b in zip(now[k], before[k])] for k in now}
+
+
+def _cp_rank(rep: dict, note, free) -> None:
+    """Phase 25 in one rank of phase 23's world (``mesh_rank``): fills
+    ``rep["cp"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import ordered_psum
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import rank_specs, shard_of, shard_tree
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    rank = dist.get_rank()
+    cp = rep["cp"] = {}
+    if rank == 0:
+        cp["kernels"] = _cp_kernel_shapes()
+    dist.barrier()
+    free()
+    note("(25e) kernels at the rank shapes")
+
+    # (a) and (c): stablelm-1.6b whole in bf16 on each mesh, every rank
+    # drawing the whole weights from the seed and reading its blocks of
+    # them (views); (d) trains a copy of the 2 x 2 blocks
+    cfg = get_config(CP_ARCH)
+    full = lm_ranks.full_params(build_model(cfg), SEED, "cuda")
+    toks = lm_ranks.tokens(cfg, 1, CP_PREFILL, SEED + 15, "cuda")
+    cp["a"] = []
+    for dp, tp in CP_MESHES:
+        mesh, model = lm_ranks.rank_model(cfg, dp, tp, seq_axis="data")
+        params = shard_tree(full, rank_specs(cfg, full, mesh), mesh)
+        prefill = make_prefill_step(model)
+        prefill(params, lm_ranks.rank_batch(
+            model, {"tokens": toks[:, :256 * dp]}))       # warm-up
+        torch.cuda.synchronize()
+        batch = lm_ranks.rank_batch(model, {"tokens": toks})
+        expect = _flash_counts(cfg.n_layers, cfg.n_layers)
+        # each flash_attention call timed on the stream (the card is
+        # shared by the ranks, so these include the peers' turns)
+        events, inner = [], attn_mod.flash_attention
+
+        def timed(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = inner(*args, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+        free()
+        dist.barrier()
+        _zero_counts(expect)
+        before = _cp_counts()
+        attn_mod.flash_attention = timed
+        try:
+            t0 = time.perf_counter()
+            logits = prefill(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            attn_mod.flash_attention = inner
+        cp["a"].append({
+            "mesh": [dp, tp], "wall_s": wall, "launches": _counts(expect),
+            "moved": _cp_since(before),
+            "attention_ms": sum(a.elapsed_time(b) for a, b in events),
+            "shape": list(logits.shape),
+            "finite": bool(torch.isfinite(logits).all()),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "rank_params": sum(t.numel() for t in tree_leaves(params))})
+        del logits, batch, prefill
+        free()
+        note(f"(25a) {CP_ARCH} prefill on {dp} x {tp}")
+        if tp > 1:
+            continue
+        # (c) decode at batch 1 from the cache split over data
+        prompt = lm_ranks.tokens(cfg, 1, CP_PROMPT, SEED + 16, "cuda")
+        cache = model.init_cache(1, CP_PROMPT + CP_GEN, dtype=torch.float32,
+                                 device="meta")
+        dist.barrier()
+        before = _cp_counts()
+        out = generate(model, params, prompt, CP_GEN)
+        cp["c"] = {
+            "mesh": [dp, tp], "decode_s": out["decode_s"],
+            "prefill_s": out["prefill_s"], "finite": out["finite"],
+            "tokens": out["tokens"].tolist(), "moved": _cp_since(before),
+            "cache_bytes": sum(c[k].numel() * c[k].element_size()
+                               for c in cache for k in ("k", "v")),
+            "slots": [c["k"].shape[-3] for c in cache],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del out
+        free()
+        note(f"(25c) {CP_ARCH} decode on {dp} x {tp}")
+
+    # (d) SGD steps on 2 x 2 with remat "dots"
+    mesh, model = lm_ranks.rank_model(cfg, 2, 2, seq_axis="data",
+                                      remat=True, remat_policy="dots")
+    specs = rank_specs(cfg, meta_params(model), mesh)
+    params = lm_ranks.rank_params(model, full)
+    del full
+    batch = lm_ranks.rank_batch(model, {"tokens": lm_ranks.tokens(
+        cfg, 1, CP_TRAIN_S, SEED + 19, "cuda")})
+    opt = sgd(CP_LR)
+    state = opt.init(params)
+    step = make_train_step(model, opt, donate=True)
+    expect = _flash_counts(2 * CP_TRAIN_STEPS * cfg.n_layers,
+                           2 * CP_TRAIN_STEPS * cfg.n_layers)
+    torch.cuda.synchronize()
+    free()
+    dist.barrier()
+    _zero_counts(expect)
+    before = _cp_counts()
+    losses, walls = [], []
+    for _ in range(CP_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+    split = [bool(any(e is not None for e in sp))
+             for sp in _spec_leaves(specs)]
+    leaves = tree_leaves(params)
+    cp["d"] = {
+        "losses": losses, "step_s": walls, "launches": _counts(expect),
+        "moved": _cp_since(before),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "whole_digest": _params_digest([x for x, sp in zip(leaves, split)
+                                        if not sp]),
+        "split_digest": _params_digest([x for x, sp in zip(leaves, split)
+                                        if sp])}
+    del params, state, step, leaves
+    free()
+    note("(25d) stablelm-1.6b training on 2 x 2")
+
+    # (b) f32 copies against one process on the same weights
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=CP_PARITY_LAYERS)
+    local = build_model(cfg32)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    ptoks = {"tokens": lm_ranks.tokens(cfg32, 1, CP_PARITY_S, SEED + 17,
+                                       "cuda")}
+    pprompt = lm_ranks.tokens(cfg32, 1, CP_PROMPT, SEED + 18, "cuda")
+    theirs = generate(local, full, pprompt, CP_GEN)["tokens"]
+    g_local, want = torch.func.grad_and_value(
+        lambda p, bt: local.loss(p, bt)[0])(full, ptoks)
+    with torch.no_grad():
+        want_logits = local.forward(full, ptoks)[0]
+    cp["b"] = []
+    for dp, tp in CP_MESHES:
+        mesh, model = lm_ranks.rank_model(cfg32, dp, tp, seq_axis="data")
+        specs = rank_specs(cfg32, full, mesh)
+        shard = shard_tree(full, specs, mesh)
+        blk = lm_ranks.rank_batch(model, ptoks)
+        n = CP_PARITY_S // dp
+        r = mesh.axis_index("data")
+        with torch.no_grad():
+            got = model.forward(shard, blk)[0]
+        diff = (got - want_logits[:, r * n:(r + 1) * n]).abs().max().item()
+        del got
+        g_mesh, loss = torch.func.grad_and_value(
+            lambda p, bt: model.loss(p, bt)[0])(shard, blk)
+        loss = ordered_psum(loss, mesh, "data").item()
+        worst, zero = 0.0, 0
+        for gl, gm, sp in zip(tree_leaves(g_local), tree_leaves(g_mesh),
+                              _spec_leaves(specs)):
+            gm = ordered_psum(gm, mesh, "data")
+            gl = shard_of(gl, sp, mesh)
+            scale = gl.abs().max().item()
+            if scale == 0.0 or gm.abs().max().item() == 0.0:
+                zero += 1
+                continue
+            worst = max(worst, (gm - gl).abs().max().item() / scale)
+        cp["b"].append({
+            "mesh": [dp, tp], "diff": diff,
+            "logit_max": want_logits.abs().max().item(), "loss": loss,
+            "local_loss": want.item(), "worst": worst, "zero": zero,
+            "leaves": len(tree_leaves(g_mesh))})
+        if tp == 1:         # (c)'s layout: 16 slots a rank
+            cp["b"][-1]["tokens"] = generate(model, shard, pprompt,
+                                             CP_GEN)["tokens"].tolist()
+            cp["b"][-1]["one_process"] = theirs.tolist()
+        del g_mesh, shard
+    del full, g_local, want_logits, local
+    free()
+    note("(25b) f32 parity")
+
+
 def mesh_rank(out_dir: str) -> None:
     """One rank of phase 23, run as ``chip_smoke.py --mesh-rank DIR`` by
     ``spawn_local_cluster``; writes its report to DIR/rank<r>.json."""
@@ -6630,6 +6952,7 @@ def mesh_rank(out_dir: str) -> None:
     free()
     note("(d) prefill")
     _tp_rank(rep, note, free)
+    _cp_rank(rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
 
@@ -7090,6 +7413,175 @@ def phase_tensor_parallel(card: str, ranks: list):
     return paths, shapes
 
 
+def _cp_bytes(cfg, dp: int, tp: int, s: int, itemsize: int) -> int:
+    """The bytes one K/V gather of a layer sends from a rank of dp x tp:
+    its block of s / dp positions of k and v on its kv heads."""
+    return (s // dp) * 2 * (cfg.n_kv_heads // tp) * cfg.resolved_head_dim \
+        * itemsize
+
+
+def phase_context_parallel(card: str, ranks: list):
+    """Phase 25: context parallelism, run by phase 23's ranks
+    (``_cp_rank``); holds their reports. Returns ({path: {kernel: launches
+    of all ranks}}, the kernel checks at the rank shapes)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    shapes = ranks[0]["cp"]["kernels"]
+    for e in shapes:
+        print(f"cp kernel flash_attention at {CP_ARCH}'s rank {e['rank']} of "
+              f"{e['mesh'][0]} x {e['mesh'][1]}, [b, s, sk, h, kv, d] "
+              f"{e['shape']} right-aligned causal, tensor-core: max |kernel "
+              f"- plain| {e['max_abs_err']:.3e} (max |SDPA - kernel| "
+              f"{e['sdpa_diff']:.3e}), kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, SDPA (a right-aligned boolean mask) "
+              f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}) [{card}]")
+    cfg = get_config(CP_ARCH)
+    n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab
+    paths = {}
+    for i, (dp, tp) in enumerate(CP_MESHES):
+        rep = [r["cp"]["a"][i] for r in ranks]
+        s = CP_PREFILL // dp
+        each = _cp_bytes(cfg, dp, tp, CP_PREFILL, 2)
+        # 2 x 2: the tensor-parallel sums of a layer (attention, MLP) and
+        # the lookup's, [1, s, d] bf16, and the rank's f32 logits gathered
+        sums = [2 * n + 1, (2 * n + 1) * s * d * 2] if tp > 1 else [0, 0]
+        gathers = [1, s * v // tp * 4] if tp > 1 else [0, 0]
+        want = {"seq_gather": [n, n * each, n * each * (dp - 1)],
+                "seq_scatter": [0, 0], "psum": sums, "gather": gathers}
+        for r, x in zip(ranks, rep):
+            if x["launches"] != {"flash_attention": n,
+                                 "flash_attention tc": n} or \
+                    not x["finite"] or x["shape"] != [1, s, v] or \
+                    x["moved"] != want:
+                raise AssertionError(
+                    f"cp {CP_ARCH} prefill on {dp} x {tp}, rank {r['rank']}:"
+                    f" launches {x['launches']} (expected {n}, all "
+                    f"tensor-core), finite {x['finite']}, logits "
+                    f"{x['shape']}, transfers {x['moved']} (expected {want})")
+        wall = max(x["wall_s"] for x in rep)
+        print(f"cp {CP_ARCH} prefill on {dp} x {tp} ranks (seq over data: "
+              f"{s} tokens and {cfg.n_heads // tp} heads a rank, "
+              f"{rep[0]['rank_params']} weights a rank): bf16, batch 1 x "
+              f"{CP_PREFILL}, {CP_PREFILL / wall:.1f} tokens/s ({wall:.3f} "
+              f"s); K/V gathers exact: {n} a rank of {each} B sent, "
+              f"{n * each * (dp - 1)} B received a rank; sums over model "
+              f"{sums[0]} of {sums[1]} B, logits gathered {gathers[1]} B; "
+              f"flash_attention {n} a rank, all tensor-core; attention ms by "
+              f"rank {[round(x['attention_ms'], 3) for x in rep]} (events "
+              f"on each rank's stream, the card shared; rank r reads r + 1 "
+              f"blocks of keys); peak by rank "
+              f"{[x['peak_bytes'] for x in rep]} B [{card}]")
+        paths[f"{CP_ARCH} prefill on {dp} x {tp} ranks (seq over data)"] = {
+            k: sum(x["launches"][k] for x in rep)
+            for k in ("flash_attention", "flash_attention tc")}
+
+    # (c) decode on MESH_RANKS x 1
+    dec = [r["cp"]["c"] for r in ranks]
+    dp, tp = dec[0]["mesh"]
+    slots = (CP_PROMPT + CP_GEN) // dp
+    want_bytes = n * 2 * slots * (cfg.n_kv_heads // tp) \
+        * cfg.resolved_head_dim * 4
+    if not all(x["finite"] for x in dec) or \
+            any(x["tokens"] != dec[0]["tokens"] for x in dec) or \
+            any(x["cache_bytes"] != want_bytes or set(x["slots"]) != {slots}
+                for x in dec):
+        raise AssertionError(
+            f"cp decode on {dp} x {tp}: finite {[x['finite'] for x in dec]},"
+            f" tokens by rank {[x['tokens'] for x in dec]}, cache bytes "
+            f"{[x['cache_bytes'] for x in dec]} (expected {want_bytes}), "
+            f"slots {[x['slots'] for x in dec]} (expected {slots})")
+    dwall = max(x["decode_s"] for x in dec)
+    print(f"cp {CP_ARCH} decode on {dp} x {tp}: serve.generate at batch 1, "
+          f"prompt {CP_PROMPT}, {CP_GEN} greedy tokens: "
+          f"{CP_GEN / dwall:.2f} tokens/s ({dwall:.3f} s; prompt replay "
+          f"{max(x['prefill_s'] for x in dec):.3f} s); the f32 cache's "
+          f"{CP_PROMPT + CP_GEN} slots split over data, {slots} a rank, "
+          f"{want_bytes} B a rank, exact; {dec[0]['moved']['gather'][0]} "
+          f"gathers of the partial softmax statistics a rank "
+          f"({dec[0]['moved']['gather'][1]} B); tokens equal on every rank; "
+          f"peak by rank {[x['peak_bytes'] for x in dec]} B [{card}]")
+
+    for i, (dp, tp) in enumerate(CP_MESHES):
+        xs = [r["cp"]["b"][i] for r in ranks]
+        diff, worst = max(x["diff"] for x in xs), max(x["worst"] for x in xs)
+        zero = max(x["zero"] for x in xs)
+        gap = max(abs(x["loss"] - x["local_loss"]) for x in xs)
+        same = all(x.get("tokens") == x.get("one_process") for x in xs)
+        print(f"cp f32 {CP_ARCH}, {CP_PARITY_LAYERS} layers, 1 x "
+              f"{CP_PARITY_S} on {dp} x {tp} vs one process on the same "
+              f"weights: max |diff| of the ranks' logits {diff:.3e} (tol "
+              f"{REF_PREFILL_TOL}, logits up to {xs[0]['logit_max']:.3f}); "
+              f"loss {xs[0]['loss']:.6f} vs {xs[0]['local_loss']:.6f} (gap "
+              f"{gap:.3e}); the gradient summed over data: {xs[0]['leaves']} "
+              f"leaves a rank, {zero} zero, largest gap {worst:.3e} of its "
+              f"leaf's largest (tol {MESH_GRAD_REL})"
+              + ("" if "tokens" not in xs[0] else
+                 f"; greedy decode from the split cache, {CP_GEN} tokens: "
+                 + ("equal one process's" if same else "DIFFERENT"))
+              + f" [{card}]")
+        if not (diff <= REF_PREFILL_TOL and zero == 0 and
+                worst <= MESH_GRAD_REL and gap <= REF_PREFILL_TOL and same):
+            raise AssertionError(f"cp f32 on {dp} x {tp}: the mesh and one "
+                                 f"process disagree")
+
+    tr = [r["cp"]["d"] for r in ranks]
+    losses = tr[0]["losses"]
+    each = _cp_bytes(cfg, 2, 2, CP_TRAIN_S, 2)
+    want_l = {"flash_attention": 2 * CP_TRAIN_STEPS * n,
+              "flash_attention tc": 2 * CP_TRAIN_STEPS * n}
+    # a step: the forward's K/V gathers ("dots" keeps them for the
+    # recomputation) and their backward's reduce-scatters
+    want_seq = [CP_TRAIN_STEPS * n, CP_TRAIN_STEPS * n * each]
+    for r, t in zip(ranks, tr):
+        got = [t["moved"]["seq_gather"][:2], t["moved"]["seq_scatter"]]
+        if t["launches"] != want_l or t["losses"] != losses or \
+                got != [want_seq, [want_seq[0], 2 * want_seq[1]]]:
+            raise AssertionError(f"cp training, rank {r['rank']}: launches "
+                                 f"{t['launches']} (expected {want_l}), K/V "
+                                 f"gathers and scatters {got} (expected "
+                                 f"{want_seq} each, the scatters of the "
+                                 f"whole sequence), losses {t['losses']} "
+                                 f"(rank 0 {losses})")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"cp training: losses {losses} do not fall")
+    if len({t["whole_digest"] for t in tr}) != 1:
+        raise AssertionError("cp training: the weights held whole differ "
+                             "between ranks")
+    by_model = {}
+    for r, t in zip(ranks, tr):
+        by_model.setdefault(r["rank"] % 2, set()).add(t["split_digest"])
+    if any(len(x) != 1 for x in by_model.values()) or \
+            len(set().union(*by_model.values())) != 2:
+        raise AssertionError(f"cp training: split weights' digests by model "
+                             f"index {by_model}")
+    steps = [max(t["step_s"][i] for t in tr) for i in range(CP_TRAIN_STEPS)]
+    rate = CP_TRAIN_STEPS / sum(steps)
+    print(f"cp {CP_ARCH} training on 2 x 2 ranks (seq over data, heads over "
+          f"model): {CP_TRAIN_STEPS} SGD steps (lr {CP_LR}) at 1 x "
+          f"{CP_TRAIN_S}, remat \"dots\", in place: {rate:.3f} steps/s, "
+          f"{rate * CP_TRAIN_S:.1f} tokens/s (step walls "
+          f"{[round(x, 4) for x in steps]} s), losses "
+          f"{[round(x, 4) for x in losses]}; a rank's K/V gathers "
+          f"{tr[0]['moved']['seq_gather'][:2]} and reduce-scatters "
+          f"{tr[0]['moved']['seq_scatter']} (calls, B), exact; sums over "
+          f"ranks {tr[0]['moved']['psum']} and gathers "
+          f"{tr[0]['moved']['gather']} (calls, B) with the gradients' sum "
+          f"over data; flash_attention {2 * n} a step a rank, tensor-core; "
+          f"the weights held whole bitwise equal on every rank, the split "
+          f"ones on their data peers; peak by rank "
+          f"{[t['peak_bytes'] for t in tr]} B [{card}]")
+    paths[f"{CP_ARCH} training on 2 x 2 ranks (seq over data)"] = {
+        k: sum(t["launches"][k] for t in tr) for k in want_l}
+    laps = ranks[0]["laps"]
+    print(f"context parallelism: the ranks' part "
+          f"{sum(x for k, x in laps.items() if k.startswith('(25')):.1f} s "
+          f"(rank 0's laps, in phase 23's wall), the checks here "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths, shapes
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -7236,6 +7728,9 @@ def main() -> int:
         paths.update(tp_paths)
         rows[3]["tp_shapes"] = tp_shapes["flash_attention"]
         rows[4]["tp_shapes"] = tp_shapes["ssd_scan"]
+        phase = enter("context parallelism")
+        cp_paths, rows[3]["cp_shapes"] = phase_context_parallel(card, ranks)
+        paths.update(cp_paths)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

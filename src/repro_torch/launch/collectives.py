@@ -42,10 +42,19 @@ What a backward must do depends on what the axis carries:
 - **data axes** carry different examples: each rank's loss is its term of
   a mean that the train step completes (``ordered_pmean`` of the
   gradients), so ``psum``'s backward is the ordered sum of the cotangents,
-  JAX's transpose of ``psum``.
+  JAX's transpose of ``psum``;
+- a **sequence axis** (context parallelism's ``seq_axis``) carries one
+  sequence's blocks, and each rank's loss is its share of a sum that the
+  train step completes. ``gather_seq`` hands every peer all the blocks,
+  which each uses on its own queries (rank ``r`` reads the prefix up to
+  its own block only), so the peers' cotangents differ: its backward is
+  the ordered sum of the peers' cotangents, this peer's block of it
+  (``scatter_sum_seq``, JAX's ``psum_scatter``, the transpose of an
+  ``all_gather``), not ``all_gather``'s own block.
 
 ``all_to_all`` (equal splits, device-major, ``split_axis = concat_axis =
-0``, ``jax.lax.all_to_all(..., tiled=False)``) is its own transpose.
+0``, ``jax.lax.all_to_all(..., tiled=False)``) is its own transpose, and
+``gather_seq`` and ``scatter_sum_seq`` are each other's.
 """
 from __future__ import annotations
 
@@ -60,10 +69,14 @@ from repro_torch.launch.mesh import group_handle, group_of
 
 # What this process's transfers did, summed: "calls" that crossed ranks
 # and "sent_bytes" by kind (the operand's bytes, the cost counter's
-# measure). Telemetry for the ranks' reports (``chip_smoke.py
-# --mesh-rank``); the model never reads it.
+# measure; for the K/V gathers also the bytes the peers' parts filled).
+# Telemetry for the ranks' reports (``chip_smoke.py --mesh-rank``); the
+# model never reads it.
 COLLECTIVE_COUNTS = {"all-to-all": {"calls": 0, "sent_bytes": 0},
-                     "all-gather": {"calls": 0, "sent_bytes": 0}}
+                     "all-gather": {"calls": 0, "sent_bytes": 0},
+                     "seq-gather": {"calls": 0, "sent_bytes": 0,
+                                    "received_bytes": 0},
+                     "seq-scatter": {"calls": 0, "sent_bytes": 0}}
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
@@ -121,6 +134,63 @@ def _(info, in_dims, x, n, group):
     return all_gather_op(x.movedim(in_dims[0], 1), n, group), 1
 
 
+@torch.library.custom_op("repro_torch::gather_seq", mutates_args=())
+def gather_seq_op(x: torch.Tensor, n: int, group: int) -> torch.Tensor:
+    """Every peer's ``x`` [B, m, ...], joined along dimension 1 (the
+    sequence) in rank order: [B, n * m, ...]."""
+    host = host_copy(x.movedim(1, 0))                  # [m, B, ...]
+    out = host_empty((n,) + tuple(host.shape), host)
+    gather_parts(host, group_of(group), list(out.unbind(0)))
+    _count("seq-gather", host)
+    COLLECTIVE_COUNTS["seq-gather"]["received_bytes"] += \
+        (out.numel() - host.numel()) * host.element_size()
+    return out.flatten(0, 1).to(x.device).movedim(0, 1).contiguous()
+
+
+@gather_seq_op.register_fake
+def _(x, n, group):
+    return x.new_empty((x.shape[0], n * x.shape[1]) + tuple(x.shape[2:]))
+
+
+@gather_seq_op.register_vmap
+def _(info, in_dims, x, n, group):
+    # the batch and the sequence stay first; the lanes ride along dim 2
+    if in_dims[0] is None:
+        return gather_seq_op(x, n, group), None
+    return gather_seq_op(x.movedim(in_dims[0], 2), n, group), 2
+
+
+@torch.library.custom_op("repro_torch::scatter_sum_seq", mutates_args=())
+def scatter_sum_seq_op(g: torch.Tensor, n: int, group: int) -> torch.Tensor:
+    """``g`` [B, n * m, ...] on each of the ``n`` peers: this peer's block
+    ``[i m, (i + 1) m)`` of their sum, folded left to right in rank order
+    (``jax.lax.psum_scatter(..., scatter_dimension=1, tiled=True)``)."""
+    b, s = g.shape[:2]
+    host = host_copy(g.reshape((b, n, s // n) + tuple(g.shape[2:]))
+                     .movedim(1, 0))                   # [n, B, m, ...]
+    parts = host_empty(host.shape, host)
+    # block i to peer i; block i of ``parts`` from peer i
+    dist.all_to_all_single(parts, host, group=group_of(group))
+    _count("seq-scatter", host)
+    total = torch.add(parts[0], parts[1], out=host_empty(parts.shape[1:],
+                                                         host))
+    for part in parts[2:]:
+        total.add_(part)
+    return total.to(g.device)
+
+
+@scatter_sum_seq_op.register_fake
+def _(g, n, group):
+    return g.new_empty((g.shape[0], g.shape[1] // n) + tuple(g.shape[2:]))
+
+
+@scatter_sum_seq_op.register_vmap
+def _(info, in_dims, g, n, group):
+    if in_dims[0] is None:
+        return scatter_sum_seq_op(g, n, group), None
+    return scatter_sum_seq_op(g.movedim(in_dims[0], 2), n, group), 2
+
+
 def _lanes_at(x: torch.Tensor, in_dim, at: int) -> torch.Tensor:
     return x if in_dim is None else x.movedim(in_dim, at)
 
@@ -162,6 +232,45 @@ class _AllGather(torch.autograd.Function):
     def vmap(info, in_dims, x, n, group, index):
         return _AllGather.apply(_lanes_at(x, in_dims[0], 1), n, group,
                                 index), 1
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(x, n, group):
+        return gather_seq_op(x, n, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.group = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        # each peer read its own part of the blocks: their cotangents are
+        # partial, and this peer's block of their sum is its own
+        return _ScatterSumSeq.apply(g, ctx.n, ctx.group), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, n, group):
+        return _GatherSeq.apply(_lanes_at(x, in_dims[0], 2), n, group), 2
+
+
+class _ScatterSumSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(g, n, group):
+        return scatter_sum_seq_op(g, n, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.group = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherSeq.apply(g, ctx.n, ctx.group), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, g, n, group):
+        return _ScatterSumSeq.apply(_lanes_at(g, in_dims[0], 2), n,
+                                    group), 2
 
 
 class _Replicated(torch.autograd.Function):
@@ -245,6 +354,16 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if n == 1:
         return x
     return _AllGather.apply(x, n, group, mesh.axis_index(axis))
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Every peer's sequence block of ``x`` [B, m, ...] joined along
+    dimension 1 in rank order: [B, n m, ...] (context parallelism's K/V).
+    Each peer uses the result on its own queries, so the backward is this
+    peer's block of the ordered sum of the peers' cotangents
+    (``scatter_sum_seq``; module docstring)."""
+    n, group = _axis(mesh, axis)
+    return x if n == 1 else _GatherSeq.apply(x, n, group)
 
 
 def replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -26,7 +26,9 @@ step while it runs, op by op, in a ``TorchDispatchMode``:
   (a collective-permute), ``repro_torch::ring_need`` (the all-reduce of
   the ring's area table), ``repro_torch::all_to_all`` and
   ``repro_torch::all_gather`` (``launch.collectives``: the MoE's
-  all-to-all pair and its gather), and the raw ``torch.distributed`` ops
+  all-to-all pair and its gather), ``repro_torch::gather_seq`` and
+  ``scatter_sum_seq`` (context parallelism's K/V gather, an all-gather,
+  and its backward, a reduce-scatter), and the raw ``torch.distributed`` ops
   the mode sees (``c10d``), each by its operand bytes.
 - **Peak live bytes**, tracked by storage: every storage the step's ops
   create, and every one they read (or ``hold`` names), is live from then
@@ -304,7 +306,8 @@ def _collective_kind(ns: str, name: str) -> Optional[str]:
         return {"ordered_psum": "all-reduce", "ring_need": "all-reduce",
                 "ring_shift": "collective-permute",
                 "all_to_all": "all-to-all",
-                "all_gather": "all-gather"}.get(name)
+                "all_gather": "all-gather", "gather_seq": "all-gather",
+                "scatter_sum_seq": "reduce-scatter"}.get(name)
     if ns == "c10d":
         return _C10D.get(name)
     return None

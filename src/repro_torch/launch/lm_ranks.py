@@ -12,9 +12,11 @@ model)``), draws the
 full parameters from a seed, the same on every rank (``full_params``),
 keeps its block (``rank_params``: ``launch.sharding.rank_specs``, the
 reference's ``param_specs`` executed), and takes its block of a batch
-(``rank_batch``: ``launch.sharding.batch_specs``). Both read the layout
-from the model (``Model.replicate``, ``Model.batch_axes``), so the blocks,
-the batch and the mean over ranks of ``launch.steps`` agree. Its decode
+(``rank_batch``: ``launch.sharding.batch_specs``, and under context
+parallelism its block of the sequence). Both read the layout from the
+model (``Model.replicate``, ``Model.batch_axes``, ``Model.seq_axis``), so
+the blocks, the batch and the reduction over ranks of ``launch.steps``
+agree. Its decode
 cache is ``Model.init_cache``'s on the mesh: the kv heads, SSM heads and
 ``conv_x`` channels its own compute reads. The steps it then runs are the
 port's own (``steps.make_prefill_step``, ``serve.generate``,
@@ -38,12 +40,18 @@ from repro_torch.launch.sharding import (batch_specs, rank_specs, shard_of,
 from repro_torch.models import build_model
 
 
-def rank_model(cfg: ModelConfig, data: int, model_size: int, **kw):
+def rank_model(cfg: ModelConfig, data: int, model_size: int, *,
+               seq_axis=None, **kw):
     """(mesh, model): the ``(data, model)`` mesh over the world and
     ``build_model(cfg, mesh=mesh, **kw)`` (``dp_axes=("data", "model"),
-    moe_ep_axis=None``: the population layout, every leaf whole)."""
+    moe_ep_axis=None``: the population layout, every leaf whole). With
+    ``seq_axis`` (context parallelism) ``dp_axes`` defaults to the data
+    axes other than it."""
     mesh = make_lm_mesh(data, model_size)
-    return mesh, build_model(cfg, mesh=mesh, **kw)
+    if seq_axis is not None:
+        kw.setdefault("dp_axes", tuple(a for a in ("data",)
+                                       if a != seq_axis))
+    return mesh, build_model(cfg, mesh=mesh, seq_axis=seq_axis, **kw)
 
 
 def full_params(model, seed: int, device) -> Dict[str, Any]:
@@ -69,14 +77,37 @@ def rank_batch(model, batch: Dict[str, torch.Tensor]
     """This rank's block of a batch on ``model.mesh`` (``batch_specs``:
     over the data axes, or over ``(data, model)`` for ``REPLICATED_ARCHS``
     and under ``model.replicate``, where the batch divides; whole on every
-    rank where it does not)."""
+    rank where it does not). Under ``model.seq_axis`` the rows are cut over
+    ``Model.batch_axes`` where they divide, and the rank keeps its block of
+    the sequence of ``tokens`` and of ``positions`` if given."""
     if model.mesh is None:
         return batch
+    if model.seq_axis is not None:
+        return _seq_block(model, batch)
     b, s = batch["tokens"].shape
     specs = batch_specs(model.cfg, InputShape("rank", s, b, "train"),
                         model.mesh, replicate=model.replicate)
     return {k: shard_of(v, specs[k], model.mesh) if k in specs else v
             for k, v in batch.items()}
+
+
+def _seq_block(model, batch: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    mesh, axes = model.mesh, model.batch_axes
+    b, s = batch["tokens"].shape
+    n = mesh.axis_size(model.seq_axis)
+    if s % n:
+        raise ValueError(f"a sequence of {s} does not split over {n} "
+                         f"ranks of {model.seq_axis!r}")
+    rows = axes if axes and b % mesh.axis_size(axes) == 0 else None
+    out = {}
+    for k, v in batch.items():
+        sdim = v.dim() - 1 if k == "positions" else 1
+        spec = [None] * v.dim()
+        spec[sdim - 1] = rows
+        spec[sdim] = model.seq_axis
+        out[k] = shard_of(v, tuple(spec), mesh)
+    return out
 
 
 def tokens(cfg: ModelConfig, b: int, s: int, seed: int, device):

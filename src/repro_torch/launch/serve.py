@@ -34,7 +34,8 @@ def _sync(dev: torch.device) -> None:
 
 def generate(model: Model, params, prompt: torch.Tensor, gen: int,
              cache_dtype=torch.float32,
-             audio_embed: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+             audio_embed: Optional[torch.Tensor] = None,
+             global_batch: Optional[int] = None) -> Dict[str, Any]:
     """Replay ``prompt`` [B, P] through decode, then ``gen`` greedy tokens.
     An ``audio`` model needs ``audio_embed`` [B, encoder_seq, D]: it is
     encoded into the fresh cache (``prefill_cross_kv``) first.
@@ -42,7 +43,11 @@ def generate(model: Model, params, prompt: torch.Tensor, gen: int,
     On a mesh of ranks (``model.mesh``), ``params`` and ``prompt`` are the
     rank's blocks and the cache is the rank's (``Model.init_cache``);
     ``decode_step`` returns the whole logits on every model peer (gathered
-    over ``"model"``), so every peer picks the same greedy token.
+    over ``"model"``), so every peer picks the same greedy token. The
+    cache's slots are split over ranks as ``Model.init_cache`` says (under
+    ``model.seq_axis``, or for a ``global_batch`` that does not divide the
+    data axes, whose rows every rank then holds): the replay and the loop
+    are the same, each rank writing and reading its own slots.
 
     Returns ``tokens`` [B, gen], the last step's ``logits`` [B, V],
     ``finite`` (whether every step's logits were finite, reduced on the
@@ -60,7 +65,9 @@ def generate(model: Model, params, prompt: torch.Tensor, gen: int,
                          f"{'needed' if audio else 'only for audio models'}")
     max_seq = n_prompt + gen
     decode = make_serve_step(model)
-    cache = model.init_cache(b, max_seq, dtype=cache_dtype, device=dev)
+    cache = model.init_cache(b, max_seq, dtype=cache_dtype, device=dev,
+                             **({} if global_batch is None else
+                                {"global_batch": global_batch}))
     t_encode = 0.0
     if audio:
         t0 = time.perf_counter()

@@ -30,9 +30,14 @@ experts), so a leaf held whole runs whole, with no collective.
 The decode cache a rank holds (``Model.init_cache`` on a mesh) is the one
 its own compute needs, which is ``cache_specs``' block where that spec
 splits the kv heads or the SSM heads over ``model``. Where the kv heads do
-not divide, ``cache_specs`` splits ``head_dim`` (or, for a batch that
-does not divide, the sequence) instead; the port's rank holds the kv heads
-its query heads read, whole, since its attention runs on whole heads.
+not divide, ``cache_specs`` splits ``head_dim`` instead; the port's rank
+holds the kv heads its query heads read, whole, since its attention runs
+on whole heads. ``cache_specs``' sequence rule is executed
+(``cache_seq_axes``): for a batch that does not divide the data axes (every
+rank then holds it whole) a KV cache whose slots divide them holds the
+rank's block of slots, full caches and rolling windows alike, and decode
+combines the ranks' partial softmaxes (``models/attention.py``). The
+``audio`` family (Whisper) holds its caches whole, as it does its heads.
 """
 from __future__ import annotations
 
@@ -57,7 +62,9 @@ def _axis_size(mesh, name) -> int:
     return mesh.shape[name]
 
 
-def _dp(mesh):
+def data_axes(mesh):
+    """The axes a batch that divides is cut along, and a KV cache's slots
+    where it does not (the reference's ``_dp``)."""
     return ("pod", "data") if "pod" in mesh.axis_names else "data"
 
 
@@ -93,7 +100,7 @@ def param_specs(cfg: ModelConfig, params_shapes: Any, mesh, *,
     ``replicate=True`` forces the population-style layout (parameters
     replicated, the whole mesh as data parallelism)."""
     replicated = replicate or cfg.family in REPLICATED_ARCHS
-    dp = _dp(mesh)
+    dp = data_axes(mesh)
 
     def rule(path, leaf):
         shape = tuple(leaf.shape)
@@ -160,7 +167,7 @@ def param_specs(cfg: ModelConfig, params_shapes: Any, mesh, *,
 def batch_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
                 replicate: bool = False) -> Dict[str, Spec]:
     """Input specs of a train or prefill batch."""
-    dp = _dp(mesh)
+    dp = data_axes(mesh)
     small = replicate or cfg.family in REPLICATED_ARCHS
     baxis = (dp if not small else
              (("pod", "data", "model") if "pod" in mesh.axis_names
@@ -179,7 +186,7 @@ def batch_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
 def cache_specs(cfg: ModelConfig, cache_shapes: Any, batch: int,
                 mesh) -> Any:
     """Specs of a decode cache (a tree like the cache)."""
-    dp = _dp(mesh)
+    dp = data_axes(mesh)
     dp_size = _axis_size(mesh, dp)
     small_batch = batch % dp_size != 0
 
@@ -212,6 +219,14 @@ def cache_specs(cfg: ModelConfig, cache_shapes: Any, batch: int,
         return tuple(spec)
 
     return tree_map_with_path(rule, cache_shapes)
+
+
+def cache_seq_axes(batch: int, slots: int, mesh):
+    """The axes ``cache_specs`` splits a KV cache's sequence (``slots``)
+    over for a global ``batch``: the data axes where the batch does not
+    divide them and the slots do, else ``None``."""
+    n = _axis_size(mesh, data_axes(mesh))
+    return data_axes(mesh) if batch % n and slots % n == 0 else None
 
 
 # ---------------------------------------------------------------------------

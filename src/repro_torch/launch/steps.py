@@ -17,6 +17,11 @@ collectives sum the peers' partial gradients in rank order): every rank
 then takes the same Adam step, so the weights and the optimizer state
 that ranks hold alike stay bitwise equal. The loss and the nll in the
 metrics are averaged the same way (the aux loss is already the mesh's).
+Under context parallelism (``Model.seq_axis``) each rank's loss is its
+share of the whole sequence's mean (``Model.loss``), so the gradients and
+the loss terms are summed over ``seq_axis`` too (one ordered sum over it
+and the batch's axes, divided by the batch axes' size only): the gradient
+of the mean over every target, as one process takes it.
 """
 from __future__ import annotations
 
@@ -50,16 +55,24 @@ def _replace_leaves(tree, fn) -> None:
 def _mesh_mean(model: Model, grads, metrics: Dict[str, Any]):
     """The gradients (in place in their tree) and the loss terms averaged
     over the axes of ``model.mesh`` that the batch is cut along
-    (``Model.batch_axes``; unchanged without a mesh)."""
-    mesh, axes = model.mesh, model.batch_axes
-    if mesh is None or mesh.axis_size(axes) == 1:
+    (``Model.batch_axes``; unchanged without a mesh), and summed over
+    ``Model.seq_axis``."""
+    mesh = model.mesh
+    if mesh is None:
         return grads, metrics
-    from repro_torch.core.distributed import ordered_pmean
+    axes = tuple(model.batch_axes)
+    n_mean = mesh.axis_size(axes)
+    if model.seq_axis is not None:
+        axes += (model.seq_axis,)
+    if mesh.axis_size(axes) == 1:
+        return grads, metrics
+    from repro_torch.core.distributed import ordered_psum
 
     def mean(g):
         flat = g.reshape(-1)
-        return torch.cat([ordered_pmean(flat[i: i + _PMEAN_CHUNK], mesh,
-                                        axes)
+        # ``ordered_pmean``'s bits where the axes are the batch's alone
+        return torch.cat([ordered_psum(flat[i: i + _PMEAN_CHUNK], mesh,
+                                       axes) / n_mean
                           for i in range(0, flat.numel(), _PMEAN_CHUNK)]
                          ).view(g.shape)
 

@@ -48,9 +48,30 @@ holding ``"model"`` (``Model.replicate``, the population layout). The
 decode cache a rank holds is sized from its blocks (``Model.init_cache``:
 the blocks of ``rank_specs`` on ``meta``). ``remat``
 checkpoints each layer of ``forward`` (``models/remat.py``;
-``remat_policy`` "full" or "dots"). Not ported: ``head_axis`` (the
-reference's GSPMD hint that pads head counts that do not divide; the port
-runs such a layer whole) and ``seq_axis`` (context parallelism), and
+``remat_policy`` "full" or "dots").
+
+Context parallelism (``seq_axis``, a mesh axis other than ``"model"``):
+each rank runs the model on its block of ``S / n`` positions of every row
+(``lm_ranks.rank_batch``), with ``_positions`` offset to the block, and
+``forward`` returns the rank's [B, S / n, V] logits. Attention gathers K/V
+over ``seq_axis`` (``models/attention.py``); every other layer is
+per-token, and a MoE layer routes the rank's own tokens with its own
+capacity, as the expert-parallel path's slices do. The batch is not cut
+along ``seq_axis``: ``dp_axes`` (the axes the batch is cut along under
+``seq_axis``) must not hold it. A layer that carries state along the
+sequence (``mamba``, ``xlstm_pair``: the reference's SSD kernel takes no
+initial state) raises, as do the ``audio`` and ``vlm`` families. ``loss``
+is each rank's share of the mean over the whole sequence's B (S - 1)
+targets: its own sum over that count (rank r's last position targets rank
+r + 1's first token, gathered; the last rank has one target fewer), plus
+0.01 times its MoE aux term over n; ``launch.steps`` sums the shares and
+their gradients over ``seq_axis``. A share, not a mean per rank, because
+the ranks' target counts differ and the sum of shares is the mean exactly.
+Decode under ``seq_axis`` splits each KV cache's slots over it where they
+divide (``init_cache``), as ``cache_specs`` does for a batch of one.
+
+Not ported: ``head_axis`` (the reference's GSPMD hint that pads head
+counts that do not divide; the port runs such a layer whole) and
 ``unroll`` (the port's stages are Python loops already).
 """
 from __future__ import annotations
@@ -66,7 +87,8 @@ from repro_torch.configs import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_map
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.sharding import batch_specs, rank_specs, shard_tree
+from repro_torch.launch.sharding import (batch_specs, cache_seq_axes,
+                                         data_axes, rank_specs, shard_tree)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -144,7 +166,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
 
 def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                  window: Optional[int], backend: str, shared=None, mesh=None,
-                 dp_axes=("data",), moe_ep_axis="model"):
+                 dp_axes=("data",), moe_ep_axis="model", seq_axis=None):
     """Full-sequence forward for one layer. Returns (x, aux_loss or None:
     only ``moe`` layers have one)."""
     if kind == "mamba":
@@ -160,7 +182,7 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
                                   window=window, backend=backend,
-                                  mesh=mesh)
+                                  mesh=mesh, seq_axis=seq_axis)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
         out, aux = moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
@@ -172,7 +194,7 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
 
 def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
                   window: Optional[int], shared=None, mesh=None,
-                  dp_axes=("data",)):
+                  dp_axes=("data",), slot_axes=None):
     """Single-token decode for one layer; updates ``cache`` in place."""
     if kind == "mamba":
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
@@ -186,7 +208,8 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     out, _ = attn_lib.attn_decode(p["attn"], h, cache, pos, cfg,
-                                  window=window, mesh=mesh)
+                                  window=window, mesh=mesh,
+                                  slot_axes=slot_axes)
     x = x + out
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":       # the aux loss is dropped, as in the reference
@@ -197,10 +220,12 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
 
 
 def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
-                      max_seq: int, dtype, device, block=None, mesh=None):
+                      max_seq: int, dtype, device, block=None, mesh=None,
+                      seq_split: int = 1):
     """One stage's decode cache; with ``block``, the rank's parameters of
     the stage (its layer's, or the shared attention's, on ``meta``), the
-    heads and channels they hold."""
+    heads and channels they hold; a KV cache's slots split ``seq_split``
+    ways (``attention.init_kv_cache``)."""
     if stage.kind == "mamba":     # f32 whatever ``dtype``, as the reference
         c = mamba_lib.init_mamba2_cache(
             cfg, batch, device=device,
@@ -212,7 +237,8 @@ def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
         c = attn_lib.init_kv_cache(
             cfg, batch, max_seq, window=stage.window, dtype=dtype,
             device=device, kv_heads=None if block is None else
-            attn_lib.rank_kv_heads(block["attn"], cfg, mesh))
+            attn_lib.rank_kv_heads(block["attn"], cfg, mesh),
+            seq_split=seq_split)
     if stage.count > 1:   # stacked [count, ...], a buffer of its own each
         c = tree_map(lambda l: l[None].repeat((stage.count,)
                                               + (1,) * l.dim()), c)
@@ -265,6 +291,8 @@ class Model:
     remat_policy: str = "full"    # full | dots (keep the x @ w products)
     moe_ep_axis: Any = "model"    # MoE expert-parallel axis; None: the
                                   # data-parallel path, experts replicated
+    seq_axis: Any = None          # context parallelism: the sequence cut
+                                  # over this mesh axis (K/V gathered)
 
     def __post_init__(self):
         if self.backend not in ("auto", "ref"):
@@ -274,6 +302,31 @@ class Model:
         if self.remat_policy not in remat_lib.POLICIES:
             raise ValueError(f"unknown remat policy {self.remat_policy!r}: "
                              f"one of {remat_lib.POLICIES}")
+        if self.seq_axis is not None:
+            self._check_seq_axis()
+
+    def _check_seq_axis(self):
+        """Where context parallelism cannot run (module docstring)."""
+        name, axis = self.cfg.name, self.seq_axis
+        if self.mesh is None or axis not in self.mesh.axis_names:
+            raise ValueError(f"seq_axis={axis!r} needs a mesh with that "
+                             f"axis")
+        if axis == "model":
+            raise ValueError("seq_axis='model': the weights split over "
+                             "'model'; cut the sequence over another axis")
+        if self.cfg.family in ("audio", "vlm"):
+            raise ValueError(f"{name}: context parallelism does not run "
+                             f"the {self.cfg.family} family")
+        carried = sorted({s.kind for s in self.program}
+                         & {"mamba", "xlstm_pair"})
+        if carried:
+            raise ValueError(f"{name}: {carried} layers carry state along "
+                             f"the sequence, which context parallelism "
+                             f"would pass between ranks")
+        if axis in self.batch_axes:
+            raise ValueError(f"seq_axis={axis!r} is one of the axes the "
+                             f"batch is cut along ({self.batch_axes}); "
+                             f"leave it out of dp_axes")
 
     # -- the mesh -------------------------------------------------------------
     @property
@@ -288,9 +341,9 @@ class Model:
         """The mesh axes a batch that divides is cut along (``launch.
         sharding.batch_specs``: the data axes, or the whole mesh for
         ``REPLICATED_ARCHS`` and under ``replicate``); ``dp_axes`` without
-        a mesh."""
+        a mesh or under ``seq_axis``."""
         mesh = self.mesh
-        if mesh is None:
+        if mesh is None or self.seq_axis is not None:
             return tuple(self.dp_axes)
         every = InputShape("axes", 1, mesh.axis_size(mesh.axis_names),
                            "train")
@@ -370,9 +423,12 @@ class Model:
             mine.shape[:-1] + (self.cfg.vocab,))
 
     def _positions(self, batch_size: int, seq: int, device) -> torch.Tensor:
-        """[B, S], or [3, B, S] (three equal streams) under M-RoPE."""
-        pos = torch.arange(seq, dtype=torch.int32, device=device)[None] \
-            .expand(batch_size, seq)
+        """[B, S], or [3, B, S] (three equal streams) under M-RoPE; under
+        ``seq_axis`` the rank's block of ``seq`` positions."""
+        first = 0 if self.seq_axis is None else \
+            self.mesh.axis_index(self.seq_axis) * seq
+        pos = torch.arange(first, first + seq, dtype=torch.int32,
+                           device=device)[None].expand(batch_size, seq)
         if self.cfg.mrope_sections is not None:
             pos = pos[None].expand(3, batch_size, seq)
         return pos
@@ -398,7 +454,8 @@ class Model:
             body = functools.partial(
                 _apply_layer, positions=positions, cfg=cfg, kind=stage.kind,
                 window=stage.window, backend=self.backend, mesh=self.mesh,
-                dp_axes=self.dp_axes, moe_ep_axis=self.moe_ep_axis)
+                dp_axes=self.dp_axes, moe_ep_axis=self.moe_ep_axis,
+                seq_axis=self.seq_axis)
             for lp in _layers(stage, sp):
                 if self.remat:
                     # the backward runs the layer again: bind this
@@ -415,8 +472,13 @@ class Model:
 
     # -- loss -----------------------------------------------------------------
     def loss(self, params, batch: Dict[str, Any]):
+        """(loss, {"nll", "aux"}): the mean next-token nll plus 0.01 x the
+        aux loss; under ``seq_axis`` the rank's share of them (module
+        docstring)."""
         logits, aux = self.forward(params, batch)
         tokens = batch["tokens"]
+        if self.seq_axis is not None:
+            return self._loss_share(logits, aux, tokens)
         if self.cfg.family == "vlm":    # no loss on the vision prefix
             logits = logits[:, self.cfg.vision_tokens:]
         lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
@@ -425,12 +487,39 @@ class Model:
         loss = torch.mean(nll) + 0.01 * aux
         return loss, {"nll": torch.mean(nll), "aux": aux}
 
+    def _loss_share(self, logits, aux, tokens):
+        """This rank's share of ``loss`` under ``seq_axis``: its positions'
+        nll summed over the whole sequence's B (S - 1) targets."""
+        mesh, axis = self.mesh, self.seq_axis
+        n, r = mesh.axis_size(axis), mesh.axis_index(axis)
+        b, s = tokens.shape
+        # every block's first token, [n, B]: the next block's is the
+        # target of this block's last position
+        firsts = coll.all_gather(tokens[:, :1].T.contiguous(), mesh, axis)
+        if r < n - 1:
+            tgt = torch.cat([tokens[:, 1:], firsts[r + 1][:, None]], dim=1)
+        else:
+            tgt, logits = tokens[:, 1:], logits[:, :-1]
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lp, -1, tgt.long()[..., None])[..., 0]
+        share = nll.sum() / (b * (n * s - 1))
+        return share + 0.01 * aux / n, {"nll": share, "aux": aux}
+
     # -- decode ----------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
-                   device="cuda"):
+                   device="cuda", *, global_batch: Optional[int] = None):
         """The decode cache; on a mesh, the rank's kv heads, SSM heads and
         ``conv_x`` channels (the ones its own compute reads), sized from
-        its blocks (``rank_blocks``)."""
+        its blocks (``rank_blocks``).
+
+        ``batch`` is the rows this rank decodes. The KV caches' slots are
+        split over ranks (``_slot_axes``) where they divide: under
+        ``seq_axis``, over it (the batch is whole along it); else where
+        ``global_batch``, the batch all ranks decode together
+        (``cache_specs``' ``batch``), does not divide the data axes, over
+        them (``launch.sharding.cache_seq_axes``), every rank then holding
+        all ``global_batch`` rows. Without ``global_batch`` each rank's
+        rows are its own and no cache is split."""
         dev = resolve_device(device)
         if self.mesh is None:
             blocks = [None] * len(self.program)
@@ -439,8 +528,36 @@ class Model:
             blocks = [whole.get("shared_attn") if s.kind == "shared_attn"
                       else sp for s, sp in zip(self.program, whole["stages"])]
         return [_init_stage_cache(self.cfg, s, batch, max_seq, dtype, dev,
-                                  block, self.mesh)
+                                  block, self.mesh,
+                                  self._seq_split(s, batch, max_seq,
+                                                  global_batch))
                 for s, block in zip(self.program, blocks)]
+
+    def _slot_axes(self):
+        """The axes a split KV cache's slots are cut along: ``seq_axis``,
+        else the data axes (``None`` without a mesh)."""
+        if self.mesh is None:
+            return None
+        return self.seq_axis or data_axes(self.mesh)
+
+    def _seq_split(self, stage: Stage, batch: int, max_seq: int,
+                   global_batch: Optional[int]) -> int:
+        """How many blocks a KV cache of ``stage`` is cut into (1: whole)."""
+        if self.mesh is None or stage.kind in ("mamba", "xlstm_pair"):
+            return 1
+        slots = attn_lib.cache_slots(max_seq, stage.window)
+        if self.seq_axis is not None:
+            n = self.mesh.axis_size(self.seq_axis)
+            return n if slots % n == 0 else 1
+        if global_batch is None:
+            return 1
+        n = self.mesh.axis_size(data_axes(self.mesh))
+        rows = global_batch if global_batch % n else global_batch // n
+        if batch != rows:
+            raise ValueError(f"a global batch of {global_batch} on {n} data "
+                             f"ranks puts {rows} rows on a rank, not "
+                             f"{batch}")
+        return n if cache_seq_axes(global_batch, slots, self.mesh) else 1
 
     def decode_step(self, params, cache, token: torch.Tensor, pos: int):
         """token: [B,1] int; pos: int. Returns (logits [B,V] f32, cache).
@@ -455,7 +572,7 @@ class Model:
             for lp, lc in zip(_layers(stage, sp), _layers(stage, sc)):
                 x = _decode_layer(lp, x, lc, pos, cfg, stage.kind,
                                   stage.window, shared, self.mesh,
-                                  self.dp_axes)
+                                  self.dp_axes, self._slot_axes())
         x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self._unembed(params, x)[:, 0], cache
 
@@ -487,12 +604,13 @@ class Model:
 def build_model(cfg: ModelConfig, *, backend: str = "auto",
                 remat: bool = False, mesh: Any = None,
                 dp_axes: tuple = ("data",), remat_policy: str = "full",
-                moe_ep_axis: Any = "model") -> Model:
+                moe_ep_axis: Any = "model", seq_axis: Any = None) -> Model:
     """The model of ``cfg``: a ``WhisperModel`` for the ``audio`` family,
     else a ``Model``."""
     kw = dict(cfg=cfg, program=build_program(cfg), backend=backend,
               remat=remat, mesh=mesh, dp_axes=dp_axes,
-              remat_policy=remat_policy, moe_ep_axis=moe_ep_axis)
+              remat_policy=remat_policy, moe_ep_axis=moe_ep_axis,
+              seq_axis=seq_axis)
     if cfg.family == "audio":
         from repro_torch.models.whisper import WhisperModel
         return WhisperModel(**kw)

@@ -33,6 +33,22 @@ their widths, not from ``cfg.n_heads``:
   its query heads read before the kernel (``kv_take``).
 
 Cross-attention is not split: the ``audio`` family holds every leaf whole.
+
+Context parallelism (``seq_axis``, the reference's ``_constrain_seq``: q's
+sequence over that axis, K/V all-gathered where attention needs them, the
+Llama3 layout) runs on the rank's block of ``S / n`` positions: q, k and v
+come from the block, k and v (after RoPE) go through ``collectives.
+gather_seq`` in one call, and the kernel runs the rank's queries against
+the prefix ``[0, (r + 1) S / n)``, causal and right-aligned, which is the
+whole sequence's causal mask (and its sliding window) for those rows. The
+full gather is the reference's own (GSPMD gathers all K/V too); it
+composes with the head split over ``"model"``. At decode, a KV cache whose
+slots are split over ranks (``launch.sharding.cache_seq_axes``: its
+``"slots"`` entry holds the whole cache's count) takes the new K/V on the
+rank that owns slot ``pos``; each rank's partial softmax over its own
+slots (its max, its sum of exponentials, its unnormalised output) is
+gathered and combined in rank order, so every rank holds the same bits,
+and a rank whose slots are all masked weighs 0.
 """
 from __future__ import annotations
 
@@ -149,17 +165,33 @@ def _rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     return apply_rope(q, ang), apply_rope(k, ang)
 
 
+def _gather_prefix(k: torch.Tensor, v: torch.Tensor, mesh, seq_axis: str):
+    """k and v [B, S/n, kv, hd] of every peer of ``seq_axis`` in one
+    gather, cut to the prefix this rank's queries read."""
+    hkv = k.shape[2]
+    kv = coll.gather_seq(torch.cat([k, v], dim=2), mesh, seq_axis)
+    kv = kv[:, :(mesh.axis_index(seq_axis) + 1) * k.shape[1]]
+    return kv[:, :, :hkv].contiguous(), kv[:, :, hkv:].contiguous()
+
+
 def attn_forward(params, x: torch.Tensor, positions: Optional[torch.Tensor],
                  cfg: ModelConfig, *, window: Optional[int] = None,
                  causal: bool = True, backend: str = "auto",
-                 rope: bool = True, mesh=None) -> torch.Tensor:
+                 rope: bool = True, mesh=None,
+                 seq_axis: Optional[str] = None) -> torch.Tensor:
     """Full-sequence self-attention. positions: [B, S] or [3, B, S]
-    (M-RoPE); unused with ``rope=False``. On a ``mesh``, the rank's heads
+    (M-RoPE); unused with ``rope=False``. On a ``mesh``, the rank's heads;
+    with ``seq_axis``, x and positions are the rank's block of the sequence
     (module docstring)."""
     compute_dtype = compute_dtype_of(cfg)
     q, k, v, q_split = _qkv(params, x, cfg, compute_dtype, mesh)
     if rope:
         q, k = _rope(q, k, positions, cfg)
+    if seq_axis is not None:
+        if not causal:
+            raise ValueError("context parallelism runs causal attention: "
+                             "the prefix a block reads is its mask")
+        k, v = _gather_prefix(k, v, mesh, seq_axis)
     out = flash_attention(q, k, v, causal=causal, window=window,
                           backend=backend)
     b, s, h, hd = out.shape
@@ -173,21 +205,57 @@ def attn_forward(params, x: torch.Tensor, positions: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
+def cache_slots(max_seq: int, window: Optional[int] = None) -> int:
+    """A layer's KV cache slots: a rolling buffer of ``window`` slots when
+    windowed."""
+    return min(window, max_seq) if window is not None else max_seq
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   window: Optional[int] = None, dtype=torch.bfloat16, *,
-                  device, kv_heads: Optional[int] = None):
+                  device, kv_heads: Optional[int] = None,
+                  seq_split: int = 1):
     """Cache for ONE attention layer. Rolling buffer when windowed.
-    ``kv_heads``: a rank's count (``rank_kv_heads``), by default all."""
+    ``kv_heads``: a rank's count (``rank_kv_heads``), by default all.
+    ``seq_split`` > 1: this rank's block of the slots, which must divide
+    (``launch.sharding.cache_seq_axes``), with the whole count under
+    ``"slots"`` (a host int64 scalar)."""
     hd = cfg.resolved_head_dim
-    slots = min(window, max_seq) if window is not None else max_seq
-    shape = (batch, slots, kv_heads or cfg.n_kv_heads, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    slots = cache_slots(max_seq, window)
+    if slots % seq_split:
+        raise ValueError(f"{slots} cache slots do not split over "
+                         f"{seq_split} ranks")
+    shape = (batch, slots // seq_split, kv_heads or cfg.n_kv_heads, hd)
+    out = {"k": torch.zeros(shape, dtype=dtype, device=device),
+           "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if seq_split > 1:
+        out["slots"] = torch.tensor(slots, dtype=torch.int64)
+    return out
+
+
+def _split_softmax(sc: torch.Tensor, valid: torch.Tensor, cv: torch.Tensor,
+                   mesh, axes) -> torch.Tensor:
+    """softmax(sc) @ v over the slots of every peer of ``axes``, from this
+    rank's scores sc [B, kv, G, m], its slots' mask ``valid`` [m] and its
+    values cv [B, m, kv, hd]: the peers' partial statistics gathered and
+    folded in rank order (module docstring). A rank with no valid slot has
+    max NEG_INF, sum 0 and output 0, and weighs exp(NEG_INF - M) = 0."""
+    mx = torch.where(valid, sc, NEG_INF).amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(sc - mx), 0.0)
+    stats = torch.cat([mx, p.sum(-1, keepdim=True),
+                       torch.einsum("bkgj,bjkd->bkgd", p, cv.float())], -1)
+    parts = coll.all_gather(stats[None], mesh, axes)   # [n, B, kv, G, 2+hd]
+    w = torch.exp(parts[..., :1] - parts[..., :1].amax(0))
+    num, den = w[0] * parts[0, ..., 2:], w[0] * parts[0, ..., 1:2]
+    for i in range(1, parts.shape[0]):
+        num = num + w[i] * parts[i, ..., 2:]
+        den = den + w[i] * parts[i, ..., 1:2]
+    return num / den
 
 
 def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
                 *, window: Optional[int] = None, rope: bool = True,
-                mesh=None):
+                mesh=None, slot_axes=None):
     """One-token decode. x: [B, 1, D]; pos: the current position (int),
     the same in all three streams under M-RoPE.
 
@@ -196,7 +264,8 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
     the reference returns an updated copy, the port writes the new K/V into
     ``cache`` in place (no copy of the cache per token) and returns it. On
     a ``mesh``, the rank's heads and the kv heads they read
-    (``rank_kv_heads``).
+    (``rank_kv_heads``); a cache with ``"slots"`` holds this rank's block
+    of them along ``slot_axes`` (module docstring).
     """
     compute_dtype = compute_dtype_of(cfg)
     b = x.shape[0]
@@ -211,26 +280,33 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
         q, k = _rope(q, k, positions, cfg)
 
     ck, cv = cache["k"], cache["v"]
-    slots = ck.shape[1]
+    mine = ck.shape[1]
+    split = "slots" in cache
+    slots = int(cache["slots"]) if split else mine
+    first = mesh.axis_index(slot_axes) * mine if split else 0
     slot = pos % slots if window is not None else pos
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    if first <= slot < first + mine:
+        ck[:, slot - first] = k[:, 0].to(ck.dtype)
+        cv[:, slot - first] = v[:, 0].to(cv.dtype)
 
     # attention over the cache (linear in cache length)
     hq, kv = q.shape[2], k.shape[2]
     qg = q.reshape(b, 1, kv, hq // kv, hd).float()
     scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=x.device))
     sc = torch.einsum("bikgd,bjkd->bkgj", qg * scale, ck.float())
-    slot_idx = torch.arange(slots, device=x.device)
+    slot_idx = torch.arange(first, first + mine, device=x.device)
     if window is not None:
         # slot s holds position p = s (mod slots), the largest such p <= pos
         slot_pos = pos - torch.remainder(pos - slot_idx, slots)
         valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - window)
     else:
         valid = slot_idx <= pos
-    sc = torch.where(valid, sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgj,bjkd->bkgd", p, cv.float())
+    if split:
+        out = _split_softmax(sc, valid, cv, mesh, slot_axes)
+    else:
+        sc = torch.where(valid, sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bkgj,bjkd->bkgd", p, cv.float())
     out = _out_proj(params, out.reshape(b, 1, hq * hd), compute_dtype, mesh,
                     q_split)
     return out.to(x.dtype), cache

@@ -19,15 +19,17 @@ without ``setup_context``), so the port has its own ``autograd.Function``:
 
 ``policy="dots"`` (``jax.checkpoint_policies.dots_with_no_batch_dims_
 saveable``) also keeps the outputs of the products with no batch
-dimension, ``aten.mm`` and ``aten.addmm`` (every ``x @ w``), and of the
+dimension, ``aten.mm`` and ``aten.addmm`` (every ``x @ w``), of the
 ordered sums over ranks (``repro_torch::ordered_psum``: tensor
-parallelism's ``reduce_from_peers``, the MoE aux loss's mean), and the
+parallelism's ``reduce_from_peers``, the MoE aux loss's mean) and of
+context parallelism's K/V gather (``repro_torch::gather_seq``), and the
 recomputation takes them in the order the forward made them in place of
-computing them again, so it moves nothing between ranks (skipping the
-tensor-parallel all-reduces is the reference's stated purpose for
-"dots"); batched products (``bmm``: the experts, attention), the flash
-kernel's output and the other transfers (the experts' ``all_to_all`` and
-``all_gather``) are recomputed. Under ``policy="full"`` the recomputation
+computing them again, so it moves nothing between ranks but the MoE's
+transfers (skipping the tensor-parallel all-reduces is the reference's
+stated purpose for "dots"; the gathered K/V cost B x S x 2 kv x hd a
+layer, the rank's whole sequence); batched products (``bmm``: the
+experts, attention), the flash kernel's output and the other transfers
+(the experts' ``all_to_all`` and ``all_gather``) are recomputed. Under ``policy="full"`` the recomputation
 runs every collective of the layer again; every rank recomputes in the
 same order, so they stay matched.
 
@@ -44,10 +46,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core.distributed import ordered_psum_op
+from repro_torch.launch.collectives import gather_seq_op
 
 POLICIES = ("full", "dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         ordered_psum_op._opoverload)
+         ordered_psum_op._opoverload, gather_seq_op._opoverload)
 
 
 class _Box:

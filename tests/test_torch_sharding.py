@@ -312,3 +312,77 @@ def test_kv_take_is_the_kv_heads_the_query_heads_read(heads, kv, tp):
         block = build_model(cfg, mesh=mesh).rank_blocks()["stages"][0]
         assert rank_kv_heads(block["attn"], cfg, mesh) == (
             kv // tp if kv % tp == 0 else len(got))
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=["2x2", "4x1", "1x4"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_sequence_split_matches_the_reference(arch, mesh_shape):
+    """``cache_specs``' sequence rule for a batch of one, executed: at 64
+    slots (which divide the data axes) and 63 (which do not), each KV
+    leaf's sequence entry of the reference's spec is
+    ``sharding.cache_seq_axes``' answer, and the cache a rank of the
+    smoke config holds (``Model.init_cache(..., global_batch=1)``) has that
+    spec's block of slots. Whisper (``audio``) holds its caches whole, as
+    it does its heads, so only the rule is held for it."""
+    jcfg, tcfg, jm, _, _, _ = _models(arch, True)
+    dp, mp = mesh_shape
+    shape = {"data": dp, "model": mp}
+    for seq in (64, 63):
+        ref = _ref_flat(jsh.cache_specs(jcfg, jax.eval_shape(
+            lambda: jm.init_cache(1, seq)), 1, _Mesh(shape)))
+        shapes = dict(_port_flat(jax.tree.map(
+            lambda x: tuple(x.shape), jax.eval_shape(
+                lambda: jm.init_cache(1, seq)))))
+        kv = []
+        for name, spec in ref:
+            dims = shapes[name]
+            last = name.split("/")[-1]
+            if ("k" in last or "v" in last) and len(dims) >= 4:
+                sdim = dims.index(1) + 1
+                kv.append((name, sdim, dims[sdim]))
+                got = tsh.cache_seq_axes(1, dims[sdim], _Mesh(shape))
+                assert (spec + (None,) * len(dims))[sdim] == got, name
+        if tcfg.family == "audio":
+            continue
+        for d in range(dp):
+            for m in range(mp):
+                mesh = _rank_mesh(shape, {"data": d, "model": m})
+                cache = dict(_port_flat(build_model(tcfg, mesh=mesh)
+                                        .init_cache(1, seq, device="meta",
+                                                    global_batch=1)))
+                for name, sdim, slots in kv:
+                    split = tsh.cache_seq_axes(1, slots, _Mesh(shape))
+                    want = slots // dp if split else slots
+                    assert cache[name].shape[sdim] == want, name
+                    stage = name.rsplit("/", 1)[0] + "/slots"
+                    assert (stage in cache) == bool(split), name
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_rank_batch_under_seq_axis_tiles_the_sequence(mesh_shape):
+    """``lm_ranks.rank_batch`` under ``seq_axis="data"``: every rank keeps
+    all the rows and its block of the sequence, of ``tokens`` and of
+    ``positions``; the model peers hold the same block, and the blocks of
+    the data ranks tile the sequence in rank order."""
+    from repro_torch.launch.lm_ranks import rank_batch
+    tcfg = tconfigs.get_smoke_config("stablelm-1.6b")
+    dp, mp = mesh_shape
+    shape = {"data": dp, "model": mp}
+    tokens = torch.arange(2 * 16).reshape(2, 16)
+    positions = tokens + 100
+    blocks = {}
+    for d in range(dp):
+        for m in range(mp):
+            mesh = _rank_mesh(shape, {"data": d, "model": m})
+            model = build_model(tcfg, mesh=mesh, seq_axis="data",
+                                dp_axes=())
+            assert model.batch_axes == ()
+            blk = rank_batch(model, {"tokens": tokens,
+                                     "positions": positions})
+            assert torch.equal(blk["positions"], blk["tokens"] + 100)
+            if d in blocks:
+                assert torch.equal(blocks[d], blk["tokens"])
+            blocks[d] = blk["tokens"]
+    assert torch.equal(torch.cat([blocks[d] for d in range(dp)], dim=1),
+                       tokens)
