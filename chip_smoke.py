@@ -268,9 +268,9 @@ Phases (any failure exits non-zero without the final result line):
    builds the ``(data, model)`` mesh (``launch.mesh.make_lm_mesh``) and
    granite-moe-1b-a400m whole with ``mesh=``, draws the full weights from
    the seed and keeps its experts (``launch.lm_ranks``). (a) On 2 x 2 (2
-   expert-parallel peers, 16 experts a rank): a bf16 prefill of 2 x 2048
-   at the config's capacity factor (each data rank 1 x 2048, 1,024 tokens
-   and 320 slots an expert a peer) with 24 tensor-core ``flash_attention``
+   expert-parallel peers, 16 experts a rank): a bf16 prefill of 2 x 1024
+   at the config's capacity factor (each data rank 1 x 1024, 512 tokens
+   and 160 slots an expert a peer) with 24 tensor-core ``flash_attention``
    launches a rank and the all-to-all bytes of a layer exactly 2 E C d x 2;
    ``serve.generate`` of 8 tokens at batch 4; 2 Adam steps at 4 x 128
    with the gradients averaged over ``data``, the update in place
@@ -299,13 +299,13 @@ Phases (any failure exits non-zero without the final result line):
 24. dense tensor parallelism, in phase 23's ranks (no second spawn): rank 0
    first holds ``flash_attention`` and ``ssd_scan`` against their plain
    versions at the per-rank shapes (stablelm-1.6b's 8 heads x 64 and
-   zamba2-2.7b's 8 x 80 causal at 2 x 2048; the scan at 20 heads x 64, N
+   zamba2-2.7b's 8 x 80 causal at 2 x 1024; the scan at 20 heads x 64, N
    64, with the last rank's A) and times them. (a) stablelm-1.6b whole in
    bf16 on 1 x 4 (8 of 32 heads, 1,408 of 5,632 FFN columns and 25,088 of
-   100,352 vocabulary rows a rank): a 2 x 2048 prefill with 24 tensor-core
+   100,352 vocabulary rows a rank): a 2 x 1024 prefill with 24 tensor-core
    ``flash_attention`` launches a rank and exactly 2 x 24 + 1 all-reduces
-   of 2 x 2048 x 2048 bf16 values (attention and MLP outputs, the
-   vocabulary-parallel lookup), the rank's f32 logits gathered; 16 greedy
+   of 2 x 1024 x 2048 bf16 values (attention and MLP outputs, the
+   vocabulary-parallel lookup), the rank's f32 logits gathered; 8 greedy
    tokens of ``serve.generate`` at batch 2, equal on every rank; against
    one process's bf16 run on the whole weights, the prefill logits within
    ``TP_BF16_GAP`` and the tokens equal or apart first at a near tie within
@@ -321,7 +321,7 @@ Phases (any failure exits non-zero without the final result line):
    leaf on its data peers. (d) f32 copies with 2 layers: the 1 x 4 logits
    of stablelm-1.6b and of zamba2-2.7b (a Mamba2 layer and the shared
    attention) within 2e-4 of one process's on the same weights through the
-   same kernels, their 16 greedy tokens equal one process's (or apart
+   same kernels, their 8 greedy tokens equal one process's (or apart
    first at a near tie within 2e-4), and the 2 x 2 loss and gradient of
    stablelm-1.6b within 1e-5 and 2e-4 of each leaf's largest. Tokens/s, steps/s, each rank's
    peak and the seconds spent in the all-reduces are printed;
@@ -338,16 +338,37 @@ Phases (any failure exits non-zero without the final result line):
    ``data`` of their bytes (and, on 2 x 2, the tensor-parallel sums and
    the logits' gather), each rank's attention ms (rank r reads r + 1
    blocks of keys) and peak; (c) decode at batch 1 from the cache split
-   over ``data`` (a 48-token prompt, 16 greedy tokens: 64 slots, 16 or 32
+   over ``data`` (a 48-token prompt, 8 greedy tokens: 56 slots, 14 or 28
    a rank), its bytes a rank exact, the tokens equal on every rank. (b)
    f32 copies with 2 layers on both meshes against one process on the
-   same weights: the logits of 1 x 1024 and the loss within 2e-4, the
+   same weights: the logits of 1 x 512 and the loss within 2e-4, the
    gradient (the ranks' shares summed over ``data``) within 2e-4 of each
    leaf's largest, and on 4 x 1 the greedy tokens of (c)'s decode equal
-   one process's. (d) 2 SGD steps of stablelm-1.6b on 2 x 2 at 1 x 2048 with
-   remat "dots": the gathers and sums of a step exact, the loss falling,
-   every leaf held whole bitwise equal on all ranks after them and each
-   split leaf on its data peers.
+   one process's; and granite-moe-1b-a400m with 2 layers at its capacity
+   factor 1.25 on 4 x 1, each MoE layer routing the whole sequence: the
+   full loss and its gradient within 2e-4 of one process, the K/V and MoE
+   input gathers exact. (d) 2 SGD steps of stablelm-1.6b on 2 x 2 at 1 x
+   1024 with remat "dots": the gathers and sums of a step exact, the loss
+   falling, every leaf held whole bitwise equal on all ranks after them and
+   each split leaf on its data peers.
+26. FSDP and the production meshes, in phase 23's ranks too: (a)
+   stablelm-1.6b whole on 2 x 2 with ``fsdp=True`` (each leaf's block cut
+   over ``data`` as well, gathered by ``collectives.gather_fsdp`` inside
+   the remat body), phase 24 (c)'s seed, batch and 2 SGD steps: the losses
+   and, gathered back over ``data``, the weights bitwise (c)'s on every
+   rank; the parameter bytes a rank exact from the specs, the gathers and
+   reduce-scatters a step exact from the shapes, 48 tensor-core
+   ``flash_attention`` launches a step a rank; steps/s and the peak beside
+   (c)'s. (b) The dry run's count of rank 0 of a stand-in 2 x 2 on meta
+   (``launch.dryrun.count_step``, no process group) of (c)'s and (a)'s
+   steps: its peak within 20% of each rank's ``max_memory_allocated``,
+   its collective bytes by kind equal to the ranks' counts exactly. (c)
+   The dry run's command line on the production meshes (rank 0 of 16 x 16
+   and 2 x 16 x 16): stablelm-1.6b ``train_4k`` with and without
+   ``--fsdp``, granite-moe-1b-a400m ``decode_32k``, gemma3-4b ``long_500k``
+   with ``--sliding-variant``, every row ``ok``, printed with its peak a
+   rank, ``fits_one_card``, terms and count's seconds. (b) and (c) run in
+   processes started before phase 23's ranks, beside them.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -741,7 +762,7 @@ DIST_TIMEOUT = 900
 # layers, a bf16 prefill of 2 x MESH_WIDE_S (decode 16 tokens and 2 x 2048
 # until phase 24)
 MESH_RANKS, MESH_TIMEOUT = 4, 600
-MESH_PREFILL = (2, 2048)      # 2 x 4096 until phase 24
+MESH_PREFILL = (2, 1024)      # 2 x 4096 until phase 24, 2 x 2048 until 26
 MESH_PROMPT, MESH_DECODE = 1, (4, 8)
 MESH_TRAIN, MESH_TRAIN_STEPS, MESH_LR = (4, 128), 2, 1e-3
 MESH_F32_S = 256
@@ -760,7 +781,7 @@ MESH_GRAD_REL = 2e-4
 # loss and gradient on 2 x 2 at GRAD_BATCH x TRAIN_SEQ (the bounds: the f32
 # prefills' REF_PREFILL_TOL, LOSS_REL_TP, MESH_GRAD_REL)
 TP_ARCH, TP_HYBRID_ARCH = "stablelm-1.6b", "zamba2-2.7b"
-TP_PREFILL, TP_DECODE = (2, 2048), (2, 16)
+TP_PREFILL, TP_DECODE = (2, 1024), (2, 8)   # (2, 2048), (2, 16) until 26
 TP_HYBRID_LAYERS = 18
 TP_TRAIN_STEPS, TP_LR = 2, 0.01
 TP_PARITY_LAYERS, TP_PARITY_S = 2, 256
@@ -783,16 +804,31 @@ TP_BF16_GAP = 0.25
 # bf16 at batch 1, a CP_PREFILL-token prompt (stablelm-2's context length)
 # on each of CP_MESHES with the sequence over "data"; (c) decode at batch 1
 # from the split cache after a CP_PROMPT-token prompt, CP_GEN greedy
-# tokens (64 slots: 16 a rank on 4 x 1); (b) f32 copies with
+# tokens (56 slots: 14 a rank on 4 x 1); (b) f32 copies with
 # CP_PARITY_LAYERS layers against one process on the same weights, at 1 x
 # CP_PARITY_S (bounds REF_PREFILL_TOL and MESH_GRAD_REL); (d) CP_TRAIN_STEPS
 # SGD steps of CP_ARCH on 2 x 2 at 1 x CP_TRAIN_S, remat "dots"
 CP_ARCH = "stablelm-1.6b"
 CP_MESHES = ((MESH_RANKS, 1), (2, 2))
 CP_PREFILL = 4096
-CP_PROMPT, CP_GEN = 48, 16
-CP_PARITY_LAYERS, CP_PARITY_S = 2, 1024
-CP_TRAIN_S, CP_TRAIN_STEPS, CP_LR = 2048, 2, 0.01
+CP_PROMPT, CP_GEN = 48, 8       # 16 tokens until phase 26
+CP_PARITY_LAYERS, CP_PARITY_S = 2, 512      # 1024 until phase 26
+CP_TRAIN_S, CP_TRAIN_STEPS, CP_LR = 1024, 2, 0.01   # 2048 until phase 26
+# (b) also holds MOE_ARCH, CP_PARITY_LAYERS layers in f32 at its config's
+# capacity factor (1.25: slots drop), at 1 x CP_PARITY_S on MESH_RANKS x 1:
+# each MoE layer routes the whole sequence, so the loss and the gradient
+# are one process's (bounds REF_PREFILL_TOL and MESH_GRAD_REL)
+# FSDP and the production meshes (phase 26), in phase 23's ranks: (a)
+# TP_ARCH whole on 2 x 2 with fsdp=True, the seed, batch and SGD steps of
+# phase 24 (c) (MESH_TRAIN, TP_TRAIN_STEPS, TP_LR, remat): its losses and
+# its weights, gathered back, bitwise (c)'s; (b) the dry run's count of
+# rank 0 of a stand-in 2 x 2 on meta against (c)'s and (a)'s ranks: the
+# peak within TOOL_PEAK_GAP, the collective bytes by kind exact; (c) the
+# rows FSDP_ROWS of the dry run on the production meshes, on meta
+FSDP_ROWS = (("stablelm-1.6b", "train_4k", {}),
+             ("stablelm-1.6b", "train_4k", {"fsdp": True}),
+             ("granite-moe-1b-a400m", "decode_32k", {}),
+             ("gemma3-4b", "long_500k", {"sliding_variant": True}))
 # (d)'s f32 greedy decode on 1 x 4 against one process: the tokens equal,
 # or apart first at a near tie within REF_PREFILL_TOL
 # audio and vision (phase 21): whisper-base whole (6 encoder and 6 decoder
@@ -6341,6 +6377,7 @@ def _tp_rank(rep: dict, note, free) -> None:
     dist.barrier()
     _zero_counts(expect)
     before = dict(PSUM_COUNTS)
+    before_moved = _moved()
     losses, walls = [], []
     try:
         for _ in range(TP_TRAIN_STEPS):
@@ -6353,17 +6390,30 @@ def _tp_rank(rep: dict, note, free) -> None:
     split = [bool(any(e is not None for e in sp))
              for sp in _spec_leaves(specs)]
     leaves = tree_leaves(params)
+    # phase 26 (a)'s blocks of these weights (each FSDP leaf's block over
+    # data, a view), which its own weights must equal bitwise
+    fblocks = []
+    for x, dim in zip(leaves, tree_leaves(build_model(
+            cfg, mesh=mesh, fsdp=True).fsdp_dims)):
+        if dim is not None:
+            spec = [None] * x.dim()
+            spec[dim] = "data"
+            x = shard_of(x, tuple(spec), mesh)
+        fblocks.append(x)
     tp["c"] = {
         "losses": losses, "step_s": walls, "launches": _counts(expect),
         "sums": {k: PSUM_COUNTS[k] - before[k] - mean_psum[k]
                  for k in mean_psum},
         "mean": mean_psum, "rows": batch["tokens"].shape[0],
         "peak_bytes": torch.cuda.max_memory_allocated(),
+        "moved": _moved_since(before_moved),
+        "param_bytes": sum(x.numel() * x.element_size() for x in leaves),
+        "fsdp_digest": _params_digest(fblocks),
         "whole_digest": _params_digest([x for x, sp in zip(leaves, split)
                                         if not sp]),
         "split_digest": _params_digest([x for x, sp in zip(leaves, split)
                                         if sp])}
-    del params, state, step, leaves
+    del params, state, step, leaves, fblocks
     free()
     note("(24c) stablelm-1.6b training on 2 x 2")
 
@@ -6678,12 +6728,44 @@ def _cp_rank(rep: dict, note, free) -> None:
             "logit_max": want_logits.abs().max().item(), "loss": loss,
             "local_loss": want.item(), "worst": worst, "zero": zero,
             "leaves": len(tree_leaves(g_mesh))})
-        if tp == 1:         # (c)'s layout: 16 slots a rank
+        if tp == 1:         # (c)'s layout: 14 slots a rank
             cp["b"][-1]["tokens"] = generate(model, shard, pprompt,
                                              CP_GEN)["tokens"].tolist()
             cp["b"][-1]["one_process"] = theirs.tolist()
         del g_mesh, shard
     del full, g_local, want_logits, local
+    # the MoE at its config's capacity on 4 x 1: the whole sequence routed
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32",
+                               n_layers=CP_PARITY_LAYERS)
+    local = build_model(mcfg)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    mtoks = {"tokens": lm_ranks.tokens(mcfg, 1, CP_PARITY_S, SEED + 20,
+                                       "cuda")}
+    g_local, want = torch.func.grad_and_value(
+        lambda p, bt: local.loss(p, bt)[0])(full, mtoks)
+    mesh, model = lm_ranks.rank_model(mcfg, MESH_RANKS, 1, seq_axis="data")
+    specs = rank_specs(mcfg, full, mesh)
+    before = _cp_counts()
+    g_mesh, loss = torch.func.grad_and_value(
+        lambda p, bt: model.loss(p, bt)[0])(shard_tree(full, specs, mesh),
+                                            lm_ranks.rank_batch(model,
+                                                                mtoks))
+    moved = _cp_since(before)
+    loss = ordered_psum(loss, mesh, "data").item()
+    worst, zero = 0.0, 0
+    for gl, gm, sp in zip(tree_leaves(g_local), tree_leaves(g_mesh),
+                          _spec_leaves(specs)):
+        gm = ordered_psum(gm, mesh, "data")
+        gl = shard_of(gl, sp, mesh)
+        scale = gl.abs().max().item()
+        if scale == 0.0 or gm.abs().max().item() == 0.0:
+            zero += 1
+            continue
+        worst = max(worst, (gm - gl).abs().max().item() / scale)
+    cp["b_moe"] = {"loss": loss, "local_loss": want.item(), "worst": worst,
+                   "zero": zero, "leaves": len(tree_leaves(g_mesh)),
+                   "moved": moved}
+    del full, g_local, g_mesh, local
     free()
     note("(25b) f32 parity")
 
@@ -6953,6 +7035,7 @@ def mesh_rank(out_dir: str) -> None:
     note("(d) prefill")
     _tp_rank(rep, note, free)
     _cp_rank(rep, note, free)
+    _fsdp_rank(rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
 
@@ -7524,6 +7607,29 @@ def phase_context_parallel(card: str, ranks: list):
                 worst <= MESH_GRAD_REL and gap <= REF_PREFILL_TOL and same):
             raise AssertionError(f"cp f32 on {dp} x {tp}: the mesh and one "
                                  f"process disagree")
+    xs = [r["cp"]["b_moe"] for r in ranks]
+    worst, zero = max(x["worst"] for x in xs), max(x["zero"] for x in xs)
+    gap = max(abs(x["loss"] - x["local_loss"]) for x in xs)
+    mcfg = get_config(MOE_ARCH)
+    # a layer: K/V, and the MoE's input [1, S / n, d] gathered in f32
+    want_g = [2 * CP_PARITY_LAYERS, CP_PARITY_LAYERS * (
+        _cp_bytes(mcfg, MESH_RANKS, 1, CP_PARITY_S, 4)
+        + CP_PARITY_S // MESH_RANKS * mcfg.d_model * 4)]
+    got_g = xs[0]["moved"]["seq_gather"][:2]
+    print(f"cp f32 {MOE_ARCH}, {CP_PARITY_LAYERS} layers, capacity factor "
+          f"{mcfg.capacity_factor}, 1 x {CP_PARITY_S} on {MESH_RANKS} x 1 "
+          f"vs one process: loss (nll + 0.01 aux) {xs[0]['loss']:.6f} vs "
+          f"{xs[0]['local_loss']:.6f} (gap {gap:.3e}, tol "
+          f"{REF_PREFILL_TOL}); the gradient summed over data: "
+          f"{xs[0]['leaves']} leaves a rank, {zero} zero, largest gap "
+          f"{worst:.3e} of its leaf's largest (tol {MESH_GRAD_REL}); "
+          f"gathers (K/V and each MoE layer's input) {got_g} (calls, B; "
+          f"expected {want_g}) [{card}]")
+    if not (zero == 0 and worst <= MESH_GRAD_REL and gap <= REF_PREFILL_TOL
+            and all(x["moved"]["seq_gather"][:2] == want_g for x in xs)):
+        raise AssertionError(f"cp f32 {MOE_ARCH} at capacity "
+                             f"{mcfg.capacity_factor}: the mesh and one "
+                             f"process disagree, or the gathers are off")
 
     tr = [r["cp"]["d"] for r in ranks]
     losses = tr[0]["losses"]
@@ -7580,6 +7686,299 @@ def phase_context_parallel(card: str, ranks: list):
           f"(rank 0's laps, in phase 23's wall), the checks here "
           f"{time.perf_counter() - t_phase:.1f} s")
     return paths, shapes
+
+
+def _moved() -> dict:
+    """The bytes this process's collectives moved so far by the count's
+    kinds (``launch.cost_analysis``: each call's operand), and the FSDP
+    gathers' and reduce-scatters' calls and bytes."""
+    from repro_torch.core.distributed import PSUM_COUNTS
+    from repro_torch.launch import collectives
+    c = collectives.COLLECTIVE_COUNTS
+    return {"all-reduce": PSUM_COUNTS["part_bytes"],
+            "all-gather": sum(c[k]["sent_bytes"] for k in
+                              ("all-gather", "seq-gather", "fsdp-gather")),
+            "reduce-scatter": sum(c[k]["sent_bytes"] for k in
+                                  ("seq-scatter", "fsdp-scatter")),
+            "all-to-all": c["all-to-all"]["sent_bytes"],
+            "fsdp": [c["fsdp-gather"]["calls"], c["fsdp-gather"]["sent_bytes"],
+                     c["fsdp-scatter"]["calls"],
+                     c["fsdp-scatter"]["sent_bytes"]]}
+
+
+def _moved_since(before: dict) -> dict:
+    now = _moved()
+    return {k: ([a - b for a, b in zip(v, before[k])] if isinstance(v, list)
+                else v - before[k]) for k, v in now.items()}
+
+
+def _fsdp_rank(rep: dict, note, free) -> None:
+    """Phase 26 (a) in one rank of phase 23's world (``mesh_rank``): fills
+    ``rep["fsdp"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import sgd
+    cfg = get_config(TP_ARCH)
+    mesh, model = lm_ranks.rank_model(cfg, 2, 2, fsdp=True)
+    params = lm_ranks.rank_params(model, lm_ranks.full_params(model, SEED,
+                                                              "cuda"))
+    free()
+    tb, ts = MESH_TRAIN
+    batch = lm_ranks.rank_batch(model, {"tokens": lm_ranks.tokens(
+        cfg, tb, ts, SEED + 10, "cuda")})
+    opt = sgd(TP_LR)
+    state = opt.init(params)
+    step = make_train_step(dataclasses.replace(model, remat=True), opt,
+                           donate=True)
+    n = 2 * TP_TRAIN_STEPS * cfg.n_layers
+    expect = _flash_counts(n, n)
+    torch.cuda.synchronize()
+    dist.barrier()
+    _zero_counts(expect)
+    before = _moved()
+    losses, walls = [], []
+    for _ in range(TP_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+    leaves = tree_leaves(params)
+    fs = rep["fsdp"] = {
+        "losses": losses, "step_s": walls, "launches": _counts(expect),
+        "moved": _moved_since(before),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "param_bytes": sum(x.numel() * x.element_size() for x in leaves),
+        # every rank's blocks equal to 24 (c)'s: the whole weights are
+        "digest": _params_digest(leaves)}
+    del params, state, step, leaves
+    free()
+    note("(26a) stablelm-1.6b FSDP training on 2 x 2")
+
+
+def _fsdp_per_step(model) -> list:
+    """[gathers, their bytes, reduce-scatters, their bytes] of one remat'd
+    training step of a rank of ``model.mesh`` under FSDP, from the blocks'
+    shapes: the FSDP leaves outside the layers in one transfer, each
+    layer's in one, twice (the forward and the recomputation), each
+    reduce-scatter once of the whole (the data axes' size times the
+    blocks). For a model without shared attention, whose leaves a stage
+    gathers each time it runs."""
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.sharding import (data_axes, rank_specs,
+                                             shard_tree)
+    whole = meta_params(model)
+    blocks = shard_tree(whole, rank_specs(model.cfg, whole, model.mesh,
+                                          fsdp=True), model.mesh)
+    dp = model.mesh.axis_size(data_axes(model.mesh))
+    out = [0, 0, 0, 0]
+
+    def add(count, calls, leaves, dims):
+        size = sum(x.numel() * x.element_size() for x, d in zip(leaves, dims)
+                   if d is not None) // count       # a layer's, or the top's
+        if size:
+            out[0] += calls
+            out[1] += calls * size
+            out[2] += count
+            out[3] += count * dp * size
+    top = [k for k in blocks if k not in ("stages", "shared_attn")]
+    add(1, 1, tree_leaves([blocks[k] for k in top]),
+        tree_leaves([model.fsdp_dims[k] for k in top]))
+    for st, b, dm in zip(model.program, blocks["stages"],
+                         model.fsdp_dims["stages"]):
+        add(st.count, 2 * st.count, tree_leaves(b), tree_leaves(dm))
+    return out
+
+
+def start_meta_work() -> tuple:
+    """Phase 26's counts on meta, started before phase 23's ranks so that
+    they run beside them on the host (single-threaded processes): (b) the
+    dry run's count of rank 0 of a stand-in 2 x 2 of phase 24 (c)'s and
+    26 (a)'s steps (``chip_smoke.py --fsdp-count DIR``), and (c) the rows
+    FSDP_ROWS of the dry run's command line on the production meshes (one
+    process a row's two meshes). Returns (DIR, the processes), which
+    ``phase_fsdp`` reads; ``stop_background`` ends any still running."""
+    import os
+    import subprocess
+    import tempfile
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_meta_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--fsdp-count",
+             str(out_dir)]]
+    for i, (arch, shape, kw) in enumerate(FSDP_ROWS):
+        cmds.append([sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", "both",
+                     "--out", str(out_dir / f"rows{i}.json")]
+                    + ["--fsdp"] * bool(kw.get("fsdp"))
+                    + ["--sliding-variant"] * bool(kw.get("sliding_variant")))
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for cmd in cmds]
+    _BACKGROUND.extend(procs)
+    return out_dir, procs
+
+
+_BACKGROUND: list = []      # processes started beside the phases
+
+
+def stop_background() -> None:
+    """Ends every process ``start_meta_work`` started that still runs."""
+    for p in _BACKGROUND:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    _BACKGROUND.clear()
+
+
+def fsdp_count(out_dir: str) -> None:
+    """Phase 26 (b)'s counts, run as ``chip_smoke.py --fsdp-count DIR``:
+    rank 0 of a stand-in 2 x 2, phase 24 (c)'s and 26 (a)'s SGD steps on
+    meta, with and without FSDP; writes DIR/count.json."""
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import stand_in_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    torch.set_num_threads(1)
+    cfg = get_config(TP_ARCH)
+    tb, ts = MESH_TRAIN
+    out = {}
+    for fsdp in (False, True):
+        model = build_model(cfg, mesh=stand_in_mesh({"data": 2, "model": 2}),
+                            remat=True, fsdp=fsdp)
+        t0 = time.perf_counter()
+        cc, held = count_step(model, InputShape("mesh_train", ts, tb,
+                                                "train"), sgd(TP_LR),
+                              donate=True)
+        out[str(fsdp)] = {"peak": cc.peak_live_bytes, "coll": cc.coll,
+                          "held": held, "secs": time.perf_counter() - t0}
+        if fsdp:
+            out[str(fsdp)]["per_step"] = _fsdp_per_step(model)
+    Path(out_dir, "count.json").write_text(json.dumps(out))
+
+
+def phase_fsdp(card: str, ranks: list, meta=None) -> dict:
+    """Phase 26: FSDP trained by phase 23's ranks (``_fsdp_rank``) against
+    phase 24 (c)'s run, the dry run's count of a rank against both, and
+    the dry run's production rows on meta (``start_meta_work``'s, started
+    here unless given). Returns {path: {kernel: launches of all ranks}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch.cost_analysis import COLLECTIVES
+    t_phase = time.perf_counter()
+    out_dir, procs = meta if meta is not None else start_meta_work()
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        stop_background()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 26's count {p.args[1:]}: exit "
+                                 f"{p.returncode}\n{log[-4000:]}")
+    counts = json.loads((out_dir / "count.json").read_text())
+    cfg = get_config(TP_ARCH)
+    tb, ts = MESH_TRAIN
+    tp_c = [r["tp"]["c"] for r in ranks]
+    fs = [r["fsdp"] for r in ranks]
+    n = 2 * TP_TRAIN_STEPS * cfg.n_layers
+    want_l = {"flash_attention": n, "flash_attention tc": n}
+    held = counts["True"]["held"]
+    per_step = counts["True"]["per_step"]
+    want_moved = [TP_TRAIN_STEPS * x for x in per_step]
+
+    # (a) FSDP training against phase 24 (c)
+    for r, f, c in zip(ranks, fs, tp_c):
+        bad = []
+        if f["launches"] != want_l:
+            bad.append(f"launches {f['launches']} (expected {want_l})")
+        if f["losses"] != c["losses"]:
+            bad.append(f"losses {f['losses']} (24c {c['losses']})")
+        if f["digest"] != c["fsdp_digest"]:
+            bad.append("the weights after training are not 24c's bits")
+        if f["param_bytes"] != held or c["param_bytes"] != \
+                counts["False"]["held"]:
+            bad.append(f"parameter bytes {f['param_bytes']} / 24c "
+                       f"{c['param_bytes']} (from the specs {held} / "
+                       f"{counts['False']['held']})")
+        if f["moved"]["fsdp"] != want_moved:
+            bad.append(f"FSDP gathers and reduce-scatters {f['moved']['fsdp']}"
+                       f" (expected {want_moved} from the shapes)")
+        if bad:
+            raise AssertionError(f"fsdp training, rank {r['rank']}: "
+                                 + "; ".join(bad))
+    steps_f = [max(f["step_s"][i] for f in fs)
+               for i in range(TP_TRAIN_STEPS)]
+    steps_c = [max(c["step_s"][i] for c in tp_c)
+               for i in range(TP_TRAIN_STEPS)]
+    rate_f, rate_c = (TP_TRAIN_STEPS / sum(x) for x in (steps_f, steps_c))
+    print(f"fsdp {cfg.name} training on 2 x 2 ranks (fsdp=True, weights cut "
+          f"over data too): {TP_TRAIN_STEPS} SGD steps (lr {TP_LR}) at {tb} "
+          f"x {ts}, remat, in place: {rate_f:.3f} steps/s (24c without "
+          f"FSDP {rate_c:.3f}; step walls {[round(x, 4) for x in steps_f]} "
+          f"s), losses {[round(x, 4) for x in fs[0]['losses']]} bitwise "
+          f"24c's; every rank's weight blocks bitwise its blocks of 24c's "
+          f"weights; parameters {fs[0]['param_bytes']} B a rank (24c "
+          f"{tp_c[0]['param_bytes']}), exact from the specs; a step "
+          f"{per_step[0]} gathers ({per_step[1]} B) and {per_step[2]} "
+          f"reduce-scatters ({per_step[3]} B) a rank, exact from the "
+          f"shapes; flash_attention {n // TP_TRAIN_STEPS} a step a rank, "
+          f"tensor-core; peak by rank {[f['peak_bytes'] for f in fs]} B "
+          f"(24c {[c['peak_bytes'] for c in tp_c]}) [{card}]")
+
+    # (b) the count against the ranks
+    for fsdp, runs, label in ((False, tp_c, "24c"), (True, fs, "26a")):
+        count = counts[str(fsdp)]
+        peak, secs = count["peak"], count["secs"]
+        gaps = [abs(peak - x["peak_bytes"]) / x["peak_bytes"] for x in runs]
+        want = {k: TP_TRAIN_STEPS * int(count["coll"][k]) for k in COLLECTIVES
+                if k != "collective-permute" and k != "broadcast"}
+        got = [{k: x["moved"][k] for k in want} for x in runs]
+        print(f"fsdp dry run vs the card ({label}, fsdp={fsdp}): the count of "
+              f"rank 0 of a stand-in 2 x 2 on meta ({secs:.1f} s) peaks at "
+              f"{peak} B against the ranks' {[x['peak_bytes'] for x in runs]}"
+              f" (gaps {[round(g, 4) for g in gaps]}, tol {TOOL_PEAK_GAP}); "
+              f"its collective bytes x {TP_TRAIN_STEPS} steps {want}, the "
+              f"ranks' {got[0]} [{card}]")
+        if max(gaps) > TOOL_PEAK_GAP or any(g != want for g in got):
+            raise AssertionError(f"fsdp dry run ({label}): the count and the "
+                                 f"ranks disagree")
+
+    # (c) the production rows, on meta
+    for i, (arch, shape, kw) in enumerate(FSDP_ROWS):
+        for row in json.loads((out_dir / f"rows{i}.json").read_text()):
+            mesh = row["mesh"]
+            if row["status"] != "ok" or row["remat"] != "full":
+                raise AssertionError(f"dry run {arch} x {shape} x {mesh} "
+                                     f"{kw}: {row}")
+            print(f"fsdp dry run {row['arch']} x {shape} on rank 0 of "
+                  f"{'2 x 16 x 16' if mesh == 'multi' else '16 x 16'}"
+                  f"{' fsdp' if kw.get('fsdp') else ''}: peak "
+                  f"{row['peak_memory_gb']:.3f} GiB a rank (fits one card: "
+                  f"{row['fits_one_card']}), parameters "
+                  f"{row['param_bytes_per_device']} B, compute "
+                  f"{row['t_compute_s'] * 1e3:.3f} ms, memory "
+                  f"{row['t_memory_s'] * 1e3:.3f} ms, collective "
+                  f"{row['t_collective_s'] * 1e3:.3f} ms at "
+                  f"{roofline.IB_LINK_BYTES_PER_S / 1e9:.0f} GB/s -> "
+                  f"{row['dominant']}, collectives "
+                  f"{ {k: int(v) for k, v in row['coll_breakdown'].items()} }"
+                  f" B, count {row['t_count_s']} s (the H100 SXM's data-sheet "
+                  f"peaks)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    laps = ranks[0]["laps"]
+    print(f"fsdp and production meshes: the ranks' part "
+          f"{sum(x for k, x in laps.items() if k.startswith('(26')):.1f} s "
+          f"(rank 0's laps, in phase 23's wall), the counts on meta beside "
+          f"the ranks, the checks here {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    return {f"{TP_ARCH} FSDP training on 2 x 2 ranks": {
+        k: sum(f["launches"][k] for f in fs) for k in want_l}}
 
 
 def _profile_steps(fn, n_steps: int, label: str,
@@ -7647,6 +8046,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--dist-rank"]:
         dist_rank(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--fsdp-count"]:
+        fsdp_count(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2])
@@ -7721,6 +8123,7 @@ def main() -> int:
         phase = enter("tooling")
         phase_tooling(card)
         phase = enter("mesh of ranks")
+        meta = start_meta_work()        # phase 26's counts, beside the ranks
         mesh_paths, ranks = phase_mesh(card)
         paths.update(mesh_paths)
         phase = enter("tensor parallelism")
@@ -7731,10 +8134,14 @@ def main() -> int:
         phase = enter("context parallelism")
         cp_paths, rows[3]["cp_shapes"] = phase_context_parallel(card, ranks)
         paths.update(cp_paths)
+        phase = enter("FSDP and production meshes")
+        paths.update(phase_fsdp(card, ranks, meta))
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)
         return 1
+    finally:
+        stop_background()
     for row in rows:
         by_path = {p: c[row["name"]] for p, c in paths.items()
                    if row["name"] in c}

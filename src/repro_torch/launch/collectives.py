@@ -11,13 +11,14 @@ all ranks hold the same bits.
 Two layers:
 
 - the transfers are ``torch.library.custom_op``s (``repro_torch::
-  all_to_all``, ``repro_torch::all_gather``), so a dispatch mode
+  all_to_all``, ``all_gather``, ``gather_seq``, ``scatter_sum_seq``,
+  ``gather_fsdp``, ``scatter_sum_fsdp``), so a dispatch mode
   (``launch.cost_analysis.CostCounter``) sees and prices them, a ``meta``
   tensor takes their shape rule and moves nothing, and ``torch.func.vmap``
   has a rule for them (the lanes ride along a dimension the transfer does
-  not cut);
+  not cut), but for the FSDP pair, which no lane-stacked model runs;
 - the differentiable forms are ``torch.autograd.Function``s with
-  ``setup_context`` and a ``vmap`` rule around them: a custom op's
+  ``setup_context`` (and a ``vmap`` rule where the op has one): a custom op's
   generated autograd does not compose with ``torch.func.grad`` in this
   torch (it lacks ``setup_context``), and ``launch/steps.py``
   differentiates with ``torch.func.grad_and_value``.
@@ -52,13 +53,21 @@ What a backward must do depends on what the axis carries:
   (``scatter_sum_seq``, JAX's ``psum_scatter``, the transpose of an
   ``all_gather``), not ``all_gather``'s own block.
 
+- an FSDP weight (``gather_fsdp``, a layer's leaves in one transfer) is
+  cut over the data axes, whose ranks carry different examples: its
+  backward is ``gather_seq``'s moved to each weight's cut dimension, this
+  rank's block of the ordered sum of the ranks' cotangents
+  (``scatter_sum_fsdp``).
+
 ``all_to_all`` (equal splits, device-major, ``split_axis = concat_axis =
 0``, ``jax.lax.all_to_all(..., tiled=False)``) is its own transpose, and
-``gather_seq`` and ``scatter_sum_seq`` are each other's.
+``gather_seq`` and ``scatter_sum_seq`` are each other's, as are
+``gather_fsdp`` and ``scatter_sum_fsdp``.
 """
 from __future__ import annotations
 
 import functools
+from typing import List
 
 import torch
 import torch.distributed as dist
@@ -76,7 +85,9 @@ COLLECTIVE_COUNTS = {"all-to-all": {"calls": 0, "sent_bytes": 0},
                      "all-gather": {"calls": 0, "sent_bytes": 0},
                      "seq-gather": {"calls": 0, "sent_bytes": 0,
                                     "received_bytes": 0},
-                     "seq-scatter": {"calls": 0, "sent_bytes": 0}}
+                     "seq-scatter": {"calls": 0, "sent_bytes": 0},
+                     "fsdp-gather": {"calls": 0, "sent_bytes": 0},
+                     "fsdp-scatter": {"calls": 0, "sent_bytes": 0}}
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
@@ -191,6 +202,93 @@ def _(info, in_dims, g, n, group):
     return scatter_sum_seq_op(g.movedim(in_dims[0], 2), n, group), 2
 
 
+def _rows(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``x`` [.., n m, ..] as [n, m x the rest]: peer i's block along
+    ``dim`` in row i."""
+    moved = x.movedim(dim, 0)
+    return moved.reshape(n, -1)
+
+
+def _unrows(row: torch.Tensor, like_shape, dim: int) -> torch.Tensor:
+    """A row of ``_rows``' layout back to a tensor of ``like_shape`` with
+    its cut along ``dim``: a tensor of its own (a custom op's outputs may
+    not be views of one buffer)."""
+    moved = list(like_shape)
+    moved.insert(0, moved.pop(dim))
+    return row.reshape(moved).movedim(0, dim).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _whole_shape(x: torch.Tensor, n: int, dim: int) -> list:
+    shape = list(x.shape)
+    shape[dim] *= n
+    return shape
+
+
+@torch.library.custom_op("repro_torch::gather_fsdp", mutates_args=())
+def gather_fsdp_op(xs: List[torch.Tensor], n: int, group: int,
+                   dims: List[int]) -> List[torch.Tensor]:
+    """Every peer's blocks ``xs`` (FSDP weights of one dtype), each joined
+    along its ``dims`` entry in rank order: one transfer of all of them
+    (a layer's leaves), each peer's blocks flattened into one row."""
+    flat = torch.cat([x.movedim(d, 0).reshape(-1) for x, d in zip(xs, dims)])
+    host = host_copy(flat)
+    out = host_empty((n, host.numel()), host)
+    gather_parts(host, group_of(group), list(out.unbind(0)))
+    _count("fsdp-gather", host)
+    rows = out.to(xs[0].device)                         # [n, all blocks]
+    wholes, at = [], 0
+    for x, d in zip(xs, dims):
+        size = x.numel()
+        wholes.append(_unrows(rows[:, at: at + size], _whole_shape(x, n, d),
+                              d))
+        at += size
+    return wholes
+
+
+@gather_fsdp_op.register_fake
+def _(xs, n, group, dims):
+    return [x.new_empty(_whole_shape(x, n, d)) for x, d in zip(xs, dims)]
+
+
+@torch.library.custom_op("repro_torch::scatter_sum_fsdp", mutates_args=())
+def scatter_sum_fsdp_op(gs: List[torch.Tensor], n: int, group: int,
+                        dims: List[int]) -> List[torch.Tensor]:
+    """``gs`` (whole weights' cotangents, one dtype) on each of the ``n``
+    peers: this peer's block along each ``dims`` entry of their sum, folded
+    left to right in rank order (``jax.lax.psum_scatter(...,
+    scatter_dimension=dim, tiled=True)``), in one transfer."""
+    host = host_copy(torch.cat([_rows(g, n, d) for g, d in zip(gs, dims)],
+                               dim=1))                  # [n, all blocks]
+    parts = host_empty(host.shape, host)
+    # row i to peer i; row i of ``parts`` from peer i
+    dist.all_to_all_single(parts, host, group=group_of(group))
+    _count("fsdp-scatter", host)
+    total = torch.add(parts[0], parts[1], out=host_empty(parts.shape[1:],
+                                                         host))
+    for part in parts[2:]:
+        total.add_(part)
+    total = total.to(gs[0].device)
+    blocks, at = [], 0
+    for g, d in zip(gs, dims):
+        shape = list(g.shape)
+        shape[d] //= n
+        size = g.numel() // n
+        blocks.append(_unrows(total[at: at + size], shape, d))
+        at += size
+    return blocks
+
+
+@scatter_sum_fsdp_op.register_fake
+def _(gs, n, group, dims):
+    out = []
+    for g, d in zip(gs, dims):
+        shape = list(g.shape)
+        shape[d] //= n
+        out.append(g.new_empty(shape))
+    return out
+
+
 def _lanes_at(x: torch.Tensor, in_dim, at: int) -> torch.Tensor:
     return x if in_dim is None else x.movedim(in_dim, at)
 
@@ -271,6 +369,39 @@ class _ScatterSumSeq(torch.autograd.Function):
     def vmap(info, in_dims, g, n, group):
         return _ScatterSumSeq.apply(_lanes_at(g, in_dims[0], 2), n,
                                     group), 2
+
+
+class _GatherFsdp(torch.autograd.Function):
+    @staticmethod
+    def forward(n, group, dims, *xs):
+        return tuple(gather_fsdp_op(list(xs), n, group, list(dims)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.group, ctx.dims = inputs[:3]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # the data ranks carry different examples: their cotangents of the
+        # whole weights differ, and this rank's blocks of their sum are its
+        # gradients (not all_gather's own block of one cotangent)
+        return (None, None, None) + _ScatterSumFsdp.apply(
+            ctx.n, ctx.group, ctx.dims, *gs)
+
+
+class _ScatterSumFsdp(torch.autograd.Function):
+    @staticmethod
+    def forward(n, group, dims, *gs):
+        return tuple(scatter_sum_fsdp_op(list(gs), n, group, list(dims)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.group, ctx.dims = inputs[:3]
+
+    @staticmethod
+    def backward(ctx, *xs):
+        return (None, None, None) + _GatherFsdp.apply(
+            ctx.n, ctx.group, ctx.dims, *xs)
 
 
 class _Replicated(torch.autograd.Function):
@@ -364,6 +495,25 @@ def gather_seq(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     (``scatter_sum_seq``; module docstring)."""
     n, group = _axis(mesh, axis)
     return x if n == 1 else _GatherSeq.apply(x, n, group)
+
+
+def gather_fsdp(xs: List[torch.Tensor], mesh, axes,
+                dims: List[int]) -> List[torch.Tensor]:
+    """FSDP weights' wholes from every data rank's blocks ``xs`` (one
+    dtype; a layer's leaves), each joined along its ``dims`` entry in rank
+    order over ``axes`` (one data axis or a tuple, row-major in the mesh's
+    order), all in one transfer. The data ranks carry different examples,
+    so the backward is this rank's blocks of the ordered sum of their
+    cotangents (a reduce-scatter, ``scatter_sum_fsdp``, again one
+    transfer): the gradients summed over the data axes, which
+    ``launch.steps`` then only divides by their size."""
+    n, group = _axis(mesh, axes)
+    if n == 1 or not xs:
+        return list(xs)
+    if len({x.dtype for x in xs}) != 1:
+        raise ValueError(f"gather_fsdp moves one dtype at a time, got "
+                         f"{sorted({str(x.dtype) for x in xs})}")
+    return list(_GatherFsdp.apply(n, group, tuple(dims), *xs))
 
 
 def replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -28,7 +28,9 @@ step while it runs, op by op, in a ``TorchDispatchMode``:
   ``repro_torch::all_gather`` (``launch.collectives``: the MoE's
   all-to-all pair and its gather), ``repro_torch::gather_seq`` and
   ``scatter_sum_seq`` (context parallelism's K/V gather, an all-gather,
-  and its backward, a reduce-scatter), and the raw ``torch.distributed`` ops
+  and its backward, a reduce-scatter), ``gather_fsdp`` and
+  ``scatter_sum_fsdp`` (an FSDP weight's gather and its gradient's
+  reduce-scatter), and the raw ``torch.distributed`` ops
   the mode sees (``c10d``), each by its operand bytes.
 - **Peak live bytes**, tracked by storage: every storage the step's ops
   create, and every one they read (or ``hold`` names), is live from then
@@ -134,6 +136,14 @@ def tensor_bytes(t: torch.Tensor) -> int:
     return min(n, span) * width
 
 
+def _storage(t: torch.Tensor):
+    """``t``'s storage, through functorch's wrappers."""
+    from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
+    while is_functorch_wrapped_tensor(t):
+        t = get_unwrapped(t)
+    return t.untyped_storage()
+
+
 def counting() -> bool:
     """True while a count runs and is not inside a priced kernel."""
     return bool(_ACTIVE) and _ACTIVE[-1]._paused == 0
@@ -158,6 +168,25 @@ def priced(name: str, run: Callable[[], Any],
     return out
 
 
+def replayed(key, run: Callable[[], tuple]) -> tuple:
+    """``run()`` (a pure function of tensors on ``meta`` returning a tuple
+    of them) once per ``key`` under a running count made with
+    ``replay=True``: a later call with the same key adds what the first
+    added (FLOPs, bytes, collectives, kernels, ops, and the peak above the
+    bytes live at the call) and returns empty tensors of the first
+    result's shapes, without running. The same ops on the same shapes
+    count the same, so the FLOPs, bytes and collectives are unchanged; a
+    layer's plain flash backward (tens of thousands of ops on shapes) then
+    runs once a count, not once a layer. The peak is the first run's
+    above the live bytes, and what that run left live (a differentiable
+    backward's saved temporaries) lives as long as the results: within a
+    few hundred KB of the run's own at smoke size, not exact. Otherwise
+    just ``run()``."""
+    if not counting() or not _ACTIVE[-1].replay:
+        return run()
+    return _ACTIVE[-1]._replay(key, run)
+
+
 def met_pairs(mass: torch.Tensor) -> int:
     """The met pairs of an encounter call, read from its masses; raises on
     ``meta``, where the data the work depends on does not exist."""
@@ -171,8 +200,9 @@ def met_pairs(mass: torch.Tensor) -> int:
 class CostCounter(TorchDispatchMode):
     """A count of the ops run while it is entered (module docstring)."""
 
-    def __init__(self):
+    def __init__(self, replay: bool = False):
         super().__init__()
+        self.replay = replay        # ``replayed`` calls run once a key
         self.flops_by: Dict[str, float] = {}
         self.bytes = 0.0
         self.coll: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
@@ -182,6 +212,7 @@ class CostCounter(TorchDispatchMode):
         self._live: Dict[int, int] = {}
         self._live_total = 0
         self._paused = 0
+        self._replays: Dict[Any, tuple] = {}
 
     # -- results --------------------------------------------------------------
     @property
@@ -253,6 +284,61 @@ class CostCounter(TorchDispatchMode):
         self.kernels[name] = self.kernels.get(name, 0) + 1
         self._record(name, work.n_flop, work.kind, work.n_bytes)
 
+    def _state(self) -> tuple:
+        return (dict(self.flops_by), self.bytes, dict(self.coll),
+                dict(self.kernels),
+                {k: list(v) for k, v in self.by_op.items()})
+
+    def _replay(self, key, run: Callable[[], tuple]) -> tuple:
+        """``replayed``'s work (its docstring)."""
+        rec = self._replays.get(key)
+        if rec is None:
+            before, base, peak = self._state(), self._live_total, \
+                self.peak_live_bytes
+            self.peak_live_bytes = base
+            try:
+                out = run()
+            finally:
+                excess = self.peak_live_bytes - base
+                self.peak_live_bytes = max(peak, self.peak_live_bytes)
+            after = self._state()
+            # what the run leaves live beside its results (a graph's saved
+            # temporaries, under a differentiable backward)
+            kept = self._live_total - base - sum(
+                self._live.get(id(_storage(t)), 0) for t in out)
+            delta = tuple({k: v - b.get(k, 0) for k, v in a.items()}
+                          for a, b in ((after[0], before[0]),
+                                       (after[2], before[2]),
+                                       (after[3], before[3])))
+            ops = {k: [x - y for x, y in zip(v, before[4].get(k, [0] * 3))]
+                   for k, v in after[4].items()}
+            self._replays[key] = (delta, after[1] - before[1], ops, excess,
+                                  kept, [(t.shape, t.dtype) for t in out])
+            return out
+        (flops, coll, kernels), n_bytes, ops, excess, kept, outs = rec
+        for mine, add in ((self.flops_by, flops), (self.coll, coll),
+                          (self.kernels, kernels)):
+            for k, v in add.items():
+                if v:
+                    mine[k] = mine.get(k, 0) + v
+        self.bytes += n_bytes
+        for k, v in ops.items():
+            if any(v):
+                rec_op = self.by_op.setdefault(k, [0, 0.0, 0.0])
+                for i in range(3):
+                    rec_op[i] += v[i]
+        self.peak_live_bytes = max(self.peak_live_bytes,
+                                   self._live_total + excess)
+        # made through the mode, which tracks them (unwrapped); the bytes
+        # the first run left live beside them stay live as long as they do
+        out = tuple(torch.empty(shape, dtype=dtype, device="meta")
+                    for shape, dtype in outs)
+        if kept > 0:
+            ballast = torch.empty(kept, dtype=torch.uint8, device="meta")
+            for t in out:
+                t._replay_kept = ballast
+        return out
+
     # -- the mode -------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -307,7 +393,9 @@ def _collective_kind(ns: str, name: str) -> Optional[str]:
                 "ring_shift": "collective-permute",
                 "all_to_all": "all-to-all",
                 "all_gather": "all-gather", "gather_seq": "all-gather",
-                "scatter_sum_seq": "reduce-scatter"}.get(name)
+                "scatter_sum_seq": "reduce-scatter",
+                "gather_fsdp": "all-gather",
+                "scatter_sum_fsdp": "reduce-scatter"}.get(name)
     if ns == "c10d":
         return _C10D.get(name)
     return None

@@ -41,17 +41,19 @@ from repro_torch.models import build_model
 
 
 def rank_model(cfg: ModelConfig, data: int, model_size: int, *,
-               seq_axis=None, **kw):
+               seq_axis=None, fsdp: bool = False, **kw):
     """(mesh, model): the ``(data, model)`` mesh over the world and
     ``build_model(cfg, mesh=mesh, **kw)`` (``dp_axes=("data", "model"),
     moe_ep_axis=None``: the population layout, every leaf whole). With
     ``seq_axis`` (context parallelism) ``dp_axes`` defaults to the data
-    axes other than it."""
+    axes other than it; ``fsdp=True`` holds each leaf's FSDP block
+    (``rank_params``) and gathers it before use (``Model.fsdp``)."""
     mesh = make_lm_mesh(data, model_size)
     if seq_axis is not None:
         kw.setdefault("dp_axes", tuple(a for a in ("data",)
                                        if a != seq_axis))
-    return mesh, build_model(cfg, mesh=mesh, seq_axis=seq_axis, **kw)
+    return mesh, build_model(cfg, mesh=mesh, seq_axis=seq_axis, fsdp=fsdp,
+                             **kw)
 
 
 def full_params(model, seed: int, device) -> Dict[str, Any]:
@@ -62,12 +64,13 @@ def full_params(model, seed: int, device) -> Dict[str, Any]:
 
 
 def rank_params(model, params: Dict[str, Any]) -> Dict[str, Any]:
-    """This rank's block of ``params``, copied out of the whole (which the
-    caller can then free)."""
+    """This rank's block of ``params`` (``rank_specs``, with the FSDP cut
+    under ``model.fsdp``), copied out of the whole (which the caller can
+    then free)."""
     if model.mesh is None:
         return params
     specs = rank_specs(model.cfg, params, model.mesh, model.moe_ep_axis,
-                       replicate=model.replicate)
+                       replicate=model.replicate, fsdp=model.fsdp)
     return tree_map(lambda t: t.clone(),
                     shard_tree(params, specs, model.mesh))
 

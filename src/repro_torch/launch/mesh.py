@@ -19,6 +19,12 @@ The LM stack's ``(data, model)`` mesh (``make_lm_mesh``) is the same
 layout under other names: rank ``r`` at ``(r // model, r % model)``, as
 ``jax.sharding.Mesh`` lays ``devices.reshape(data, model)`` out, the batch
 cut over ``data`` and the mixture-of-experts' experts over ``model``.
+
+``make_production_mesh`` is the reference's production mesh, (data 256 /
+tp, model tp) or (pod 2, data 256 / tp, model tp), as one rank of it sees
+it: its coordinates and no process groups. It drives nothing across
+ranks; the dry run counts that rank's step on ``meta``, where every
+collective is a custom op whose shape rule moves nothing.
 """
 from __future__ import annotations
 
@@ -152,3 +158,40 @@ def make_lm_mesh(data: int, model: int, *, data_axis: str = "data",
     axis's place and the model axis in the data axis's."""
     return make_mule_mesh(data, model, pod_axis=data_axis,
                           data_axis=model_axis)
+
+
+POD_CHIPS = 256     # the reference's production pod
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         model_parallel: int = 16,
+                         rank: int = 0) -> MuleMesh:
+    """Rank ``rank`` of the reference's production mesh (``repro.launch.
+    mesh.make_production_mesh``): ``(data, model)`` = (256 / tp, tp), or
+    ``(pod, data, model)`` = (2, 256 / tp, tp), the rank's coordinates
+    row-major over them as ``jax.sharding.Mesh`` lays devices out. A
+    stand-in: it holds no process group, so it runs only a count on
+    ``meta`` (``launch.dryrun``)."""
+    tp = model_parallel
+    if tp < 1 or POD_CHIPS % tp:
+        raise ValueError(f"model_parallel={tp} does not divide the "
+                         f"{POD_CHIPS} chips of a pod")
+    return stand_in_mesh(({"pod": 2} if multi_pod else {})
+                         | {"data": POD_CHIPS // tp, "model": tp}, rank)
+
+
+def stand_in_mesh(shape: Dict[str, int], rank: int = 0) -> MuleMesh:
+    """Rank ``rank`` of a mesh of ``shape`` (axis: size, in the mesh's
+    order), row-major over the axes, with no process groups: what a count
+    on ``meta`` needs of one rank (``make_production_mesh``, and a small
+    mesh to hold such a count against real ranks)."""
+    size = 1
+    for n in shape.values():
+        size *= n
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} is not one of the mesh's {size}")
+    coords, rest = {}, rank
+    for axis in reversed(tuple(shape)):
+        rest, coords[axis] = divmod(rest, shape[axis])
+    return MuleMesh(shape=dict(shape), coords={a: coords[a] for a in shape},
+                    groups={}, data_axis=tuple(shape)[-1])

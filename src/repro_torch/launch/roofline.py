@@ -31,6 +31,14 @@ Where the port departs from the reference:
   ``[N/A]`` on the sandboxed H100 80GB HBM3 that ``chip_smoke.py`` runs on
   (phase 22 prints the query; ``query_host_link`` derives the rate where a
   card reports its link), so the data sheet is the source.
+- A production-mesh row of the dry run (one rank of the reference's 16 x
+  16 or 2 x 16 x 16 mesh of H100s, ``link="ib"``) prices its collective
+  bytes at the rate between nodes of a DGX H100 instead:
+  ``IB_LINK_BYTES_PER_S``, one 400 Gb/s NDR InfiniBand port per GPU, 50
+  GB/s per direction (NVIDIA's DGX H100 data sheet: eight ConnectX-7
+  ports of 400 Gb/s for eight GPUs). An axis of 16 ranks spans two 8-GPU
+  NVLink nodes, so its collectives cross that link; the term prices every
+  byte at it, a lower bound's rate for the slowest hop.
 - ``analyze`` takes a ``launch.cost_analysis.CostCounter``, not a compiled
   XLA artifact.
 
@@ -79,6 +87,11 @@ def host_link_bytes_per_s(gen: int, width: int) -> float:
 HOST_LINK_GEN, HOST_LINK_WIDTH = 5, 16
 HOST_LINK_BYTES_PER_S = host_link_bytes_per_s(HOST_LINK_GEN,
                                               HOST_LINK_WIDTH)
+
+
+# One 400 Gb/s NDR InfiniBand port per GPU of a DGX H100, one direction.
+IB_LINK_BYTES_PER_S = 400e9 / 8
+LINK_BYTES_PER_S = {"host": HOST_LINK_BYTES_PER_S, "ib": IB_LINK_BYTES_PER_S}
 
 
 def query_host_link() -> Tuple[str, Optional[float]]:
@@ -244,6 +257,7 @@ class Roofline:
     coll_breakdown: Dict[str, float]
     peak_memory_bytes: Optional[float]
     model_flops: float
+    link: str = "host"      # the collective term's rate: LINK_BYTES_PER_S
 
     @property
     def flops_per_device(self) -> float:
@@ -259,7 +273,7 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        return self.coll_bytes_per_device / HOST_LINK_BYTES_PER_S
+        return self.coll_bytes_per_device / LINK_BYTES_PER_S[self.link]
 
     @property
     def dominant(self) -> str:
@@ -289,18 +303,20 @@ class Roofline:
                                if self.peak_memory_bytes else None),
             "model_flops": self.model_flops,
             "useful_flops_ratio": self.useful_flops_ratio,
+            "link": self.link,
         }
 
 
 def analyze(arch: str, shape_name: str, mesh_name: str, chips: int,
-            count, model_flops: float) -> Roofline:
+            count, model_flops: float, link: str = "host") -> Roofline:
     """The row of a finished ``cost_analysis.CostCounter``."""
     return Roofline(
         arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
         flops_by=dict(count.flops_by), bytes_per_device=count.bytes,
         coll_bytes_per_device=count.coll_bytes,
         coll_breakdown={k: v for k, v in count.coll.items() if v},
-        peak_memory_bytes=float(count.peak_live_bytes), model_flops=model_flops)
+        peak_memory_bytes=float(count.peak_live_bytes),
+        model_flops=model_flops, link=link)
 
 
 def model_flops_for(cfg, shape) -> float:

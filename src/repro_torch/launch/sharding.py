@@ -21,9 +21,12 @@ divisibility fallback:
 ``shard_of`` cuts a rank's block out of a whole leaf, ``unshard`` gathers
 the blocks back in rank order (the counterparts of ``to_named``, which
 hands a spec to XLA). ``rank_specs`` is what the port executes:
-``param_specs`` whole (no ``fsdp``), every ``model`` rule with its
-fallback. The layers read which split they hold from their leaves' shapes
-against the config (``models/attention.py``, ``layers.apply_mlp``,
+``param_specs`` whole, every ``model`` rule with its fallback, and with
+``fsdp=True`` the FSDP cut over the data axes too (``fsdp_dims`` names the
+dimension of each leaf; ``Model(fsdp=True)`` gathers it before each layer
+runs, so every layer still sees its ``fsdp=False`` block). The layers
+read which split they hold from their leaves' shapes against the config
+(``models/attention.py``, ``layers.apply_mlp``,
 ``models/mamba2.py``, ``models/api.py``'s vocabulary, ``models/moe.py``'s
 experts), so a leaf held whole runs whole, with no collective.
 
@@ -287,15 +290,17 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
 
 def rank_specs(cfg: ModelConfig, params: Any, mesh,
                moe_ep_axis: Optional[str] = "model", *,
-               replicate: bool = False) -> Any:
-    """The blocks a rank of ``mesh`` holds: ``param_specs`` (``fsdp=False``)
-    executed whole, with every fallback. ``moe_ep_axis=None`` (the
-    data-parallel MoE) holds the experts whole; ``replicate=True`` (the
-    population layout) holds every leaf whole."""
+               replicate: bool = False, fsdp: bool = False) -> Any:
+    """The blocks a rank of ``mesh`` holds: ``param_specs`` executed whole,
+    with every fallback. ``moe_ep_axis=None`` (the data-parallel MoE) holds
+    the experts whole; ``replicate=True`` (the population layout) holds
+    every leaf whole; ``fsdp=True`` also cuts each leaf's FSDP dimension
+    over the data axes (``fsdp_dims``), which the model gathers back to the
+    ``fsdp=False`` block before use."""
     if moe_ep_axis not in (None, "model"):
         raise ValueError(f"the experts split over 'model' or nothing, not "
                          f"{moe_ep_axis!r}")
-    specs = param_specs(cfg, params, mesh, replicate=replicate)
+    specs = param_specs(cfg, params, mesh, fsdp=fsdp, replicate=replicate)
     if moe_ep_axis is not None:
         return specs
 
@@ -307,3 +312,22 @@ def rank_specs(cfg: ModelConfig, params: Any, mesh,
             return [whole_experts(v, path + (i,)) for i, v in enumerate(tree)]
         return () if "/moe/" in _leaf_name(path) else tree
     return whole_experts(specs)
+
+
+def fsdp_dims(cfg: ModelConfig, params: Any, mesh,
+              moe_ep_axis: Optional[str] = "model", *,
+              replicate: bool = False) -> Any:
+    """For each leaf of the whole ``params`` (shapes suffice), the
+    dimension that ``rank_specs(..., fsdp=True)`` cuts over the data axes,
+    or ``None``: what ``Model`` gathers (``collectives.gather_fsdp``)
+    before a layer runs."""
+    dp = data_axes(mesh)
+
+    def dim_of(tree):
+        if isinstance(tree, dict):
+            return {k: dim_of(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [dim_of(v) for v in tree]
+        return next((d for d, e in enumerate(tree) if e == dp), None)
+    return dim_of(rank_specs(cfg, params, mesh, moe_ep_axis,
+                             replicate=replicate, fsdp=True))

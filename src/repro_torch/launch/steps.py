@@ -17,6 +17,11 @@ collectives sum the peers' partial gradients in rank order): every rank
 then takes the same Adam step, so the weights and the optimizer state
 that ranks hold alike stay bitwise equal. The loss and the nll in the
 metrics are averaged the same way (the aux loss is already the mesh's).
+Under FSDP (``Model.fsdp``) a leaf cut over the data axes has its
+gradient summed over them already, in rank order, by the gather's backward
+(``collectives.gather_fsdp``): the step divides it by their size and sums
+nothing again, which gives the bits of the ``fsdp=False`` mean's block;
+the optimizer state is the rank's FSDP blocks'.
 Under context parallelism (``Model.seq_axis``) each rank's loss is its
 share of the whole sequence's mean (``Model.loss``), so the gradients and
 the loss terms are summed over ``seq_axis`` too (one ordered sum over it
@@ -40,16 +45,18 @@ from repro_torch.optim import Optimizer
 _PMEAN_CHUNK = 1 << 25
 
 
-def _replace_leaves(tree, fn) -> None:
-    """Each leaf of a tree of dicts and lists replaced by ``fn(leaf)`` in
-    place, in ``tree_leaves``' order, so an old leaf is freed as soon as
-    its new one exists."""
+def _replace_leaves(tree, fn, dims=None) -> None:
+    """Each leaf of a tree of dicts and lists replaced by ``fn(leaf, dim)``
+    in place, in ``tree_leaves``' order, so an old leaf is freed as soon as
+    its new one exists; ``dim`` is the leaf's entry in ``dims`` (a tree
+    like ``tree``: ``Model.fsdp_dims``), or ``None``."""
     keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
     for k in keys:
+        sub = None if dims is None else dims[k]
         if isinstance(tree[k], (dict, list)):
-            _replace_leaves(tree[k], fn)
+            _replace_leaves(tree[k], fn, sub)
         else:
-            tree[k] = fn(tree[k])
+            tree[k] = fn(tree[k], sub)
 
 
 def _mesh_mean(model: Model, grads, metrics: Dict[str, Any]):
@@ -76,9 +83,14 @@ def _mesh_mean(model: Model, grads, metrics: Dict[str, Any]):
                           for i in range(0, flat.numel(), _PMEAN_CHUNK)]
                          ).view(g.shape)
 
+    def reduce(g, dim):
+        # an FSDP leaf's gradient: already the sum over the data axes (the
+        # gather's backward), of this rank's block
+        return mean(g) if dim is None else g / n_mean
+
     names = [k for k in ("loss", "nll") if k in metrics]
     terms = mean(torch.stack([metrics[k].float() for k in names]))
-    _replace_leaves(grads, mean)
+    _replace_leaves(grads, reduce, model.fsdp_dims)
     return grads, {**metrics, **dict(zip(names, terms))}
 
 

@@ -54,9 +54,14 @@ Context parallelism (``seq_axis``, a mesh axis other than ``"model"``):
 each rank runs the model on its block of ``S / n`` positions of every row
 (``lm_ranks.rank_batch``), with ``_positions`` offset to the block, and
 ``forward`` returns the rank's [B, S / n, V] logits. Attention gathers K/V
-over ``seq_axis`` (``models/attention.py``); every other layer is
-per-token, and a MoE layer routes the rank's own tokens with its own
-capacity, as the expert-parallel path's slices do. The batch is not cut
+over ``seq_axis`` (``models/attention.py``); a MoE layer gathers its input
+over ``seq_axis`` (``collectives.gather_seq``) and routes the whole
+sequence, with the whole sequence's capacity and top-k order, as the
+reference's ``shard_map`` does (its ``P(b_shard)`` cuts the batch only; on
+the expert-parallel path each ``model`` peer then takes ``S / ep`` of the
+tokens), and keeps the rank's block of the output (the backward is
+``scatter_sum_seq``'s: the ordered sum of the peers' cotangents); every
+other layer is per-token. The batch is not cut
 along ``seq_axis``: ``dp_axes`` (the axes the batch is cut along under
 ``seq_axis``) must not hold it. A layer that carries state along the
 sequence (``mamba``, ``xlstm_pair``: the reference's SSD kernel takes no
@@ -64,11 +69,30 @@ initial state) raises, as do the ``audio`` and ``vlm`` families. ``loss``
 is each rank's share of the mean over the whole sequence's B (S - 1)
 targets: its own sum over that count (rank r's last position targets rank
 r + 1's first token, gathered; the last rank has one target fewer), plus
-0.01 times its MoE aux term over n; ``launch.steps`` sums the shares and
+0.01 times the MoE aux term over n (the whole sequence's, the same on every
+rank, so the sum over ``seq_axis`` is the reference's 0.01 x aux);
+``launch.steps`` sums the shares and
 their gradients over ``seq_axis``. A share, not a mean per rank, because
 the ranks' target counts differ and the sum of shares is the mean exactly.
 Decode under ``seq_axis`` splits each KV cache's slots over it where they
 divide (``init_cache``), as ``cache_specs`` does for a batch of one.
+
+FSDP (``fsdp=True``, the reference's ``param_specs(fsdp=True)``): each
+rank holds ``rank_specs(..., fsdp=True)``'s blocks, each leaf's largest
+still-whole dimension cut over the data axes as well (``fsdp_dims``).
+``forward`` gathers a layer's FSDP leaves (``collectives.gather_fsdp``, one
+transfer a layer) just before the layer runs, inside the remat body, so a
+recomputation
+gathers again; ``embed``, ``head`` and ``final_norm`` are gathered once a
+call, ``shared_attn`` at each stage that runs it, and ``decode_step``
+gathers the same way. Each gathered leaf has its ``fsdp=False`` block's
+shape exactly, so the layers read their tensor-parallel split as before,
+and ``rank_blocks`` and the decode cache use the ``fsdp=False`` blocks.
+The gather's backward sums the data ranks' cotangents in rank order and
+keeps the rank's block, so ``launch.steps`` only divides an FSDP leaf's
+gradient by the data axes' size. FSDP raises under ``replicate`` (every
+leaf whole) and under ``seq_axis`` (no reference entry point combines
+them).
 
 Not ported: ``head_axis`` (the reference's GSPMD hint that pads head
 counts that do not divide; the port runs such a layer whole) and
@@ -85,10 +109,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import InputShape, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.interop import tree_map
+from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.sharding import (batch_specs, cache_seq_axes,
-                                         data_axes, rank_specs, shard_tree)
+                                         data_axes, fsdp_dims, rank_specs,
+                                         shard_tree)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -185,9 +210,19 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                                   mesh=mesh, seq_axis=seq_axis)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
-        out, aux = moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
+        if seq_axis is None:
+            out, aux = moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
+                                         dp_axes=dp_axes,
+                                         ep_axis=moe_ep_axis)
+            return x + out, aux
+        # the whole sequence routed, as the reference's shard_map (which
+        # cuts the batch only) routes it; the rank keeps its block, and
+        # the backward sums the peers' cotangents in rank order
+        m = h.shape[1]
+        whole = coll.gather_seq(h, mesh, seq_axis)
+        out, aux = moe_lib.apply_moe(p["moe"], whole, cfg, mesh=mesh,
                                      dp_axes=dp_axes, ep_axis=moe_ep_axis)
-        return x + out, aux
+        return x + out.narrow(1, mesh.axis_index(seq_axis) * m, m), aux
     return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg),
                          mesh=mesh, d_ff=cfg.d_ff), None
 
@@ -245,6 +280,23 @@ def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
     return c
 
 
+def _gather_tree(tree, dims, mesh, shift: int = 0):
+    """``tree`` with each leaf whose FSDP dimension ``dims`` names (``None``:
+    held whole) gathered over the data axes, all in one transfer
+    (``collectives.gather_fsdp``); ``shift`` 1 for a layer of a stacked
+    stage, whose stack axis is gone."""
+    cut = [(leaf, dim - shift) for leaf, dim in zip(tree_leaves(tree),
+                                                    tree_leaves(dims))
+           if dim is not None]
+    if not cut:
+        return tree
+    wholes = coll.gather_fsdp([leaf for leaf, _ in cut], mesh,
+                              data_axes(mesh), [d for _, d in cut])
+    by_id = {id(leaf): whole for (leaf, _), whole in zip(cut, wholes)}
+    return tree_map(lambda leaf, dim: leaf if dim is None else by_id[id(leaf)],
+                    tree, dims)
+
+
 def unstack(tree, count: int) -> list:
     """The per-layer slices (views) of a stacked [count, ...] tree."""
     return [tree_map(lambda l, _i=i: l[_i], tree) for i in range(count)]
@@ -293,6 +345,8 @@ class Model:
                                   # data-parallel path, experts replicated
     seq_axis: Any = None          # context parallelism: the sequence cut
                                   # over this mesh axis (K/V gathered)
+    fsdp: bool = False            # each leaf's FSDP block held, gathered
+                                  # over the data axes before each use
 
     def __post_init__(self):
         if self.backend not in ("auto", "ref"):
@@ -304,6 +358,23 @@ class Model:
                              f"one of {remat_lib.POLICIES}")
         if self.seq_axis is not None:
             self._check_seq_axis()
+        if self.fsdp:
+            self._check_fsdp()
+            # drawn now on meta, not inside a later step (nor a count)
+            self.fsdp_dims
+
+    def _check_fsdp(self):
+        """Where FSDP does not run (module docstring)."""
+        if self.mesh is None:
+            raise ValueError("fsdp=True needs a mesh: the weights are cut "
+                             "over its data axes")
+        if self.replicate:
+            raise ValueError(f"fsdp=True under the population layout "
+                             f"(dp_axes={self.dp_axes}): param_specs holds "
+                             f"every leaf whole there")
+        if self.seq_axis is not None:
+            raise ValueError(f"fsdp=True with seq_axis={self.seq_axis!r}: "
+                             f"no reference entry point combines them")
 
     def _check_seq_axis(self):
         """Where context parallelism cannot run (module docstring)."""
@@ -359,6 +430,40 @@ class Model:
                                             self.moe_ep_axis,
                                             replicate=self.replicate),
                           self.mesh)
+
+    @functools.cached_property
+    def fsdp_dims(self) -> Any:
+        """Under ``fsdp``, each leaf's dimension cut over the data axes, or
+        ``None`` (``launch.sharding.fsdp_dims``, from the whole model's
+        shapes); ``None`` without ``fsdp``."""
+        if not self.fsdp:
+            return None
+        return fsdp_dims(self.cfg, meta_params(self), self.mesh,
+                         self.moe_ep_axis, replicate=self.replicate)
+
+    def _whole_top(self, params):
+        """``params`` with the leaves outside the stages (``embed``,
+        ``head``, ``final_norm``) gathered to their ``fsdp=False`` blocks,
+        in one transfer; ``params`` itself without ``fsdp``."""
+        if not self.fsdp:
+            return params
+        top = {k: v for k, v in params.items()
+               if k not in ("stages", "shared_attn")}
+        return {**params, **_gather_tree(
+            top, {k: self.fsdp_dims[k] for k in top}, self.mesh)}
+
+    def _whole_layer(self, at: int, layer, shared):
+        """(a layer's weights in stage ``at``, the shared attention's)
+        gathered to their ``fsdp=False`` blocks, the shared attention's
+        only where the stage runs it (as they are without ``fsdp``)."""
+        if not self.fsdp:
+            return layer, shared
+        dims, stage = self.fsdp_dims, self.program[at]
+        layer = _gather_tree(layer, dims["stages"][at], self.mesh,
+                             int(stage.count > 1))
+        if stage.kind == "shared_attn":
+            shared = _gather_tree(shared, dims["shared_attn"], self.mesh)
+        return layer, shared
 
     # -- init ---------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -443,32 +548,40 @@ class Model:
         The aux loss is the sum of the ``moe`` layers' load-balance terms
         (f32; 0 for a model without them)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"], batch)
+        top = self._whole_top(params)
+        x = self._embed(top, batch["tokens"], batch)
         b, s, _ = x.shape
         positions = batch.get("positions")
         if positions is None:
             positions = self._positions(b, s, x.device)
         shared = params.get("shared_attn")
         aux_total = torch.zeros((), device=x.device)
-        for stage, sp in zip(self.program, params["stages"]):
+        for at, (stage, sp) in enumerate(zip(self.program,
+                                             params["stages"])):
             body = functools.partial(
                 _apply_layer, positions=positions, cfg=cfg, kind=stage.kind,
                 window=stage.window, backend=self.backend, mesh=self.mesh,
                 dp_axes=self.dp_axes, moe_ep_axis=self.moe_ep_axis,
                 seq_axis=self.seq_axis)
+
+            def run(x, lp, sh, body=body, at=at):
+                # FSDP's gathers inside the layer, so that remat's
+                # recomputation gathers again and the whole weights do
+                # not live until the backward
+                lp, sh = self._whole_layer(at, lp, sh)
+                return body(lp, x, shared=sh)
             for lp in _layers(stage, sp):
                 if self.remat:
                     # the backward runs the layer again: bind this
                     # stage's body, not the loop's last
                     x, aux = remat_lib.checkpoint(
-                        lambda x, lp, sh, body=body: body(lp, x, shared=sh),
-                        x, lp, shared, policy=self.remat_policy)
+                        run, x, lp, shared, policy=self.remat_policy)
                 else:
-                    x, aux = body(lp, x, shared=shared)
+                    x, aux = run(x, lp, shared)
                 if aux is not None:
                     aux_total = aux_total + aux
-        x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-        return self._unembed(params, x), aux_total
+        x = apply_norm(top["final_norm"], x, cfg.norm, cfg.norm_eps)
+        return self._unembed(top, x), aux_total
 
     # -- loss -----------------------------------------------------------------
     def loss(self, params, batch: Dict[str, Any]):
@@ -566,15 +679,18 @@ class Model:
         ``mamba2.mamba2_decode`` and ``xlstm``'s decodes)."""
         cfg = self.cfg
         pos = int(pos)
-        x = self._embed(params, token)
-        shared = params.get("shared_attn")
-        for stage, sp, sc in zip(self.program, params["stages"], cache):
+        top = self._whole_top(params)
+        x = self._embed(top, token)
+        for at, (stage, sp, sc) in enumerate(zip(self.program,
+                                                 params["stages"], cache)):
             for lp, lc in zip(_layers(stage, sp), _layers(stage, sc)):
+                lp, shared = self._whole_layer(at, lp,
+                                               params.get("shared_attn"))
                 x = _decode_layer(lp, x, lc, pos, cfg, stage.kind,
                                   stage.window, shared, self.mesh,
                                   self.dp_axes, self._slot_axes())
-        x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-        return self._unembed(params, x)[:, 0], cache
+        x = apply_norm(top["final_norm"], x, cfg.norm, cfg.norm_eps)
+        return self._unembed(top, x)[:, 0], cache
 
     # -- dry-run inputs -------------------------------------------------------
     def input_specs(self, shape, device="meta") -> Dict[str, Any]:
@@ -604,13 +720,14 @@ class Model:
 def build_model(cfg: ModelConfig, *, backend: str = "auto",
                 remat: bool = False, mesh: Any = None,
                 dp_axes: tuple = ("data",), remat_policy: str = "full",
-                moe_ep_axis: Any = "model", seq_axis: Any = None) -> Model:
+                moe_ep_axis: Any = "model", seq_axis: Any = None,
+                fsdp: bool = False) -> Model:
     """The model of ``cfg``: a ``WhisperModel`` for the ``audio`` family,
     else a ``Model``."""
     kw = dict(cfg=cfg, program=build_program(cfg), backend=backend,
               remat=remat, mesh=mesh, dp_axes=dp_axes,
               remat_policy=remat_policy, moe_ep_axis=moe_ep_axis,
-              seq_axis=seq_axis)
+              seq_axis=seq_axis, fsdp=fsdp)
     if cfg.family == "audio":
         from repro_torch.models.whisper import WhisperModel
         return WhisperModel(**kw)

@@ -30,7 +30,11 @@ the batch (cut over ``dp_axes`` where the batch divides, whole otherwise:
 output is the rank's block.
 
 - data-parallel (``ep_axis=None``): experts replicated, routing and a
-  capacity per data shard, the aux loss averaged over ``dp_axes``;
+  capacity per data shard, the aux loss averaged over ``dp_axes``. An
+  expert count that the expert axis does not divide takes this path too,
+  on every peer alike, since ``rank_specs`` then holds the experts whole
+  (the reference asserts instead; the smoke configs' 4 experts meet a
+  production mesh's 16 ``model`` ranks in the dry run);
 - expert-parallel: the rank holds ``E / ep`` experts (``launch.sharding.
   rank_specs``); each of the ``ep`` peers takes ``t_ep = t_loc // ep`` of
   the block's tokens, routes them with a capacity of its own, and an
@@ -149,6 +153,10 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, *, mesh: Any = None,
     b, s, d = x.shape
     compute_dtype = compute_dtype_of(cfg)
     e, k = cfg.n_experts, cfg.top_k
+    if mesh is not None and ep_axis is not None and e % mesh.shape[ep_axis]:
+        # the experts do not divide over the expert axis, so every peer
+        # holds them whole (``rank_specs``) and runs them whole
+        ep_axis = None
 
     if mesh is not None and ep_axis is None:
         from repro_torch.launch import collectives as coll
@@ -178,7 +186,6 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig, *, mesh: Any = None,
     # ---- expert-parallel path ---------------------------------------------
     from repro_torch.launch import collectives as coll
     ep = mesh.shape[ep_axis]
-    assert e % ep == 0, (e, ep)
     el = e // ep
     if params["wi_gate"].shape[0] != el:
         raise ValueError(f"the expert-parallel path takes this rank's "

@@ -14,8 +14,14 @@ with ``seq_axis="data"`` and a (2, 2) mesh with the sequence over
   ranks' blocks of 8 and 16 positions, and the decode's rolling buffer of
   8 slots splits), tied embeddings;
 - qwen2.5-32b: qkv bias, 5 heads (attention whole on every model peer);
-- granite-moe-1b-a400m: each rank routes its own tokens, drop-free
-  (capacity factor E / top_k).
+- granite-moe-1b-a400m: each MoE layer gathers its input over
+  ``"data"`` and routes the whole sequence, drop-free (capacity factor
+  E / top_k) here; and at its config's capacity factor 1.25, where slots
+  drop, the full loss (nll plus 0.01 x aux) and its gradient against the
+  reference's: unsharded on (4, 1) (a batch of one is not cut, so its
+  ``shard_map`` routes the whole sequence), and its own (2, 2) mesh run
+  (``seq_axis="data"``, the expert-parallel path's two peers routing 16
+  tokens each) in a subprocess with 4 XLA host devices.
 
 The reference's side runs in two subprocesses at the same time (the
 configs dealt out): the same numpy weights (the reference's init) and
@@ -75,6 +81,7 @@ torch.set_num_threads(1)
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 ARCHS = ("stablelm-1.6b", "gemma3-4b", "qwen2.5-32b", "granite-moe-1b-a400m")
 HYBRID = "zamba2-2.7b"
+CAP_ARCH = "granite-moe-1b-a400m"     # also run at its config's capacity
 MESHES = {"4x1": (4, 1), "2x2": (2, 2)}
 N_RANKS = 4
 REF_PARTS = 2        # the reference's processes (the archs dealt out)
@@ -187,6 +194,40 @@ if part == spec["ref_parts"] - 1:
         decode(model, params, jnp.asarray(data[spec["hybrid"] + ".prompt"]),
                gen, out, f"{spec['hybrid']}.{gen}")
 np.savez(f"{d}/ref{part}.npz", **out)
+'''
+
+
+# the MoE at its config's capacity: the full loss and its gradient,
+# unsharded and on the reference's own (2, 2) mesh with seq_axis
+_REF_CAP = r'''
+import dataclasses, json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro import configs
+from repro.models import build_model
+
+d = sys.argv[1]
+spec = json.load(open(d + "/spec.json"))
+data = np.load(d + "/inputs.npz")
+arch = spec["cap_arch"]
+cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+tree = jax.tree.structure(jax.eval_shape(build_model(cfg).init,
+                                         jax.random.PRNGKey(0)))
+params = jax.tree.unflatten(tree, [jnp.asarray(data[f"{arch}.{i}"])
+                                   for i in range(tree.num_leaves)])
+batch = {"tokens": jnp.asarray(data[arch + ".tokens"])}
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2),
+                         ("data", "model"))
+out = {}
+for name, kw in (("4x1", {}), ("2x2", dict(mesh=mesh, seq_axis="data"))):
+    model = build_model(cfg, **kw)
+    with mesh:
+        value, g = jax.jit(jax.value_and_grad(
+            lambda p, b: model.loss(p, b)[0]))(params, batch)
+    out[f"cap.{name}.loss"] = np.asarray(value)
+    for i, leaf in enumerate(jax.tree.leaves(g)):
+        out[f"cap.{name}.g.{i}"] = np.asarray(leaf)
+np.savez(d + "/ref_cap.npz", **out)
 '''
 
 
@@ -346,6 +387,23 @@ for arch in spec["archs"]:
         for i, leaf in enumerate(tree_leaves(stepped)):
             out[f"{tag}.p.{i}"] = leaf.numpy()
 
+# the MoE at its config's capacity: the full loss and its gradient
+arch = spec["cap_arch"]
+cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+whole = whole_params(cfg, arch)
+tokens = torch.from_numpy(data[arch + ".tokens"])
+for name, (dp, tp) in spec["meshes"].items():
+    mesh, model = lm_ranks.rank_model(cfg, dp, tp, seq_axis="data")
+    specs = rank_specs(cfg, whole, mesh)
+    blk = lm_ranks.rank_batch(model, {"tokens": tokens})
+    g, value = torch.func.grad_and_value(lambda p, b: model.loss(p, b)[0])(
+        lm_ranks.rank_params(model, whole), blk)
+    out[f"cap.{name}.loss"] = ordered_psum(value, mesh, "data").numpy()
+    g = tree_map(lambda l, s: unshard(ordered_psum(l, mesh, "data"), s,
+                                      mesh), g, specs)
+    for i, leaf in enumerate(tree_leaves(g)):
+        out[f"cap.{name}.g.{i}"] = leaf.numpy()
+
 # zamba2-2.7b: no seq_axis; a batch of one decoded from caches split over
 # data where their slots divide
 cfg = cfg_of(spec["hybrid"])
@@ -414,12 +472,18 @@ def world(tmp_path_factory):
     (d / "spec.json").write_text(json.dumps({
         "archs": ARCHS, "meshes": MESHES, "gen": GEN, "window": WINDOW,
         "hybrid": HYBRID, "hybrid_gens": HYBRID_GENS,
-        "count_arch": COUNT_ARCH, "lr": TRAIN_LR, "ref_parts": REF_PARTS}))
+        "count_arch": COUNT_ARCH, "lr": TRAIN_LR, "ref_parts": REF_PARTS,
+        "cap_arch": CAP_ARCH}))
     ref_env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"}
     refs = [subprocess.Popen([sys.executable, "-c", _REF, str(d), str(i)],
                              env=ref_env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
             for i in range(REF_PARTS)]
+    refs.append(subprocess.Popen(
+        [sys.executable, "-c", _REF_CAP, str(d)],
+        env={**ref_env, "XLA_FLAGS": f"--xla_force_host_platform_device_"
+                                     f"count={N_RANKS}"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     try:
         env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
         mp.spawn_local_cluster([sys.executable, "-c", _CHILD, str(d)],
@@ -432,7 +496,7 @@ def world(tmp_path_factory):
                 ref.kill()
     for ref, log in zip(refs, logs):
         assert ref.returncode == 0, log
-    want = {}
+    want = dict(np.load(d / "ref_cap.npz"))
     for i in range(REF_PARTS):
         want.update(np.load(d / f"ref{i}.npz"))
     return dict(np.load(d / "port.npz")), want
@@ -460,6 +524,27 @@ def test_loss_and_gradients_match_the_reference(world, arch, mesh):
     assert n == sum(1 for k in port if k.startswith(tag + ".g.")) > 0
     for i in range(n):
         want = ref[f"{arch}.g.{i}"]
+        scale = max(float(np.abs(want).max()), 1e-12)
+        np.testing.assert_allclose(port[f"{tag}.g.{i}"], want,
+                                   atol=GRAD_REL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_moe_routes_the_whole_sequence_at_its_capacity(world, mesh):
+    """granite-moe at its config's capacity factor 1.25, where slots drop:
+    routing each rank's block on its own (its own capacity and top-k
+    order) would move the loss and the gradient; the whole sequence's
+    routing gives the reference's full loss (nll + 0.01 x aux) 1e-5
+    relative and its gradient 1e-4 of each leaf's largest, unsharded on
+    (4, 1) and its own (2, 2) mesh run."""
+    port, ref = world
+    tag = f"cap.{mesh}"
+    want = float(ref[tag + ".loss"])
+    assert abs(float(port[tag + ".loss"]) - want) <= LOSS_REL * abs(want)
+    n = sum(1 for k in ref if k.startswith(tag + ".g."))
+    assert n == sum(1 for k in port if k.startswith(tag + ".g.")) > 0
+    for i in range(n):
+        want = ref[f"{tag}.g.{i}"]
         scale = max(float(np.abs(want).max()), 1e-12)
         np.testing.assert_allclose(port[f"{tag}.g.{i}"], want,
                                    atol=GRAD_REL * scale, rtol=0)

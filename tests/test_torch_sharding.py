@@ -126,6 +126,96 @@ def _rank_mesh(shape, coords):
                     data_axis=tuple(shape)[-1])
 
 
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_production_rank0_blocks_are_the_reference_shard_shapes(arch, smoke,
+                                                                multi):
+    """Rank 0 of the dry run's production mesh (``launch.mesh.
+    make_production_mesh``): every leaf of its blocks (``rank_specs``, the
+    experts over ``model`` or, in the population layout, every leaf whole)
+    has the shape of the reference's ``NamedSharding(AbstractMesh(...),
+    spec).shard_shape(...)`` of the same leaf, with ``fsdp`` and the
+    population layout on and off."""
+    from jax.sharding import AbstractMesh, NamedSharding
+    from repro_torch.launch.mesh import make_production_mesh
+    jcfg, tcfg, jm, tm, jshapes, tparams = _models(arch, smoke)
+    mesh = make_production_mesh(multi_pod=multi)
+    assert mesh.coords == {a: 0 for a in mesh.shape}
+    amesh = AbstractMesh(tuple(mesh.shape.values()), tuple(mesh.shape))
+    for fsdp in (False, True):
+        for population in (False, True):
+            blocks = tsh.shard_tree(tparams, tsh.rank_specs(
+                tcfg, tparams, mesh, None if population else "model",
+                replicate=population, fsdp=fsdp), mesh)
+            specs = jsh.param_specs(jcfg, jshapes, amesh, fsdp=fsdp,
+                                    replicate=population)
+            want = jax.tree.map(
+                lambda leaf, sp: NamedSharding(amesh, sp).shard_shape(
+                    leaf.shape), jshapes, specs,
+                is_leaf=lambda x: isinstance(x, P))
+            got = [(n, tuple(b.shape)) for n, b in _port_flat_leaves(blocks)]
+            ref = [(n, tuple(sh)) for n, sh in _ref_flat_shapes(want)]
+            assert got == ref, [(g, r) for g, r in zip(got, ref) if g != r][:3]
+
+
+def _port_flat_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _port_flat_leaves(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _port_flat_leaves(v, path + (i,))]
+    return [("/".join(str(p) for p in path), tree)]
+
+
+def _ref_flat_shapes(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, tuple))
+    return [("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path), shape) for path, shape in flat]
+
+
+def test_production_mesh_lays_ranks_out_row_major():
+    """``make_production_mesh(rank=r)``'s coordinates are row-major over
+    its axes, as ``jax.make_mesh`` lays the devices of the reference's
+    production mesh out; ``tp`` must divide the 256 chips of a pod."""
+    from repro_torch.launch.mesh import make_production_mesh
+    devices = np.arange(512).reshape(2, 16, 16)
+    for r in (0, 17, 255, 256, 511):
+        mesh = make_production_mesh(multi_pod=True, rank=r)
+        assert mesh.groups == {}
+        assert devices[tuple(mesh.coords.values())] == r
+    mesh = make_production_mesh(model_parallel=32, rank=40)
+    assert mesh.shape == {"data": 8, "model": 32}
+    assert mesh.coords == {"data": 1, "model": 8}
+    with pytest.raises(ValueError, match="divide"):
+        make_production_mesh(model_parallel=24)
+
+
+@pytest.mark.parametrize("mesh_name", ["16x16", "2x16x16"])
+def test_fsdp_dims_name_the_data_axes_cut(mesh_name):
+    """``fsdp_dims``: each leaf's dimension that ``rank_specs(...,
+    fsdp=True)`` cuts over the data axes and ``fsdp=False`` does not, or
+    ``None``; a gathered block has the ``fsdp=False`` block's shape."""
+    from repro_torch.launch.mesh import make_production_mesh
+    _, tcfg, _, _, _, tparams = _models("stablelm-1.6b", False)
+    mesh = make_production_mesh(multi_pod=mesh_name == "2x16x16")
+    dims = [d for _, d in _port_flat(tsh.fsdp_dims(tcfg, tparams, mesh))]
+    cut = dict(_port_flat(tsh.rank_specs(tcfg, tparams, mesh, fsdp=True)))
+    whole = dict(_port_flat(tsh.rank_specs(tcfg, tparams, mesh)))
+    dp = tsh.data_axes(mesh)
+    assert any(d is not None for d in dims)
+    for (name, spec), dim in zip(cut.items(), dims):
+        if dim is None:
+            assert spec == whole[name], name
+            continue
+        was = tuple(whole[name]) + (None,) * (len(spec) - len(whole[name]))
+        assert spec[dim] == dp and was[dim] is None, name
+        assert tuple(e for i, e in enumerate(spec) if i != dim) == \
+            tuple(e for i, e in enumerate(was) if i != dim), name
+
+
 @pytest.mark.parametrize("spec", [(), ("data", None), (None, "model"),
                                   ("model", "data"), (("data", "model"),),
                                   (None, ("data", "model"))])

@@ -447,6 +447,75 @@ def test_dry_run_remat_rows(arch):
     assert dots["peak_memory_gb"] <= plain["peak_memory_gb"]
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_dry_run_production_rows_of_the_smoke_configs(arch):
+    """Rank 0 of the 16 x 16 and 2 x 16 x 16 production meshes, with and
+    without FSDP: every row the reference does not skip is ``ok``, priced
+    over the link between DGX nodes, with the rank's parameter blocks and
+    its collectives by kind. The one departure: zamba2's smoke config has 8
+    SSM heads, which 16 ``model`` ranks would split inside a head (256
+    channels divide), and the port raises there (``models/mamba2.py``), a
+    ``FAIL`` row naming the split."""
+    jax_skip = _reference_skip_reason()
+    held = {}
+    for fsdp in (False, True):
+        rows = dryrun.dryrun([arch], SMALL_SHAPES, ("single", "multi"),
+                             smoke=True, verbose=False, fsdp=fsdp,
+                             remat=True)
+        assert len(rows) == 2 * len(SMALL_SHAPES)
+        for row in rows:
+            shape = SMALL_SHAPES[row["shape"]]
+            want = jax_skip(jax_get_config(arch),
+                            JAX_INPUT_SHAPES[shape.name], False)
+            if want is not None:
+                assert row["status"] == "skip" and row["reason"] == want
+                continue
+            if arch == "zamba2-2.7b":
+                assert row["status"] == "FAIL", row
+                assert "split inside heads" in row["error"]
+                continue
+            assert row["status"] == "ok", row
+            assert row["chips"] == (256 if row["mesh"] == "single" else 512)
+            assert row["link"] == "ib" and row["fsdp"] == fsdp
+            assert row["param_bytes_per_device"] > 0
+            assert row["t_collective_s"] == row["coll_bytes_per_device"] / \
+                roofline.IB_LINK_BYTES_PER_S
+            if shape.kind == "train":       # the mean over data at least
+                assert row["coll_breakdown"].get("all-reduce", 0) > 0
+            held.setdefault((row["shape"], row["mesh"]), set()).add(
+                row["param_bytes_per_device"])
+    # no smoke dimension reaches the FSDP rule's 1024: FSDP cuts nothing
+    assert all(len(v) == 1 for v in held.values())
+
+
+def test_dry_run_counts_a_rank_without_a_process_group(monkeypatch):
+    """The production row's collectives are custom ops whose shape rules
+    move nothing on ``meta``: the count runs with ``torch.distributed``
+    uninitialised and every transfer of it raising, and still prices the
+    tensor-parallel sums, the experts' all-to-all and the gradients' mean
+    by kind."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a count called torch.distributed")
+    for name in ("all_gather", "all_reduce", "all_to_all_single",
+                 "batch_isend_irecv", "isend", "irecv", "new_group",
+                 "get_rank", "get_world_size", "barrier"):
+        monkeypatch.setattr(dist, name, refuse)
+    shape = SMALL_SHAPES["train_4k"]
+    for fsdp in (False, True):
+        row = dryrun.dryrun_one("granite-moe-1b-a400m", shape, smoke=True,
+                                mesh="single", fsdp=fsdp, remat=True,
+                                verbose=False)
+        assert row["status"] == "ok"
+        kinds = set(row["coll_breakdown"])
+        assert {"all-reduce", "all-gather"} <= kinds
+    row = dryrun.dryrun_one("granite-moe-1b-a400m", shape, mesh="single",
+                            remat=True, verbose=False)
+    assert row["status"] == "ok" and row["coll_breakdown"]["all-to-all"] > 0
+
+
 def test_report_tables_match_the_reference():
     rows = [
         {"arch": "gemma3-4b", "shape": "train_4k", "mesh": "1",
