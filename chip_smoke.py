@@ -68,7 +68,10 @@ Phases (any failure exits non-zero without the final result line):
    and against a copy whose sLSTM runs in float64 (the kernel no farther
    from it than twice the plain version), the same f32 prefill on 2 x 16,
    128 and 512 tokens against ``backend="ref"`` (and measured against the
-   f64-sLSTM copy), and decode against forward;
+   f64-sLSTM copy), and decode against forward; last, at the scan's own
+   output, for two seeds at the prefill's sLSTM shape, ``slstm_scan``'s
+   RMS distance from the f64 scan at most ``XLSTM_SCAN_RMS_FACTOR`` times
+   the plain f32 loop's;
 9. the ring peer path: ``spawn_local_cluster`` starts 4 ranks on the one
    card, joined over gloo; each holds its 64-mule block of phase 5's walk,
    bucket-ordered by area (T = 12), at the paper CNN's full width, and runs
@@ -96,7 +99,7 @@ Phases (any failure exits non-zero without the final result line):
    FedAS's server model keeps its personal leaves bitwise; CFL's clusters
    partition the 8 clients and each client holds its cluster's model
    bitwise. Then ``run_experiment`` at the harness's reduced defaults for
-   each method, T = 20;
+   each method, T = 10;
 11. the HAR path (Fig 8): ``mlmule`` and ``gossip`` on ``har_commuter``
    through ``run_with_models`` handed the LSTM-CNN at full width (window
    128, 6 channels, conv 32/64, LSTM 64, 4 classes), M = 256, F = 8, batch
@@ -108,7 +111,7 @@ Phases (any failure exits non-zero without the final result line):
    aggregation and ``gossip``'s mix held in lockstep; each prints steps/s,
    peak memory, its accuracy trace and a profile. Then
    ``run_experiment(task="har")`` at its defaults for the five
-   ``METHODS_MOBILE``, T = 20, 30 pretraining steps;
+   ``METHODS_MOBILE``, T = 10, 30 pretraining steps;
 12. the multi-area path: ``mlmule`` and ``gossip`` on ``multi_area_3city``
    (12 fixed devices in 3 cities) and ``gossip`` on
    ``multi_area_migratory`` (its area a [T, M] column) at the paper CNN's
@@ -338,7 +341,7 @@ Phases (any failure exits non-zero without the final result line):
    ``data`` of their bytes (and, on 2 x 2, the tensor-parallel sums and
    the logits' gather), each rank's attention ms (rank r reads r + 1
    blocks of keys) and peak; (c) decode at batch 1 from the cache split
-   over ``data`` (a 48-token prompt, 8 greedy tokens: 56 slots, 14 or 28
+   over ``data`` (a 24-token prompt, 8 greedy tokens: 32 slots, 8 or 16
    a rank), its bytes a rank exact, the tokens equal on every rank. (b)
    f32 copies with 2 layers on both meshes against one process on the
    same weights: the logits of 1 x 512 and the loss within 2e-4, the
@@ -368,7 +371,37 @@ Phases (any failure exits non-zero without the final result line):
    ``--fsdp``, granite-moe-1b-a400m ``decode_32k``, gemma3-4b ``long_500k``
    with ``--sliding-variant``, every row ``ok``, printed with its peak a
    rank, ``fits_one_card``, terms and count's seconds. (b) and (c) run in
-   processes started before phase 23's ranks, beside them.
+   processes started after the kernels' phases, beside the single-process
+   path phases (not beside the kernels' timings, nor beside phase 23's
+   ranks, whose host-side folds they would slow).
+27. ``head_axis`` and the Mamba2 mixer split inside its heads, in phase
+   23's ranks too: rank 0 first holds ``flash_attention`` against its
+   plain version at (a)'s rank shapes (14 and 12 query heads with the kv
+   heads they read) and at the whole 40 heads, every call tensor-core,
+   timed beside SDPA and the bound, and ``ssd_scan`` at (b)'s sub-heads.
+   (a) qwen2.5-32b at full width with 2 layers (40 heads on 8 kv heads x
+   128, qkv bias, d_ff 27,648, vocab 152,064) in bf16 on a (data 1, model
+   3) mesh over ranks 0-2 (a sub-group; rank 3 waits), with
+   ``head_axis="model"`` (blocks of 14 / 14 / 12 heads; the MLP 9,216 and
+   the vocabulary 50,688 a rank) beside ``head_axis=None`` (every rank all
+   40 heads): a 2 x 1024 prefill of each with 2 tensor-core
+   ``flash_attention`` launches a rank and its sums over ranks exact (2 x
+   2 + 1 of [2, 1024, 5120] bf16 against 2 + 1), the logits of the two
+   within ``TP_BF16_GAP``; the f32 copy at 1 x 256 within 2e-4 of one
+   process; 2 SGD steps of each at 4 x 128, the losses falling and within
+   ``TP_BF16_GAP`` of each other, every sum exact in count and bytes (the
+   backward's one f32 sum a layer of the input and the whole attention
+   weights), every whole attention leaf bitwise equal on the 3 ranks. (b)
+   zamba2's smoke config with d_model 96, ssm_head_dim 64, ssm_state 64
+   (and the shared attention at head dim 32) in f32 on 1 x 4: 48 channels
+   a rank straddle the 3 heads and run as 3 sub-heads of 16 in one
+   ``ssd_scan`` launch; the 2 x 256 prefill within 2e-4 of one process,
+   8 greedy tokens equal to one process's. (c) The dry run's
+   ``count_step`` on meta of rank 0 of the 16 x 16 production mesh:
+   qwen2.5-32b ``prefill_32k`` and ``train_4k`` with and without
+   ``head_axis`` (the attention kernel's FLOPs a rank exactly 3 / 40 of
+   the whole heads'), and the dry run's command line for zamba2-2.7b at
+   ``--tp 32`` (every row ``ok``), in processes started with phase 26's.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -603,6 +636,16 @@ XLSTM_REF_PREFILL_TOL = 2e-2
 # and under twice the plain run's own distance from the f64 copy there.
 XLSTM_SHORT_S = (16, 128, 512)
 XLSTM_SHORT_PREFILL_TOL = 4e-3
+# The check at the sLSTM scan's output (phase 8), which does not ride on
+# the mLSTM's amplification: at the phase's own shape (xlstm-350m's sLSTM
+# on PREFILL_B x PREFILL_S, pre and r at the layer's scales) for each seed
+# of XLSTM_SCAN_SEEDS, the kernel's RMS distance from the float64 scan of
+# the same inputs at most XLSTM_SCAN_RMS_FACTOR times the plain f32 loop's:
+# the kernel no less exact than the plain version. tools/xlstm_f64_split.py
+# read the ratio at 0.954-0.957 in 12 cases (B 2, S 512-4096, three seeds;
+# NVIDIA H100 80GB HBM3, 700 W), so 1.0 leaves ~4.5% of room.
+XLSTM_SCAN_SEEDS = (SEED + 30, SEED + 31)
+XLSTM_SCAN_RMS_FACTOR = 1.0
 
 # encounter_hop (phase 3) and the ring peer path (phase 9): the walk of
 # phase 5, bucket-ordered by area and split into RING_RANKS equal blocks of
@@ -631,8 +674,9 @@ HAR_PRETRAIN = 30
 # with phases 17-20 (one eval, after step 19; a multiple of the peer
 # cadence, 3)
 HAR_STEPS = 21
-# run_experiment at the harness's own defaults, T cut to this
-SHORT_STEPS = 20
+# run_experiment at the harness's own defaults, T cut to this (one eval,
+# after step 9; 20 until phase 27)
+SHORT_STEPS = 10
 # the seed sweep (phase 13) and the lane-batched kernel entries (phase 3):
 # S seeds of the walk as lanes of one replay, each launch of mule_agg and
 # encounter_mix serving all S lanes; the multi-area path (phase 12): the
@@ -804,14 +848,15 @@ TP_BF16_GAP = 0.25
 # bf16 at batch 1, a CP_PREFILL-token prompt (stablelm-2's context length)
 # on each of CP_MESHES with the sequence over "data"; (c) decode at batch 1
 # from the split cache after a CP_PROMPT-token prompt, CP_GEN greedy
-# tokens (56 slots: 14 a rank on 4 x 1); (b) f32 copies with
+# tokens (32 slots: 8 a rank on 4 x 1); (b) f32 copies with
 # CP_PARITY_LAYERS layers against one process on the same weights, at 1 x
 # CP_PARITY_S (bounds REF_PREFILL_TOL and MESH_GRAD_REL); (d) CP_TRAIN_STEPS
 # SGD steps of CP_ARCH on 2 x 2 at 1 x CP_TRAIN_S, remat "dots"
 CP_ARCH = "stablelm-1.6b"
 CP_MESHES = ((MESH_RANKS, 1), (2, 2))
 CP_PREFILL = 4096
-CP_PROMPT, CP_GEN = 48, 8       # 16 tokens until phase 26
+CP_PROMPT, CP_GEN = 24, 8       # 16 tokens until phase 26; a prompt of
+                                # 48 until phase 27
 CP_PARITY_LAYERS, CP_PARITY_S = 2, 512      # 1024 until phase 26
 CP_TRAIN_S, CP_TRAIN_STEPS, CP_LR = 1024, 2, 0.01   # 2048 until phase 26
 # (b) also holds MOE_ARCH, CP_PARITY_LAYERS layers in f32 at its config's
@@ -829,6 +874,27 @@ FSDP_ROWS = (("stablelm-1.6b", "train_4k", {}),
              ("stablelm-1.6b", "train_4k", {"fsdp": True}),
              ("granite-moe-1b-a400m", "decode_32k", {}),
              ("gemma3-4b", "long_500k", {"sliding_variant": True}))
+# head_axis and the Mamba2 split inside heads (phase 27), in phase 23's
+# ranks: (a) HA_ARCH at full width with WIDE_LAYERS layers in bf16 on a
+# (data 1, model HA_RANKS) mesh over ranks 0 .. HA_RANKS - 1 of the world
+# (a sub-group; the last rank waits), head_axis="model" beside
+# head_axis=None: a HA_PREFILL prefill (40 heads: blocks of 14 / 14 / 12),
+# the f32 copy at 1 x HA_PARITY_S against one process (REF_PREFILL_TOL),
+# TP_TRAIN_STEPS SGD steps (lr TP_LR) at MESH_TRAIN (the bf16 runs within
+# TP_BF16_GAP of each other); (b) TP_HYBRID_ARCH's smoke config narrowed by
+# HA_MIXER (3 SSM heads of 64, 48 channels a rank of 1 x MESH_RANKS:
+# sub-heads of 16; the shared attention at head dim 32) in f32: a 2 x
+# HA_MIXER_S prefill against one process (REF_PREFILL_TOL), HA_MIXER_GEN
+# greedy tokens equal to one process's; (c) the dry run's counts on meta of
+# rank 0 of the production mesh, HA_ARCH at HA_COUNT_SHAPES with and
+# without head_axis, and zamba2-2.7b's rows at --tp HA_TP (80 SSM heads of
+# 64 over 32 ranks: 160 channels a rank, sub-heads of 32)
+HA_ARCH, HA_RANKS = "qwen2.5-32b", 3
+HA_PREFILL, HA_PARITY_S = (2, 1024), 256
+HA_MIXER = {"d_model": 96, "ssm_head_dim": 64, "ssm_state": 64,
+            "head_dim": 32}
+HA_MIXER_S, HA_MIXER_GEN = 256, 8
+HA_COUNT_SHAPES, HA_TP = ("prefill_32k", "train_4k"), 32
 # (d)'s f32 greedy decode on 1 x 4 against one process: the tokens equal,
 # or apart first at a near tie within REF_PREFILL_TOL
 # audio and vision (phase 21): whisper-base whole (6 encoder and 6 decoder
@@ -2865,7 +2931,39 @@ def phase_xlstm_serve(card: str) -> dict:
     _f32_checks(cfg, params, batch, gen, XLSTM_REF_PREFILL_TOL, expect,
                 oracle=_f64_slstm_logits)
     _xlstm_short_prefill(cfg, params, batch)
+    _xlstm_scan_rms(cfg, card)
     return launches
+
+
+def _xlstm_scan_rms(cfg, card: str) -> None:
+    """The check at the sLSTM scan's output: for each seed of
+    XLSTM_SCAN_SEEDS, slstm_scan's RMS distance from the float64 scan at
+    most XLSTM_SCAN_RMS_FACTOR times the plain f32 loop's (the constants'
+    comment)."""
+    import torch
+    from repro_torch.kernels.slstm_fused import slstm_reference, slstm_scan
+    h = cfg.n_heads
+    p = cfg.d_model // h
+    for seed in XLSTM_SCAN_SEEDS:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        pre, r = _slstm_inputs(g, PREFILL_B, PREFILL_S, h, p, SLSTM_PRE_STD,
+                               SLSTM_R_STD)
+        exact = slstm_reference(pre.double(), r.double())[0]
+        rms = [(got.double() - exact).pow(2).mean().sqrt().item()
+               for got in (slstm_scan(pre, r), slstm_reference(pre, r)[0])]
+        shape = [PREFILL_B, PREFILL_S, 4, h, p]
+        print(f"lm serve {cfg.name} sLSTM scan {shape} (seed {seed}, pre "
+              f"std {SLSTM_PRE_STD}, r std {SLSTM_R_STD}) against the f64 "
+              f"scan: RMS kernel {rms[0]:.4e}, plain f32 {rms[1]:.4e}, "
+              f"ratio {rms[0] / rms[1]:.4f} (bound {XLSTM_SCAN_RMS_FACTOR}) "
+              f"[{card}]")
+        if not rms[0] <= XLSTM_SCAN_RMS_FACTOR * rms[1]:
+            raise AssertionError(f"slstm_scan at seed {seed}: RMS {rms[0]} "
+                                 f"from the f64 scan, past "
+                                 f"{XLSTM_SCAN_RMS_FACTOR} x the plain "
+                                 f"loop's {rms[1]}")
+        del pre, r, exact
 
 
 def _xlstm_short_prefill(cfg, params, batch) -> None:
@@ -4131,7 +4229,15 @@ def dist_rank(out_dir: str) -> None:
     batch_fn = batch_sampler(Xtr, Ytr, BATCH)
     dcfg = DistributedConfig(pop=pcfg)
     mesh = make_mule_mesh(1, n)
-    report = {"rank": i, "runs": {}}
+    report = {"rank": i, "runs": {}, "laps": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(part: str):
+        now = time.perf_counter()
+        report["laps"][part] = now - t_lap[0]
+        t_lap[0] = now
+
+    lap("set-up")
 
     def whole(models, mesh_):
         """The population's flat models from every rank's block."""
@@ -4178,6 +4284,7 @@ def dist_rank(out_dir: str) -> None:
             finals["mlmule"] = (flat, final["fixed_models"])
         report["runs"][method] = rec
         del final, flat
+        lap(method)
 
     # mlmule against its plain aggregation: the whole run, under a bound
     # on training's growth, and the aggregation in lockstep, training off
@@ -4189,6 +4296,7 @@ def dist_rank(out_dir: str) -> None:
         max((ref["fixed_models"][k] - fixed_k[k]).abs().max().item()
             for k in fixed_k))
     del ref
+    lap("mlmule ref")
 
     def keep(params, batch, key):
         return params
@@ -4218,6 +4326,7 @@ def dist_rank(out_dir: str) -> None:
         st = step_t(st, info, bt, ks)
     report["lockstep"] = worst
     del st, a, b
+    lap("lockstep")
 
     # mlmule on a 2 x 2 mesh, each pod summing its own data axis
     mesh22 = make_mule_mesh(2, n // 2)
@@ -4231,6 +4340,7 @@ def dist_rank(out_dir: str) -> None:
     rec["diff_vs_1x4"] = (flat - flat_k).abs().max().item()
     report["runs"]["mlmule 2x2 pod-local"] = rec
     del final, finals
+    lap("2x2")
 
     # the re-bucketed streamed engine on the migratory schedule
     spec = get_scenario("multi_area_migratory")
@@ -4292,10 +4402,13 @@ def dist_rank(out_dir: str) -> None:
     del fin_s, fin_d, mpop, stream
     gc.collect()
     torch.cuda.empty_cache()
-    report["sweep"] = _dist_sweep(mesh, counted, whole, init_fn, train_fn)
+    lap("rebucket")
+    report["sweep"] = _dist_sweep(mesh, counted, init_fn, train_fn)
+    lap("sweep (phase 17)")
     # phase 22 (f): one row of the engine's roofline on these ranks
     from repro_torch.launch.autotune import engine_step_rank
     report["roofline"] = engine_step_rank("mlmule", 64, 24, 1, n, "cuda")
+    lap("roofline row")
     reports = [None] * n if i == 0 else None
     dist.gather_object(report, reports, dst=0)
     if i == 0:
@@ -4320,7 +4433,7 @@ def _sweep_walks():
     return cos, orders
 
 
-def _dist_sweep(mesh, counted, whole, init_fn, train_fn) -> dict:
+def _dist_sweep(mesh, counted, init_fn, train_fn) -> dict:
     """Phase 17 in a rank of phase 16's world: ``run_sweep_distributed``
     over DIST_LANES seeds of the walk for ``mlmule`` and ``gossip``, then
     each lane alone through ``run_population_distributed``; the rank's
@@ -4332,6 +4445,7 @@ def _dist_sweep(mesh, counted, whole, init_fn, train_fn) -> dict:
     its wall seconds."""
     import numpy as np
     import torch
+    from repro_torch.baselines.gossip import flatten_population
     from repro_torch.configs.mule_cnn import CONFIG
     from repro_torch.core.distributed import (PSUM_COUNTS, DistributedConfig,
                                               reorder_mule_state,
@@ -4383,10 +4497,12 @@ def _dist_sweep(mesh, counted, whole, init_fn, train_fn) -> dict:
 
     def gap(final, aux, l, one, one_aux):
         """(largest distance, bitwise) of lane l of a sweep from its
-        sequential run: the whole population's mules and the fixed
-        models, and last_fid."""
-        lane = whole(tree_lane(final["mule_models"], l), mesh)
-        solo = whole(one["mule_models"], mesh)
+        sequential run on this rank: its block of the mules (the same
+        block in both runs; the parent takes the largest over the ranks,
+        so no rank gathers the population) and the fixed models, and
+        last_fid."""
+        lane = flatten_population(tree_lane(final["mule_models"], l))[0]
+        solo = flatten_population(one["mule_models"])[0]
         pairs = [(lane, solo)] + [(final["fixed_models"][k][l], v)
                                   for k, v in one["fixed_models"].items()]
         diff = max((a - b).abs().max().item() for a, b in pairs)
@@ -4561,6 +4677,8 @@ def phase_distributed(card: str) -> dict:
         ranks = json.loads((Path(out_dir) / "dist.json").read_text())
     for line in outs[0].stdout.splitlines():
         print(f"  rank 0: {line}")
+    print("distributed laps, rank 0: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ranks[0]["laps"].items()) + " s")
     from repro_torch.launch import autotune
     MEASURED["dist roofline"] = autotune.engine_row(
         "mlmule", 64, 24, f"1x{DIST_RANKS}", DIST_RANKS,
@@ -6770,6 +6888,281 @@ def _cp_rank(rep: dict, note, free) -> None:
     note("(25b) f32 parity")
 
 
+def _ha_cfg():
+    """Phase 27 (a)'s config: HA_ARCH at full width, WIDE_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(HA_ARCH), n_layers=WIDE_LAYERS)
+
+
+def _ha_mixer_cfg():
+    """Phase 27 (b)'s config: TP_HYBRID_ARCH's smoke config narrowed by
+    HA_MIXER, in f32."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(TP_HYBRID_ARCH),
+                               dtype="float32", **HA_MIXER)
+
+
+def _ha_kernel_shapes() -> dict:
+    """Phase 27 on rank 0: flash_attention against its plain version at
+    the shapes phase 27 (a)'s ranks give it (each block of query heads with
+    the kv heads it reads, ``attention.kv_take``) and at the whole 40
+    heads of ``head_axis=None``, every call tensor-core, timed beside SDPA
+    (``enable_gqa`` where the kv heads group) and the bound; ssd_scan at
+    (b)'s sub-heads (rank 1's: parents 0, 1, 1) against its chunked plain
+    version, timed beside it and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssd_chunked_reference, ssd_scan
+    from repro_torch.launch.mesh import stand_in_mesh
+    from repro_torch.launch.roofline import flash_attention_work, ssd_work
+    from repro_torch.models.attention import head_block, kv_take
+    cfg = _ha_cfg()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 20)
+    b, s = HA_PREFILL
+    d = cfg.resolved_head_dim
+
+    def normal(h):
+        return torch.randn(b, s, h, d, device="cuda", generator=g).bfloat16()
+
+    q_all = normal(cfg.n_heads)
+    k_all, v_all = normal(cfg.n_kv_heads), normal(cfg.n_kv_heads)
+    out = {"flash_attention": [], "ssd_scan": []}
+    blocks = {}
+    for r in range(HA_RANKS):
+        q0, hq = head_block(cfg, stand_in_mesh({"data": 1, "model": HA_RANKS},
+                                               r), "model")
+        blocks.setdefault(hq, (f"rank {r}'s block", q0))
+    blocks[cfg.n_heads] = ("whole (head_axis=None)", 0)
+    for hq, (label, q0) in blocks.items():
+        q = q_all[:, :, q0:q0 + hq].contiguous()
+        take = kv_take(cfg, q0, hq)
+        k, v = k_all[:, :, take].contiguous(), v_all[:, :, take].contiguous()
+        kv = k.shape[2]
+        # the kv heads the block's function reads: a list take repeats
+        # them, one a query head, which the kernel then reads again
+        distinct = len(set(take)) if isinstance(take, list) else kv
+        got = _flash_routed(q, k, v, causal=True)
+        err = _hold(f"flash_attention {HA_ARCH} {label} q {list(q.shape)} "
+                    f"k/v {list(k.shape)} bf16 causal vs flash_reference",
+                    got, flash_attention(q, k, v, causal=True,
+                                         backend="ref"),
+                    *FLASH_BF16_VS_BF16)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        work = flash_attention_work(b, s, s, hq, distinct, d, True, None,
+                                    torch.bfloat16)
+        out["flash_attention"].append({
+            "arch": HA_ARCH, "block": label, "heads": [q0, hq],
+            "shape": [b, s, hq, kv, d], "kv_read": distinct, "causal": True,
+            "max_abs_err": err,
+            "ms": _median_ms(lambda: flash_attention(q, k, v, causal=True),
+                             reps=10),
+            "plain_ms": _median_ms(lambda: flash_attention(
+                q, k, v, causal=True, backend="ref"), reps=3, warm=1),
+            "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=kv != hq), reps=10),
+            "sdpa": "enable_gqa" if kv != hq else "kv repeated to the block",
+            "bound_ms": work.bound_ms, "bound_by": work.bound_by})
+    mc = _ha_mixer_cfg()
+    dl = mc.ssm_expand * mc.d_model // MESH_RANKS
+    p = math.gcd(dl, mc.ssm_head_dim)
+    parents = torch.arange(dl, 2 * dl, p, device="cuda") // mc.ssm_head_dim
+    args = _ssd_inputs(g, 2, HA_MIXER_S, dl // p, p, mc.ssm_state,
+                       -(parents + 1).float())
+    y, _ = ssd_scan(*args, chunk=64)
+    shape = [2, HA_MIXER_S, dl // p, p, mc.ssm_state]
+    err = _hold_scaled(f"ssd_scan phase 27 (b)'s sub-heads (rank 1 of 1 x "
+                       f"{MESH_RANKS}, parents {parents.tolist()}) "
+                       f"{shape[:4]} n={shape[4]} vs ssd_chunked_reference",
+                       y, ssd_chunked_reference(*args, chunk=64)[0],
+                       SSD_VS_CHUNKED_REL)
+    work = ssd_work(*shape)
+    out["ssd_scan"].append({
+        "arch": mc.name, "shape": shape, "max_abs_err": err,
+        "ms": _median_ms(lambda: ssd_scan(*args, chunk=64), reps=10),
+        "plain_ms": _median_ms(lambda: ssd_chunked_reference(*args,
+                                                             chunk=64),
+                               reps=3, warm=1),
+        "library_ms": None, "bound_ms": work.bound_ms,
+        "bound_by": work.bound_by})
+    return out
+
+
+def _ha_qwen(ha: dict, cfg, mesh, model, free) -> None:
+    """Phase 27 (a) on one rank of the (1, HA_RANKS) mesh: fills
+    ``ha["a"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import PSUM_COUNTS
+    from repro_torch.launch import collectives, lm_ranks
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import head_block
+    from repro_torch.optim import sgd
+    group = mesh.group(("data", "model"))
+    first = mesh.axis_index("model") == 0
+    full = lm_ranks.full_params(model, SEED, "cuda")
+    params = lm_ranks.rank_params(model, full)
+    if not first:
+        full = None
+    free()
+    layer = params["stages"][0]
+    a = ha["a"] = {"block": list(head_block(cfg, mesh, "model")),
+                   "blocks": {"wq": list(layer["attn"]["wq"].shape),
+                              "wi_gate": list(layer["mlp"]["wi_gate"].shape),
+                              "embed": list(params["embed"].shape)}}
+    runs = {"model": model,
+            "none": dataclasses.replace(model, head_axis=None)}
+
+    def sums_since(before):
+        return [PSUM_COUNTS["calls"] - before["calls"],
+                PSUM_COUNTS["part_bytes"] - before["part_bytes"],
+                PSUM_COUNTS["seconds"] - before["seconds"]]
+
+    b, s = HA_PREFILL
+    toks = {"tokens": lm_ranks.tokens(cfg, b, s, SEED + 20, "cuda")}
+    logits = {}
+    for name, m in runs.items():
+        prefill = make_prefill_step(m)
+        # warm-up: the first at full size, for the pinned host buffers the
+        # logits' gather stages through (then cached for both runs)
+        prefill(params, toks if name == "model" else
+                {"tokens": toks["tokens"][:, :256]})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier(group=group)
+        expect = _flash_counts(cfg.n_layers, cfg.n_layers)
+        _zero_counts(expect)
+        before = dict(PSUM_COUNTS)
+        gathered = collectives.COLLECTIVE_COUNTS["all-gather"]["sent_bytes"]
+        t0 = time.perf_counter()
+        logits[name] = prefill(params, toks)
+        torch.cuda.synchronize()
+        a["prefill_" + name] = {
+            "wall_s": time.perf_counter() - t0, "launches": _counts(expect),
+            "sums": sums_since(before),
+            "gathered": collectives.COLLECTIVE_COUNTS["all-gather"][
+                "sent_bytes"] - gathered,
+            "shape": list(logits[name].shape),
+            "finite": bool(torch.isfinite(logits[name]).all()),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    a["gap"] = (logits["model"] - logits["none"]).abs().max().item()
+    del logits
+    free()
+    # the f32 copy on the same weights against one process (rank 0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ptoks = {"tokens": lm_ranks.tokens(cfg, 1, HA_PARITY_S, SEED + 21,
+                                       "cuda")}
+    with torch.no_grad():
+        got = dataclasses.replace(model, cfg=cfg32).forward(params,
+                                                            ptoks)[0]
+        if first:
+            want = build_model(cfg32).forward(full, ptoks)[0]
+            a["f32"] = {"diff": (got - want).abs().max().item(),
+                        "logit_max": want.abs().max().item()}
+            del want
+    del got, full
+    free()
+    # SGD steps with and without head_axis from the same weights
+    tb, ts = MESH_TRAIN
+    batch = {"tokens": lm_ranks.tokens(cfg, tb, ts, SEED + 22, "cuda")}
+    for name, m in runs.items():
+        opt = sgd(TP_LR)
+        p, state = params, opt.init(params)
+        step = make_train_step(m, opt)
+        n = TP_TRAIN_STEPS * cfg.n_layers
+        expect = _flash_counts(n, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier(group=group)
+        _zero_counts(expect)
+        before = dict(PSUM_COUNTS)
+        losses, walls = [], []
+        for _ in range(TP_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            p, state, met = step(p, state, batch)
+            losses.append(float(met["loss"]))
+            walls.append(time.perf_counter() - t0)
+        a["train_" + name] = {
+            "losses": losses, "step_s": walls, "launches": _counts(expect),
+            "sums": sums_since(before),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "attn_digest": _params_digest(p["stages"][0]["attn"])}
+        del p, state, step
+        free()
+
+
+def _ha_mixer(ha: dict, free) -> None:
+    """Phase 27 (b) on one rank of 1 x MESH_RANKS: fills ``ha["b"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.ssm_scan import ssd_scan
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    mc = _ha_mixer_cfg()
+    mesh, model = lm_ranks.rank_model(mc, 1, MESH_RANKS, head_axis="model")
+    local = build_model(mc)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    params = lm_ranks.rank_params(model, full)
+    kinds = [st.kind for st in model.program for _ in range(st.count)]
+    n_scan, n_attn = kinds.count("mamba"), kinds.count("shared_attn")
+    toks = {"tokens": lm_ranks.tokens(mc, 2, HA_MIXER_S, SEED + 23,
+                                      "cuda")}
+    expect = {"ssd_scan": (ssd_scan, "launches", n_scan),
+              **_flash_counts(n_attn, 0)}
+    dist.barrier()
+    _zero_counts(expect)
+    with torch.no_grad():
+        got = model.forward(params, toks)[0]
+    hb = ha["b"] = {
+        "launches": _counts(expect), "scans": n_scan, "attns": n_attn,
+        "w_x": list(params["stages"][0]["mixer"]["w_x"].shape),
+        "w_dt": list(params["stages"][0]["mixer"]["w_dt"].shape),
+        "ssm_cache": list(model.init_cache(2, 16, device="meta")[0][
+            "ssm"].shape)}
+    prompt = lm_ranks.tokens(mc, TP_DECODE[0], MESH_PROMPT, SEED + 24,
+                             "cuda")
+    hb["tokens"] = generate(model, params, prompt,
+                            HA_MIXER_GEN)["tokens"].tolist()
+    if mesh.axis_index("model") == 0:
+        with torch.no_grad():
+            want = local.forward(full, toks)[0]
+        hb["diff"] = (got - want).abs().max().item()
+        hb["logit_max"] = want.abs().max().item()
+        hb["one_process"] = generate(local, full, prompt,
+                                     HA_MIXER_GEN)["tokens"].tolist()
+    del full, params, got
+    free()
+
+
+def _ha_rank(rep: dict, note, free) -> None:
+    """Phase 27 in one rank of phase 23's world (``mesh_rank``): fills
+    ``rep["ha"]``."""
+    import torch.distributed as dist
+    from repro_torch.launch import lm_ranks
+    ha = rep["ha"] = {}
+    if dist.get_rank() == 0:
+        ha["kernels"] = _ha_kernel_shapes()
+    dist.barrier()
+    free()
+    note("(27) kernels at the rank shapes")
+    cfg = _ha_cfg()
+    # every rank of the world makes the sub-group; the last one waits
+    mesh, model = lm_ranks.rank_model(cfg, 1, HA_RANKS, head_axis="model",
+                                      ranks=range(HA_RANKS))
+    t0 = time.perf_counter()
+    if mesh is not None:
+        _ha_qwen(ha, cfg, mesh, model, free)
+    dist.barrier()
+    ha["a_wall_s"] = time.perf_counter() - t0
+    free()
+    note(f"(27a) {HA_ARCH} with head_axis on 1 x {HA_RANKS}")
+    _ha_mixer(ha, free)
+    note("(27b) the Mamba2 mixer split inside heads on 1 x 4")
+
+
 def mesh_rank(out_dir: str) -> None:
     """One rank of phase 23, run as ``chip_smoke.py --mesh-rank DIR`` by
     ``spawn_local_cluster``; writes its report to DIR/rank<r>.json."""
@@ -6852,6 +7245,7 @@ def mesh_rank(out_dir: str) -> None:
     torch.cuda.synchronize()
     dist.barrier()
     free()
+    lap("(a) warm-up")
     expect = _flash_counts(cfg.n_layers, cfg.n_layers)
     batch = lm_ranks.rank_batch(model, {"tokens": toks})
     _zero_counts(expect)
@@ -7036,6 +7430,7 @@ def mesh_rank(out_dir: str) -> None:
     _tp_rank(rep, note, free)
     _cp_rank(rep, note, free)
     _fsdp_rank(rep, note, free)
+    _ha_rank(rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
 
@@ -7795,8 +8190,9 @@ def _fsdp_per_step(model) -> list:
 
 
 def start_meta_work() -> tuple:
-    """Phase 26's counts on meta, started before phase 23's ranks so that
-    they run beside them on the host (single-threaded processes): (b) the
+    """Phase 26's counts on meta, started after the kernels' phases so that
+    they run beside the single-process path phases (single-threaded
+    processes): (b) the
     dry run's count of rank 0 of a stand-in 2 x 2 of phase 24 (c)'s and
     26 (a)'s steps (``chip_smoke.py --fsdp-count DIR``), and (c) the rows
     FSDP_ROWS of the dry run's command line on the production meshes (one
@@ -7876,7 +8272,10 @@ def phase_fsdp(card: str, ranks: list, meta=None) -> dict:
     try:
         logs = [p.communicate(timeout=900)[0] for p in procs]
     finally:
-        stop_background()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     for p, log in zip(procs, logs):
         if p.returncode != 0:
             raise AssertionError(f"phase 26's count {p.args[1:]}: exit "
@@ -7975,10 +8374,310 @@ def phase_fsdp(card: str, ranks: list, meta=None) -> dict:
     print(f"fsdp and production meshes: the ranks' part "
           f"{sum(x for k, x in laps.items() if k.startswith('(26')):.1f} s "
           f"(rank 0's laps, in phase 23's wall), the counts on meta beside "
-          f"the ranks, the checks here {time.perf_counter() - t_phase:.1f} "
-          f"s")
+          f"the earlier phases, the checks here "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return {f"{TP_ARCH} FSDP training on 2 x 2 ranks": {
         k: sum(f["launches"][k] for f in fs) for k in want_l}}
+
+
+def start_head_count() -> tuple:
+    """Phase 27 (c)'s counts on meta, started with phase 26's
+    (single-threaded processes): ``chip_smoke.py --head-count
+    DIR`` (HA_ARCH on rank 0 of the production mesh with and without
+    head_axis) and the dry run's command line for zamba2-2.7b at ``--tp``
+    HA_TP. Returns (DIR, the processes), which ``phase_head_axis`` reads;
+    ``stop_background`` ends any still running."""
+    import os
+    import subprocess
+    import tempfile
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_heads_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--head-count",
+             str(out_dir)],
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "zamba2-2.7b", "--shape", "all", "--mesh", "single", "--tp",
+             str(HA_TP), "--out", str(out_dir / "tp.json")]]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for cmd in cmds]
+    _BACKGROUND.extend(procs)
+    return out_dir, procs
+
+
+def head_count(out_dir: str) -> None:
+    """Phase 27 (c)'s counts, run as ``chip_smoke.py --head-count DIR``:
+    the dry run's ``count_step`` of HA_ARCH on rank 0 of the 16 x 16
+    production mesh at HA_COUNT_SHAPES (remat in the train step, as the
+    dry run's default), with ``head_axis="model"`` and without; writes
+    DIR/count.json."""
+    import torch
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import head_block
+    torch.set_num_threads(1)
+    cfg, mesh = get_config(HA_ARCH), make_production_mesh()
+    out = {"heads": [head_block(cfg, mesh, "model")[1], cfg.n_heads]}
+    for shape in HA_COUNT_SHAPES:
+        for axis in ("model", None):
+            model = build_model(cfg, mesh=mesh, remat=True, head_axis=axis)
+            t0 = time.perf_counter()
+            cc, held = count_step(model, INPUT_SHAPES[shape])
+            out[f"{shape} {axis}"] = {
+                "flops": cc.flops,
+                "flash_flops": cc.by_op["flash_attention"][1],
+                "coll": {k: v for k, v in cc.coll.items() if v},
+                "peak": cc.peak_live_bytes, "held": held,
+                "kernels": dict(cc.kernels),
+                "secs": time.perf_counter() - t0}
+    Path(out_dir, "count.json").write_text(json.dumps(out))
+
+
+def phase_head_axis(card: str, ranks: list, meta=None):
+    """Phase 27: head_axis and the Mamba2 split inside heads, run by phase
+    23's ranks (``_ha_rank``), and the counts on meta (``start_head_count``'s,
+    started here unless given). Returns ({path: {kernel: launches of all
+    ranks}}, the kernel checks at the rank shapes by kernel)."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import stand_in_mesh
+    from repro_torch.models.attention import head_block
+    t_phase = time.perf_counter()
+    shapes = ranks[0]["ha"]["kernels"]
+    for e in shapes["flash_attention"]:
+        print(f"head_axis kernel flash_attention at {e['arch']}'s "
+              f"{e['block']} {e['shape']} (b, s, heads, kv heads, d), "
+              f"causal bf16: max |kernel - plain| {e['max_abs_err']:.3e}, "
+              f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, SDPA "
+              f"({e['sdpa']}) {e['library_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}) [{card}]")
+    for e in shapes["ssd_scan"]:
+        print(f"head_axis kernel ssd_scan at {e['arch']}'s sub-heads "
+              f"{e['shape']} (b, s, sub-heads, channels, state): max "
+              f"|kernel - plain| {e['max_abs_err']:.3e}, kernel "
+              f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}) [{card}]")
+    paths = {}
+
+    # (a) HA_ARCH on 1 x HA_RANKS
+    cfg = _ha_cfg()
+    n, (b, s), d = cfg.n_layers, HA_PREFILL, cfg.d_model
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    rep = [r["ha"]["a"] for r in ranks[:HA_RANKS]]
+    vl = cfg.vocab // HA_RANKS
+    act = b * s * d * 2                      # a [B, S, d] bf16 sum
+    for r, x in enumerate(rep):
+        want_block = list(head_block(cfg, stand_in_mesh(
+            {"data": 1, "model": HA_RANKS}, r), "model"))
+        want_blocks = {"wq": [n, d, h * hd],
+                       "wi_gate": [n, d, cfg.d_ff // HA_RANKS],
+                       "embed": [vl, d]}
+        if x["block"] != want_block or x["blocks"] != want_blocks:
+            raise AssertionError(f"head_axis {cfg.name}, rank {r}: block "
+                                 f"{x['block']} (expected {want_block}), "
+                                 f"weights {x['blocks']} (expected "
+                                 f"{want_blocks})")
+        # head_axis: each layer's attention and MLP outputs, the lookup;
+        # without it the MLP's and the lookup
+        for name, calls in (("model", 2 * n + 1), ("none", n + 1)):
+            p = x["prefill_" + name]
+            want = {"launches": {"flash_attention": n,
+                                 "flash_attention tc": n},
+                    "sums": [calls, calls * act], "gathered": b * s * vl * 4,
+                    "shape": [b, s, cfg.vocab], "finite": True}
+            got = {k: p[k] if k != "sums" else p[k][:2] for k in want}
+            if got != want:
+                raise AssertionError(f"head_axis {cfg.name} prefill "
+                                     f"({name}), rank {r}: {got}, expected "
+                                     f"{want}")
+    gap = max(x["gap"] for x in rep)
+    walls = {k: max(x["prefill_" + k]["wall_s"] for x in rep)
+             for k in ("model", "none")}
+    secs = {k: max(x["prefill_" + k]["sums"][2] for x in rep)
+            for k in ("model", "none")}
+    flash = {e["heads"][1]: e for e in shapes["flash_attention"]}
+    per_rank = [flash[x["block"][1]]["ms"] for x in rep]
+    print(f"head_axis {cfg.name}, {n} layers, bf16 prefill {b} x {s} on 1 x "
+          f"{HA_RANKS} ranks (blocks {[x['block'] for x in rep]} of {h} "
+          f"heads, {kv} kv heads): head_axis='model' "
+          f"{b * s / walls['model']:.1f} tokens/s ({walls['model']:.3f} s, "
+          f"{secs['model']:.3f} s in {2 * n + 1} sums of {act} B), "
+          f"head_axis=None {b * s / walls['none']:.1f} tokens/s "
+          f"({walls['none']:.3f} s, {secs['none']:.3f} s in {n + 1} sums); "
+          f"attention kernel a rank {[round(x, 4) for x in per_rank]} ms "
+          f"against {flash[h]['ms']:.4f} ms on the whole {h} heads "
+          f"({max(per_rank) / flash[h]['ms']:.3f}x); flash_attention {n} "
+          f"launches a rank, tensor-core, in each; max |logits - "
+          f"head_axis=None's| {gap:.4e} (bound {TP_BF16_GAP}); peak by rank "
+          f"{[x['prefill_model']['peak_bytes'] for x in rep]} B [{card}]")
+    if not gap <= TP_BF16_GAP:
+        raise AssertionError(f"head_axis {cfg.name}: the bf16 logits are "
+                             f"{gap:.4e} from head_axis=None's, past "
+                             f"{TP_BF16_GAP}")
+    f32 = rep[0]["f32"]
+    print(f"head_axis f32 {cfg.name}, {n} layers, 1 x {HA_PARITY_S} on 1 x "
+          f"{HA_RANKS} vs one process on the same weights: max |diff| "
+          f"{f32['diff']:.3e} (tol {REF_PREFILL_TOL}), logits up to "
+          f"{f32['logit_max']:.3f} [{card}]")
+    if not f32["diff"] <= REF_PREFILL_TOL:
+        raise AssertionError(f"head_axis f32 {cfg.name}: the mesh and one "
+                             f"process disagree")
+    # a step: the forward's sums as the prefill's; the backward's a layer
+    # one of the input and the whole attention weights (f32, one transfer)
+    # and one of the MLP's input, and one of the unembedding's input
+    tb, ts = MESH_TRAIN
+    tact = tb * ts * d * 2
+    leaves = 2 * d * h * hd + 2 * d * kv * hd + (h * hd + 2 * kv * hd) * \
+        cfg.qkv_bias
+    whole = 4 * (tb * ts * d + leaves)
+    want_sums = {"model": [TP_TRAIN_STEPS * (4 * n + 2),
+                           TP_TRAIN_STEPS * ((3 * n + 2) * tact + n * whole)],
+                 "none": [TP_TRAIN_STEPS * (2 * n + 2),
+                          TP_TRAIN_STEPS * (2 * n + 2) * tact]}
+    nl = TP_TRAIN_STEPS * n
+    want_l = {"flash_attention": nl, "flash_attention tc": nl}
+    for name in ("model", "none"):
+        tr = [x["train_" + name] for x in rep]
+        for r, t in enumerate(tr):
+            if t["launches"] != want_l or t["sums"][:2] != want_sums[name] \
+                    or t["losses"] != tr[0]["losses"]:
+                raise AssertionError(f"head_axis training ({name}), rank {r}"
+                                     f": launches {t['launches']} (expected "
+                                     f"{want_l}), sums {t['sums'][:2]} "
+                                     f"(expected {want_sums[name]}), losses "
+                                     f"{t['losses']} (rank 0 "
+                                     f"{tr[0]['losses']})")
+        losses = tr[0]["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"head_axis training ({name}): losses "
+                                 f"{losses} do not fall")
+        if len({t["attn_digest"] for t in tr}) != 1:
+            raise AssertionError(f"head_axis training ({name}): the whole "
+                                 f"attention weights differ between ranks")
+    tm, tn = ([x["train_" + k] for x in rep] for k in ("model", "none"))
+    lgap = max(abs(a - b) for a, b in zip(tm[0]["losses"], tn[0]["losses"]))
+    if not lgap <= TP_BF16_GAP:
+        raise AssertionError(f"head_axis training: losses {tm[0]['losses']} "
+                             f"against head_axis=None's {tn[0]['losses']}, "
+                             f"past {TP_BF16_GAP}")
+    walls = {k: [max(t["step_s"][i] for t in tr)
+                 for i in range(TP_TRAIN_STEPS)]
+             for k, tr in (("model", tm), ("none", tn))}
+    # the first step also pins the host buffers its sums stage through
+    rates = {k: 1 / w[-1] for k, w in walls.items()}
+    print(f"head_axis {cfg.name} training on 1 x {HA_RANKS}: "
+          f"{TP_TRAIN_STEPS} SGD steps (lr {TP_LR}) at {tb} x {ts}, bf16 "
+          f"compute, step walls {[round(x, 4) for x in walls['model']]} s "
+          f"with head_axis='model', {[round(x, 4) for x in walls['none']]} "
+          f"without: head_axis='model' {rates['model']:.3f} steps/s (the "
+          f"last step), losses "
+          f"{[round(x, 4) for x in tm[0]['losses']]}, "
+          f"{tm[0]['sums'][0]} sums a rank ({tm[0]['sums'][1]} B, "
+          f"{max(t['sums'][2] for t in tm):.3f} s; the backward's sum of a "
+          f"layer's input and whole attention weights {whole} B), peak by "
+          f"rank {[t['peak_bytes'] for t in tm]} B; head_axis=None "
+          f"{rates['none']:.3f} steps/s, losses "
+          f"{[round(x, 4) for x in tn[0]['losses']]} (largest gap "
+          f"{lgap:.4e}, bound {TP_BF16_GAP}), {tn[0]['sums'][0]} sums "
+          f"({tn[0]['sums'][1]} B), peak by rank "
+          f"{[t['peak_bytes'] for t in tn]} B; every whole attention leaf "
+          f"bitwise equal on the {HA_RANKS} ranks after the steps [{card}]")
+    paths[f"{HA_ARCH} prefill with head_axis on 1 x {HA_RANKS} ranks"] = {
+        k: sum(x["prefill_model"]["launches"][k] for x in rep)
+        for k in ("flash_attention", "flash_attention tc")}
+
+    # (b) the Mamba2 mixer split inside heads on 1 x MESH_RANKS
+    mc = _ha_mixer_cfg()
+    hb = [r["ha"]["b"] for r in ranks]
+    d_in = mc.ssm_expand * mc.d_model
+    dl = d_in // MESH_RANKS
+    g = math.gcd(dl, mc.ssm_head_dim)
+    for r, x in enumerate(hb):
+        want = {"ssd_scan": x["scans"], "flash_attention": x["attns"],
+                "flash_attention tc": 0}
+        if x["launches"] != want or x["w_x"] != [mc.d_model, dl] or \
+                x["w_dt"] != [mc.d_model, d_in // mc.ssm_head_dim] or \
+                x["ssm_cache"] != [2, dl // g, g, mc.ssm_state] or \
+                x["tokens"] != hb[0]["tokens"]:
+            raise AssertionError(f"head_axis mixer, rank {r}: launches "
+                                 f"{x['launches']} (expected {want}), w_x "
+                                 f"{x['w_x']}, w_dt {x['w_dt']}, ssm cache "
+                                 f"{x['ssm_cache']}, tokens {x['tokens']}")
+    one = hb[0]
+    print(f"head_axis mixer {mc.name} (d_model {mc.d_model}, "
+          f"{d_in // mc.ssm_head_dim} SSM heads of {mc.ssm_head_dim}, state "
+          f"{mc.ssm_state}) f32 on 1 x {MESH_RANKS}: {dl} channels a rank "
+          f"scanned as {dl // g} sub-heads of {g}, ssd_scan {one['scans']} "
+          f"launch(es) a rank; prefill 2 x {HA_MIXER_S} vs one process max "
+          f"|diff| {one['diff']:.3e} (tol {REF_PREFILL_TOL}), logits up to "
+          f"{one['logit_max']:.3f}; {HA_MIXER_GEN} greedy tokens at batch "
+          f"{TP_DECODE[0]} equal on every rank and "
+          f"{'equal' if one['tokens'] == one['one_process'] else 'NOT equal'}"
+          f" to one process's [{card}]")
+    if not one["diff"] <= REF_PREFILL_TOL or \
+            one["tokens"] != one["one_process"]:
+        raise AssertionError("head_axis mixer: the mesh and one process "
+                             "disagree")
+    paths[f"{mc.name} mixer split inside heads on 1 x {MESH_RANKS} ranks"] \
+        = {k: sum(x["launches"][k] for x in hb)
+           for k in ("ssd_scan", "flash_attention")}
+
+    # (c) the counts on meta
+    out_dir, procs = meta if meta is not None else start_head_count()
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 27's count {p.args[1:]}: exit "
+                                 f"{p.returncode}\n{log[-4000:]}")
+    counts = json.loads((out_dir / "count.json").read_text())
+    blk, heads = counts["heads"]
+    for shape in HA_COUNT_SHAPES:
+        on, off = counts[f"{shape} model"], counts[f"{shape} None"]
+        ratio = on["flash_flops"] / off["flash_flops"]
+        print(f"head_axis count of {HA_ARCH} {shape} on rank 0 of 16 x 16 "
+              f"(meta): attention kernel FLOPs a rank {on['flash_flops']:.4e}"
+              f" with head_axis='model' against {off['flash_flops']:.4e} "
+              f"without ({ratio:.4f}, {blk} of {heads} heads); FLOPs "
+              f"{on['flops']:.4e} / {off['flops']:.4e}; collectives "
+              f"{ {k: int(v) for k, v in on['coll'].items()} } / "
+              f"{ {k: int(v) for k, v in off['coll'].items()} } B; peak "
+              f"{on['peak'] / 2**30:.3f} / {off['peak'] / 2**30:.3f} GiB; "
+              f"count {on['secs']:.1f} / {off['secs']:.1f} s")
+        if on["flash_flops"] * heads != off["flash_flops"] * blk or \
+                on["kernels"] != off["kernels"]:
+            raise AssertionError(f"head_axis count {shape}: the attention "
+                                 f"FLOPs a rank are not {blk} of {heads} "
+                                 f"heads' ({ratio})")
+    for row in json.loads((out_dir / "tp.json").read_text()):
+        if row["status"] != "ok":
+            raise AssertionError(f"dry run zamba2-2.7b --tp {HA_TP}: {row}")
+        print(f"head_axis dry run zamba2-2.7b x {row['shape']} on rank 0 of "
+              f"{256 // HA_TP} x {HA_TP} (the mixer split inside heads: 160 "
+              f"channels a rank, 5 sub-heads of 32): peak "
+              f"{row['peak_memory_gb']:.3f} GiB a rank (fits one card: "
+              f"{row['fits_one_card']}), compute "
+              f"{row['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{row['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{row['t_collective_s'] * 1e3:.3f} ms at "
+              f"{roofline.IB_LINK_BYTES_PER_S / 1e9:.0f} GB/s -> "
+              f"{row['dominant']}, kernels {row['kernels']}, count "
+              f"{row['t_count_s']} s (the H100 SXM's data-sheet peaks)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    laps = ranks[0]["laps"]
+    print(f"head_axis: the ranks' part "
+          f"{sum(x for k, x in laps.items() if k.startswith('(27')):.1f} s "
+          f"(rank 0's laps, in phase 23's wall), the counts on meta beside "
+          f"the earlier phases, the checks here "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths, shapes
 
 
 def _profile_steps(fn, n_steps: int, label: str,
@@ -7998,23 +8697,23 @@ def _profile_steps(fn, n_steps: int, label: str,
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        # kernels only: an operator's row repeats its kernels' time
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0:
-            rows.append((us, ev.key, ev.count))
-    rows.sort(reverse=True)
+    # the device's events as the tracer recorded them (kernels, copies,
+    # sets: no operator's row repeats their time), aggregated by name here:
+    # ``key_averages`` first builds every event's Python object and tree,
+    # seconds for a run of ~50,000 launches
+    cuda = [ev for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for ev in cuda:
+        row = by_name.setdefault(ev.name(), [0.0, 0])
+        row[0] += ev.duration_ns() / 1e3
+        row[1] += 1
+    rows = sorted(((us, name, count) for name, (us, count) in by_name.items()
+                   if us > 0), reverse=True)
     summed = sum(r[0] for r in rows)
     # kernels can overlap (cuDNN issues grouped convolutions as concurrent
     # per-group kernels), so the busy time is the union of their intervals
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((ev.start_ns() / 1e3, ev.end_ns() / 1e3) for ev in cuda)
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         busy += max(0.0, e - max(s, end))
@@ -8050,6 +8749,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--fsdp-count"]:
         fsdp_count(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--head-count"]:
+        head_count(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2])
         return 0
@@ -8079,6 +8781,12 @@ def main() -> int:
         rows[0]["lanes"] = lanes["mule_agg"]
         rows[1]["lanes"] = lanes["encounter_mix"]
         phase_kernel_grads(card)
+        # phases 26 and 27's counts on meta, in processes beside the
+        # single-process phases (one core of the host each), after the
+        # kernels' timings and done long before phase 23's ranks, whose
+        # transfers fold on the host
+        meta = start_meta_work()
+        ha_meta = start_head_count()
         # each path: {kernel: launches in its counted run}
         paths = {}
         phase = enter("main path")
@@ -8123,7 +8831,6 @@ def main() -> int:
         phase = enter("tooling")
         phase_tooling(card)
         phase = enter("mesh of ranks")
-        meta = start_meta_work()        # phase 26's counts, beside the ranks
         mesh_paths, ranks = phase_mesh(card)
         paths.update(mesh_paths)
         phase = enter("tensor parallelism")
@@ -8136,6 +8843,11 @@ def main() -> int:
         paths.update(cp_paths)
         phase = enter("FSDP and production meshes")
         paths.update(phase_fsdp(card, ranks, meta))
+        phase = enter("head_axis")
+        ha_paths, ha_shapes = phase_head_axis(card, ranks, ha_meta)
+        paths.update(ha_paths)
+        rows[3]["ha_shapes"] = ha_shapes["flash_attention"]
+        rows[4]["ha_shapes"] = ha_shapes["ssd_scan"]
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

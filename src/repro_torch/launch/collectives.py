@@ -28,17 +28,18 @@ What a backward must do depends on what the axis carries:
 - a **model axis** (the experts' ``ep_axis``, tensor parallelism's
   ``"model"``) splits one replicated computation among its peers: every
   peer's loss is the same value, so the cotangent a peer holds of a
-  replicated tensor is the whole one. A replicated input that each peer
-  uses on its own part of the work (``replicated``, Megatron's f: the
-  input of a column split, the experts' tokens) sums the peers' partial
-  gradients; a sum of the peers' partial outputs that every peer then
-  uses whole (``reduce_from_peers``, Megatron's g: after a row split)
-  passes its cotangent on as it is; a gathered output (``all_gather``)
-  gives each peer back its own block of the cotangent, not a sum, which
-  would count every token once a peer. JAX's ``shard_map`` transpose
-  reaches the same gradients by dividing a replicated output's cotangent by
-  the axis size and summing (``psum_scatter``) in the backward. A sum
-  whose result each peer uses on its own part only (the Mamba2 gated
+  replicated tensor is the whole one. A replicated input that each peer uses
+  on its own part of the work (``replicated``, Megatron's f: the input of a
+  column split, the experts' tokens; or several in one transfer: the
+  whole weights of a layer that each peer reads a block of)
+  sums the peers' partial gradients; a sum of the peers' partial outputs
+  that every peer then uses whole (``reduce_from_peers``, Megatron's g:
+  after a row split) passes its cotangent on as it is; a gathered output
+  (``all_gather``) gives each peer back its own block of the cotangent, not
+  a sum, which would count every token once a peer. JAX's ``shard_map``
+  transpose reaches the same gradients by dividing a replicated output's
+  cotangent by the axis size and summing (``psum_scatter``) in the backward.
+  A sum whose result each peer uses on its own part only (the Mamba2 gated
   norm's sum of squares) is a ``psum``: its cotangent is partial too;
 - **data axes** carry different examples: each rank's loss is its term of
   a mean that the train step completes (``ordered_pmean`` of the
@@ -406,22 +407,30 @@ class _ScatterSumFsdp(torch.autograd.Function):
 
 class _Replicated(torch.autograd.Function):
     @staticmethod
-    def forward(x, n, group):
-        return x.view_as(x)
+    def forward(n, group, *xs):
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.n, ctx.group = inputs[1], inputs[2]
+        ctx.n, ctx.group = inputs[:2]
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         # through the Function: under torch.func.grad a backward runs
-        # differentiably, and the bare custom op has no usable autograd
-        return _PSum.apply(g, ctx.n, ctx.group), None, None
+        # differentiably, and the bare custom op has no usable autograd.
+        # Several cotangents go flattened into one row, summed in one
+        # transfer, and cut back.
+        if len(gs) == 1:
+            return None, None, _PSum.apply(gs[0], ctx.n, ctx.group)
+        flat = _PSum.apply(torch.cat([g.reshape(-1) for g in gs]), ctx.n,
+                           ctx.group)
+        return (None, None) + tuple(
+            part.view_as(g) for part, g in zip(
+                flat.split([g.numel() for g in gs]), gs))
 
     @staticmethod
-    def vmap(info, in_dims, x, n, group):
-        return _Replicated.apply(x, n, group), in_dims[0]
+    def vmap(info, in_dims, n, group, *xs):
+        return _Replicated.apply(n, group, *xs), tuple(in_dims[2:])
 
 
 class _ReduceFromPeers(torch.autograd.Function):
@@ -516,12 +525,23 @@ def gather_fsdp(xs: List[torch.Tensor], mesh, axes,
     return list(_GatherFsdp.apply(n, group, tuple(dims), *xs))
 
 
-def replicated(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def replicated(x, mesh, axis: str):
     """``x`` as it is, held alike by every peer of ``axis``, which each use
     it on their own part of the work: the backward sums the peers' partial
-    cotangents in rank order."""
+    cotangents in rank order. ``x`` may be a list of tensors of one dtype
+    (a layer's whole weights, of which each peer reads its own block):
+    their cotangents are summed in one transfer, one ``ordered_psum`` of
+    their concatenation, so that each weight's gradient is the whole one,
+    the same bits on every peer."""
     n, group = _axis(mesh, axis)
-    return x if n == 1 else _Replicated.apply(x, n, group)
+    if isinstance(x, torch.Tensor):
+        return x if n == 1 else _Replicated.apply(n, group, x)[0]
+    if n == 1 or not x:
+        return list(x)
+    if len({t.dtype for t in x}) != 1:
+        raise ValueError(f"replicated moves one dtype at a time, got "
+                         f"{sorted({str(t.dtype) for t in x})}")
+    return list(_Replicated.apply(n, group, *x))
 
 
 def reduce_from_peers(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -39,14 +39,19 @@ kernels' calls and the count's seconds; its ``status`` is ``ok``, ``skip``
 ``--remat`` (on by default, as the reference's; ``--remat-policy``)
 checkpoints each layer of a train step (``Model.remat``).
 
+A Mamba2 layout that splits the channels inside heads (zamba2-2.7b at
+``--tp 32``: 160 channels a rank of 80 heads of 64) runs its sub-heads
+(``models/mamba2.py``). The reference's dry run sets no ``head_axis``, and
+neither does this one's command line; ``count_step`` counts a model built
+with it (``chip_smoke.py`` phase 27).
+
 Departures from the reference: a row counts one rank, not the whole
 program XLA compiles, so its terms are that rank's (every rank of a mesh
-runs the same shapes, the data ranks the same ops); a Mamba2 split inside
-its heads raises (``models/mamba2.py``; zamba2-2.7b at ``--tp 32``), a
-``FAIL`` row naming the error; a MoE whose experts the expert axis does
-not divide runs them whole on every peer (``models/moe.py``), where the
-reference asserts; ``--fsdp`` with ``--population`` raises
-(``Model.fsdp``: the population layout holds every leaf whole).
+runs the same shapes, the data ranks the same ops); a MoE whose experts
+the expert axis does not divide runs them whole on every peer
+(``models/moe.py``), where the reference asserts; ``--fsdp`` with
+``--population`` raises (``Model.fsdp``: the population layout holds
+every leaf whole).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b \\
         --shape train_4k

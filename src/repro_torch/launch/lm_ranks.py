@@ -41,19 +41,26 @@ from repro_torch.models import build_model
 
 
 def rank_model(cfg: ModelConfig, data: int, model_size: int, *,
-               seq_axis=None, fsdp: bool = False, **kw):
-    """(mesh, model): the ``(data, model)`` mesh over the world and
-    ``build_model(cfg, mesh=mesh, **kw)`` (``dp_axes=("data", "model"),
-    moe_ep_axis=None``: the population layout, every leaf whole). With
-    ``seq_axis`` (context parallelism) ``dp_axes`` defaults to the data
-    axes other than it; ``fsdp=True`` holds each leaf's FSDP block
-    (``rank_params``) and gathers it before use (``Model.fsdp``)."""
-    mesh = make_lm_mesh(data, model_size)
+               seq_axis=None, fsdp: bool = False, head_axis=None,
+               ranks=None, **kw):
+    """(mesh, model): the ``(data, model)`` mesh over the world (or over
+    its ``ranks``: ``(None, None)`` on a rank outside them, which still
+    takes part in making the mesh's groups) and ``build_model(cfg,
+    mesh=mesh, **kw)`` (``dp_axes=("data", "model"), moe_ep_axis=None``:
+    the population layout, every leaf whole). With ``seq_axis`` (context
+    parallelism) ``dp_axes`` defaults to the data axes other than it;
+    ``fsdp=True`` holds each leaf's FSDP block (``rank_params``) and
+    gathers it before use (``Model.fsdp``); ``head_axis="model"`` runs
+    attention whose heads do not divide on the rank's padded block of them
+    (``Model.head_axis``)."""
+    mesh = make_lm_mesh(data, model_size, ranks=ranks)
+    if mesh is None:
+        return None, None
     if seq_axis is not None:
         kw.setdefault("dp_axes", tuple(a for a in ("data",)
                                        if a != seq_axis))
     return mesh, build_model(cfg, mesh=mesh, seq_axis=seq_axis, fsdp=fsdp,
-                             **kw)
+                             head_axis=head_axis, **kw)
 
 
 def full_params(model, seed: int, device) -> Dict[str, Any]:

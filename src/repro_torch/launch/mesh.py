@@ -20,6 +20,11 @@ layout under other names: rank ``r`` at ``(r // model, r % model)``, as
 ``jax.sharding.Mesh`` lays ``devices.reshape(data, model)`` out, the batch
 cut over ``data`` and the mixture-of-experts' experts over ``model``.
 
+A mesh may lay out a list of the world's ranks (``ranks=``, as
+``jax.sharding.Mesh`` takes any list of devices): its groups are made on
+every rank of the world, in the same order, and a rank outside the list
+gets ``None`` for the mesh.
+
 ``make_production_mesh`` is the reference's production mesh, (data 256 /
 tp, model tp) or (pod 2, data 256 / tp, model tp), as one rank of it sees
 it: its coordinates and no process groups. It drives nothing across
@@ -29,7 +34,7 @@ collective is a custom op whose shape rule moves nothing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
 
@@ -107,32 +112,48 @@ def _world() -> Tuple[int, int]:
 
 
 def make_mule_mesh(pod: int, data: int, *, pod_axis: str = "pod",
-                   data_axis: str = "data") -> MuleMesh:
-    """The ``(pod, data)`` mesh over every rank of the world.
+                   data_axis: str = "data",
+                   ranks: Optional[Sequence[int]] = None
+                   ) -> Optional[MuleMesh]:
+    """The ``(pod, data)`` mesh over every rank of the world, or over the
+    world's ``ranks`` in that order (``None`` on a rank outside them).
 
-    ``pod * data`` must equal the world size (1 without a process group);
-    ``pod_axis=""`` builds the data-only mesh a pod-less
-    ``DistributedConfig`` expects (then ``pod`` must be 1).
+    ``pod * data`` must equal the number of ranks laid out (the world size,
+    1 without a process group, by default); ``pod_axis=""`` builds the
+    data-only mesh a pod-less ``DistributedConfig`` expects (then ``pod``
+    must be 1).
     """
     if not pod_axis and pod != 1:
         raise ValueError(f"pod={pod} needs a pod axis name")
     world, rank = _world()
-    if pod * data != world:
+    members = tuple(range(world)) if ranks is None else tuple(ranks)
+    if pod * data != len(members):
         raise ValueError(f"mesh {pod} x {data} needs {pod * data} ranks, "
-                         f"the world has {world}")
-    key = (pod, data, pod_axis, data_axis, world)
+                         f"{'the world has' if ranks is None else 'given'} "
+                         f"{len(members)}")
+    if len(set(members)) != len(members) or \
+            not set(members) <= set(range(world)):
+        raise ValueError(f"ranks {list(members)} are not distinct ranks of "
+                         f"the world of {world}")
+    key = (pod, data, pod_axis, data_axis, world, members)
     if key in _MESHES:
         return _MESHES[key]
-    p, j = divmod(rank, data)
+    made: Dict[Tuple[int, ...], Any] = {}
+
+    def group(local):
+        # every rank of the world makes the same calls; a group of the
+        # whole world is the default group, a group of one rank needs none
+        ranks_ = tuple(members[i] for i in local)
+        if ranks_ == tuple(range(world)) or len(ranks_) == 1:
+            return None
+        if ranks_ not in made:
+            made[ranks_] = dist.new_group(list(ranks_))
+        return made[ranks_]
+
+    inside = rank in members
+    p, j = divmod(members.index(rank) if inside else 0, data)
     shape = ({pod_axis: pod} if pod_axis else {}) | {data_axis: data}
     coords = ({pod_axis: p} if pod_axis else {}) | {data_axis: j}
-
-    def group(ranks):
-        # every rank makes the same calls; a group of the whole world is
-        # the default group, a group of one rank needs none
-        if len(ranks) == world or len(ranks) == 1:
-            return None
-        return dist.new_group(ranks)
 
     groups: Dict[Any, Any] = {}
     for q in range(pod):                      # the data axis of each pod
@@ -144,20 +165,24 @@ def make_mule_mesh(pod: int, data: int, *, pod_axis: str = "pod",
             g = group([q * data + k for q in range(pod)])
             if k == j:
                 groups[(pod_axis,)] = g
-        groups[(pod_axis, data_axis)] = None  # the whole world
+        # every rank laid out
+        groups[(pod_axis, data_axis)] = group(range(len(members)))
     mesh = MuleMesh(shape=shape, coords=coords, groups=groups,
-                    data_axis=data_axis)
+                    data_axis=data_axis) if inside else None
     _MESHES[key] = mesh
     return mesh
 
 
 def make_lm_mesh(data: int, model: int, *, data_axis: str = "data",
-                 model_axis: str = "model") -> MuleMesh:
+                 model_axis: str = "model",
+                 ranks: Optional[Sequence[int]] = None
+                 ) -> Optional[MuleMesh]:
     """The ``(data, model)`` mesh of the LM stack over every rank of the
-    world: ``make_mule_mesh``'s groups with the data axis in the pod
-    axis's place and the model axis in the data axis's."""
+    world, or over its ``ranks`` (``None`` on a rank outside them):
+    ``make_mule_mesh``'s groups with the data axis in the pod axis's place
+    and the model axis in the data axis's."""
     return make_mule_mesh(data, model, pod_axis=data_axis,
-                          data_axis=model_axis)
+                          data_axis=model_axis, ranks=ranks)
 
 
 POD_CHIPS = 256     # the reference's production pod

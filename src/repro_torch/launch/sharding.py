@@ -35,7 +35,10 @@ its own compute needs, which is ``cache_specs``' block where that spec
 splits the kv heads or the SSM heads over ``model``. Where the kv heads do
 not divide, ``cache_specs`` splits ``head_dim`` instead; the port's rank
 holds the kv heads its query heads read, whole, since its attention runs
-on whole heads. ``cache_specs``' sequence rule is executed
+on whole heads (and, where ``wq`` is whole, every kv head: decode does not
+take ``head_axis``, as the reference's does not). Where the SSM heads do
+not divide and ``d_in`` does, the rank's ``ssm`` state holds its channels
+as sub-heads (``models/mamba2.py``). ``cache_specs``' sequence rule is executed
 (``cache_seq_axes``): for a batch that does not divide the data axes (every
 rank then holds it whole) a KV cache whose slots divide them holds the
 rank's block of slots, full caches and rolling windows alike, and decode

@@ -27,7 +27,8 @@ reference's fields) every rank runs the model on its block of the batch
 and its block of the weights (``launch.sharding.rank_specs``: the
 reference's ``param_specs`` executed, every fallback held whole). Tensor
 parallelism over ``"model"``: attention on the rank's heads, the MLP on
-its ``d_ff`` block, the Mamba2 mixer on its SSM heads
+its ``d_ff`` block, the Mamba2 mixer on its SSM heads (or on its channels
+as sub-heads where the heads do not divide)
 (``models/attention.py``, ``layers.apply_mlp``, ``models/mamba2.py``), each
 reading its split from its leaves' shapes, so a leaf held whole runs whole
 with no collective; the vocabulary split over
@@ -94,9 +95,19 @@ gradient by the data axes' size. FSDP raises under ``replicate`` (every
 leaf whole) and under ``seq_axis`` (no reference entry point combines
 them).
 
-Not ported: ``head_axis`` (the reference's GSPMD hint that pads head
-counts that do not divide; the port runs such a layer whole) and
-``unroll`` (the port's stages are Python loops already).
+``head_axis="model"`` (the reference's GSPMD hint that pads head counts
+that do not divide the axis): a layer whose ``wq`` is held whole
+(``n_heads`` does not divide ``"model"``) runs on the rank's padded block
+of query heads (``models/attention.py``: ``attention.head_block``), its
+whole weights' gradients summed over the peers; where the heads divide it
+changes nothing, and without a mesh it is a no-op, as the reference's
+constraint is. It raises for another axis and under a layout whose batch
+takes ``"model"`` (``REPLICATED_ARCHS``, ``replicate``). Decode does not
+take it, as the reference's does not. It composes with ``seq_axis`` and
+``fsdp`` (an FSDP leaf is gathered to its ``fsdp=False`` block, whole,
+before the head block is taken).
+
+Not ported: ``unroll`` (the port's stages are Python loops already).
 """
 from __future__ import annotations
 
@@ -111,9 +122,9 @@ from repro_torch.configs import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.sharding import (batch_specs, cache_seq_axes,
-                                         data_axes, fsdp_dims, rank_specs,
-                                         shard_tree)
+from repro_torch.launch.sharding import (REPLICATED_ARCHS, batch_specs,
+                                         cache_seq_axes, data_axes,
+                                         fsdp_dims, rank_specs, shard_tree)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -191,7 +202,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
 
 def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                  window: Optional[int], backend: str, shared=None, mesh=None,
-                 dp_axes=("data",), moe_ep_axis="model", seq_axis=None):
+                 dp_axes=("data",), moe_ep_axis="model", seq_axis=None,
+                 head_axis=None):
     """Full-sequence forward for one layer. Returns (x, aux_loss or None:
     only ``moe`` layers have one)."""
     if kind == "mamba":
@@ -207,7 +219,8 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
                                   window=window, backend=backend,
-                                  mesh=mesh, seq_axis=seq_axis)
+                                  mesh=mesh, head_axis=head_axis,
+                                  seq_axis=seq_axis)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
         if seq_axis is None:
@@ -347,6 +360,8 @@ class Model:
                                   # over this mesh axis (K/V gathered)
     fsdp: bool = False            # each leaf's FSDP block held, gathered
                                   # over the data axes before each use
+    head_axis: Any = None         # "model": attention on the rank's padded
+                                  # block of heads where wq is whole
 
     def __post_init__(self):
         if self.backend not in ("auto", "ref"):
@@ -358,6 +373,8 @@ class Model:
                              f"one of {remat_lib.POLICIES}")
         if self.seq_axis is not None:
             self._check_seq_axis()
+        if self.head_axis is not None:
+            self._check_head_axis()
         if self.fsdp:
             self._check_fsdp()
             # drawn now on meta, not inside a later step (nor a count)
@@ -375,6 +392,20 @@ class Model:
         if self.seq_axis is not None:
             raise ValueError(f"fsdp=True with seq_axis={self.seq_axis!r}: "
                              f"no reference entry point combines them")
+
+    def _check_head_axis(self):
+        """Where ``head_axis`` cannot run (module docstring)."""
+        if self.head_axis not in attn_lib.HEAD_AXES:
+            raise ValueError(f"head_axis={self.head_axis!r}: None or "
+                             f"'model', the axis the weights split over")
+        if self.mesh is None:
+            return
+        if self.replicate or self.cfg.family in REPLICATED_ARCHS:
+            raise ValueError(f"{self.cfg.name}: head_axis="
+                             f"{self.head_axis!r} where the batch is cut "
+                             f"over 'model' (dp_axes={self.dp_axes}, family "
+                             f"{self.cfg.family}): every leaf is whole and "
+                             f"every peer runs its own rows")
 
     def _check_seq_axis(self):
         """Where context parallelism cannot run (module docstring)."""
@@ -562,7 +593,7 @@ class Model:
                 _apply_layer, positions=positions, cfg=cfg, kind=stage.kind,
                 window=stage.window, backend=self.backend, mesh=self.mesh,
                 dp_axes=self.dp_axes, moe_ep_axis=self.moe_ep_axis,
-                seq_axis=self.seq_axis)
+                seq_axis=self.seq_axis, head_axis=self.head_axis)
 
             def run(x, lp, sh, body=body, at=at):
                 # FSDP's gathers inside the layer, so that remat's
@@ -721,13 +752,13 @@ def build_model(cfg: ModelConfig, *, backend: str = "auto",
                 remat: bool = False, mesh: Any = None,
                 dp_axes: tuple = ("data",), remat_policy: str = "full",
                 moe_ep_axis: Any = "model", seq_axis: Any = None,
-                fsdp: bool = False) -> Model:
+                fsdp: bool = False, head_axis: Any = None) -> Model:
     """The model of ``cfg``: a ``WhisperModel`` for the ``audio`` family,
     else a ``Model``."""
     kw = dict(cfg=cfg, program=build_program(cfg), backend=backend,
               remat=remat, mesh=mesh, dp_axes=dp_axes,
               remat_policy=remat_policy, moe_ep_axis=moe_ep_axis,
-              seq_axis=seq_axis, fsdp=fsdp)
+              seq_axis=seq_axis, fsdp=fsdp, head_axis=head_axis)
     if cfg.family == "audio":
         from repro_torch.models.whisper import WhisperModel
         return WhisperModel(**kw)

@@ -11,16 +11,16 @@ which launches the hand-written kernel for CUDA tensors and differentiates
 through the reference's blockwise backward. Cross-attention takes the
 plain chunked version (``backend="ref"``) on every device, as the
 reference's does, so it launches no kernel. The reference's
-``_constrain_heads`` and ``_constrain_seq`` are GSPMD sharding hints with no
-meaning on one card, and its ``d_model`` argument of ``init_attention`` is
-used by no model, so the port leaves them out.
+``d_model`` argument of ``init_attention`` is used by no model, so the
+port leaves it out.
 
 On a mesh of ranks (``mesh``: ``launch.sharding.rank_specs``' blocks, the
 ``"model"`` axis) a layer runs on the heads its weights hold, read from
 their widths, not from ``cfg.n_heads``:
 
 - ``wq`` (and ``bq``) whole: every peer runs the whole attention, with no
-  collective (qwen2.5-32b's smoke config: 5 heads);
+  collective (qwen2.5-32b's smoke config: 5 heads), unless ``head_axis``
+  (below);
 - ``wq`` split by heads: the input enters through ``replicated``, the
   rank's rows of ``wo`` give a partial output, summed by
   ``reduce_from_peers`` (Megatron's f and g). With ``wk`` and ``wv`` split
@@ -31,6 +31,26 @@ their widths, not from ``cfg.n_heads``:
   ``replicated`` (each peer uses its own heads of them, so their weights'
   gradients are the sum of the peers' partial ones) and keeps the kv heads
   its query heads read before the kernel (``kv_take``).
+
+``head_axis="model"`` (the reference's ``_constrain_heads``: GSPMD pads a
+head count that does not divide the axis) runs a layer whose ``wq`` is
+whole on the rank's padded block of query heads (``head_block``: ``c =
+ceil(n_heads / n)`` heads a rank, rank ``r`` the heads ``[r c, min((r +
+1) c, n_heads))``, so trailing ranks may hold none). q comes from the
+rank's columns of ``wq`` (and ``bq``), k and v from the columns of
+``wk`` / ``wv`` of the kv heads those query heads read (``kv_take``; with
+one kv head, the whole of them, which the reference leaves
+unconstrained), and the rank's rows of ``wo`` give a partial output,
+summed by ``reduce_from_peers``. The input and the whole weights enter
+through ``collectives.replicated``, in f32: their cotangents, each
+peer's partial (zero outside its block for a weight), are summed over the
+peers in rank order in one transfer a layer, so each weight's gradient is
+the whole one, the same bits on every peer, and the peers' sums come in
+the same order whatever heads they hold. A rank with no heads launches
+nothing and adds zeros; its empty q keeps it in that sum. Where the heads
+divide, ``wq`` is split already and ``head_axis`` changes nothing.
+Decode does not take ``head_axis``, as the reference's ``attn_decode``
+does not: its layers run as without it.
 
 Cross-attention is not split: the ``audio`` family holds every leaf whole.
 
@@ -113,18 +133,72 @@ def rank_kv_heads(params, cfg: ModelConfig, mesh) -> int:
     return _taken(kv_take(cfg, mesh.axis_index("model") * hq, hq))
 
 
+HEAD_AXES = (None, "model")     # what Model(head_axis=) takes
+
+
+def head_block(cfg: ModelConfig, mesh, head_axis) -> Optional[tuple]:
+    """(first, count) of the query heads this rank runs under
+    ``head_axis`` (GSPMD's padded block, module docstring), or ``None``
+    where ``head_axis`` changes nothing: no mesh, one peer, or heads that
+    divide (``wq`` split already)."""
+    if head_axis is None or mesh is None:
+        return None
+    n = mesh.axis_size(head_axis)
+    if n == 1 or cfg.n_heads % n == 0:
+        return None
+    c = -(-cfg.n_heads // n)
+    first = min(mesh.axis_index(head_axis) * c, cfg.n_heads)
+    return first, min(first + c, cfg.n_heads) - first
+
+
+def _block_weights(params, x: torch.Tensor, cfg: ModelConfig, mesh,
+                   block):
+    """Under ``head_axis`` (module docstring), the rank's slices of whole
+    weights for the query heads ``block`` (first, count): the columns of
+    ``wq`` (``bq``) of those heads, of ``wk`` / ``wv`` (``bk`` / ``bv``)
+    of the kv heads they read, the rows of ``wo``; the input; and, where a
+    query head's kv head is not its place in a slice of them
+    (``kv_take``'s list), the index of each among those columns."""
+    hd = cfg.resolved_head_dim
+    q0, hq = block
+    take = kv_take(cfg, q0, hq) if hq else slice(0, 0)
+    local = None
+    if isinstance(take, slice):
+        first, stop = take.start, take.stop
+    else:
+        first, stop = take[0], take[-1] + 1
+        local = [h - first for h in take]
+    names = ["wq", "wk", "wv", "wo"] + ["bq", "bk", "bv"] * cfg.qkv_bias
+    # the input and the whole weights in one transfer of the backward,
+    # so every peer's sums come in the same order whatever its heads
+    xw = coll.replicated([x.float()] + [params[k].float() for k in names],
+                         mesh, "model")
+    w = dict(zip(names, xw[1:]))
+    cols, kv = slice(q0 * hd, (q0 + hq) * hd), slice(first * hd, stop * hd)
+    out = {"wq": w["wq"][:, cols], "wk": w["wk"][:, kv],
+           "wv": w["wv"][:, kv], "wo": w["wo"][cols]}
+    if cfg.qkv_bias:
+        out.update(bq=w["bq"][cols], bk=w["bk"][kv], bv=w["bv"][kv])
+    return out, xw[0], local
+
+
 def _qkv(params, x: torch.Tensor, cfg: ModelConfig, compute_dtype,
-         mesh=None):
+         mesh=None, block=None):
     """q [B, S, hq, hd], k and v [B, S, kv, hd] of the heads this rank's
-    weights hold (module docstring), and whether q is split over the
-    mesh's ``"model"`` axis."""
+    weights hold, or under ``head_axis`` of the query heads ``block``
+    (first, count) of whole weights (module docstring); the rank's rows of
+    ``wo``; and whether q is split over the mesh's ``"model"`` axis."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    local = None
+    if block is not None:
+        # the weights and the input came through ``replicated`` already
+        params, x, local = _block_weights(params, x, cfg, mesh, block)
     hq, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     q_split = mesh is not None and hq != cfg.n_heads
-    kv_split = hkv != cfg.n_kv_heads      # only under a split q
-    xc = (coll.replicated(x, mesh, "model") if q_split else x) \
-        .to(compute_dtype)
+    kv_split = block is not None or hkv != cfg.n_kv_heads
+    xc = (coll.replicated(x, mesh, "model") if q_split and block is None
+          else x).to(compute_dtype)
     # kv from the input as it is where their weights are whole under a
     # split q: their cotangent is summed over the peers after the heads
     # (``replicated`` below), not through the input's
@@ -139,18 +213,20 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, compute_dtype,
     q = q.reshape(b, s, hq, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
-    if q_split and not kv_split:
+    if local is not None:
+        k, v = k[:, :, local], v[:, :, local]
+    elif q_split and not kv_split:
         take = kv_take(cfg, mesh.axis_index("model") * hq, hq)
         k = coll.replicated(k, mesh, "model")[:, :, take]
         v = coll.replicated(v, mesh, "model")[:, :, take]
-    return q, k, v, q_split
+    return q, k, v, params["wo"], q_split
 
 
-def _out_proj(params, out: torch.Tensor, compute_dtype, mesh,
+def _out_proj(wo: torch.Tensor, out: torch.Tensor, compute_dtype, mesh,
               q_split: bool) -> torch.Tensor:
     """out [B, S, hq * hd] @ the rank's rows of ``wo``, summed over the
     peers where q is split."""
-    out = out.to(compute_dtype) @ params["wo"].to(compute_dtype)
+    out = out.to(compute_dtype) @ wo.to(compute_dtype)
     if q_split:
         out = coll.reduce_from_peers(out, mesh, "model")
     return out
@@ -178,25 +254,36 @@ def attn_forward(params, x: torch.Tensor, positions: Optional[torch.Tensor],
                  cfg: ModelConfig, *, window: Optional[int] = None,
                  causal: bool = True, backend: str = "auto",
                  rope: bool = True, mesh=None,
+                 head_axis: Optional[str] = None,
                  seq_axis: Optional[str] = None) -> torch.Tensor:
     """Full-sequence self-attention. positions: [B, S] or [3, B, S]
-    (M-RoPE); unused with ``rope=False``. On a ``mesh``, the rank's heads;
+    (M-RoPE); unused with ``rope=False``. On a ``mesh``, the rank's heads,
+    under ``head_axis`` its padded block of them where ``wq`` is whole;
     with ``seq_axis``, x and positions are the rank's block of the sequence
     (module docstring)."""
+    if seq_axis is not None and not causal:
+        raise ValueError("context parallelism runs causal attention: the "
+                         "prefix a block reads is its mask")
     compute_dtype = compute_dtype_of(cfg)
-    q, k, v, q_split = _qkv(params, x, cfg, compute_dtype, mesh)
-    if rope:
-        q, k = _rope(q, k, positions, cfg)
-    if seq_axis is not None:
-        if not causal:
-            raise ValueError("context parallelism runs causal attention: "
-                             "the prefix a block reads is its mask")
-        k, v = _gather_prefix(k, v, mesh, seq_axis)
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          backend=backend)
-    b, s, h, hd = out.shape
-    out = _out_proj(params, out.reshape(b, s, h * hd), compute_dtype, mesh,
-                    q_split)
+    hd = cfg.resolved_head_dim
+    block = None
+    if params["wq"].shape[-1] == cfg.n_heads * hd:
+        block = head_block(cfg, mesh, head_axis)
+    q, k, v, wo, q_split = _qkv(params, x, cfg, compute_dtype, mesh, block)
+    b, s = x.shape[:2]
+    if q.shape[2] == 0:
+        # no heads: nothing to launch; the empty q keeps the rank in the
+        # backward's sum over the peers
+        out = q
+    else:
+        if rope:
+            q, k = _rope(q, k, positions, cfg)
+        if seq_axis is not None:
+            k, v = _gather_prefix(k, v, mesh, seq_axis)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              backend=backend)
+    out = _out_proj(wo, out.reshape(b, s, q.shape[2] * hd), compute_dtype,
+                    mesh, q_split)
     return out.to(x.dtype)
 
 
@@ -270,8 +357,8 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
     compute_dtype = compute_dtype_of(cfg)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v, q_split = _qkv(params, x, cfg, compute_dtype,
-                            mesh)                     # [B,1,H|KV,hd]
+    q, k, v, wo, q_split = _qkv(params, x, cfg, compute_dtype,
+                                mesh)                 # [B,1,H|KV,hd]
     if rope:
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
@@ -307,7 +394,7 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
         sc = torch.where(valid, sc, NEG_INF)
         p = torch.softmax(sc, dim=-1)
         out = torch.einsum("bkgj,bjkd->bkgd", p, cv.float())
-    out = _out_proj(params, out.reshape(b, 1, hq * hd), compute_dtype, mesh,
+    out = _out_proj(wo, out.reshape(b, 1, hq * hd), compute_dtype, mesh,
                     q_split)
     return out.to(x.dtype), cache
 

@@ -25,11 +25,26 @@ convolutions are whole: every peer computes B and C from the input as it
 is and passes them, after the convolution and SiLU, through
 ``replicated``, since each peer uses them on its own heads. The gated
 norm's mean over the whole ``d_in`` is the f32 sum of squares ``psum``-ed
-over the peers (whose cotangent is partial too) over ``d_in``. A layout
-that splits the channels but not the heads (``d_in`` divides, the head
-count does not) is not run: it raises.
+over the peers (whose cotangent is partial too) over ``d_in``.
+
+Where ``d_in`` divides and the head count does not, ``param_specs`` splits
+the channels inside heads: a rank holds ``dl = d_in / n`` channels ``[r
+dl, (r + 1) dl)`` of ``w_z``, ``w_x``, ``conv_x_*`` and ``norm_scale`` and
+those rows of ``out_proj``, and ``w_dt``, ``A_log``, ``D`` and ``dt_bias``
+whole. The SSD scan is independent across the P channels of a head given
+its ``dt`` and ``A``, so the rank scans its channels as sub-heads of ``g
+= gcd(dl, ssm_head_dim)`` channels (one ``ssd_scan_op`` launch on [B, S,
+dl / g, g]), each taking its parent head's ``dt``, ``A`` and ``D`` (head
+``channel // ssm_head_dim``), with no collective. ``dt`` (from the input as
+it is), ``A`` and ``D`` are whole on every peer and used on its own
+sub-heads, so they pass, whole, through ``collectives.replicated`` (one
+transfer) before the parents are taken: their leaves' gradients are
+the sum over the peers, the same bits on each. The decode cache's state
+holds the rank's sub-heads, [B, dl / g, g, N].
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -97,17 +112,43 @@ def _gated_norm(y, z, scale, eps=1e-6, mesh=None, width=None):
     return (gf * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
-def _split(params, cfg: ModelConfig, d_in: int, mesh):
-    """(mesh or None, the rank's heads): the mesh where this rank holds a
-    block of the heads (module docstring)."""
+def _rank_heads(cfg: ModelConfig, params) -> tuple:
+    """(heads or sub-heads, their channels) of the rank holding
+    ``params`` (a block of the mixer, or its shapes): its whole heads, or
+    its channels in sub-heads of ``gcd(channels, ssm_head_dim)`` where
+    they split heads (module docstring)."""
     dl, hl = params["w_x"].shape[-1], params["w_dt"].shape[-1]
+    if hl * cfg.ssm_head_dim == dl:
+        return hl, cfg.ssm_head_dim
+    g = math.gcd(dl, cfg.ssm_head_dim)
+    return dl // g, g
+
+
+def _split(params, cfg: ModelConfig, d_in: int, mesh):
+    """(mesh or None, the rank's heads or sub-heads, their channels, the
+    parent head of each sub-head or ``None``): the mesh where this rank
+    holds a block of the channels, the parents where that block splits
+    heads."""
+    dl = params["w_x"].shape[-1]
+    h, p = _rank_heads(cfg, params)
     if mesh is None or dl == d_in:
-        return None, hl
-    if hl * cfg.ssm_head_dim != dl:
-        raise ValueError(f"{cfg.name}: {dl} of {d_in} mixer channels with "
-                         f"{hl} whole heads: a split inside heads is not "
-                         f"run")
-    return mesh, hl
+        return None, h, p, None
+    if p == cfg.ssm_head_dim:
+        return mesh, h, p, None
+    first = mesh.axis_index("model") * dl
+    parents = torch.arange(first, first + dl, p,
+                           device=params["w_x"].device) // cfg.ssm_head_dim
+    return mesh, h, p, parents
+
+
+def _head_terms(params, dt: torch.Tensor, mesh, parents):
+    """dt [.., H] (f32), A and D of the rank's heads; inside heads, the
+    whole ones through ``replicated``, then each sub-head's parent's."""
+    A, D = -torch.exp(params["A_log"]), params["D"]
+    if parents is None:
+        return dt, A, D
+    dt, A, D = coll.replicated([dt, A, D], mesh, "model")
+    return dt[..., parents], A[parents], D[parents]
 
 
 def _replicated(t, mesh):
@@ -131,14 +172,15 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     compute_dtype = compute_dtype_of(cfg)
     bsz, s, d = x.shape
     _, d_in, _ = _dims(cfg, d)
-    mesh, h = _split(params, cfg, d_in, mesh)
+    mesh, h, p, parents = _split(params, cfg, d_in, mesh)
     xr = x.to(compute_dtype)
     xc = _replicated(x, mesh).to(compute_dtype)
     z = xc @ params["w_z"].to(compute_dtype)
     xs = xc @ params["w_x"].to(compute_dtype)
     Bm = xr @ params["w_B"].to(compute_dtype)
     Cm = xr @ params["w_C"].to(compute_dtype)
-    dt_raw = xc @ params["w_dt"].to(compute_dtype)
+    dt_raw = (xc if parents is None else xr) @ params["w_dt"].to(
+        compute_dtype)
 
     xs = F.silu(_causal_depthwise_conv(
         xs.float(), params["conv_x_w"], params["conv_x_b"]))
@@ -146,12 +188,12 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         Bm.float(), params["conv_B_w"], params["conv_B_b"])), mesh)
     Cm = _replicated(F.silu(_causal_depthwise_conv(
         Cm.float(), params["conv_C_w"], params["conv_C_b"])), mesh)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])             # [B,S,H]
-    A = -torch.exp(params["A_log"])                                  # [H]
-    xh = xs.reshape(bsz, s, h, cfg.ssm_head_dim)
+    dt, A, D = _head_terms(params, F.softplus(
+        dt_raw.float() + params["dt_bias"]), mesh, parents)         # [B,S,h]
+    xh = xs.reshape(bsz, s, h, p)
     y = ssd_scan_op(xh, dt, A, Bm, Cm, chunk, backend)
-    y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(bsz, s, h * cfg.ssm_head_dim)
+    y = y + D[None, None, :, None] * xh
+    y = y.reshape(bsz, s, h * p)
     y = _gated_norm(y, z.float(), params["norm_scale"], mesh=mesh,
                     width=d_in)
     return _out(params, y, compute_dtype, mesh).to(x.dtype)
@@ -167,16 +209,18 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, *, device,
     """Conv histories and SSM state of ONE Mamba2 layer, in f32 whatever
     the model's dtype (as the reference's ``Model.init_cache``); with
     ``params`` (a rank's block of the mixer, or its shapes), of the heads
-    and ``conv_x`` channels it holds."""
+    (or sub-heads: module docstring) and ``conv_x`` channels it holds."""
     _, d_in, h = _dims(cfg)
+    p = cfg.ssm_head_dim
     if params is not None:
-        d_in, h = params["w_x"].shape[-1], params["w_dt"].shape[-1]
+        d_in = params["w_x"].shape[-1]
+        h, p = _rank_heads(cfg, params)
     n, k = cfg.ssm_state, cfg.ssm_conv
     return {
         "conv_x": torch.zeros((batch, k - 1, d_in), device=device),
         "conv_B": torch.zeros((batch, k - 1, n), device=device),
         "conv_C": torch.zeros((batch, k - 1, n), device=device),
-        "ssm": torch.zeros((batch, h, cfg.ssm_head_dim, n), device=device),
+        "ssm": torch.zeros((batch, h, p, n), device=device),
     }
 
 
@@ -195,14 +239,15 @@ def mamba2_decode(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
     compute_dtype = compute_dtype_of(cfg)
     bsz, _, d = x.shape
     _, d_in, _ = _dims(cfg, d)
-    mesh, h = _split(params, cfg, d_in, mesh)
+    mesh, h, p, parents = _split(params, cfg, d_in, mesh)
     xr = x[:, 0].to(compute_dtype)
     xc = _replicated(x[:, 0], mesh).to(compute_dtype)
     z = xc @ params["w_z"].to(compute_dtype)
     xs_new = xc @ params["w_x"].to(compute_dtype)
     B_new = xr @ params["w_B"].to(compute_dtype)
     C_new = xr @ params["w_C"].to(compute_dtype)
-    dt_raw = xc @ params["w_dt"].to(compute_dtype)
+    dt_raw = (xc if parents is None else xr) @ params["w_dt"].to(
+        compute_dtype)
 
     xs, conv_x = _conv_step(cache["conv_x"], xs_new, params["conv_x_w"],
                             params["conv_x_b"])
@@ -213,16 +258,16 @@ def mamba2_decode(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
     xs = F.silu(xs)
     Bm, Cm = _replicated(F.silu(Bm), mesh), _replicated(F.silu(Cm), mesh)
 
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])             # [B,H]
-    A = -torch.exp(params["A_log"])
-    dA = torch.exp(dt * A[None, :])                                  # [B,H]
-    xh = xs.reshape(bsz, h, cfg.ssm_head_dim)
+    dt, A, D = _head_terms(params, F.softplus(
+        dt_raw.float() + params["dt_bias"]), mesh, parents)         # [B,h]
+    dA = torch.exp(dt * A[None, :])                                  # [B,h]
+    xh = xs.reshape(bsz, h, p)
     state = cache["ssm"].float()
     state = state * dA[..., None, None] + torch.einsum(
         "bhp,bn->bhpn", dt[..., None] * xh, Bm)
     y = torch.einsum("bhpn,bn->bhp", state, Cm) \
-        + params["D"][None, :, None] * xh
-    y = y.reshape(bsz, h * cfg.ssm_head_dim)
+        + D[None, :, None] * xh
+    y = y.reshape(bsz, h * p)
     y = _gated_norm(y, z.float(), params["norm_scale"], mesh=mesh,
                     width=d_in)
     y = _out(params, y, compute_dtype, mesh)

@@ -32,6 +32,7 @@ from repro_torch.core.distributed import DistributedConfig, ordered_psum_op  # n
 from repro_torch.core.population import PopulationConfig  # noqa: E402
 from repro_torch.launch import autotune, dryrun, report, roofline  # noqa: E402
 from repro_torch.launch.cost_analysis import CostCounter  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.dtypes import (TORCH_DTYPE_NAMES,  # noqa: E402
                                        UnknownDtypeError, dtype_bytes)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
@@ -452,10 +453,10 @@ def test_dry_run_production_rows_of_the_smoke_configs(arch):
     """Rank 0 of the 16 x 16 and 2 x 16 x 16 production meshes, with and
     without FSDP: every row the reference does not skip is ``ok``, priced
     over the link between DGX nodes, with the rank's parameter blocks and
-    its collectives by kind. The one departure: zamba2's smoke config has 8
-    SSM heads, which 16 ``model`` ranks would split inside a head (256
-    channels divide), and the port raises there (``models/mamba2.py``), a
-    ``FAIL`` row naming the split."""
+    its collectives by kind. zamba2's smoke config has 8 SSM heads of 32,
+    which 16 ``model`` ranks split inside a head (256 channels divide): the
+    rank scans its 16 channels as one sub-head of 16 (``models/mamba2.py``),
+    and its decode cache holds that sub-head."""
     jax_skip = _reference_skip_reason()
     held = {}
     for fsdp in (False, True):
@@ -470,10 +471,6 @@ def test_dry_run_production_rows_of_the_smoke_configs(arch):
             if want is not None:
                 assert row["status"] == "skip" and row["reason"] == want
                 continue
-            if arch == "zamba2-2.7b":
-                assert row["status"] == "FAIL", row
-                assert "split inside heads" in row["error"]
-                continue
             assert row["status"] == "ok", row
             assert row["chips"] == (256 if row["mesh"] == "single" else 512)
             assert row["link"] == "ib" and row["fsdp"] == fsdp
@@ -486,6 +483,30 @@ def test_dry_run_production_rows_of_the_smoke_configs(arch):
                 row["param_bytes_per_device"])
     # no smoke dimension reaches the FSDP rule's 1024: FSDP cuts nothing
     assert all(len(v) == 1 for v in held.values())
+    if arch == "zamba2-2.7b":
+        model = build_model(get_smoke_config(arch),
+                            mesh=make_production_mesh())
+        cache = model.init_cache(2, 16, device="meta")
+        ssm = [c["ssm"].shape for c in cache if "ssm" in c]
+        assert ssm and all(tuple(x[-3:]) == (1, 16, 16) for x in ssm), ssm
+
+
+def test_dry_run_zamba2_at_tp_32_splits_its_mixer_inside_heads():
+    """zamba2-2.7b on rank 0 of the 8 x 32 production mesh (``--tp 32``):
+    80 SSM heads of 64 do not divide 32 ranks, 5,120 channels do, so a
+    rank holds 160 channels and scans them as 5 sub-heads of 32 (one
+    ``ssd_scan`` launch a Mamba2 layer), its decode cache holding those
+    sub-heads; the row is ``ok`` with every layer's kernel counted."""
+    shape = INPUT_SHAPES["prefill_32k"]
+    row = dryrun.dryrun_one("zamba2-2.7b", shape, mesh="single", tp=32,
+                            verbose=False)
+    assert row["status"] == "ok" and row["tp"] == 32, row
+    assert row["kernels"] == {"ssd_scan": 45, "flash_attention": 9}
+    assert row["coll_breakdown"]["all-reduce"] > 0
+    model = build_model(get_config("zamba2-2.7b"),
+                        mesh=make_production_mesh(model_parallel=32))
+    ssm = model.init_cache(4, 16, device="meta")[0]["ssm"]
+    assert tuple(ssm.shape[-3:]) == (5, 32, 64)
 
 
 def test_dry_run_counts_a_rank_without_a_process_group(monkeypatch):
