@@ -402,6 +402,41 @@ Phases (any failure exits non-zero without the final result line):
    ``head_axis`` (the attention kernel's FLOPs a rank exactly 3 / 40 of
    the whole heads'), and the dry run's command line for zamba2-2.7b at
    ``--tp 32`` (every row ``ok``), in processes started with phase 26's.
+28. Context parallelism through the layers that carry state and through
+   the vlm and audio families, in phase 23's ranks (``_cs_rank``, checked
+   by ``phase_context_state``; alone: ``--cs-rank`` ranks started by
+   ``spawn_context_state``). A ``mamba`` layer and an ``xlstm_pair``
+   gather their input over ``"data"`` and scan the whole sequence on
+   every rank, keeping the rank's block. Rank 0 first holds ``ssd_scan``
+   at the whole gathered sequence of zamba2-2.7b's ranks ([1, 4096, 80 or
+   40 heads, 64], N 64), ``slstm_scan`` at xlstm-350m's ([1, 4096, 4,
+   256]) and ``flash_attention`` at the last rank's block of each case
+   (zamba2 on 4 x 1 and 2 x 2, qwen2-vl-72b on 2 x 2, Whisper's decoder
+   block of 112 against 448 and its encoder whole), timed beside the plain
+   version, SDPA and the bound. (a) zamba2-2.7b at full width with 12
+   layers (10 Mamba2, 2 shared attention): a bf16 1 x 4096 prefill with
+   ``seq_axis="data"`` on 4 x 1 and 2 x 2 beside ``seq_axis=None`` on the
+   same mesh and weights (10 ``ssd_scan`` and 2 tensor-core
+   ``flash_attention`` launches a rank in each, the gathers exact in
+   count and bytes, the logits within ``TP_BF16_GAP``, the Mamba2 mixers'
+   share of a rank's device time), the f32 copy at 1 x 512 within 2e-4 of
+   one process on each mesh, f32 greedy decode at batch 1 of 24 + 8
+   tokens from the split cache equal to one process's, 2 SGD steps at 1 x
+   1024 on 2 x 2 with remat "dots" (the gathers and reduce-scatters of a
+   step exact, the whole leaves bitwise equal). (b) xlstm-350m whole, bf16
+   and f32 1 x 4096 on 4 x 1 against one process: 12 ``slstm_scan`` a
+   rank, the hidden state before the final norm (expected bitwise) and the
+   logits (``TP_BF16_GAP``, phase 8's f32 bound). (c) qwen2-vl-72b at full
+   width with 2 layers, each rank keeping its half of the 17 GB of f32
+   weights drawn one rank at a time: a bf16 1 x 4096 prefill (256 vision
+   rows in data rank 0's block) on 2 x 2 beside ``seq_axis=None``, the f32
+   copy at 1 x 512 (data rank 0 all vision) within 2e-4 and its loss, over
+   the text targets only, within 1e-5. (d) whisper-base whole: a bf16 4 x
+   448 prefill over 4 x 1500 frames on 4 x 1 (112 tokens a rank, the
+   encoder whole on each) against one process, the f32 copy within 2e-4,
+   f32 greedy decode from whole caches equal to one process's, 2 SGD
+   steps on its first row (losses falling, the weights bitwise equal on
+   every rank).
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -909,6 +944,38 @@ AUDIO_PARAMS = 83_210_752
 AUDIO_B, AUDIO_S = 4, 448
 VISION_ARCH = "qwen2-vl-72b"
 VISION_PARAMS = 4_246_794_240
+# context parallelism through the layers that carry state and through the
+# vlm and audio families (phase 28), in phase 23's ranks, every prefill
+# with seq_axis="data" beside seq_axis=None (or one process) on the same
+# weights: (a) HYBRID_ARCH at full width with CS_HYBRID_LAYERS layers
+# (CS_HYBRID_SCANS Mamba2 layers and CS_HYBRID_ATTNS of the shared
+# attention at its interval of 6), a bf16 1 x CS_PREFILL prefill on each of
+# CP_MESHES (the logits within TP_BF16_GAP), the f32 copy at 1 x
+# CS_PARITY_S against one process on each (REF_PREFILL_TOL), f32 greedy
+# decode at batch 1 of CS_PROMPT + CS_GEN tokens on MESH_RANKS x 1 equal to
+# one process's, CS_TRAIN_STEPS SGD steps at 1 x CS_TRAIN_S on 2 x 2 with
+# remat "dots"; (b) XLSTM_ARCH whole, bf16 and f32 1 x CS_PREFILL on
+# MESH_RANKS x 1 against one process (the hidden state before the final
+# norm, expected bitwise; the logits within TP_BF16_GAP and
+# XLSTM_REF_PREFILL_TOL, phase 8's f32 bound); (c) VISION_ARCH at full
+# width with WIDE_LAYERS layers, bf16 1 x CS_PREFILL (its 256 vision rows
+# inside data rank 0's block) on 2 x 2 beside seq_axis=None, the f32 copy
+# at 1 x CS_PARITY_S (data rank 0 all vision) within REF_PREFILL_TOL and
+# its loss, over the text targets only, within LOSS_REL_TP; (d)
+# AUDIO_ARCH whole, bf16 AUDIO_B x AUDIO_S tokens over AUDIO_B x 1500
+# frames on MESH_RANKS x 1 against one process (TP_BF16_GAP), the f32 copy
+# (REF_PREFILL_TOL), CS_TRAIN_STEPS SGD steps on CS_AUDIO_TRAIN_B rows, f32
+# greedy decode at batch 1 from whole caches equal to one process's. Depth is cut for time only:
+# zamba2 to 12 of 54 layers (two shared attention layers, so the split KV
+# cache and the gathers of both kinds run), qwen2-vl to 2 of 80 (its whole
+# weights, 17 GB of f32, fit 2 x 2 at half a rank)
+CS_HYBRID_LAYERS, CS_HYBRID_SCANS, CS_HYBRID_ATTNS = 12, 10, 2
+CS_PREFILL, CS_PARITY_S = 4096, 512
+CS_PROMPT, CS_GEN = 24, 8
+CS_TRAIN_S, CS_TRAIN_STEPS, CS_LR = 1024, 2, 0.01
+# (d)'s SGD steps on the first row of the batch: the encoder's 1500
+# frames with their gradient on every rank took ~19 GB a rank at 4 rows
+CS_AUDIO_TRAIN_B = 1
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -7163,11 +7230,639 @@ def _ha_rank(rep: dict, note, free) -> None:
     note("(27b) the Mamba2 mixer split inside heads on 1 x 4")
 
 
+def _cs_ssd_shapes() -> list:
+    """Phase 28's ssd_scan entries: zamba2-2.7b's rank of each of
+    CP_MESHES on the whole gathered sequence (the last model rank's
+    heads), against the chunked plain version, timed beside it and the
+    bound (no single PyTorch call computes the scan)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ssd_chunked_reference, ssd_scan
+    from repro_torch.launch.roofline import ssd_work
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 48)
+    s, zc, out = CS_PREFILL, get_config(HYBRID_ARCH), []
+    h_all = zc.ssm_expand * zc.d_model // zc.ssm_head_dim
+    p, n = zc.ssm_head_dim, zc.ssm_state
+    for dp, tp in CP_MESHES:
+        h = h_all // tp
+        # the last model rank's heads: A = -(h_all - h + 1 .. h_all)
+        a = -torch.arange(h_all - h + 1, h_all + 1, dtype=torch.float32,
+                          device="cuda")
+        args = _ssd_inputs(g, 1, s, h, p, n, a)
+        y, _ = ssd_scan(*args, chunk=64)
+        err = _hold_scaled(f"ssd_scan {HYBRID_ARCH}'s rank of {dp} x {tp} "
+                           f"(seq over data: the whole gathered sequence) "
+                           f"{[1, s, h, p]} n={n} vs ssd_chunked_reference",
+                           y, ssd_chunked_reference(*args, chunk=64)[0],
+                           SSD_VS_CHUNKED_REL)
+        work = ssd_work(1, s, h, p, n)
+        out.append({
+            "arch": HYBRID_ARCH, "mesh": [dp, tp], "shape": [1, s, h, p, n],
+            "max_abs_err": err,
+            "ms": _median_ms(lambda: ssd_scan(*args, chunk=64), reps=10),
+            "plain_ms": _median_ms(lambda: ssd_chunked_reference(
+                *args, chunk=64), reps=3, warm=1),
+            "library_ms": None, "bound_ms": work.bound_ms,
+            "bound_by": work.bound_by})
+        del args, y
+    return out
+
+
+def _cs_slstm_shapes() -> list:
+    """Phase 28's slstm_scan entry: xlstm-350m's sLSTM on the whole
+    gathered sequence, against the plain loop (timed once, on its run: it
+    takes ~2 s at this length), beside the bound (no PyTorch call computes
+    the cell)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.slstm_fused import slstm_reference, slstm_scan
+    from repro_torch.launch.roofline import slstm_work
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 49)
+    s, xc = CS_PREFILL, get_config(XLSTM_ARCH)
+    h = xc.n_heads
+    p = xc.d_model // h
+    pre, r = _slstm_inputs(g, 1, s, h, p, SLSTM_PRE_STD, SLSTM_R_STD)
+    got = slstm_scan(pre, r)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = slstm_reference(pre, r)[0]
+    ev[1].record()
+    torch.cuda.synchronize()
+    err = _hold(f"slstm_scan {XLSTM_ARCH}'s rank of {MESH_RANKS} x 1 (the "
+                f"whole gathered sequence) pre {[1, s, 4, h, p]} vs "
+                f"slstm_reference", got, want, SLSTM_TOL, 0.0)
+    work = slstm_work(1, s, h, p)
+    return [{"arch": XLSTM_ARCH, "mesh": [MESH_RANKS, 1],
+             "shape": [1, s, h, p], "max_abs_err": err,
+             "ms": _median_ms(lambda: slstm_scan(pre, r), reps=5, warm=1),
+             "plain_ms": ev[0].elapsed_time(ev[1]), "library_ms": None,
+             "bound_ms": work.bound_ms, "bound_by": work.bound_by}]
+
+
+def _cs_flash_shapes() -> list:
+    """Phase 28's flash_attention entries: the last rank's block of
+    queries against the whole prefix (zamba2-2.7b on each of CP_MESHES,
+    qwen2-vl-72b on 2 x 2, Whisper's decoder on MESH_RANKS x 1) and
+    Whisper's encoder whole, bf16 (the tensor-core route), against the
+    plain version, timed beside it, SDPA (a right-aligned mask) and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.roofline import flash_attention_work
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 50)
+    s, out = CS_PREFILL, []
+    zc, vc, ac = (get_config(a) for a in (HYBRID_ARCH, VISION_ARCH,
+                                           AUDIO_ARCH))
+    # (arch, part, b, s, sk, h, kv, d, causal)
+    cases = [(HYBRID_ARCH, f"last rank of {dp} x {tp}", 1, s // dp, s,
+              zc.n_heads // tp, zc.n_kv_heads // tp, zc.resolved_head_dim,
+              True) for dp, tp in CP_MESHES]
+    cases += [(VISION_ARCH, "last rank of 2 x 2", 1, s // 2, s,
+               vc.n_heads // 2, vc.n_kv_heads // 2, vc.resolved_head_dim,
+               True),
+              (AUDIO_ARCH, f"decoder, last rank of {MESH_RANKS} x 1",
+               AUDIO_B, AUDIO_S // MESH_RANKS, AUDIO_S, ac.n_heads,
+               ac.n_kv_heads, ac.resolved_head_dim, True),
+              (AUDIO_ARCH, "encoder, whole on every rank", AUDIO_B,
+               ac.encoder_seq, ac.encoder_seq, ac.n_heads, ac.n_kv_heads,
+               ac.resolved_head_dim, False)]
+    for arch, part, b, sq, sk, h, kv, d, causal in cases:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
+        k, v = (torch.randn(b, sk, kv, d, device="cuda", generator=g)
+                .bfloat16() for _ in range(2))
+        got = _flash_routed(q, k, v, causal=causal)
+        err = _hold(f"flash_attention {arch}'s {part} q {list(q.shape)} "
+                    f"k/v {list(k.shape)} bf16 "
+                    f"{'causal, right-aligned' if causal else 'bidirectional'}"
+                    f" vs flash_reference", got,
+                    flash_attention(q, k, v, causal=causal, backend="ref"),
+                    *FLASH_BF16_VS_BF16)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if causal:
+            mask = (torch.arange(sk, device="cuda")[None, :]
+                    <= torch.arange(sq, device="cuda")[:, None] + sk - sq)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=kv != h)
+        work = flash_attention_work(b, sq, sk, h, kv, d, causal, None,
+                                    torch.bfloat16)
+        out.append({
+            "arch": arch, "part": part, "shape": [b, sq, sk, h, kv, d],
+            "causal": "right-aligned" if causal else False,
+            "max_abs_err": err,
+            "sdpa_diff": (lib().transpose(1, 2).float() - got.float())
+            .abs().max().item(),
+            "ms": _median_ms(lambda: flash_attention(q, k, v, causal=causal),
+                             reps=10),
+            "plain_ms": _median_ms(lambda: flash_attention(
+                q, k, v, causal=causal, backend="ref"), reps=3, warm=1),
+            "library_ms": _median_ms(lib, reps=10),
+            "bound_ms": work.bound_ms, "bound_by": work.bound_by})
+        del q, k, v, qh, kh, vh, got, mask
+    return out
+
+
+# phase 28's kernel checks, one kernel a rank: rank -> (kernel, its check)
+_CS_KERNEL_RANKS = {0: ("flash_attention", _cs_flash_shapes),
+                    1: ("ssd_scan", _cs_ssd_shapes),
+                    2: ("slstm_scan", _cs_slstm_shapes)}
+
+
+def _cs_timed(expect: dict, fn, mixers=()) -> tuple:
+    """``fn()`` once on every rank together: its counts in ``expect`` from
+    0, its transfers (``_cp_since``), its wall and its device time (CUDA
+    events on the rank's stream, the card shared by the ranks), and the
+    summed device time of the calls to each (module, name) of ``mixers``
+    (the functions wrapped for the call). Returns (fn's result, report)."""
+    import torch
+    import torch.distributed as dist
+    events, saved = [], []
+
+    def timed(inner):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = inner(*args, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+        return call
+    torch.cuda.synchronize()
+    dist.barrier()
+    _zero_counts(expect)
+    before = _cp_counts()
+    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for mod, name in mixers:
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(getattr(mod, name)))
+    try:
+        t0 = time.perf_counter()
+        whole[0].record()
+        out = fn()
+        whole[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return out, {"wall_s": wall, "launches": _counts(expect),
+                 "moved": _cp_since(before),
+                 "device_ms": whole[0].elapsed_time(whole[1]),
+                 "mixer_ms": sum(a.elapsed_time(b) for a, b in events),
+                 "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+class _FinalNormInput:
+    """Keeps the input of the last ``apply_norm`` that ``models/api.py``
+    calls (in an xLSTM model, the final norm's: the hidden state)."""
+
+    def __enter__(self):
+        from repro_torch.models import api
+        self.api, self.inner, self.seen = api, api.apply_norm, None
+
+        def record(p, x, *args, **kw):
+            self.seen = x
+            return self.inner(p, x, *args, **kw)
+        api.apply_norm = record
+        return self
+
+    def __exit__(self, *exc):
+        self.api.apply_norm = self.inner
+
+
+def _cs_block(t, mesh, dim: int = 1):
+    """This rank's block of the whole-sequence ``t`` along ``dim`` (its
+    index along ``"data"``)."""
+    m = t.shape[dim] // mesh.axis_size("data")
+    return t.narrow(dim, mesh.axis_index("data") * m, m)
+
+
+def _cs_hybrid(cs: dict, note, free) -> None:
+    """Phase 28 (a): CS_HYBRID_ARCH at CS_HYBRID_LAYERS layers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels.ssm_scan import ssd_scan
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import rank_specs, shard_tree
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models import mamba2 as mamba_lib
+    from repro_torch.optim import sgd
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=CS_HYBRID_LAYERS)
+    one = build_model(cfg)
+    cs["a_kinds"] = [st.kind for st in one.program for _ in range(st.count)]
+    full = lm_ranks.full_params(one, SEED, "cuda")
+    toks = {"tokens": lm_ranks.tokens(cfg, 1, CS_PREFILL, SEED + 40,
+                                      "cuda")}
+    expect = {"ssd_scan": (ssd_scan, "launches", 0), **_flash_counts(0, 0)}
+    mixers = ((mamba_lib, "mamba2_forward"),)
+    cs["a"] = []
+    for dp, tp in CP_MESHES:
+        row = {"mesh": [dp, tp]}
+        for name, axis in (("seq", "data"), ("none", None)):
+            mesh, model = lm_ranks.rank_model(cfg, dp, tp, seq_axis=axis)
+            params = shard_tree(full, rank_specs(cfg, full, mesh), mesh)
+            prefill = make_prefill_step(model)
+            prefill(params, lm_ranks.rank_batch(
+                model, {"tokens": toks["tokens"][:, :256 * dp]}))  # warm-up
+            batch = lm_ranks.rank_batch(model, toks)
+            free()
+            logits, run = _cs_timed(expect, lambda: prefill(params, batch),
+                                    mixers)
+            run.update(shape=list(logits.shape),
+                       finite=bool(torch.isfinite(logits).all()))
+            row[name] = run
+            if axis is not None:
+                mine = logits
+            else:
+                row["gap"] = (mine - _cs_block(logits, mesh)).abs().max() \
+                    .item()
+            del logits, batch, prefill, params
+        del mine
+        cs["a"].append(row)
+        free()
+        note(f"(28a) {HYBRID_ARCH} prefills on {dp} x {tp}")
+
+    # the f32 copy against one process: the prefill on each mesh, greedy
+    # decode from the split cache on MESH_RANKS x 1
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    local = build_model(cfg32)
+    ptoks = {"tokens": lm_ranks.tokens(cfg32, 1, CS_PARITY_S, SEED + 41,
+                                       "cuda")}
+    prompt = lm_ranks.tokens(cfg32, 1, CS_PROMPT, SEED + 42, "cuda")
+    with torch.no_grad():
+        want = local.forward(full, ptoks)[0]
+    theirs = generate(local, full, prompt, CS_GEN)["tokens"].tolist()
+    cs["a_f32"] = []
+    for dp, tp in CP_MESHES:
+        mesh, model = lm_ranks.rank_model(cfg32, dp, tp, seq_axis="data")
+        shard = shard_tree(full, rank_specs(cfg32, full, mesh), mesh)
+        before = _cp_counts()
+        with torch.no_grad():
+            got = model.forward(shard, lm_ranks.rank_batch(model, ptoks))[0]
+        entry = {"mesh": [dp, tp], "moved": _cp_since(before),
+                 "diff": (got - _cs_block(want, mesh)).abs().max().item(),
+                 "logit_max": want.abs().max().item()}
+        if tp == 1:
+            cache = model.init_cache(1, CS_PROMPT + CS_GEN,
+                                     dtype=torch.float32, device="meta")
+            entry.update(
+                slots=[c["k"].shape[-3] for c in cache if "k" in c],
+                tokens=generate(model, shard, prompt, CS_GEN)["tokens"]
+                .tolist(), one_process=theirs)
+        cs["a_f32"].append(entry)
+        del got, shard
+    del want, local
+    note(f"(28a) {HYBRID_ARCH} f32 copies and decode")
+
+    # CS_TRAIN_STEPS SGD steps on 2 x 2 with remat "dots"
+    mesh, model = lm_ranks.rank_model(cfg, 2, 2, seq_axis="data",
+                                      remat=True, remat_policy="dots")
+    specs = rank_specs(cfg, meta_params(model), mesh)
+    params = lm_ranks.rank_params(model, full)
+    del full
+    batch = lm_ranks.rank_batch(model, {"tokens": lm_ranks.tokens(
+        cfg, 1, CS_TRAIN_S, SEED + 43, "cuda")})
+    opt = sgd(CS_LR)
+    state = opt.init(params)
+    step = make_train_step(model, opt, donate=True)
+    free()
+    dist.barrier()
+    _zero_counts(expect)
+    losses, walls, moved = [], [], []
+    for _ in range(CS_TRAIN_STEPS):
+        before = _cp_counts()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+        moved.append(_cp_since(before))
+    split = [any(e is not None for e in sp) for sp in _spec_leaves(specs)]
+    leaves = tree_leaves(params)
+    cs["a_train"] = {
+        "losses": losses, "step_s": walls, "moved": moved,
+        "launches": _counts(expect),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "whole_digest": _params_digest([x for x, sp in zip(leaves, split)
+                                        if not sp])}
+    del params, state, step, leaves
+    note(f"(28a) {HYBRID_ARCH} training")
+
+
+def _cs_xlstm(cs: dict, note, free) -> None:
+    """Phase 28 (b): xlstm-350m whole on MESH_RANKS x 1 against one
+    process, bf16 and f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.slstm_fused import slstm_scan
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm as xlstm_lib
+    cfg = get_config(XLSTM_ARCH)
+    full = lm_ranks.full_params(build_model(cfg), SEED, "cuda")
+    toks = {"tokens": lm_ranks.tokens(cfg, 1, CS_PREFILL, SEED + 44, "cuda")}
+    expect = {"slstm_scan": (slstm_scan, "launches", 0)}
+    mixers = ((xlstm_lib, "mlstm_forward"), (xlstm_lib, "slstm_forward"))
+    cs["b"] = []
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        mesh, model = lm_ranks.rank_model(c, MESH_RANKS, 1, seq_axis="data")
+        local = build_model(c)
+        batch = lm_ranks.rank_batch(model, toks)
+        row = {"dtype": dtype}
+        for name, m, b in (("none", local, toks), ("seq", model, batch)):
+            prefill = make_prefill_step(m)
+            prefill(full, {"tokens": b["tokens"][:, :256]})    # warm-up
+            free()
+            with _FinalNormInput() as seen:
+                logits, row[name] = _cs_timed(
+                    expect, lambda: prefill(full, b), mixers)
+            if m is local:
+                want = _cs_block(logits, mesh).clone()
+                want_h = _cs_block(seen.seen, mesh).clone()
+                del logits, seen
+        row.update(
+            shape=list(logits.shape),
+            finite=bool(torch.isfinite(logits).all()),
+            hidden_gap=(seen.seen.float() - want_h.float()).abs().max()
+            .item(),
+            gap=(logits - want).abs().max().item(),
+            logit_max=want.abs().max().item())
+        cs["b"].append(row)
+        del logits, seen, want, want_h, prefill
+        free()
+        note(f"(28b) {XLSTM_ARCH} {dtype}")
+    del full
+
+
+def _cs_vision(cs: dict, note, free) -> None:
+    """Phase 28 (c): VISION_ARCH at full width with WIDE_LAYERS layers on
+    2 x 2, seq_axis="data" beside seq_axis=None."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import ordered_psum
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = dataclasses.replace(get_config(VISION_ARCH), n_layers=WIDE_LAYERS)
+    mesh, model = lm_ranks.rank_model(cfg, 2, 2, seq_axis="data")
+    _, model0 = lm_ranks.rank_model(cfg, 2, 2)
+    # the whole f32 weights (~17 GB) drawn by one rank at a time, each
+    # keeping its block
+    params = None
+    for turn in range(MESH_RANKS):
+        if dist.get_rank() == turn:
+            params = lm_ranks.rank_params(
+                model, lm_ranks.full_params(model, SEED, "cuda"))
+            free()
+        dist.barrier()
+    note(f"(28c) {VISION_ARCH} weights")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 45)
+    vt = cfg.vision_tokens
+    vis = 0.1 * torch.randn((1, vt, cfg.d_model), device="cuda",
+                            generator=gen)
+    whole = {"tokens": lm_ranks.tokens(cfg, 1, CS_PREFILL - vt, SEED + 46,
+                                       "cuda"), "vision_embed": vis}
+    small = {"tokens": whole["tokens"][:, :CS_PARITY_S - vt],
+             "vision_embed": vis}
+    expect = _flash_counts(0, 0)
+    row = {"mesh": [2, 2],
+           "rank_params": sum(t.numel() for t in tree_leaves(params))}
+    for name, m in (("seq", model), ("none", model0)):
+        prefill = make_prefill_step(m)
+        prefill(params, lm_ranks.rank_batch(m, small))      # warm-up
+        batch = lm_ranks.rank_batch(m, whole)
+        row[name + "_rows"] = [batch["vision_embed"].shape[1],
+                               batch["tokens"].shape[1]]
+        free()
+        logits, row[name] = _cs_timed(expect, lambda: prefill(params, batch))
+        row[name].update(shape=list(logits.shape), finite=bool(
+            torch.isfinite(logits).all()))
+        if m is model:
+            mine = logits
+        else:
+            row["gap"] = (mine - _cs_block(logits, mesh)).abs().max().item()
+        del logits, batch, prefill
+        note(f"(28c) {VISION_ARCH} prefill ({name})")
+    del mine
+    free()
+    # the f32 copy at 1 x CS_PARITY_S (vision_tokens, then text): its
+    # logits and its loss, only the text targets, beside seq_axis=None
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = lm_ranks.rank_model(cfg32, 2, 2, seq_axis="data")[1]
+    n32 = lm_ranks.rank_model(cfg32, 2, 2)[1]
+    with torch.no_grad():
+        blk = lm_ranks.rank_batch(m32, small)
+        got = m32.forward(params, blk)[0]
+        share = m32.loss(params, blk)[0]
+        want = n32.forward(params, small)[0]
+        loss = n32.loss(params, small)[0]
+    row["f32"] = {"diff": (got - _cs_block(want, mesh)).abs().max().item(),
+                  "logit_max": want.abs().max().item(),
+                  "loss": ordered_psum(share, mesh, "data").item(),
+                  "share": share.item(), "local_loss": loss.item(),
+                  "rows": [blk["vision_embed"].shape[1],
+                           blk["tokens"].shape[1]]}
+    cs["c"] = row
+    note(f"(28c) {VISION_ARCH} f32 copy")
+    del params, got, want, vis, whole
+
+
+def _cs_audio(cs: dict, note, free) -> None:
+    """Phase 28 (d): whisper-base whole on MESH_RANKS x 1 against one
+    process."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    cfg = get_config(AUDIO_ARCH)
+    local = build_model(cfg)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 47)
+    frames = _frames(cfg, AUDIO_B, gen)
+    whole = {"tokens": torch.randint(0, cfg.vocab, (AUDIO_B, AUDIO_S),
+                                     device="cuda", generator=gen),
+             "audio_embed": frames}
+    mesh, model = lm_ranks.rank_model(cfg, MESH_RANKS, 1, seq_axis="data")
+    batch = lm_ranks.rank_batch(model, whole)
+    expect = _flash_counts(0, 0)
+    row = {"rows": [list(batch["tokens"].shape),
+                    list(batch["audio_embed"].shape)]}
+    for name, m, b in (("none", local, whole), ("seq", model, batch)):
+        prefill = make_prefill_step(m)
+        prefill(full, b)                                    # warm-up
+        free()
+        logits, row[name] = _cs_timed(expect, lambda: prefill(full, b))
+        row[name].update(shape=list(logits.shape), finite=bool(
+            torch.isfinite(logits).all()))
+        if m is local:
+            want = _cs_block(logits, mesh).clone()
+            del logits
+    row["gap"] = (logits - want).abs().max().item()
+    del logits, want, prefill
+    note(f"(28d) {AUDIO_ARCH} prefills")
+    # the f32 copy, and greedy decode of a batch of one from whole caches
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    local32 = build_model(cfg32)
+    model32 = lm_ranks.rank_model(cfg32, MESH_RANKS, 1, seq_axis="data")[1]
+    with torch.no_grad():
+        got = model32.forward(full, batch)[0]
+        want = _cs_block(local32.forward(full, whole)[0], mesh)
+    prompt = whole["tokens"][:1, :CS_PROMPT]
+    row["f32"] = {
+        "diff": (got - want).abs().max().item(),
+        "logit_max": want.abs().max().item(),
+        "tokens": generate(model32, full, prompt, CS_GEN,
+                           audio_embed=frames[:1])["tokens"].tolist(),
+        "one_process": generate(local32, full, prompt, CS_GEN,
+                                audio_embed=frames[:1])["tokens"].tolist()}
+    del got, want, local32, model32
+    note(f"(28d) {AUDIO_ARCH} f32 copy and decode")
+    # CS_TRAIN_STEPS SGD steps on CS_AUDIO_TRAIN_B of the rows (every
+    # leaf whole on every rank)
+    rows = {k: v[:CS_AUDIO_TRAIN_B] for k, v in whole.items()}
+    batch = lm_ranks.rank_batch(model, rows)
+    with torch.no_grad():
+        row["local_loss"] = local.loss(full, rows)[0].item()
+    params = lm_ranks.rank_params(model, full)
+    del full
+    opt = sgd(CS_LR)
+    state = opt.init(params)
+    step = make_train_step(model, opt, donate=True)
+    free()
+    dist.barrier()
+    _zero_counts(expect)
+    losses, walls, moved = [], [], []
+    for _ in range(CS_TRAIN_STEPS):
+        before = _cp_counts()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+        moved.append(_cp_since(before))
+    row["train"] = {"losses": losses, "step_s": walls, "moved": moved,
+                    "launches": _counts(expect),
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "digest": _params_digest(tree_leaves(params))}
+    cs["d"] = row
+    del params, state, step
+    note(f"(28d) {AUDIO_ARCH} training")
+
+
+def _cs_rank(rep: dict, note, free) -> None:
+    """Phase 28 in one rank of phase 23's world (``mesh_rank``): fills
+    ``rep["cs"]``."""
+    import torch.distributed as dist
+    cs = rep["cs"] = {}
+    if dist.get_rank() in _CS_KERNEL_RANKS:
+        kernel, check = _CS_KERNEL_RANKS[dist.get_rank()]
+        cs["kernels"] = {kernel: check()}
+    dist.barrier()
+    free()
+    note("(28) kernels at the rank shapes")
+    for part in (_cs_hybrid, _cs_xlstm, _cs_vision, _cs_audio):
+        part(cs, note, free)
+        free()
+
+
+
+def _rank_tools(rep: dict, label: str):
+    """(lap, note, free) of a rank of the card's world: ``lap(part)`` keeps
+    the seconds since the last lap under ``rep["laps"][part]``, ``note``
+    also prints the progress (the output a failing rank leaves), ``free``
+    returns the cached blocks and resets the peak."""
+    import gc
+    import torch
+    t_lap = [time.perf_counter()]
+
+    def lap(part: str):
+        now = time.perf_counter()
+        rep["laps"][part] = now - t_lap[0]
+        t_lap[0] = now
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def note(part: str):
+        lap(part)
+        print(f"{label} {rep['rank']}: {part} done, "
+              f"{torch.cuda.max_memory_allocated()} B peak, "
+              f"{torch.cuda.memory_allocated()} B held", flush=True)
+    return lap, note, free
+
+
+def _rank_start(flag: str) -> dict:
+    """A rank started by ``spawn_local_cluster`` with ``flag``: its process
+    group, matmuls without TF32, the host's cores shared; its report."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.multiprocess import initialize_from_env
+    if not initialize_from_env():
+        raise RuntimeError(f"{flag} needs the REPRO_MP_* environment of "
+                           f"spawn_local_cluster")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared: each rank's transfers fold on the host
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
+    return {"rank": dist.get_rank(), "laps": {"start": time.time()}}
+
+
+def cs_rank(out_dir: str) -> None:
+    """Phase 28 alone in one rank (``chip_smoke.py --cs-rank DIR``, started
+    by ``spawn_context_state``): ``_cs_rank``; writes its report to
+    DIR/rank<r>.json."""
+    rep = _rank_start("--cs-rank")
+    _, note, free = _rank_tools(rep, "cs rank")
+    _cs_rank(rep, note, free)
+    rep["laps"]["end"] = time.time()
+    Path(out_dir, f"rank{rep['rank']}.json").write_text(json.dumps(rep))
+
+
+def spawn_context_state() -> list:
+    """Phase 28's ranks alone (MESH_RANKS of ``--cs-rank``, as phase 23
+    starts its own): their reports, for ``phase_context_state``."""
+    import os
+    import tempfile
+    from repro_torch.launch.multiprocess import spawn_local_cluster
+    with tempfile.TemporaryDirectory() as out_dir:
+        outs = spawn_local_cluster(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--cs-rank",
+             out_dir], MESH_RANKS, timeout=MESH_TIMEOUT, base_env={
+                 **os.environ,
+                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    for line in outs[0].stdout.splitlines():
+        print(f"  rank 0: {line}")
+    return ranks
+
+
 def mesh_rank(out_dir: str) -> None:
     """One rank of phase 23, run as ``chip_smoke.py --mesh-rank DIR`` by
     ``spawn_local_cluster``; writes its report to DIR/rank<r>.json."""
-    import gc
-    import os
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -7175,7 +7870,6 @@ def mesh_rank(out_dir: str) -> None:
     from repro_torch.interop import tree_leaves, tree_map
     from repro_torch.launch import collectives, lm_ranks
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.launch.multiprocess import initialize_from_env
     from repro_torch.launch.serve import generate
     from repro_torch.core.distributed import PSUM_COUNTS
     from repro_torch.launch.dryrun import meta_params
@@ -7185,20 +7879,9 @@ def mesh_rank(out_dir: str) -> None:
     from repro_torch.models.moe import capacity_of
     from repro_torch.optim import adam
 
-    if not initialize_from_env():
-        raise RuntimeError("--mesh-rank needs the REPRO_MP_* environment of "
-                           "spawn_local_cluster")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # the host's cores shared: each rank's transfers fold on the host
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
-    rank = dist.get_rank()
-    rep = {"rank": rank, "laps": {"start": time.time()}}
-    t_lap = [time.perf_counter()]
-
-    def lap(part: str):
-        now = time.perf_counter()
-        rep["laps"][part] = now - t_lap[0]
-        t_lap[0] = now
+    rep = _rank_start("--mesh-rank")
+    rank = rep["rank"]
+    lap, note, free = _rank_tools(rep, "mesh rank")
 
     # the train step's gradient mean over data, timed apart
     mean_s = []
@@ -7214,17 +7897,6 @@ def mesh_rank(out_dir: str) -> None:
 
     def a2a() -> int:
         return collectives.COLLECTIVE_COUNTS["all-to-all"]["sent_bytes"]
-
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-
-    def note(part: str):
-        # progress, in the output a failing rank leaves
-        lap(part)
-        print(f"mesh rank {rank}: {part} done, "
-              f"{torch.cuda.max_memory_allocated()} B peak", flush=True)
 
     # (a) granite-moe on 2 x 2, bf16 at the config's capacity factor
     cfg = get_config(MOE_ARCH)
@@ -7431,6 +8103,7 @@ def mesh_rank(out_dir: str) -> None:
     _cp_rank(rep, note, free)
     _fsdp_rank(rep, note, free)
     _ha_rank(rep, note, free)
+    _cs_rank(rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
 
@@ -8680,6 +9353,356 @@ def phase_head_axis(card: str, ranks: list, meta=None):
     return paths, shapes
 
 
+def _cs_seq_bytes(cfg, kinds, dp: int, tp: int, s: int, item: int) -> int:
+    """The bytes one forward's gathers send from a rank of dp x tp at a
+    sequence of s (batch 1): a carried layer's input [s / dp, d_model], an
+    attention layer's K and V (``_cp_bytes``)."""
+    carried = sum(k in ("mamba", "xlstm_pair") for k in kinds)
+    return carried * (s // dp) * cfg.d_model * item + \
+        (len(kinds) - carried) * _cp_bytes(cfg, dp, tp, s, item)
+
+
+def _cs_share(runs: list) -> list:
+    """Each rank's share of its prefill's device time in the whole-sequence
+    mixers (CUDA events on its stream)."""
+    return [round(x["mixer_ms"] / x["device_ms"], 4) for x in runs]
+
+
+def phase_context_state(card: str, ranks: list):
+    """Phase 28: context parallelism through the layers that carry state
+    and through the vlm and audio families, run by phase 23's ranks
+    (``_cs_rank``); holds their reports. Returns ({path: {kernel: launches
+    of all ranks}}, the kernel checks at the rank shapes by kernel)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    shapes = {k: v for r in ranks for k, v in r["cs"].get("kernels",
+                                                          {}).items()}
+    for e in shapes["ssd_scan"] + shapes["slstm_scan"]:
+        print(f"cs kernel {'ssd_scan' if len(e['shape']) == 5 else 'slstm_scan'}"
+              f" at {e['arch']}'s rank of {e['mesh'][0]} x {e['mesh'][1]} "
+              f"(the whole gathered sequence) {e['shape']}: max |kernel - "
+              f"plain| {e['max_abs_err']:.3e}, kernel {e['ms']:.4f} ms, "
+              f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}) [{card}]")
+    for e in shapes["flash_attention"]:
+        print(f"cs kernel flash_attention at {e['arch']}'s {e['part']}, "
+              f"[b, s, sk, h, kv, d] {e['shape']} "
+              f"{'right-aligned causal' if e['causal'] else 'bidirectional'}"
+              f", tensor-core: max |kernel - plain| {e['max_abs_err']:.3e} "
+              f"(max |SDPA - kernel| {e['sdpa_diff']:.3e}), kernel "
+              f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, SDPA "
+              f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}) [{card}]")
+    paths = {}
+    s = CS_PREFILL
+
+    # (a) the hybrid
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=CS_HYBRID_LAYERS)
+    kinds = ranks[0]["cs"]["a_kinds"]
+    scans, attns = kinds.count("mamba"), kinds.count("shared_attn")
+    if (scans, attns) != (CS_HYBRID_SCANS, CS_HYBRID_ATTNS):
+        raise AssertionError(f"cs {cfg.name} at {CS_HYBRID_LAYERS} layers: "
+                             f"{scans} Mamba2 and {attns} shared attention "
+                             f"layers")
+    want_l = {"ssd_scan": scans, "flash_attention": attns,
+              "flash_attention tc": attns}
+    for i, (dp, tp) in enumerate(CP_MESHES):
+        rows = [r["cs"]["a"][i] for r in ranks]
+        sent = _cs_seq_bytes(cfg, kinds, dp, tp, s, 2)
+        want = {"seq": [len(kinds), sent, sent * (dp - 1)],
+                "none": [0, 0, 0]}
+        for r, x in zip(ranks, rows):
+            for name, shape in (("seq", [1, s // dp, cfg.vocab]),
+                                ("none", [1, s, cfg.vocab])):
+                run = x[name]
+                if run["launches"] != want_l or not run["finite"] or \
+                        run["shape"] != shape or \
+                        run["moved"]["seq_gather"] != want[name] or \
+                        run["moved"]["seq_scatter"] != [0, 0]:
+                    raise AssertionError(
+                        f"cs {cfg.name} prefill ({name}) on {dp} x {tp}, "
+                        f"rank {r['rank']}: launches {run['launches']} "
+                        f"(expected {want_l}), finite {run['finite']}, "
+                        f"logits {run['shape']} (expected {shape}), gathers "
+                        f"{run['moved']['seq_gather']} (expected "
+                        f"{want[name]})")
+        gap = max(x["gap"] for x in rows)
+        walls = {k: max(x[k]["wall_s"] for x in rows) for k in ("seq",
+                                                                 "none")}
+        print(f"cs {cfg.name}, {CS_HYBRID_LAYERS} layers ({scans} Mamba2, "
+              f"{attns} shared attention), bf16 prefill 1 x {s} on {dp} x "
+              f"{tp} ranks: seq_axis='data' {s / walls['seq']:.1f} tokens/s "
+              f"({walls['seq']:.3f} s), seq_axis=None {s / walls['none']:.1f}"
+              f" tokens/s ({walls['none']:.3f} s); gathers a rank exact: "
+              f"{len(kinds)} ({scans} of the Mamba2 input [1, {s // dp}, "
+              f"{cfg.d_model}], {attns} of K/V), {sent} B sent, "
+              f"{sent * (dp - 1)} B received; ssd_scan {scans} and "
+              f"flash_attention {attns} (tensor-core) a rank in each; the "
+              f"Mamba2 mixers' share of a rank's device time "
+              f"{_cs_share([x['seq'] for x in rows])} with seq_axis, "
+              f"{_cs_share([x['none'] for x in rows])} without; max "
+              f"|logits - seq_axis=None's| {gap:.4e} (bound {TP_BF16_GAP}); "
+              f"peak by rank {[x['seq']['peak_bytes'] for x in rows]} B "
+              f"[{card}]")
+        if not gap <= TP_BF16_GAP:
+            raise AssertionError(f"cs {cfg.name} on {dp} x {tp}: the bf16 "
+                                 f"logits are {gap:.4e} from seq_axis=None's")
+        paths[f"{HYBRID_ARCH} prefill ({CS_HYBRID_LAYERS} layers) on {dp} x "
+              f"{tp} ranks (seq over data)"] = {
+            k: sum(x["seq"]["launches"][k] for x in rows) for k in want_l}
+    for i, (dp, tp) in enumerate(CP_MESHES):
+        xs = [r["cs"]["a_f32"][i] for r in ranks]
+        diff = max(x["diff"] for x in xs)
+        sent = _cs_seq_bytes(cfg, kinds, dp, tp, CS_PARITY_S, 4)
+        moved = [x["moved"]["seq_gather"][:2] for x in xs]
+        slots = [(CS_PROMPT + CS_GEN) // dp] * attns
+        same = all(x.get("tokens") == x.get("one_process") and
+                   x.get("slots", slots) == slots for x in xs)
+        print(f"cs f32 {cfg.name}, {CS_HYBRID_LAYERS} layers, 1 x "
+              f"{CS_PARITY_S} on {dp} x {tp} vs one process on the same "
+              f"weights: max |diff| {diff:.3e} (tol {REF_PREFILL_TOL}, logits "
+              f"up to {xs[0]['logit_max']:.3f}); gathers {moved[0]} (calls, "
+              f"B; expected {[len(kinds), sent]})"
+              + ("" if "tokens" not in xs[0] else
+                 f"; greedy decode at batch 1 ({CS_PROMPT} + {CS_GEN} "
+                 f"tokens, the shared attention's cache {slots[0]} slots a "
+                 f"rank, the Mamba2 states whole): "
+                 + ("equal one process's" if same else "DIFFERENT"))
+              + f" [{card}]")
+        if not (diff <= REF_PREFILL_TOL and same and
+                all(m == [len(kinds), sent] for m in moved)):
+            raise AssertionError(f"cs f32 {cfg.name} on {dp} x {tp}: the "
+                                 f"mesh and one process disagree")
+    tr = [r["cs"]["a_train"] for r in ranks]
+    losses = tr[0]["losses"]
+    sent = _cs_seq_bytes(cfg, kinds, 2, 2, CS_TRAIN_S, 2)
+    want_t = {k: 2 * CS_TRAIN_STEPS * v for k, v in want_l.items()}
+    # a step: the forward's gathers ("dots" keeps them for the
+    # recomputation) and their backward's reduce-scatters of the whole
+    # sequence
+    want_m = [[len(kinds), sent], [len(kinds), 2 * sent]]
+    for r, t in zip(ranks, tr):
+        got = [[m["seq_gather"][:2], m["seq_scatter"]] for m in t["moved"]]
+        if t["launches"] != want_t or t["losses"] != losses or \
+                got != [want_m] * CS_TRAIN_STEPS:
+            raise AssertionError(f"cs training, rank {r['rank']}: launches "
+                                 f"{t['launches']} (expected {want_t}), "
+                                 f"gathers and scatters a step {got} "
+                                 f"(expected {want_m}), losses "
+                                 f"{t['losses']} (rank 0 {losses})")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"cs training: losses {losses} do not fall")
+    if len({t["whole_digest"] for t in tr}) != 1:
+        raise AssertionError("cs training: the weights held whole differ "
+                             "between ranks")
+    steps = [max(t["step_s"][i] for t in tr) for i in range(CS_TRAIN_STEPS)]
+    print(f"cs {cfg.name} training on 2 x 2 ranks (seq over data, heads over "
+          f"model): {CS_TRAIN_STEPS} SGD steps (lr {CS_LR}) at 1 x "
+          f"{CS_TRAIN_S}, remat \"dots\", in place: step walls "
+          f"{[round(x, 4) for x in steps]} s, losses "
+          f"{[round(x, 4) for x in losses]}; a step's gathers and "
+          f"reduce-scatters a rank {want_m} (calls, B), exact; ssd_scan "
+          f"{2 * scans} and flash_attention {2 * attns} a step a rank (the "
+          f"forward and the recomputation); the weights held whole bitwise "
+          f"equal on every rank; peak by rank "
+          f"{[t['peak_bytes'] for t in tr]} B [{card}]")
+    paths[f"{HYBRID_ARCH} training on 2 x 2 ranks (seq over data)"] = {
+        k: sum(t["launches"][k] for t in tr) for k in want_t}
+
+    # (b) xlstm
+    xc = get_config(XLSTM_ARCH)
+    pairs = xc.n_layers // 2
+    m = s // MESH_RANKS
+    for i, dtype in enumerate(("bfloat16", "float32")):
+        rows = [r["cs"]["b"][i] for r in ranks]
+        item = 2 if dtype == "bfloat16" else 4
+        sent = pairs * m * xc.d_model * item
+        want = {"seq": [pairs, sent, sent * (MESH_RANKS - 1)],
+                "none": [0, 0, 0]}
+        for r, x in zip(ranks, rows):
+            for name in ("seq", "none"):
+                run = x[name]
+                if run["launches"] != {"slstm_scan": pairs} or \
+                        run["moved"]["seq_gather"] != want[name]:
+                    raise AssertionError(
+                        f"cs {XLSTM_ARCH} {dtype} prefill ({name}), rank "
+                        f"{r['rank']}: launches {run['launches']} (expected "
+                        f"{pairs}), gathers {run['moved']['seq_gather']} "
+                        f"(expected {want[name]})")
+            if x["shape"] != [1, m, xc.vocab] or not x["finite"]:
+                raise AssertionError(f"cs {XLSTM_ARCH} {dtype}: logits "
+                                     f"{x['shape']}, finite {x['finite']}")
+        hgap, gap = (max(x[k] for x in rows) for k in ("hidden_gap", "gap"))
+        tol = TP_BF16_GAP if dtype == "bfloat16" else XLSTM_REF_PREFILL_TOL
+        walls = {k: max(x[k]["wall_s"] for x in rows) for k in ("seq",
+                                                                 "none")}
+        print(f"cs {XLSTM_ARCH} ({pairs} mLSTM/sLSTM pairs) {dtype} prefill "
+              f"1 x {s} on {MESH_RANKS} x 1 ranks (each pair on the whole "
+              f"gathered sequence): seq_axis='data' {s / walls['seq']:.1f} "
+              f"tokens/s ({walls['seq']:.3f} s), one process a rank "
+              f"{s / walls['none']:.1f} tokens/s ({walls['none']:.3f} s); "
+              f"gathers a rank exact: {pairs} of [1, {m}, {xc.d_model}], "
+              f"{sent} B sent; slstm_scan {pairs} a rank; the pairs' share "
+              f"of a rank's device time {_cs_share([x['seq'] for x in rows])}"
+              f" with seq_axis, {_cs_share([x['none'] for x in rows])} in "
+              f"one process; max |hidden state before the final norm - one "
+              f"process's| {hgap:.4e} (expected 0); max |logits - one "
+              f"process's| {gap:.4e} (bound {tol}, logits up to "
+              f"{rows[0]['logit_max']:.3f}); peak by rank "
+              f"{[x['seq']['peak_bytes'] for x in rows]} B [{card}]")
+        if not gap <= tol:
+            raise AssertionError(f"cs {XLSTM_ARCH} {dtype}: the logits are "
+                                 f"{gap:.4e} from one process's")
+        if dtype == "bfloat16":
+            paths[f"{XLSTM_ARCH} prefill on {MESH_RANKS} x 1 ranks (seq "
+                  f"over data)"] = {"slstm_scan": sum(
+                      x["seq"]["launches"]["slstm_scan"] for x in rows)}
+
+    # (c) the vision prefix on 2 x 2
+    vc = dataclasses.replace(get_config(VISION_ARCH), n_layers=WIDE_LAYERS)
+    vt, n = vc.vision_tokens, WIDE_LAYERS
+    rows = [r["cs"]["c"] for r in ranks]
+    sent = n * _cp_bytes(vc, 2, 2, s, 2)
+    want_l = {"flash_attention": n, "flash_attention tc": n}
+    for r, x in zip(ranks, rows):
+        d = r["rank"] // 2
+        lo = d * (s // 2)
+        want_rows = [max(0, min(vt - lo, s // 2)), s // 2 - max(0, min(
+            vt - lo, s // 2))]
+        lo32 = d * (CS_PARITY_S // 2)
+        v32 = max(0, min(vt - lo32, CS_PARITY_S // 2))
+        want = {"seq": ([1, s // 2, vc.vocab], [n, sent, sent]),
+                "none": ([1, s, vc.vocab], [0, 0, 0])}
+        bad = [x["seq_rows"] != want_rows, x["none_rows"] != [vt, s - vt],
+               x["f32"]["rows"] != [v32, CS_PARITY_S // 2 - v32]]
+        for name, (shape, gathers) in want.items():
+            run = x[name]
+            bad += [run["launches"] != want_l, not run["finite"],
+                    run["shape"] != shape,
+                    run["moved"]["seq_gather"] != gathers]
+        if any(bad):
+            raise AssertionError(f"cs {vc.name} on 2 x 2, rank {r['rank']}: "
+                                 f"rows (vision, text) {x['seq_rows']} "
+                                 f"(expected {want_rows}), f32 "
+                                 f"{x['f32']['rows']}, runs "
+                                 f"{ {k: x[k] for k in want} }")
+    x = rows[0]
+    gap = max(y["gap"] for y in rows)
+    diff = max(y["f32"]["diff"] for y in rows)
+    lgap = max(abs(y["f32"]["loss"] - y["f32"]["local_loss"]) for y in rows)
+    walls = {k: max(y[k]["wall_s"] for y in rows) for k in ("seq", "none")}
+    print(f"cs {vc.name} at full width, {n} layers, bf16 prefill 1 x {s} "
+          f"({vt} vision rows, then {s - vt} tokens) on 2 x 2 ranks (heads "
+          f"and vocabulary over model, {x['rank_params']} weights a rank): "
+          f"seq_axis='data' {s / walls['seq']:.1f} tokens/s "
+          f"({walls['seq']:.3f} s; a rank's (vision, text) rows "
+          f"{[y['seq_rows'] for y in rows]}), seq_axis=None "
+          f"{s / walls['none']:.1f} tokens/s ({walls['none']:.3f} s); K/V "
+          f"gathers a rank exact: {n} of {sent // n} B; flash_attention {n} "
+          f"a rank, tensor-core, in each; max |logits - seq_axis=None's| "
+          f"{gap:.4e} (bound {TP_BF16_GAP}); peak by rank "
+          f"{[y['seq']['peak_bytes'] for y in rows]} B [{card}]")
+    print(f"cs f32 {vc.name}, 1 x {CS_PARITY_S} ({vt} vision rows, "
+          f"{CS_PARITY_S - vt} tokens: data rank 0 all vision, its tokens "
+          f"none) on 2 x 2 vs seq_axis=None: max |diff| {diff:.3e} (tol "
+          f"{REF_PREFILL_TOL}, logits up to {x['f32']['logit_max']:.3f}); "
+          f"loss, the shares {[round(y['f32']['share'], 6) for y in rows]} "
+          f"summed over data, {x['f32']['loss']:.6f} vs "
+          f"{x['f32']['local_loss']:.6f} over the text targets only (gap "
+          f"{lgap:.3e}, tol {LOSS_REL_TP} relative) [{card}]")
+    if not (gap <= TP_BF16_GAP and diff <= REF_PREFILL_TOL and
+            lgap <= LOSS_REL_TP * abs(x["f32"]["local_loss"]) and
+            all(y["f32"]["share"] == 0.0 for y in rows[:2])):
+        raise AssertionError(f"cs {vc.name}: seq_axis and seq_axis=None "
+                             f"disagree")
+    paths[f"{VISION_ARCH} prefill on 2 x 2 ranks (seq over data)"] = {
+        k: sum(y["seq"]["launches"][k] for y in rows) for k in want_l}
+
+    # (d) Whisper on MESH_RANKS x 1
+    ac = get_config(AUDIO_ARCH)
+    rows = [r["cs"]["d"] for r in ranks]
+    ma = AUDIO_S // MESH_RANKS
+    each = AUDIO_B * ma * 2 * ac.n_kv_heads * ac.resolved_head_dim * 2
+    n = ac.n_layers
+    want_l = {"flash_attention": ac.encoder_layers + n,
+              "flash_attention tc": ac.encoder_layers + n}
+    want = {"seq": ([AUDIO_B, ma, ac.vocab], [n, n * each,
+                                              n * each * (MESH_RANKS - 1)]),
+            "none": ([AUDIO_B, AUDIO_S, ac.vocab], [0, 0, 0])}
+    want_t = {k: CS_TRAIN_STEPS * v for k, v in want_l.items()}
+    each_t = each * CS_AUDIO_TRAIN_B // AUDIO_B
+    want_m = [[n, n * each_t], [n, MESH_RANKS * n * each_t]]
+    tr0 = rows[0]["train"]
+    for r, x in zip(ranks, rows):
+        bad = [x["rows"] != [[AUDIO_B, ma], [AUDIO_B, ac.encoder_seq,
+                                             ac.d_model]]]
+        for name, (shape, gathers) in want.items():
+            run = x[name]
+            bad += [run["launches"] != want_l, not run["finite"],
+                    run["shape"] != shape,
+                    run["moved"]["seq_gather"] != gathers]
+        t = x["train"]
+        bad += [t["launches"] != want_t, t["losses"] != tr0["losses"],
+                t["digest"] != tr0["digest"],
+                [[m["seq_gather"][:2], m["seq_scatter"]] for m in t["moved"]]
+                != [want_m] * CS_TRAIN_STEPS]
+        if any(bad):
+            raise AssertionError(f"cs {AUDIO_ARCH}, rank {r['rank']}: "
+                                 f"{[i for i, b in enumerate(bad) if b]} of "
+                                 f"the checks fail: rows {x['rows']}, runs "
+                                 f"{ {k: x[k] for k in want} }, training "
+                                 f"{t}")
+    x = rows[0]
+    gap = max(y["gap"] for y in rows)
+    diff = max(y["f32"]["diff"] for y in rows)
+    same = all(y["f32"]["tokens"] == y["f32"]["one_process"] for y in rows)
+    losses = tr0["losses"]
+    lgap = abs(losses[0] - x["local_loss"])
+    walls = {k: max(y[k]["wall_s"] for y in rows) for k in ("seq", "none")}
+    steps = [max(y["train"]["step_s"][i] for y in rows)
+             for i in range(CS_TRAIN_STEPS)]
+    toks = AUDIO_B * AUDIO_S
+    print(f"cs {ac.name} whole ({ac.encoder_layers} + {n} layers), bf16 "
+          f"prefill {AUDIO_B} x {AUDIO_S} tokens over {AUDIO_B} x "
+          f"{ac.encoder_seq} frames on {MESH_RANKS} x 1 ranks ({ma} tokens "
+          f"a rank, the encoder whole on each): seq_axis='data' "
+          f"{toks / walls['seq']:.1f} tokens/s ({walls['seq']:.3f} s), one "
+          f"process a rank {toks / walls['none']:.1f} tokens/s "
+          f"({walls['none']:.3f} s); K/V gathers a rank exact: {n} of "
+          f"{each} B; flash_attention {want_l['flash_attention']} a rank "
+          f"({ac.encoder_layers} encoder, {n} decoder), tensor-core; max "
+          f"|logits - one process's| {gap:.4e} (bound {TP_BF16_GAP}); f32 "
+          f"copy max |diff| {diff:.3e} (tol {REF_PREFILL_TOL}, logits up to "
+          f"{x['f32']['logit_max']:.3f}); greedy decode at batch 1 "
+          f"({CS_PROMPT} + {CS_GEN} tokens, the caches whole on every "
+          f"rank): {'equal one process' if same else 'DIFFERENT'}; "
+          f"{CS_TRAIN_STEPS} SGD steps (lr {CS_LR}) at {CS_AUDIO_TRAIN_B} x "
+          f"{AUDIO_S}: step walls "
+          f"{[round(y, 4) for y in steps]} s, losses "
+          f"{[round(y, 4) for y in losses]} (one process's bf16 loss "
+          f"{x['local_loss']:.4f}, gap {lgap:.3e}), a step's gathers and "
+          f"reduce-scatters a rank {want_m} (calls, B), exact, the weights "
+          f"bitwise equal on every rank; peak by rank "
+          f"{[y['train']['peak_bytes'] for y in rows]} B [{card}]")
+    if not (gap <= TP_BF16_GAP and diff <= REF_PREFILL_TOL and same and
+            lgap <= TP_BF16_GAP and all(math.isfinite(y) for y in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"cs {ac.name}: the mesh and one process "
+                             f"disagree, or the losses do not fall")
+    paths[f"{AUDIO_ARCH} prefill on {MESH_RANKS} x 1 ranks (seq over "
+          f"data)"] = {k: sum(y["seq"]["launches"][k] for y in rows)
+                       for k in want_l}
+    laps = ranks[0]["laps"]
+    print(f"context parallelism through state: the ranks' part "
+          f"{sum(v for k, v in laps.items() if k.startswith('(28')):.1f} s "
+          f"(rank 0's laps, in phase 23's wall; by part "
+          f"{ {k: round(v, 1) for k, v in laps.items() if k.startswith('(28')} }"
+          f"), the checks here {time.perf_counter() - t_phase:.1f} s")
+    return paths, shapes
+
+
 def _profile_steps(fn, n_steps: int, label: str,
                    parts: Optional[dict] = None) -> None:
     """Device time by kernel, and the device's busy share, over one short
@@ -8754,6 +9777,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--cs-rank"]:
+        cs_rank(sys.argv[2])
         return 0
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA GPU",
@@ -8848,6 +9874,12 @@ def main() -> int:
         paths.update(ha_paths)
         rows[3]["ha_shapes"] = ha_shapes["flash_attention"]
         rows[4]["ha_shapes"] = ha_shapes["ssd_scan"]
+        phase = enter("context parallelism through state")
+        cs_paths, cs_shapes = phase_context_state(card, ranks)
+        paths.update(cs_paths)
+        rows[3]["cs_shapes"] = cs_shapes["flash_attention"]
+        rows[4]["cs_shapes"] = cs_shapes["ssd_scan"]
+        rows[5]["cs_shapes"] = cs_shapes["slstm_scan"]
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

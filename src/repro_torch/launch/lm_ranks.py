@@ -89,7 +89,7 @@ def rank_batch(model, batch: Dict[str, torch.Tensor]
     and under ``model.replicate``, where the batch divides; whole on every
     rank where it does not). Under ``model.seq_axis`` the rows are cut over
     ``Model.batch_axes`` where they divide, and the rank keeps its block of
-    the sequence of ``tokens`` and of ``positions`` if given."""
+    the whole sequence (``_seq_block``: each key's rule)."""
     if model.mesh is None:
         return batch
     if model.seq_axis is not None:
@@ -103,20 +103,39 @@ def rank_batch(model, batch: Dict[str, torch.Tensor]
 
 def _seq_block(model, batch: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
+    """Each key's rule: the rows over ``model.batch_axes`` where they
+    divide; ``positions`` and the whole embedded sequence (for ``vlm`` the
+    ``vision_tokens`` prefix, then the text) cut into ``S / n`` blocks of
+    ``seq_axis``, ``vision_embed`` and ``tokens`` each giving the rank its
+    part of the block (either may be empty); ``audio_embed`` (the encoder's
+    frames, which every rank encodes whole) not cut along the
+    sequence."""
     mesh, axes = model.mesh, model.batch_axes
-    b, s = batch["tokens"].shape
+    b, t = batch["tokens"].shape
+    prefix = model.cfg.vision_tokens
+    s = prefix + t
     n = mesh.axis_size(model.seq_axis)
     if s % n:
         raise ValueError(f"a sequence of {s} does not split over {n} "
                          f"ranks of {model.seq_axis!r}")
     rows = axes if axes and b % mesh.axis_size(axes) == 0 else None
+    m = s // n
+    lo = mesh.axis_index(model.seq_axis) * m
+    # the rank's positions [lo, lo + m) of each key's own sequence
+    spans = {"vision_embed": (min(lo, prefix), min(lo + m, prefix)),
+             "tokens": (max(lo - prefix, 0), max(lo + m - prefix, 0))}
     out = {}
     for k, v in batch.items():
         sdim = v.dim() - 1 if k == "positions" else 1
         spec = [None] * v.dim()
         spec[sdim - 1] = rows
-        spec[sdim] = model.seq_axis
-        out[k] = shard_of(v, tuple(spec), mesh)
+        if k == "positions":
+            spec[sdim] = model.seq_axis
+        v = shard_of(v, tuple(spec), mesh)
+        if k in spans:
+            a, z = spans[k]
+            v = v[:, a:z]
+        out[k] = v
     return out
 
 

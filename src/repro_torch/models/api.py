@@ -55,28 +55,43 @@ Context parallelism (``seq_axis``, a mesh axis other than ``"model"``):
 each rank runs the model on its block of ``S / n`` positions of every row
 (``lm_ranks.rank_batch``), with ``_positions`` offset to the block, and
 ``forward`` returns the rank's [B, S / n, V] logits. Attention gathers K/V
-over ``seq_axis`` (``models/attention.py``); a MoE layer gathers its input
-over ``seq_axis`` (``collectives.gather_seq``) and routes the whole
-sequence, with the whole sequence's capacity and top-k order, as the
-reference's ``shard_map`` does (its ``P(b_shard)`` cuts the batch only; on
-the expert-parallel path each ``model`` peer then takes ``S / ep`` of the
-tokens), and keeps the rank's block of the output (the backward is
-``scatter_sum_seq``'s: the ordered sum of the peers' cotangents); every
-other layer is per-token. The batch is not cut
+over ``seq_axis`` (``models/attention.py``). A layer that is not
+per-token gathers its input over ``seq_axis`` (``collectives.gather_seq``,
+one a layer), runs on the whole sequence, as the reference's partitioner
+computes the unsharded values there, and keeps the rank's block of the
+output (``_whole``, ``_own``; the backward is ``scatter_sum_seq``'s: the
+ordered sum of the peers' cotangents):
+
+- a MoE layer routes the whole sequence, with its capacity and top-k
+  order, as the reference's ``shard_map`` does (its ``P(b_shard)`` cuts
+  the batch only; on the expert-parallel path each ``model`` peer then
+  takes ``S / ep`` of the tokens);
+- a ``mamba`` layer gathers its normed input and runs the Mamba2 mixer
+  (the SSD scan) on the whole sequence, on its heads over ``"model"``;
+- an ``xlstm_pair`` gathers x and runs the mLSTM, then the sLSTM scan, on
+  the whole sequence. So every rank holds the same carried states: none
+  passes between ranks, and the scans take no initial state.
+
+Every other layer is per-token. The sequence cut is the whole embedded
+one: for ``vlm``, ``vision_tokens`` + T positions, a rank's block holding
+the vision rows below ``vision_tokens`` and the text after them
+(``_embed`` puts its rows of ``vision_embed`` in front of its tokens).
+Whisper (``models/whisper.py``) runs its decoder on the rank's block of
+tokens and its encoder whole on every rank. The batch is not cut
 along ``seq_axis``: ``dp_axes`` (the axes the batch is cut along under
-``seq_axis``) must not hold it. A layer that carries state along the
-sequence (``mamba``, ``xlstm_pair``: the reference's SSD kernel takes no
-initial state) raises, as do the ``audio`` and ``vlm`` families. ``loss``
-is each rank's share of the mean over the whole sequence's B (S - 1)
-targets: its own sum over that count (rank r's last position targets rank
-r + 1's first token, gathered; the last rank has one target fewer), plus
+``seq_axis``) must not hold it. ``loss``
+is each rank's share of the mean over the whole sequence's B (T - 1)
+targets (T the text tokens): its own sum over that count (rank r's last
+position targets rank r + 1's first token, gathered; the last rank has one
+target fewer, and a vision position predicts nothing), plus
 0.01 times the MoE aux term over n (the whole sequence's, the same on every
 rank, so the sum over ``seq_axis`` is the reference's 0.01 x aux);
 ``launch.steps`` sums the shares and
 their gradients over ``seq_axis``. A share, not a mean per rank, because
 the ranks' target counts differ and the sum of shares is the mean exactly.
 Decode under ``seq_axis`` splits each KV cache's slots over it where they
-divide (``init_cache``), as ``cache_specs`` does for a batch of one.
+divide (``init_cache``), as ``cache_specs`` does for a batch of one; the
+Mamba2 and xLSTM states are whole on every rank, which updates them alike.
 
 FSDP (``fsdp=True``, the reference's ``param_specs(fsdp=True)``): each
 rank holds ``rank_specs(..., fsdp=True)``'s blocks, each leaf's largest
@@ -200,21 +215,41 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str):
     return p
 
 
+def _whole(x: torch.Tensor, mesh, seq_axis) -> torch.Tensor:
+    """The whole sequence of x: its blocks gathered over ``seq_axis`` (one
+    ``gather_seq``), or x itself without it."""
+    return x if seq_axis is None else coll.gather_seq(x, mesh, seq_axis)
+
+
+def _own(y: torch.Tensor, m: int, mesh, seq_axis) -> torch.Tensor:
+    """This rank's block of ``m`` positions of the whole-sequence y (y
+    itself without ``seq_axis``); the backward of ``_whole`` sums the
+    peers' cotangents in rank order."""
+    if seq_axis is None:
+        return y
+    return y.narrow(1, mesh.axis_index(seq_axis) * m, m)
+
+
 def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                  window: Optional[int], backend: str, shared=None, mesh=None,
                  dp_axes=("data",), moe_ep_axis="model", seq_axis=None,
                  head_axis=None):
     """Full-sequence forward for one layer. Returns (x, aux_loss or None:
-    only ``moe`` layers have one)."""
+    only ``moe`` layers have one). Under ``seq_axis`` a layer that is not
+    per-token (``mamba``, ``xlstm_pair``, ``moe``'s routing) runs on the
+    whole sequence and keeps the rank's block (module docstring)."""
+    m = x.shape[1]
     if kind == "mamba":
-        h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
-        return x + mamba_lib.mamba2_forward(params["mixer"], h, cfg,
-                                            backend=backend,
-                                            mesh=mesh), None
+        h = _whole(apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps),
+                   mesh, seq_axis)
+        return x + _own(mamba_lib.mamba2_forward(params["mixer"], h, cfg,
+                                                 backend=backend, mesh=mesh),
+                        m, mesh, seq_axis), None
     if kind == "xlstm_pair":
-        x = xlstm_lib.mlstm_forward(params["mlstm"], x, cfg)
-        return xlstm_lib.slstm_forward(params["slstm"], x, cfg,
-                                       backend=backend), None
+        y = xlstm_lib.mlstm_forward(params["mlstm"],
+                                    _whole(x, mesh, seq_axis), cfg)
+        y = xlstm_lib.slstm_forward(params["slstm"], y, cfg, backend=backend)
+        return _own(y, m, mesh, seq_axis), None
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn_lib.attn_forward(p["attn"], h, positions, cfg,
@@ -223,19 +258,12 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
                                   seq_axis=seq_axis)
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
-        if seq_axis is None:
-            out, aux = moe_lib.apply_moe(p["moe"], h, cfg, mesh=mesh,
-                                         dp_axes=dp_axes,
-                                         ep_axis=moe_ep_axis)
-            return x + out, aux
         # the whole sequence routed, as the reference's shard_map (which
-        # cuts the batch only) routes it; the rank keeps its block, and
-        # the backward sums the peers' cotangents in rank order
-        m = h.shape[1]
-        whole = coll.gather_seq(h, mesh, seq_axis)
-        out, aux = moe_lib.apply_moe(p["moe"], whole, cfg, mesh=mesh,
-                                     dp_axes=dp_axes, ep_axis=moe_ep_axis)
-        return x + out.narrow(1, mesh.axis_index(seq_axis) * m, m), aux
+        # cuts the batch only) routes it
+        out, aux = moe_lib.apply_moe(p["moe"], _whole(h, mesh, seq_axis),
+                                     cfg, mesh=mesh, dp_axes=dp_axes,
+                                     ep_axis=moe_ep_axis)
+        return x + _own(out, m, mesh, seq_axis), aux
     return x + apply_mlp(p["mlp"], h, cfg.act, compute_dtype_of(cfg),
                          mesh=mesh, d_ff=cfg.d_ff), None
 
@@ -409,22 +437,13 @@ class Model:
 
     def _check_seq_axis(self):
         """Where context parallelism cannot run (module docstring)."""
-        name, axis = self.cfg.name, self.seq_axis
+        axis = self.seq_axis
         if self.mesh is None or axis not in self.mesh.axis_names:
             raise ValueError(f"seq_axis={axis!r} needs a mesh with that "
                              f"axis")
         if axis == "model":
             raise ValueError("seq_axis='model': the weights split over "
                              "'model'; cut the sequence over another axis")
-        if self.cfg.family in ("audio", "vlm"):
-            raise ValueError(f"{name}: context parallelism does not run "
-                             f"the {self.cfg.family} family")
-        carried = sorted({s.kind for s in self.program}
-                         & {"mamba", "xlstm_pair"})
-        if carried:
-            raise ValueError(f"{name}: {carried} layers carry state along "
-                             f"the sequence, which context parallelism "
-                             f"would pass between ranks")
         if axis in self.batch_axes:
             raise ValueError(f"seq_axis={axis!r} is one of the axes the "
                              f"batch is cut along ({self.batch_axes}); "
@@ -528,7 +547,9 @@ class Model:
     def _embed(self, params, tokens: torch.Tensor,
                batch: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """Token embeddings; for ``vlm`` with a ``batch``, its
-        ``vision_embed`` [B, vision_tokens, D] in front of them."""
+        ``vision_embed`` [B, vision_tokens, D] in front of them (under
+        ``seq_axis`` the rank's rows of each, which may be none: its block
+        of the whole sequence, ``lm_ranks.rank_batch``)."""
         cdt = compute_dtype_of(self.cfg)
         embed, mesh = params["embed"], self.mesh
         if mesh is None or embed.shape[0] == self.cfg.vocab:
@@ -633,20 +654,26 @@ class Model:
 
     def _loss_share(self, logits, aux, tokens):
         """This rank's share of ``loss`` under ``seq_axis``: its positions'
-        nll summed over the whole sequence's B (S - 1) targets."""
+        nll summed over the whole sequence's B (T - 1) targets (T the text
+        tokens; a ``vlm`` block's leading ``lead`` rows are the vision
+        prefix, whose positions predict nothing)."""
         mesh, axis = self.mesh, self.seq_axis
         n, r = mesh.axis_size(axis), mesh.axis_index(axis)
-        b, s = tokens.shape
+        b, m = logits.shape[:2]
+        lead = m - tokens.shape[1]
         # every block's first token, [n, B]: the next block's is the
-        # target of this block's last position
-        firsts = coll.all_gather(tokens[:, :1].T.contiguous(), mesh, axis)
+        # target of this block's last position (0 for a block that starts
+        # in the prefix: no position predicts it)
+        first = tokens[:, :1] if lead == 0 else tokens.new_zeros((b, 1))
+        firsts = coll.all_gather(first.T.contiguous(), mesh, axis)
         if r < n - 1:
-            tgt = torch.cat([tokens[:, 1:], firsts[r + 1][:, None]], dim=1)
+            tgt = torch.cat([tokens[:, 1:], firsts[r + 1][:, None]],
+                            dim=1)[:, :m - lead]
         else:
             tgt, logits = tokens[:, 1:], logits[:, :-1]
-        lp = torch.log_softmax(logits.float(), dim=-1)
+        lp = torch.log_softmax(logits[:, lead:].float(), dim=-1)
         nll = -torch.gather(lp, -1, tgt.long()[..., None])[..., 0]
-        share = nll.sum() / (b * (n * s - 1))
+        share = nll.sum() / (b * (n * m - self.cfg.vision_tokens - 1))
         return share + 0.01 * aux / n, {"nll": share, "aux": aux}
 
     # -- decode ----------------------------------------------------------------

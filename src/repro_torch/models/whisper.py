@@ -19,6 +19,17 @@ the card); cross-attention takes the plain version
 (``attention.cross_attn_forward``). ``decode_step`` writes the new
 self-attention K/V into the cache in place, as ``attention.attn_decode``
 does, and returns it.
+
+Under ``seq_axis`` (context parallelism; the reference's Whisper ignores
+the axis, so its values are the unsharded model's) ``forward`` runs the
+decoder on the rank's block of ``S / n`` tokens: self-attention on the
+gathered causal prefix (``attention.attn_forward(seq_axis=)``),
+cross-attention of the rank's queries against the whole encoder output's
+K/V, the sinusoids the rank's rows of the whole sequence's; ``loss`` is
+the rank's share (``Model._loss_share``). The encoder runs whole on every
+rank of the axis (its attention is bidirectional), on the rows of
+``audio_embed`` the batch axes give the rank. Decode holds the caches
+whole on every rank and runs alike on each.
 """
 from __future__ import annotations
 
@@ -102,19 +113,24 @@ class WhisperModel(Model):
     # -- decoder, full sequence ---------------------------------------------
     def forward(self, params, batch: Dict[str, Any]):
         """Returns (logits [B, S, V] f32, aux 0). batch: ``tokens`` [B, S],
-        ``audio_embed`` [B, Se, D]."""
-        cfg = self.cfg
+        ``audio_embed`` [B, Se, D]; under ``seq_axis`` the rank's block of
+        the tokens and its logits [B, S / n, V]."""
+        cfg, mesh, axis = self.cfg, self.mesh, self.seq_axis
         enc_out = self.encode(params, batch["audio_embed"])
         tokens = batch["tokens"]
-        s = tokens.shape[1]
+        m = tokens.shape[1]
+        n, r = (1, 0) if axis is None else (mesh.axis_size(axis),
+                                            mesh.axis_index(axis))
         x = params["embed"][tokens].to(compute_dtype_of(cfg))
-        x = x + sinusoidal_positions(s, cfg.d_model,
-                                     device=x.device)[None].to(x.dtype)
+        # the rank's rows of the whole sequence's table (so its bits)
+        pe = sinusoidal_positions(n * m, cfg.d_model, device=x.device)
+        x = x + pe[r * m:(r + 1) * m][None].to(x.dtype)
         for lp in unstack(params["decoder"], cfg.n_layers):
             h = self._norm(lp["norm1"], x)
             x = x + attn_lib.attn_forward(lp["self_attn"], h, None, cfg,
                                           causal=True, rope=False,
-                                          backend=self.backend)
+                                          backend=self.backend, mesh=mesh,
+                                          seq_axis=axis)
             h = self._norm(lp["norm_x"], x)
             ck, cv = attn_lib.cross_kv(lp["cross_attn"], enc_out, cfg)
             x = x + attn_lib.cross_attn_forward(lp["cross_attn"], h, ck, cv,

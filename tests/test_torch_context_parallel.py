@@ -37,8 +37,9 @@ Bounds:
   16 slots split over the ranks of ``"data"``) equal to the reference's
   decode loop, and every step's logits along that path 2e-5 of the
   reference's (the tokens alone do not see a skewed combine of the ranks'
-  softmaxes at smoke size); zamba2-2.7b (no ``seq_axis``: its Mamba2
-  layers carry state) decodes a batch of one with ``global_batch=1``, its
+  softmaxes at smoke size); zamba2-2.7b without ``seq_axis`` (its
+  context parallelism: ``tests/test_torch_context_parallel_state.py``)
+  decodes a batch of one with ``global_batch=1``, its
   shared attention's cache split over ``"data"`` at 16 slots (which
   divide) and whole at 15 (which do not), against the reference's too;
 - ``gather_seq``'s backward is bitwise this rank's block of the ordered
@@ -54,8 +55,8 @@ Bounds:
   one float32 spacing of the reference's step, and every leaf held whole
   on ``"model"`` bitwise equal on every rank.
 
-The ``ValueError``s of ``Model(seq_axis=...)`` need no ranks: a stand-in
-mesh in this process.
+The ``ValueError``s of ``Model(seq_axis=...)``, and the families that now
+build under it, need no ranks: a stand-in mesh in this process.
 """
 import dataclasses
 import json
@@ -659,14 +660,18 @@ def _mesh(shape):
                     groups={}, data_axis=tuple(shape)[-1])
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("zamba2-2.7b", "mamba"), ("xlstm-350m", "xlstm_pair"),
+@pytest.mark.parametrize("arch,family", [
+    ("zamba2-2.7b", "hybrid"), ("xlstm-350m", "xlstm"),
     ("whisper-base", "audio"), ("qwen2-vl-72b", "vlm")])
-def test_seq_axis_raises_where_state_runs_along_the_sequence(arch, what):
+def test_seq_axis_builds_where_state_runs_along_the_sequence(arch, family):
+    """The carried layers (``mamba``, ``xlstm_pair``) and the ``audio`` and
+    ``vlm`` families run under ``seq_axis`` on the whole gathered sequence
+    (their parity: ``tests/test_torch_context_parallel_state.py``)."""
     cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(ValueError, match=what):
-        build_model(cfg, mesh=_mesh({"data": 4, "model": 1}),
-                    seq_axis="data", dp_axes=())
+    model = build_model(cfg, mesh=_mesh({"data": 4, "model": 1}),
+                        seq_axis="data", dp_axes=())
+    assert (cfg.family, model.seq_axis, model.batch_axes) == \
+        (family, "data", ())
 
 
 @pytest.mark.parametrize("kw", [
