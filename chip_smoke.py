@@ -434,9 +434,27 @@ Phases (any failure exits non-zero without the final result line):
    the text targets only, within 1e-5. (d) whisper-base whole: a bf16 4 x
    448 prefill over 4 x 1500 frames on 4 x 1 (112 tokens a rank, the
    encoder whole on each) against one process, the f32 copy within 2e-4,
-   f32 greedy decode from whole caches equal to one process's, 2 SGD
-   steps on its first row (losses falling, the weights bitwise equal on
-   every rank).
+   f32 greedy decode equal to one process's (from caches split as
+   ``cache_specs`` lays them out: the self and cross slots over
+   ``seq_axis``), 2 SGD steps on its first row (losses falling, the
+   weights bitwise equal on every rank).
+29. The decode caches as ``cache_specs`` lays them out, in phase 23's
+   ranks (``_cl_rank``, checked by ``phase_cache_layout``; alone:
+   ``--cl-rank`` ranks started by ``spawn_cache_layout``): every rank
+   holds exactly ``cache_specs``' block of every KV cache. (a)
+   granite-34b at full width with 2 layers (48 query heads on one kv head
+   of 128): on 1 x 4 at batch 2 (12 query heads a rank, the kv head's
+   ``head_dim`` 32 a rank) and on 2 x 2 at batch 1 (``head_dim`` 64 a
+   rank, the slots over data), a 24-token prompt replayed through
+   ``serve.generate`` and 8 greedy tokens, bf16 and an f32 copy: the f32
+   tokens equal one process's whole-cache decode on the same weights, the
+   last f32 logits within 1e-3, the cache a rank exactly a quarter of the
+   whole's bytes, the sums and gathers of the 32 decode steps exact in
+   count and bytes, tokens/s and the sums' seconds printed. (b)
+   whisper-base whole, f32: batch 1 on 4 x 1 (self and cross slots over
+   data, 375 of the 1,500 frames a rank), batch 1 on 2 x 2 (4 heads a
+   rank, the slots over data), batch 4 on 1 x 4 (2 heads a rank); the
+   same checks.
 
 Phase 3 also holds the lane-batched entries at S = 4 (``mule_agg_lanes``
 at the sweep's, Table 1's and the multi-area shapes; ``encounter_mix_lanes``
@@ -965,7 +983,8 @@ VISION_PARAMS = 4_246_794_240
 # AUDIO_ARCH whole, bf16 AUDIO_B x AUDIO_S tokens over AUDIO_B x 1500
 # frames on MESH_RANKS x 1 against one process (TP_BF16_GAP), the f32 copy
 # (REF_PREFILL_TOL), CS_TRAIN_STEPS SGD steps on CS_AUDIO_TRAIN_B rows, f32
-# greedy decode at batch 1 from whole caches equal to one process's. Depth is cut for time only:
+# greedy decode at batch 1 from split caches equal to one process's.
+# Depth is cut for time only:
 # zamba2 to 12 of 54 layers (two shared attention layers, so the split KV
 # cache and the gathers of both kinds run), qwen2-vl to 2 of 80 (its whole
 # weights, 17 GB of f32, fit 2 x 2 at half a rank)
@@ -976,6 +995,24 @@ CS_TRAIN_S, CS_TRAIN_STEPS, CS_LR = 1024, 2, 0.01
 # (d)'s SGD steps on the first row of the batch: the encoder's 1500
 # frames with their gradient on every rank took ~19 GB a rank at 4 rows
 CS_AUDIO_TRAIN_B = 1
+# the decode caches as cache_specs lays them out (phase 29), in phase 23's
+# ranks, every rank holding exactly cache_specs' block of every KV cache:
+# (a) CL_ARCH (48 query heads on one kv head of 128) at full width with
+# WIDE_LAYERS layers, a CL_PROMPT-token prompt replayed through
+# serve.generate and CL_GEN greedy tokens in bf16 and in an f32 copy, on
+# each of CL_MESHES ((data, model), global batch): 1 x 4 (12 query heads a
+# rank, head_dim 32 a rank) and 2 x 2 at batch 1 (head_dim 64 a rank, the
+# slots over data); (b) AUDIO_ARCH whole, f32, on each of CL_AUDIO_MESHES:
+# batch 1 on 4 x 1 (self and cross slots over data, 375 of the 1,500
+# frames a rank), batch 1 on 2 x 2 (4 heads a rank, the slots over data),
+# batch 4 on 1 x 4 (2 heads a rank). The f32 tokens must equal one
+# process's whole-cache decode on the same weights, the last logits within
+# DECODE_TOL, the cache a rank exactly the block's bytes, and the sums and
+# gathers of the CL_PROMPT + CL_GEN decode steps exact in count and bytes
+CL_ARCH = "granite-34b"
+CL_MESHES = (((1, 4), 2), ((2, 2), 1))
+CL_AUDIO_MESHES = (((4, 1), 1), ((2, 2), 1), ((1, 4), 4))
+CL_PROMPT, CL_GEN = 24, 8
 
 
 def _hold(label: str, out, want, atol: float, rtol: float) -> float:
@@ -7722,7 +7759,7 @@ def _cs_audio(cs: dict, note, free) -> None:
     row["gap"] = (logits - want).abs().max().item()
     del logits, want, prefill
     note(f"(28d) {AUDIO_ARCH} prefills")
-    # the f32 copy, and greedy decode of a batch of one from whole caches
+    # the f32 copy, and greedy decode of a batch of one from split caches
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     local32 = build_model(cfg32)
     model32 = lm_ranks.rank_model(cfg32, MESH_RANKS, 1, seq_axis="data")[1]
@@ -7787,6 +7824,108 @@ def _cs_rank(rep: dict, note, free) -> None:
 
 
 
+def _cl_moved() -> list:
+    """[sums, their bytes, gathers, their bytes, the sums' seconds] this
+    process's transfers made so far."""
+    from repro_torch.core.distributed import PSUM_COUNTS
+    from repro_torch.launch import collectives
+    g = collectives.COLLECTIVE_COUNTS["all-gather"]
+    return [PSUM_COUNTS["calls"], PSUM_COUNTS["part_bytes"], g["calls"],
+            g["sent_bytes"], PSUM_COUNTS["seconds"]]
+
+
+def _cl_decode(model, params, prompt, audio, b: int) -> tuple:
+    """Phase 29's counted ``serve.generate`` of ``prompt`` (the rank's
+    rows) with the global batch ``b``: (its last logits, {tokens, walls,
+    what the decode steps moved, the sums' seconds, the bytes of the
+    cache's KV leaves})."""
+    import torch
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.serve import generate
+    torch.cuda.synchronize()
+    before = _cl_moved()
+    out = generate(model, params, prompt, CL_GEN, audio_embed=audio,
+                   global_batch=b)
+    moved = [x - y for x, y in zip(_cl_moved(), before)]
+    cache = model.init_cache(prompt.shape[0], CL_PROMPT + CL_GEN,
+                             dtype=torch.float32, device="meta",
+                             global_batch=b)
+    kv = sum(t.numel() * t.element_size() for t in tree_leaves(cache)
+             if t.dim() >= 4)
+    return out["logits"], {
+        "tokens": out["tokens"].tolist(), "finite": out["finite"],
+        "decode_s": out["decode_s"], "prefill_s": out["prefill_s"],
+        "moved": moved[:4], "sum_s": moved[4], "kv_bytes": kv}
+
+
+def _cl_rank(rep: dict, note, free) -> None:
+    """Phase 29 in one rank of phase 23's world (``mesh_rank``): fills
+    ``rep["cl"]``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_ranks
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import rank_specs, shard_tree
+    from repro_torch.models import build_model
+    cl = rep["cl"] = {"a": [], "b": []}
+    # (a) CL_ARCH at full width, WIDE_LAYERS layers
+    cfg = dataclasses.replace(get_config(CL_ARCH), n_layers=WIDE_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    local = build_model(cfg32)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    for (dp, tp), b in CL_MESHES:
+        prompt = lm_ranks.tokens(cfg, b, CL_PROMPT, SEED + 50, "cuda")
+        with torch.no_grad():
+            want, one = _cl_decode(local, full, prompt, None, b)
+        entry = {"mesh": [dp, tp], "b": b, "one_process": one}
+        for c in (cfg, cfg32):
+            mesh, model = lm_ranks.rank_model(c, dp, tp)
+            shard = shard_tree(full, rank_specs(c, full, mesh), mesh)
+            rows = b // dp if b % dp == 0 else b
+            lo = entry["lo"] = \
+                mesh.axis_index("data") * rows if b % dp == 0 else 0
+            dist.barrier()
+            with torch.no_grad():
+                logits, entry[c.dtype] = _cl_decode(
+                    model, shard, prompt[lo:lo + rows], None, b)
+            if c is cfg32:
+                entry["diff"] = (logits - want[lo:lo + rows]).abs().max() \
+                    .item()
+                entry["logit_max"] = want.abs().max().item()
+            del shard, logits
+        cl["a"].append(entry)
+        del want
+        note(f"(29a) {CL_ARCH} on {dp} x {tp}")
+    del full, local
+    free()
+    # (b) AUDIO_ARCH whole, f32
+    cfg32 = dataclasses.replace(get_config(AUDIO_ARCH), dtype="float32")
+    local = build_model(cfg32)
+    full = lm_ranks.full_params(local, SEED, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 51)
+    for (dp, tp), b in CL_AUDIO_MESHES:
+        prompt = lm_ranks.tokens(cfg32, b, CL_PROMPT, SEED + 52, "cuda")
+        frames = _frames(cfg32, b, gen)
+        with torch.no_grad():
+            want, one = _cl_decode(local, full, prompt, frames, b)
+        mesh, model = lm_ranks.rank_model(cfg32, dp, tp)
+        rows = b // dp if b % dp == 0 else b
+        lo = mesh.axis_index("data") * rows if b % dp == 0 else 0
+        dist.barrier()
+        with torch.no_grad():
+            logits, got = _cl_decode(model, full, prompt[lo:lo + rows],
+                                     frames[lo:lo + rows], b)
+        cl["b"].append({"mesh": [dp, tp], "b": b, "one_process": one,
+                        "float32": got, "lo": lo,
+                        "diff": (logits - want[lo:lo + rows]).abs().max()
+                        .item(), "logit_max": want.abs().max().item()})
+        del logits, want
+        note(f"(29b) {AUDIO_ARCH} on {dp} x {tp}")
+    del full, local
+
+
 def _rank_tools(rep: dict, label: str):
     """(lap, note, free) of a rank of the card's world: ``lap(part)`` keeps
     the seconds since the last lap under ``rep["laps"][part]``, ``note``
@@ -7830,34 +7969,51 @@ def _rank_start(flag: str) -> dict:
     return {"rank": dist.get_rank(), "laps": {"start": time.time()}}
 
 
-def cs_rank(out_dir: str) -> None:
-    """Phase 28 alone in one rank (``chip_smoke.py --cs-rank DIR``, started
-    by ``spawn_context_state``): ``_cs_rank``; writes its report to
-    DIR/rank<r>.json."""
-    rep = _rank_start("--cs-rank")
-    _, note, free = _rank_tools(rep, "cs rank")
-    _cs_rank(rep, note, free)
+# the parts of phase 23's world that also run alone in ranks of their own:
+# flag -> (the ranks' label, the part)
+_PART_RANKS = {"--cs-rank": ("cs rank", "_cs_rank"),
+               "--cl-rank": ("cl rank", "_cl_rank")}
+
+
+def part_rank(flag: str, out_dir: str) -> None:
+    """One part of phase 23's world alone in one rank (``chip_smoke.py
+    --cs-rank DIR`` for phase 28, ``--cl-rank DIR`` for phase 29, started by
+    ``spawn_part``); writes its report to DIR/rank<r>.json."""
+    label, part = _PART_RANKS[flag]
+    rep = _rank_start(flag)
+    _, note, free = _rank_tools(rep, label)
+    globals()[part](rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rep['rank']}.json").write_text(json.dumps(rep))
 
 
-def spawn_context_state() -> list:
-    """Phase 28's ranks alone (MESH_RANKS of ``--cs-rank``, as phase 23
-    starts its own): their reports, for ``phase_context_state``."""
+def spawn_part(flag: str) -> list:
+    """MESH_RANKS ranks of ``part_rank(flag)``, as phase 23 starts its own:
+    their reports, for the part's phase function."""
     import os
     import tempfile
     from repro_torch.launch.multiprocess import spawn_local_cluster
     with tempfile.TemporaryDirectory() as out_dir:
         outs = spawn_local_cluster(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--cs-rank",
-             out_dir], MESH_RANKS, timeout=MESH_TIMEOUT, base_env={
-                 **os.environ,
-                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag, out_dir],
+            MESH_RANKS, timeout=MESH_TIMEOUT, base_env={
+                **os.environ,
+                "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
         ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
     for line in outs[0].stdout.splitlines():
         print(f"  rank 0: {line}")
     return ranks
+
+
+def spawn_context_state() -> list:
+    """Phase 28's ranks alone, for ``phase_context_state``."""
+    return spawn_part("--cs-rank")
+
+
+def spawn_cache_layout() -> list:
+    """Phase 29's ranks alone, for ``phase_cache_layout``."""
+    return spawn_part("--cl-rank")
 
 
 def mesh_rank(out_dir: str) -> None:
@@ -8104,6 +8260,8 @@ def mesh_rank(out_dir: str) -> None:
     _fsdp_rank(rep, note, free)
     _ha_rank(rep, note, free)
     _cs_rank(rep, note, free)
+    free()
+    _cl_rank(rep, note, free)
     rep["laps"]["end"] = time.time()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
 
@@ -9676,8 +9834,9 @@ def phase_context_state(card: str, ranks: list):
           f"|logits - one process's| {gap:.4e} (bound {TP_BF16_GAP}); f32 "
           f"copy max |diff| {diff:.3e} (tol {REF_PREFILL_TOL}, logits up to "
           f"{x['f32']['logit_max']:.3f}); greedy decode at batch 1 "
-          f"({CS_PROMPT} + {CS_GEN} tokens, the caches whole on every "
-          f"rank): {'equal one process' if same else 'DIFFERENT'}; "
+          f"({CS_PROMPT} + {CS_GEN} tokens, the self and cross caches' "
+          f"slots over data): "
+          f"{'equal one process' if same else 'DIFFERENT'}; "
           f"{CS_TRAIN_STEPS} SGD steps (lr {CS_LR}) at {CS_AUDIO_TRAIN_B} x "
           f"{AUDIO_S}: step walls "
           f"{[round(y, 4) for y in steps]} s, losses "
@@ -9701,6 +9860,141 @@ def phase_context_state(card: str, ranks: list):
           f"{ {k: round(v, 1) for k, v in laps.items() if k.startswith('(28')} }"
           f"), the checks here {time.perf_counter() - t_phase:.1f} s")
     return paths, shapes
+
+
+def _cl_step_moves(cfg, dp: int, tp: int, b: int, s: int,
+                   item: int) -> list:
+    """[sums, their bytes, gathers, their bytes] of one decode step of
+    ``cfg`` on a rank of ``dp`` x ``tp`` decoding ``b`` rows from
+    ``cache_specs``' blocks of ``s``-slot caches, from the layout alone:
+    the vocabulary's sum and gather (LM, vocabulary split), then per
+    attention layer q's gather (``head_dim`` cut under a split ``wq``, in
+    the compute dtype of ``item`` bytes), the f32 scores' sum and output's
+    gather (``head_dim`` cut), the f32 partial softmaxes' gather (slots
+    cut), the heads' f32 outputs' gather (Whisper, heads cut), the output
+    projection's and the MLP's sums (weights split)."""
+    from repro_torch.models.api import build_program
+    hd, heads, kv, d = (cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_model)
+    audio = cfg.family == "audio"
+    by_heads = tp > 1 and kv % tp == 0
+    by_dim = tp > 1 and not by_heads and hd % tp == 0
+    sums, gathers = [], []
+
+    def attn(slots, q_split):
+        n = dp if dp > 1 and b % dp and slots % dp == 0 else 1
+        m = slots // n
+        hq, hdr = (heads // tp, hd) if by_heads else \
+            (heads, hd // tp) if by_dim else (heads, hd)
+        if by_dim and q_split:
+            gathers.append(b * heads // tp * hd * item)
+        if by_dim:
+            sums.append(b * heads * m * 4)
+        if n > 1:
+            gathers.append(b * hq * (2 + hdr) * 4)
+        if by_dim:
+            gathers.append(b * heads * hdr * 4)
+        if audio and by_heads:
+            gathers.append(b * hq * hd * 4)
+        if q_split:
+            sums.append(b * d * item)
+
+    if audio:
+        for _ in range(cfg.n_layers):
+            attn(s, False)
+            attn(cfg.encoder_seq, False)
+    else:
+        if tp > 1 and cfg.vocab % tp == 0:
+            sums.append(b * d * item)
+            gathers.append(b * cfg.vocab // tp * 4)
+        for st in build_program(cfg):
+            for _ in range(st.count):
+                attn(s if st.window is None else min(st.window, s),
+                     tp > 1 and heads % tp == 0)
+                if tp > 1 and cfg.d_ff % tp == 0:
+                    sums.append(b * d * item)
+    return [len(sums), sum(sums), len(gathers), sum(gathers)]
+
+
+def _cl_held(label: str, cfg, entries: list, card: str) -> None:
+    """Phase 29's checks of one model's decodes on each mesh, from every
+    rank's ``entries`` (one list a rank): the tokens equal on every rank
+    and, in f32, to one process's whole-cache decode; the f32 last logits
+    within DECODE_TOL; the cache a rank exactly a quarter of the whole's
+    bytes; the sums and gathers of the decode steps exactly
+    ``_cl_step_moves``' each step."""
+    steps = CL_PROMPT + CL_GEN
+    for i, first in enumerate(entries[0]):
+        (dp, tp), b = first["mesh"], first["b"]
+        rows = b // dp if b % dp == 0 else b
+        one = first["one_process"]
+        for dtype in ("bfloat16", "float32"):
+            if dtype not in first:
+                continue
+            c = dataclasses.replace(cfg, dtype=dtype)
+            want = [steps * x for x in _cl_step_moves(
+                c, dp, tp, rows, steps, 2 if dtype == "bfloat16" else 4)]
+            runs = [e[i][dtype] for e in entries]
+            for r, x in enumerate(runs):
+                if not x["finite"] or x["moved"] != want or \
+                        4 * x["kv_bytes"] != one["kv_bytes"]:
+                    raise AssertionError(
+                        f"cl {label} {dtype} on {dp} x {tp}, rank {r}: "
+                        f"finite {x['finite']}, moved {x['moved']} "
+                        f"(expected {want}), cache {x['kv_bytes']} B "
+                        f"(expected a quarter of {one['kv_bytes']} B)")
+            los = [e[i]["lo"] for e in entries]
+            by_lo = {lo: x["tokens"] for lo, x in zip(los, runs)}
+            if any(x["tokens"] != by_lo[lo] for lo, x in zip(los, runs)):
+                raise AssertionError(f"cl {label} {dtype} on {dp} x {tp}: "
+                                     f"the ranks of one block of rows "
+                                     f"decode different tokens")
+            wall = max(x["decode_s"] for x in runs)
+            sum_s = max(x["sum_s"] for x in runs)
+            line = (f"cl {label} {dtype} decode on {dp} x {tp} at global "
+                    f"batch {b} ({rows} of its rows a rank): "
+                    f"{rows * CL_GEN / wall:.2f} tokens/s ({wall:.3f} s for "
+                    f"{CL_GEN} tokens, prompt "
+                    f"replay {max(x['prefill_s'] for x in runs):.3f} s; one "
+                    f"process {rows * CL_GEN / one['decode_s']:.2f} tokens/s);"
+                    f" a step {want[0] // steps} sums of "
+                    f"{want[1] // steps} B and {want[2] // steps} gathers of "
+                    f"{want[3] // steps} B, exact; {sum_s:.3f} s in the sums "
+                    f"over {steps} steps; cache {runs[0]['kv_bytes']} B a "
+                    f"rank of {one['kv_bytes']} B whole")
+            if dtype == "float32":
+                diff = max(e[i]["diff"] for e in entries)
+                if any(x["tokens"] != one["tokens"][lo:lo + rows]
+                       for lo, x in zip(los, runs)):
+                    raise AssertionError(f"cl {label} f32 on {dp} x {tp}: "
+                                         f"the greedy tokens are not one "
+                                         f"process's")
+                line += (f"; tokens equal one process's"
+                         f"; max |logits - one process's| {diff:.3e} (bound "
+                         f"{DECODE_TOL}, logits up to "
+                         f"{first['logit_max']:.2f})")
+                if not diff <= DECODE_TOL:
+                    raise AssertionError(f"cl {label} f32 on {dp} x {tp}: "
+                                         f"logits {diff:.3e} from one "
+                                         f"process's")
+            print(line + f" [{card}]")
+
+
+def phase_cache_layout(card: str, ranks: list) -> None:
+    """Phase 29: the decode caches as ``cache_specs`` lays them out, run by
+    phase 23's ranks (``_cl_rank``); holds their reports (``_cl_held``)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(CL_ARCH), n_layers=WIDE_LAYERS)
+    _cl_held(CL_ARCH, cfg, [r["cl"]["a"] for r in ranks], card)
+    _cl_held(AUDIO_ARCH, get_config(AUDIO_ARCH),
+             [r["cl"]["b"] for r in ranks], card)
+    laps = ranks[0]["laps"]
+    print(f"decode caches as cache_specs lays them out: the ranks' part "
+          f"{sum(v for k, v in laps.items() if k.startswith('(29')):.1f} s "
+          f"(rank 0's laps, in phase 23's wall; by part "
+          f"{ {k: round(v, 1) for k, v in laps.items() if k[:3] == '(29'} }"
+          f"), the checks here {time.perf_counter() - t_phase:.1f} s")
 
 
 def _profile_steps(fn, n_steps: int, label: str,
@@ -9778,8 +10072,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2])
         return 0
-    if sys.argv[1:2] == ["--cs-rank"]:
-        cs_rank(sys.argv[2])
+    if sys.argv[1:2] and sys.argv[1] in _PART_RANKS:
+        part_rank(sys.argv[1], sys.argv[2])
         return 0
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs on an NVIDIA GPU",
@@ -9880,6 +10174,8 @@ def main() -> int:
         rows[3]["cs_shapes"] = cs_shapes["flash_attention"]
         rows[4]["cs_shapes"] = cs_shapes["ssd_scan"]
         rows[5]["cs_shapes"] = cs_shapes["slstm_scan"]
+        phase = enter("decode caches as cache_specs lays them out")
+        phase_cache_layout(card, ranks)
     except Exception:
         traceback.print_exc()
         print(f"FAILED in phase: {phase}", file=sys.stderr)

@@ -21,9 +21,11 @@ the rank's coordinates and no process group: the model is
 else "model", fsdp=...)``, the rank holds its ``rank_specs`` blocks (with
 ``--fsdp``, the FSDP cut too; ``--population``, every leaf whole and the
 batch over the whole mesh), its block of the batch (``batch_specs``) and,
-for decode, its cache (``Model.init_cache`` with the global batch:
-``cache_specs``' kv heads and ``cache_seq_axes``, so ``long_500k``'s batch
-of one holds its block of the slots). Every collective on the path is a
+for decode, its cache (``Model.init_cache`` with the global batch, every
+family: ``cache_specs``' block of each KV cache, the kv heads or
+``head_dim`` over ``model``, so ``long_500k``'s batch of one holds its
+block of the slots too; ``launch.sharding.kv_cache_cut``). Every
+collective on the path is a
 custom op (``launch.collectives``, ``core.distributed.ordered_psum_op``)
 whose shape rule moves nothing on ``meta``, and ``CostCounter`` prices it
 by kind: the row's ``coll_breakdown``, its collective term at the rate
@@ -33,9 +35,10 @@ The count needs no ``torch.distributed`` process group.
 Each row is ``roofline.Roofline.row()`` (the reference's keys, and
 ``link``) with the count's peak live bytes as ``peak_memory_gb`` (a rank's,
 on a production mesh), ``fits_one_card`` (that peak within the card's 80
-GB), ``param_bytes_per_device`` (the rank's parameter blocks), the
-kernels' calls and the count's seconds; its ``status`` is ``ok``, ``skip``
-(the reference's ``skip_reason``) or ``FAIL`` with the error.
+GB), ``param_bytes_per_device`` (the rank's parameter blocks), for decode
+``cache_bytes_per_device`` (the rank's cache), the kernels' calls and the
+count's seconds; its ``status`` is ``ok``, ``skip`` (the reference's
+``skip_reason``) or ``FAIL`` with the error.
 ``--remat`` (on by default, as the reference's; ``--remat-policy``)
 checkpoints each layer of a train step (``Model.remat``).
 
@@ -104,8 +107,8 @@ def rank_inputs(model, shape: InputShape) -> Dict:
     """One step's inputs at ``shape`` on ``meta`` as the rank of
     ``model.mesh`` holds them (the whole of them without a mesh): its block
     of the batch (``lm_ranks.rank_batch``), or for decode its rows' token
-    and cache (``Model.init_cache`` with the global batch, where the family
-    takes one) and the last position."""
+    and cache (``init_cache`` with the global batch) and the last
+    position."""
     mesh = model.mesh
     if mesh is None:
         return model.input_specs(shape)
@@ -115,12 +118,11 @@ def rank_inputs(model, shape: InputShape) -> Dict:
     b = shape.global_batch
     n = mesh.axis_size(data_axes(mesh))
     rows = b // n if b % n == 0 else b
-    kw = {} if model.cfg.family == "audio" else {"global_batch": b}
     return {"token": torch.zeros((rows, 1), dtype=torch.int32,
                                  device="meta"),
             "pos": shape.seq_len - 1,
             "cache": model.init_cache(rows, shape.seq_len, device="meta",
-                                      **kw)}
+                                      global_batch=b)}
 
 
 def count_step(model, shape: InputShape, optimizer=None,
@@ -211,6 +213,10 @@ def dryrun_one(arch: str, shape: InputShape, *, smoke: bool = False,
                param_bytes_per_device=held, kernels=dict(cc.kernels))
     if mesh != "one":
         row.update(tp=tp, fsdp=fsdp, population=population)
+    if shape.kind == "decode":      # the decode cache a rank holds
+        row["cache_bytes_per_device"] = sum(
+            t.numel() * t.element_size()
+            for t in tree_leaves(rank_inputs(model, shape)["cache"]))
     if verbose:
         where = ("one card" if mesh == "one" else
                  f"rank 0 of {'x'.join(map(str, model.mesh.shape.values()))}"
@@ -223,9 +229,12 @@ def dryrun_one(arch: str, shape: InputShape, *, smoke: bool = False,
               f"FLOPs {rl.flops_per_device:.3e} {dict(rl.flops_by)}")
         mib = {k: f"{v / 2**20:.1f}MiB" for k, v in rl.coll_breakdown.items()}
         print(f"  collectives: {mib}")
+        cache = row.get("cache_bytes_per_device")
         print(f"  peak {row['peak_memory_gb']:.2f} GiB "
               f"(fits one card: {row['fits_one_card']}), params "
-              f"{held / 2**30:.2f} GiB, kernels {row['kernels']}, "
+              f"{held / 2**30:.2f} GiB"
+              + ("" if cache is None else f", cache {cache / 2**30:.2f} GiB")
+              + f", kernels {row['kernels']}, "
               f"useful_flops_ratio {rl.useful_flops_ratio:.3f}, count "
               f"{t_count:.1f}s")
     return row

@@ -17,8 +17,9 @@ parallelism its block of the sequence). Both read the layout from the
 model (``Model.replicate``, ``Model.batch_axes``, ``Model.seq_axis``), so
 the blocks, the batch and the reduction over ranks of ``launch.steps``
 agree. Its decode
-cache is ``Model.init_cache``'s on the mesh: the kv heads, SSM heads and
-``conv_x`` channels its own compute reads. The steps it then runs are the
+cache is ``Model.init_cache``'s on the mesh: ``cache_specs``' block of
+each KV cache, and the SSM heads and ``conv_x`` channels its own compute
+reads. The steps it then runs are the
 port's own (``steps.make_prefill_step``, ``serve.generate``,
 ``steps.make_train_step``).
 

@@ -41,7 +41,9 @@ def generate(model: Model, params, prompt: torch.Tensor, gen: int,
     encoded into the fresh cache (``prefill_cross_kv``) first.
 
     On a mesh of ranks (``model.mesh``), ``params`` and ``prompt`` are the
-    rank's blocks and the cache is the rank's (``Model.init_cache``);
+    rank's blocks (the prompt's rows the same on every peer of
+    ``"model"``) and the cache is the rank's (``init_cache``, Whisper's
+    too: ``cache_specs``' blocks);
     ``decode_step`` returns the whole logits on every model peer (gathered
     over ``"model"``), so every peer picks the same greedy token. The
     cache's slots are split over ranks as ``Model.init_cache`` says (under

@@ -30,24 +30,26 @@ read which split they hold from their leaves' shapes against the config
 ``models/mamba2.py``, ``models/api.py``'s vocabulary, ``models/moe.py``'s
 experts), so a leaf held whole runs whole, with no collective.
 
-The decode cache a rank holds (``Model.init_cache`` on a mesh) is the one
-its own compute needs, which is ``cache_specs``' block where that spec
-splits the kv heads or the SSM heads over ``model``. Where the kv heads do
-not divide, ``cache_specs`` splits ``head_dim`` instead; the port's rank
-holds the kv heads its query heads read, whole, since its attention runs
-on whole heads (and, where ``wq`` is whole, every kv head: decode does not
-take ``head_axis``, as the reference's does not). Where the SSM heads do
-not divide and ``d_in`` does, the rank's ``ssm`` state holds its channels
-as sub-heads (``models/mamba2.py``). ``cache_specs``' sequence rule is executed
-(``cache_seq_axes``): for a batch that does not divide the data axes (every
-rank then holds it whole) a KV cache whose slots divide them holds the
-rank's block of slots, full caches and rolling windows alike, and decode
-combines the ranks' partial softmaxes (``models/attention.py``). The
-``audio`` family (Whisper) holds its caches whole, as it does its heads.
+The decode caches a rank holds (``Model.init_cache`` and
+``WhisperModel.init_cache`` on a mesh) are ``cache_specs``' blocks.
+``kv_cache_cut`` says, in that spec's order of rules, which dimensions of
+a KV cache [B, slots, kv, hd] are cut and along which axes: the kv heads
+over ``model`` where they divide, else ``head_dim``; the slots over the
+data axes for a batch that does not divide them (every rank then holds it
+whole), or over ``seq_axis`` under context parallelism. The layers read
+it, and decode runs on the block (``models/attention.py``: partial scores
+summed over ``model`` on a ``head_dim`` block, the ranks' partial
+softmaxes combined over the slots). Where neither the kv heads nor
+``head_dim`` divide, ``cache_specs`` leaves the cache whole and the rank
+holds the kv heads its query heads read (``attention.rank_kv_heads``).
+The population layout (``replicate``: the batch cut over ``model`` too,
+each rank decoding rows of its own) holds its KV caches whole. The SSM
+state holds the rank's SSM heads where they divide, and where they do not
+and ``d_in`` does, its channels as sub-heads (``models/mamba2.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -233,6 +235,43 @@ def cache_seq_axes(batch: int, slots: int, mesh):
     divide them and the slots do, else ``None``."""
     n = _axis_size(mesh, data_axes(mesh))
     return data_axes(mesh) if batch % n and slots % n == 0 else None
+
+
+class KVCut(NamedTuple):
+    """The axes a rank's KV cache [B, slots, kv, hd] is cut along, each
+    ``None`` where that dimension is whole (``kv_cache_cut``)."""
+    heads: Optional[str] = None
+    head_dim: Optional[str] = None
+    slots: Any = None
+
+    def spec(self) -> Spec:
+        """The spec of one [B, slots, kv, hd] leaf under this cut."""
+        return (None, self.slots, self.heads, self.head_dim)
+
+
+def kv_cache_cut(cfg: ModelConfig, batch: Optional[int],
+                 slots: Optional[int], mesh, *, seq_axis=None) -> KVCut:
+    """``cache_specs``' rule for a KV cache of ``cfg`` with ``slots``
+    slots and a global ``batch``, in its order: the kv heads over
+    ``"model"`` where they divide, else ``head_dim`` where it does; the
+    slots over ``seq_axis`` where they divide it, else over the data axes
+    where ``batch`` does not divide them and the slots do
+    (``cache_seq_axes``). An axis of one rank cuts nothing. ``batch`` or
+    ``slots`` ``None``: no slot cut (each rank's rows are its own)."""
+    if mesh is None:
+        return KVCut()
+    tp = _axis_size(mesh, "model")
+    heads = head_dim = cut_slots = None
+    if tp > 1 and cfg.n_kv_heads % tp == 0:
+        heads = "model"
+    elif tp > 1 and cfg.resolved_head_dim % tp == 0:
+        head_dim = "model"
+    if slots is not None and seq_axis is not None:
+        n = _axis_size(mesh, seq_axis)
+        cut_slots = seq_axis if n > 1 and slots % n == 0 else None
+    elif slots is not None and batch is not None:
+        cut_slots = cache_seq_axes(batch, slots, mesh)
+    return KVCut(heads, head_dim, cut_slots)
 
 
 # ---------------------------------------------------------------------------

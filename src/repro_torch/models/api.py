@@ -46,8 +46,13 @@ path over ``"model"`` whatever ``moe_ep_axis`` says. The ``REPLICATED_ARCHS``
 (xlstm, audio) hold every leaf whole and cut the batch over ``(data,
 model)`` (``Model.batch_axes``, from ``batch_specs``), as does ``dp_axes``
 holding ``"model"`` (``Model.replicate``, the population layout). The
-decode cache a rank holds is sized from its blocks (``Model.init_cache``:
-the blocks of ``rank_specs`` on ``meta``). ``remat``
+decode cache a rank holds is ``cache_specs``' block of each KV cache (the
+kv heads or ``head_dim`` over ``"model"``, the slots where the global
+batch does not divide the data axes: ``launch.sharding.kv_cache_cut``),
+and the SSM state of its SSM heads, sized from its blocks
+(``Model.init_cache``: the blocks of ``rank_specs`` on ``meta``); the
+population layout, whose rows differ between the peers of ``"model"``,
+holds its caches whole. ``remat``
 checkpoints each layer of ``forward`` (``models/remat.py``;
 ``remat_policy`` "full" or "dots").
 
@@ -137,9 +142,10 @@ from repro_torch.configs import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.sharding import (REPLICATED_ARCHS, batch_specs,
-                                         cache_seq_axes, data_axes,
-                                         fsdp_dims, rank_specs, shard_tree)
+from repro_torch.launch.sharding import (REPLICATED_ARCHS, KVCut,
+                                         batch_specs, data_axes, fsdp_dims,
+                                         kv_cache_cut, rank_specs,
+                                         shard_tree)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -270,8 +276,9 @@ def _apply_layer(params, x, positions, cfg: ModelConfig, kind: str,
 
 def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
                   window: Optional[int], shared=None, mesh=None,
-                  dp_axes=("data",), slot_axes=None):
-    """Single-token decode for one layer; updates ``cache`` in place."""
+                  dp_axes=("data",), cut: KVCut = KVCut()):
+    """Single-token decode for one layer; updates ``cache`` in place
+    (an attention layer's KV cache the rank's block under ``cut``)."""
     if kind == "mamba":
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
         out, _ = mamba_lib.mamba2_decode(params["mixer"], h, cache, cfg,
@@ -284,8 +291,7 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
     p = shared if kind == "shared_attn" else params
     h = apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     out, _ = attn_lib.attn_decode(p["attn"], h, cache, pos, cfg,
-                                  window=window, mesh=mesh,
-                                  slot_axes=slot_axes)
+                                  window=window, mesh=mesh, cut=cut)
     x = x + out
     h = apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":       # the aux loss is dropped, as in the reference
@@ -297,11 +303,11 @@ def _decode_layer(params, x, cache, pos: int, cfg: ModelConfig, kind: str,
 
 def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
                       max_seq: int, dtype, device, block=None, mesh=None,
-                      seq_split: int = 1):
+                      cut: KVCut = KVCut()):
     """One stage's decode cache; with ``block``, the rank's parameters of
     the stage (its layer's, or the shared attention's, on ``meta``), the
-    heads and channels they hold; a KV cache's slots split ``seq_split``
-    ways (``attention.init_kv_cache``)."""
+    SSM heads and channels they hold; a KV cache the rank's block under
+    ``cut`` (``attention.rank_kv_heads``, ``init_kv_cache``)."""
     if stage.kind == "mamba":     # f32 whatever ``dtype``, as the reference
         c = mamba_lib.init_mamba2_cache(
             cfg, batch, device=device,
@@ -310,11 +316,12 @@ def _init_stage_cache(cfg: ModelConfig, stage: Stage, batch: int,
         c = {"mlstm": xlstm_lib.init_mlstm_cache(cfg, batch, device=device),
              "slstm": xlstm_lib.init_slstm_cache(cfg, batch, device=device)}
     else:
+        kv, hd = (None, None) if block is None else \
+            attn_lib.rank_kv_heads(block["attn"], cfg, mesh, cut)
         c = attn_lib.init_kv_cache(
             cfg, batch, max_seq, window=stage.window, dtype=dtype,
-            device=device, kv_heads=None if block is None else
-            attn_lib.rank_kv_heads(block["attn"], cfg, mesh),
-            seq_split=seq_split)
+            device=device, kv_heads=kv, head_dim=hd,
+            seq_split=1 if cut.slots is None else mesh.axis_size(cut.slots))
     if stage.count > 1:   # stacked [count, ...], a buffer of its own each
         c = tree_map(lambda l: l[None].repeat((stage.count,)
                                               + (1,) * l.dim()), c)
@@ -679,18 +686,19 @@ class Model:
     # -- decode ----------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device="cuda", *, global_batch: Optional[int] = None):
-        """The decode cache; on a mesh, the rank's kv heads, SSM heads and
-        ``conv_x`` channels (the ones its own compute reads), sized from
-        its blocks (``rank_blocks``).
+        """The decode cache; on a mesh, the rank's blocks: of each KV cache
+        ``cache_specs``' block (``_kv_cut``), of the SSM state its SSM heads
+        and ``conv_x`` channels (sized from its blocks, ``rank_blocks``).
 
-        ``batch`` is the rows this rank decodes. The KV caches' slots are
-        split over ranks (``_slot_axes``) where they divide: under
-        ``seq_axis``, over it (the batch is whole along it); else where
-        ``global_batch``, the batch all ranks decode together
-        (``cache_specs``' ``batch``), does not divide the data axes, over
-        them (``launch.sharding.cache_seq_axes``), every rank then holding
-        all ``global_batch`` rows. Without ``global_batch`` each rank's
-        rows are its own and no cache is split."""
+        ``batch`` is the rows this rank decodes, the same on every peer of
+        ``"model"``. The KV caches are cut as ``launch.sharding.
+        kv_cache_cut`` says: the kv heads or ``head_dim`` over
+        ``"model"``; the slots under ``seq_axis`` over it (the batch is
+        whole along it), else where ``global_batch``, the batch all ranks
+        decode together (``cache_specs``' ``batch``), does not divide the
+        data axes, over them, every rank then holding all
+        ``global_batch`` rows. Without ``global_batch`` each rank's rows
+        are its own and no slots are cut."""
         dev = resolve_device(device)
         if self.mesh is None:
             blocks = [None] * len(self.program)
@@ -698,37 +706,41 @@ class Model:
             whole = self.rank_blocks()
             blocks = [whole.get("shared_attn") if s.kind == "shared_attn"
                       else sp for s, sp in zip(self.program, whole["stages"])]
-        return [_init_stage_cache(self.cfg, s, batch, max_seq, dtype, dev,
-                                  block, self.mesh,
-                                  self._seq_split(s, batch, max_seq,
-                                                  global_batch))
+        return [_init_stage_cache(
+                    self.cfg, s, batch, max_seq, dtype, dev, block, self.mesh,
+                    KVCut() if s.kind in ("mamba", "xlstm_pair") else
+                    self._kv_cut(attn_lib.cache_slots(max_seq, s.window),
+                                 batch, global_batch))
                 for s, block in zip(self.program, blocks)]
 
-    def _slot_axes(self):
-        """The axes a split KV cache's slots are cut along: ``seq_axis``,
-        else the data axes (``None`` without a mesh)."""
-        if self.mesh is None:
-            return None
-        return self.seq_axis or data_axes(self.mesh)
+    def _kv_cut(self, slots: Optional[int], batch: Optional[int] = None,
+                global_batch: Optional[int] = None) -> KVCut:
+        """How a KV cache of ``slots`` slots is cut on this rank
+        (``launch.sharding.kv_cache_cut``); ``slots`` ``None``: the heads
+        and ``head_dim`` only (decode reads the slot cut off the cache).
+        The population layout cuts nothing: its rows differ between the
+        peers of ``"model"``."""
+        mesh = self.mesh
+        if mesh is None or self.replicate:
+            return KVCut()
+        if global_batch is not None and self.seq_axis is None:
+            n = mesh.axis_size(data_axes(mesh))
+            rows = global_batch if global_batch % n else global_batch // n
+            if batch != rows:
+                raise ValueError(f"a global batch of {global_batch} on {n} "
+                                 f"data ranks puts {rows} rows on a rank, "
+                                 f"not {batch}")
+        return kv_cache_cut(self.cfg, global_batch, slots, mesh,
+                            seq_axis=self.seq_axis)
 
-    def _seq_split(self, stage: Stage, batch: int, max_seq: int,
-                   global_batch: Optional[int]) -> int:
-        """How many blocks a KV cache of ``stage`` is cut into (1: whole)."""
-        if self.mesh is None or stage.kind in ("mamba", "xlstm_pair"):
-            return 1
-        slots = attn_lib.cache_slots(max_seq, stage.window)
-        if self.seq_axis is not None:
-            n = self.mesh.axis_size(self.seq_axis)
-            return n if slots % n == 0 else 1
-        if global_batch is None:
-            return 1
-        n = self.mesh.axis_size(data_axes(self.mesh))
-        rows = global_batch if global_batch % n else global_batch // n
-        if batch != rows:
-            raise ValueError(f"a global batch of {global_batch} on {n} data "
-                             f"ranks puts {rows} rows on a rank, not "
-                             f"{batch}")
-        return n if cache_seq_axes(global_batch, slots, self.mesh) else 1
+    def _decode_cut(self, cache, slots_key: str = "slots") -> KVCut:
+        """The cut of a KV cache being decoded: the heads and ``head_dim``
+        as ``_kv_cut`` says, the slots along ``seq_axis`` or the data axes
+        where ``cache`` holds ``slots_key`` (the whole count)."""
+        cut = self._kv_cut(None)
+        if slots_key in cache:
+            cut = cut._replace(slots=self.seq_axis or data_axes(self.mesh))
+        return cut
 
     def decode_step(self, params, cache, token: torch.Tensor, pos: int):
         """token: [B,1] int; pos: int. Returns (logits [B,V] f32, cache).
@@ -741,12 +753,14 @@ class Model:
         x = self._embed(top, token)
         for at, (stage, sp, sc) in enumerate(zip(self.program,
                                                  params["stages"], cache)):
+            cut = KVCut() if stage.kind in ("mamba", "xlstm_pair") else \
+                self._decode_cut(sc)
             for lp, lc in zip(_layers(stage, sp), _layers(stage, sc)):
                 lp, shared = self._whole_layer(at, lp,
                                                params.get("shared_attn"))
                 x = _decode_layer(lp, x, lc, pos, cfg, stage.kind,
                                   stage.window, shared, self.mesh,
-                                  self.dp_axes, self._slot_axes())
+                                  self.dp_axes, cut)
         x = apply_norm(top["final_norm"], x, cfg.norm, cfg.norm_eps)
         return self._unembed(top, x)[:, 0], cache
 

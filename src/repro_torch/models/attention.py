@@ -50,9 +50,22 @@ the same order whatever heads they hold. A rank with no heads launches
 nothing and adds zeros; its empty q keeps it in that sum. Where the heads
 divide, ``wq`` is split already and ``head_axis`` changes nothing.
 Decode does not take ``head_axis``, as the reference's ``attn_decode``
-does not: its layers run as without it.
-
-Cross-attention is not split: the ``audio`` family holds every leaf whole.
+does not: its layers run on the rank's block of each KV cache, as
+``launch.sharding.kv_cache_cut`` lays it out (``cache_specs``' rule). Where
+the kv heads do not divide ``"model"`` and ``head_dim`` does, the rank
+holds every kv head's block of ``head_dim`` columns: it computes k and v
+whole (``wk`` and ``wv`` are whole exactly there), RoPE on the whole
+``head_dim``, writes its columns, takes every query head's q (gathered
+over ``"model"`` where ``wq`` is split), sums the partial scores of its
+columns over ``"model"`` in rank order (``collectives.psum``, f32, so
+every peer holds the same bits; before the slot split's combine where
+both apply), runs ``p @ v`` on its columns and gathers the output's
+blocks, then goes on into the output projection with its heads. This is
+what GSPMD does with the reference's layout. The ``audio`` family holds
+its weights whole: a cache cut by kv heads runs the columns of the rank's
+heads and gathers their outputs before the whole ``wo``, self- and
+cross-attention alike (``cross_attn_decode``, Whisper's decode step's
+cross-attention, plain PyTorch as the reference's).
 
 Context parallelism (``seq_axis``, the reference's ``_constrain_seq``: q's
 sequence over that axis, K/V all-gathered where attention needs them, the
@@ -72,13 +85,14 @@ and a rank whose slots are all masked weighs 0.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import collectives as coll
+from repro_torch.launch.sharding import KVCut
 from repro_torch.models.layers import apply_rope, dense_init, rope_angles
 
 NEG_INF = -1e30
@@ -121,16 +135,26 @@ def _taken(take) -> int:
     return take.stop - take.start if isinstance(take, slice) else len(take)
 
 
-def rank_kv_heads(params, cfg: ModelConfig, mesh) -> int:
-    """How many kv heads the rank holding ``params`` (its ``wq`` and ``wk``
-    blocks, or their shapes) reads, as its decode cache holds them: its
-    own where kv is split, the ones its query heads read (``kv_take``)
-    where only q is, all where q is whole."""
+def rank_kv_heads(params, cfg: ModelConfig, mesh,
+                  cut: KVCut = KVCut()) -> Tuple[int, int]:
+    """(kv heads, head_dim) of the decode cache of the rank holding
+    ``params`` (its ``wq`` and ``wk`` blocks, or their shapes) under
+    ``cut`` (``launch.sharding.kv_cache_cut``): ``cache_specs``' block
+    where it cuts the kv heads or ``head_dim``; where it cuts neither, the
+    kv heads the rank's query heads read (``kv_take``) where only q is
+    split, else the kv heads its weights hold, at the whole ``head_dim``
+    (``params`` ``None``: whole weights)."""
     hd = cfg.resolved_head_dim
+    if cut.head_dim is not None:
+        return cfg.n_kv_heads, hd // mesh.axis_size(cut.head_dim)
+    if cut.heads is not None:
+        return cfg.n_kv_heads // mesh.axis_size(cut.heads), hd
+    if params is None:
+        return cfg.n_kv_heads, hd
     hq, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     if mesh is None or hq == cfg.n_heads or hkv != cfg.n_kv_heads:
-        return hkv
-    return _taken(kv_take(cfg, mesh.axis_index("model") * hq, hq))
+        return hkv, hd
+    return _taken(kv_take(cfg, mesh.axis_index("model") * hq, hq)), hd
 
 
 HEAD_AXES = (None, "model")     # what Model(head_axis=) takes
@@ -183,11 +207,13 @@ def _block_weights(params, x: torch.Tensor, cfg: ModelConfig, mesh,
 
 
 def _qkv(params, x: torch.Tensor, cfg: ModelConfig, compute_dtype,
-         mesh=None, block=None):
+         mesh=None, block=None, take_kv: bool = True):
     """q [B, S, hq, hd], k and v [B, S, kv, hd] of the heads this rank's
     weights hold, or under ``head_axis`` of the query heads ``block``
     (first, count) of whole weights (module docstring); the rank's rows of
-    ``wo``; and whether q is split over the mesh's ``"model"`` axis."""
+    ``wo``; and whether q is split over the mesh's ``"model"`` axis.
+    ``take_kv=False`` keeps every kv head of whole ``wk`` / ``wv`` under
+    a split q (a decode cache cut along ``head_dim`` holds them all)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     local = None
@@ -215,7 +241,7 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, compute_dtype,
     v = v.reshape(b, s, hkv, hd)
     if local is not None:
         k, v = k[:, :, local], v[:, :, local]
-    elif q_split and not kv_split:
+    elif q_split and not kv_split and take_kv:
         take = kv_take(cfg, mesh.axis_index("model") * hq, hq)
         k = coll.replicated(k, mesh, "model")[:, :, take]
         v = coll.replicated(v, mesh, "model")[:, :, take]
@@ -301,18 +327,18 @@ def cache_slots(max_seq: int, window: Optional[int] = None) -> int:
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   window: Optional[int] = None, dtype=torch.bfloat16, *,
                   device, kv_heads: Optional[int] = None,
-                  seq_split: int = 1):
+                  head_dim: Optional[int] = None, seq_split: int = 1):
     """Cache for ONE attention layer. Rolling buffer when windowed.
-    ``kv_heads``: a rank's count (``rank_kv_heads``), by default all.
-    ``seq_split`` > 1: this rank's block of the slots, which must divide
-    (``launch.sharding.cache_seq_axes``), with the whole count under
-    ``"slots"`` (a host int64 scalar)."""
-    hd = cfg.resolved_head_dim
+    ``kv_heads`` and ``head_dim``: a rank's block (``rank_kv_heads``), by
+    default whole. ``seq_split`` > 1: this rank's block of the slots,
+    which must divide (``launch.sharding.kv_cache_cut``), with the whole
+    count under ``"slots"`` (a host int64 scalar)."""
     slots = cache_slots(max_seq, window)
     if slots % seq_split:
         raise ValueError(f"{slots} cache slots do not split over "
                          f"{seq_split} ranks")
-    shape = (batch, slots // seq_split, kv_heads or cfg.n_kv_heads, hd)
+    shape = (batch, slots // seq_split, kv_heads or cfg.n_kv_heads,
+             head_dim or cfg.resolved_head_dim)
     out = {"k": torch.zeros(shape, dtype=dtype, device=device),
            "v": torch.zeros(shape, dtype=dtype, device=device)}
     if seq_split > 1:
@@ -340,47 +366,139 @@ def _split_softmax(sc: torch.Tensor, valid: torch.Tensor, cv: torch.Tensor,
     return num / den
 
 
+def _attend_cache(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  valid: torch.Tensor, mesh, cut: KVCut) -> torch.Tensor:
+    """softmax(q k / sqrt(hd)) v of one query token over the rank's block
+    of a cache: qg [B, kv, G, hd] f32 (every column of the heads), ck and
+    cv [B, m, kv, hd_r] the block (``cut``), ``valid`` [m] its slots'
+    mask. On a ``head_dim`` block the partial scores are summed over its
+    axis in rank order (f32, the same bits on every peer) before the
+    softmax, which combines the ranks' partial softmaxes over a slot cut;
+    the output's ``head_dim`` blocks are gathered back. [B, kv, G, hd]."""
+    hd = qg.shape[-1]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=qg.device))
+    qs = qg * scale
+    if cut.head_dim is not None:
+        hdr = ck.shape[-1]
+        lo = mesh.axis_index(cut.head_dim) * hdr
+        qs = qs[..., lo:lo + hdr]
+    sc = torch.einsum("bkgd,bjkd->bkgj", qs, ck.float())
+    if cut.head_dim is not None:
+        sc = coll.psum(sc, mesh, cut.head_dim)
+    if cut.slots is not None:
+        out = _split_softmax(sc, valid, cv, mesh, cut.slots)
+    else:
+        p = torch.softmax(torch.where(valid, sc, NEG_INF), dim=-1)
+        out = torch.einsum("bkgj,bjkd->bkgd", p, cv.float())
+    if cut.head_dim is not None:
+        out = _gather_last(out, mesh, cut.head_dim)
+    return out
+
+
+def _head_columns(params, cfg: ModelConfig, mesh, axis) -> dict:
+    """Whole ``wq`` / ``wk`` / ``wv`` (and biases) cut to the columns of
+    the rank's block of kv heads along ``axis`` and of the query heads
+    that read them (a decode cache cut by heads under whole weights)."""
+    hd = cfg.resolved_head_dim
+    n, r = mesh.axis_size(axis), mesh.axis_index(axis)
+    hq, kv = cfg.n_heads // n, cfg.n_kv_heads // n
+    cols = slice(r * hq * hd, (r + 1) * hq * hd)
+    kvc = slice(r * kv * hd, (r + 1) * kv * hd)
+    out = {"wq": params["wq"][:, cols], "wk": params["wk"][:, kvc],
+           "wv": params["wv"][:, kvc], "wo": params["wo"]}
+    if cfg.qkv_bias:
+        out.update(bq=params["bq"][cols], bk=params["bk"][kvc],
+                   bv=params["bv"][kvc])
+    return out
+
+
+def _gather_last(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Every peer's x [..., c] of ``axis`` joined along the last dimension
+    in rank order: [..., n c] (the blocks of ``head_dim``, or the heads'
+    outputs [B, 1, hq_r hd] in head order)."""
+    parts = coll.all_gather(x[None].contiguous(), mesh, axis)
+    return torch.movedim(parts, 0, -2).reshape(
+        x.shape[:-1] + (parts.shape[0] * x.shape[-1],))
+
+
 def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
                 *, window: Optional[int] = None, rope: bool = True,
-                mesh=None, slot_axes=None):
+                mesh=None, cut: KVCut = KVCut()):
     """One-token decode. x: [B, 1, D]; pos: the current position (int),
     the same in all three streams under M-RoPE.
 
     Cached K/V are stored post-RoPE. For windowed layers the cache is a
     rolling buffer of ``window`` slots written at ``pos % window``. Where
     the reference returns an updated copy, the port writes the new K/V into
-    ``cache`` in place (no copy of the cache per token) and returns it. On
-    a ``mesh``, the rank's heads and the kv heads they read
-    (``rank_kv_heads``); a cache with ``"slots"`` holds this rank's block
-    of them along ``slot_axes`` (module docstring).
+    ``cache`` in place (no copy of the cache per token) and returns it.
+
+    On a ``mesh`` the cache is the rank's block under ``cut``
+    (``launch.sharding.kv_cache_cut``, ``cache_specs``' rule):
+
+    - kv heads over ``"model"``: with ``wk`` / ``wv`` split, the rank's
+      heads as in the forward; with whole weights (Whisper), the columns
+      of the rank's kv heads and of the query heads that read them, whose
+      outputs are gathered over ``"model"`` before the whole ``wo``;
+    - ``head_dim`` over ``"model"`` (``wk`` / ``wv`` whole there): every
+      kv head's k and v computed whole, RoPE on the whole ``head_dim``,
+      the rank's block written; every query head's q (gathered over
+      ``"model"`` where ``wq`` is split); partial scores summed in rank
+      order, ``p @ v`` on the block, its blocks gathered, and the rank's
+      heads (all of them where ``wq`` is whole) into ``_out_proj``;
+    - neither: the kv heads the rank's query heads read (``rank_kv_heads``);
+    - the slots over ``cut.slots`` (the cache holds ``"slots"``, the whole
+      count): the new K/V written by the rank that owns slot ``pos``, the
+      ranks' partial softmaxes combined (module docstring).
     """
     compute_dtype = compute_dtype_of(cfg)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v, wo, q_split = _qkv(params, x, cfg, compute_dtype,
-                                mesh)                 # [B,1,H|KV,hd]
+    ck, cv = cache["k"], cache["v"]
+    whole_kv = params["wk"].shape[-1] == cfg.n_kv_heads * hd
+    gather_axis = None
+    if cut.heads is not None and whole_kv:
+        gather_axis = cut.heads
+        q, k, v, wo, q_split = _qkv(
+            _head_columns(params, cfg, mesh, cut.heads), x, cfg,
+            compute_dtype)
+    elif cut.head_dim is not None and not whole_kv:
+        raise ValueError(f"{cfg.name}: a cache cut along head_dim needs "
+                         f"whole wk / wv, not {params['wk'].shape[-1]} of "
+                         f"{cfg.n_kv_heads * hd} columns")
+    else:
+        q, k, v, wo, q_split = _qkv(params, x, cfg, compute_dtype, mesh,
+                                    take_kv=cut.head_dim is None)
+    if tuple(ck.shape[2:]) != (k.shape[2], hd if cut.head_dim is None
+                               else hd // mesh.axis_size(cut.head_dim)):
+        raise ValueError(f"{cfg.name}: a cache block {tuple(ck.shape)} "
+                         f"under {cut} for {k.shape[2]} kv heads of "
+                         f"head_dim {hd}")
     if rope:
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
         if cfg.mrope_sections is not None:
             positions = positions.expand(3, b, 1)
         q, k = _rope(q, k, positions, cfg)
+    hq = q.shape[2]
+    if cut.head_dim is not None:
+        lo = mesh.axis_index(cut.head_dim) * ck.shape[-1]
+        k, v = k[..., lo:lo + ck.shape[-1]], v[..., lo:lo + ck.shape[-1]]
+        if q_split:     # every query head reads the rank's columns
+            q = torch.movedim(coll.all_gather(
+                torch.movedim(q, 2, 0).contiguous(), mesh, "model"), 0, 2)
 
-    ck, cv = cache["k"], cache["v"]
     mine = ck.shape[1]
-    split = "slots" in cache
+    split = cut.slots is not None
     slots = int(cache["slots"]) if split else mine
-    first = mesh.axis_index(slot_axes) * mine if split else 0
+    first = mesh.axis_index(cut.slots) * mine if split else 0
     slot = pos % slots if window is not None else pos
     if first <= slot < first + mine:
         ck[:, slot - first] = k[:, 0].to(ck.dtype)
         cv[:, slot - first] = v[:, 0].to(cv.dtype)
 
     # attention over the cache (linear in cache length)
-    hq, kv = q.shape[2], k.shape[2]
-    qg = q.reshape(b, 1, kv, hq // kv, hd).float()
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=x.device))
-    sc = torch.einsum("bikgd,bjkd->bkgj", qg * scale, ck.float())
+    kv = ck.shape[2]
+    qg = q.reshape(b, kv, q.shape[2] // kv, hd).float()
     slot_idx = torch.arange(first, first + mine, device=x.device)
     if window is not None:
         # slot s holds position p = s (mod slots), the largest such p <= pos
@@ -388,14 +506,14 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
         valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - window)
     else:
         valid = slot_idx <= pos
-    if split:
-        out = _split_softmax(sc, valid, cv, mesh, slot_axes)
-    else:
-        sc = torch.where(valid, sc, NEG_INF)
-        p = torch.softmax(sc, dim=-1)
-        out = torch.einsum("bkgj,bjkd->bkgd", p, cv.float())
-    out = _out_proj(wo, out.reshape(b, 1, hq * hd), compute_dtype, mesh,
-                    q_split)
+    out = _attend_cache(qg, ck, cv, valid, mesh, cut)
+    out = out.reshape(b, 1, q.shape[2] * hd)
+    if cut.head_dim is not None and q_split:    # the rank's heads
+        r = mesh.axis_index("model")
+        out = out[..., r * hq * hd:(r + 1) * hq * hd]
+    if gather_axis is not None:
+        out = _gather_last(out, mesh, gather_axis)
+    out = _out_proj(wo, out, compute_dtype, mesh, q_split)
     return out.to(x.dtype), cache
 
 
@@ -422,6 +540,36 @@ def cross_attn_forward(params, x: torch.Tensor, enc_k: torch.Tensor,
                           causal=False, backend="ref")
     out = out.reshape(b, s, cfg.n_heads * hd).to(compute_dtype)
     return (out @ params["wo"].to(compute_dtype)).to(x.dtype)
+
+
+def cross_attn_decode(params, x: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor, cfg: ModelConfig, *, mesh=None,
+                      cut: KVCut = KVCut()) -> torch.Tensor:
+    """``cross_attn_forward`` of one query token x [B, 1, D] (the decode
+    step's), against a cross-attention cache or, on a mesh, the rank's
+    block of it (``cut``, ``launch.sharding.kv_cache_cut``; the weights
+    whole): the rank's query heads where the heads are cut, their outputs
+    gathered over ``"model"``; partial scores summed over ``"model"`` on a
+    ``head_dim`` block; the ranks' partial softmaxes combined over a slot
+    cut (``_attend_cache``). Plain PyTorch in f32, as the reference's
+    cross-attention is."""
+    compute_dtype = compute_dtype_of(cfg)
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    wq, hq = params["wq"], cfg.n_heads
+    if cut.heads is not None:
+        hq //= mesh.axis_size(cut.heads)
+        r = mesh.axis_index(cut.heads)
+        wq = wq[:, r * hq * hd:(r + 1) * hq * hd]
+    kv = ck.shape[2]
+    q = x.to(compute_dtype) @ wq.to(compute_dtype)
+    qg = q.reshape(b, kv, hq // kv, hd).float()
+    valid = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
+    out = _attend_cache(qg, ck, cv, valid, mesh, cut).reshape(b, 1, hq * hd)
+    if cut.heads is not None:
+        out = _gather_last(out, mesh, cut.heads)
+    out = out.to(compute_dtype) @ params["wo"].to(compute_dtype)
+    return out.to(x.dtype)
 
 
 def cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig):

@@ -16,7 +16,8 @@ next-token NLL over the decoder's tokens, whose aux term is ``forward``'s
 zero (the reference's override drops it). The encoder's and the decoder's
 self-attention go through ``flash_attention`` (the hand-written kernel on
 the card); cross-attention takes the plain version
-(``attention.cross_attn_forward``). ``decode_step`` writes the new
+(``attention.cross_attn_forward``, and at decode
+``attention.cross_attn_decode``). ``decode_step`` writes the new
 self-attention K/V into the cache in place, as ``attention.attn_decode``
 does, and returns it.
 
@@ -28,19 +29,31 @@ cross-attention of the rank's queries against the whole encoder output's
 K/V, the sinusoids the rank's rows of the whole sequence's; ``loss`` is
 the rank's share (``Model._loss_share``). The encoder runs whole on every
 rank of the axis (its attention is bidirectional), on the rows of
-``audio_embed`` the batch axes give the rank. Decode holds the caches
-whole on every rank and runs alike on each.
+``audio_embed`` the batch axes give the rank.
+
+Decode on a mesh holds ``cache_specs``' block of each of ``self_k``,
+``self_v``, ``cross_k`` and ``cross_v`` (``init_cache(global_batch=)``,
+``launch.sharding.kv_cache_cut``): the kv heads over ``"model"`` where
+they divide, else ``head_dim``; the slots over the data axes for a batch
+that does not divide them, or over ``seq_axis`` under it. The rows a rank
+decodes are cut over the data axes only, as ``cache_specs`` cuts the
+batch, so the peers of ``"model"`` decode the same rows.
+``prefill_cross_kv`` runs the encoder whole and writes the rank's block;
+``decode_step`` runs self-attention through ``attention.attn_decode`` and
+cross-attention through ``attention.cross_attn_decode`` on the rank's
+blocks, to the unsharded model's values.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_map
+from repro_torch.launch.sharding import shard_of
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.api import Model, unstack
 from repro_torch.models.attention import compute_dtype_of
@@ -141,20 +154,33 @@ class WhisperModel(Model):
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
-                   device="cuda"):
+                   device="cuda", *, global_batch: Optional[int] = None):
         """Self-attention K/V [L, B, max_seq, KV, hd] and cross-attention
         K/V [L, B, encoder_seq, KV, hd], zeros; ``prefill_cross_kv`` fills
-        the cross ones."""
+        the cross ones. On a mesh, each the rank's block as ``cache_specs``
+        lays it out (``Model._kv_cut``, ``launch.sharding.kv_cache_cut``:
+        the kv heads or ``head_dim`` over ``"model"``, the slots over
+        ``seq_axis``, or over the data axes for a ``global_batch`` that
+        does not divide them), ``batch`` the rank's rows, the same on
+        every peer of ``"model"``; a cut of the slots adds ``self_slots``
+        / ``cross_slots``, the whole count (a host int64 scalar)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
-        self_shape = (cfg.n_layers, batch, max_seq) + kv
-        cross_shape = (cfg.n_layers, batch, cfg.encoder_seq) + kv
-        return {name: torch.zeros(shape, dtype=dtype, device=dev)
-                for name, shape in (("self_k", self_shape),
-                                    ("self_v", self_shape),
-                                    ("cross_k", cross_shape),
-                                    ("cross_v", cross_shape))}
+        out = {}
+        for part, slots in (("self", max_seq), ("cross", cfg.encoder_seq)):
+            cut = self._kv_cut(slots, batch, global_batch)
+            kv, hd = attn_lib.rank_kv_heads(None, cfg, self.mesh, cut)
+            n = 1 if cut.slots is None else self.mesh.axis_size(cut.slots)
+            if slots % n:
+                raise ValueError(f"{slots} cache slots do not split over "
+                                 f"{n} ranks")
+            shape = (cfg.n_layers, batch, slots // n, kv, hd)
+            for leaf in ("k", "v"):
+                out[f"{part}_{leaf}"] = torch.zeros(shape, dtype=dtype,
+                                                    device=dev)
+            if n > 1:
+                out[f"{part}_slots"] = torch.tensor(slots, dtype=torch.int64)
+        return out
 
     def input_specs(self, shape, device="meta") -> Dict[str, Any]:
         """``Model.input_specs`` with the encoder's frames: ``audio_embed``
@@ -170,27 +196,37 @@ class WhisperModel(Model):
         return super().input_specs(shape, device)
 
     def prefill_cross_kv(self, params, audio_embed: torch.Tensor, cache):
-        """Encode ``audio_embed`` and write every decoder layer's
-        cross-attention K/V into ``cache`` (in place; run once a request).
-        Returns the cache."""
+        """Encode ``audio_embed`` [B, encoder_seq, D] (the rank's rows,
+        whole: the weights are replicated) and write every decoder layer's
+        cross-attention K/V, or the rank's block of them, into ``cache``
+        (in place; run once a request). Returns the cache."""
         cfg = self.cfg
-        want = tuple(cache["cross_k"].shape[1:3])
+        want = (cache["cross_k"].shape[1], cfg.encoder_seq)
         if tuple(audio_embed.shape[:2]) != want:
             raise ValueError(f"audio_embed {tuple(audio_embed.shape)} does "
                              f"not fill the cache's cross K/V [B, Se] = "
                              f"{list(want)}")
+        spec = self._decode_cut(cache, "cross_slots").spec()
         enc_out = self.encode(params, audio_embed)
         for li, lp in enumerate(unstack(params["decoder"], cfg.n_layers)):
             ck, cv = attn_lib.cross_kv(lp["cross_attn"], enc_out, cfg)
+            if self.mesh is not None:
+                ck = shard_of(ck, spec, self.mesh)
+                cv = shard_of(cv, spec, self.mesh)
             cache["cross_k"][li] = ck.to(cache["cross_k"].dtype)
             cache["cross_v"][li] = cv.to(cache["cross_v"].dtype)
         return cache
 
     def decode_step(self, params, cache, token: torch.Tensor, pos: int):
         """token: [B, 1] int; pos: int. Returns (logits [B, V] f32, cache),
-        the cache's self-attention K/V updated in place."""
-        cfg = self.cfg
+        the cache's self-attention K/V updated in place. On a mesh the
+        caches are the rank's blocks (``init_cache``); self-attention
+        runs through ``attention.attn_decode``, cross-attention through
+        ``attention.cross_attn_decode``."""
+        cfg, mesh = self.cfg, self.mesh
         pos = int(pos)
+        self_cut = self._decode_cut(cache, "self_slots")
+        cross_cut = self._decode_cut(cache, "cross_slots")
         x = params["embed"][token].to(compute_dtype_of(cfg))
         # the sinusoid of this one position
         pe = sinusoids(torch.full((1,), pos, dtype=torch.float32,
@@ -198,15 +234,17 @@ class WhisperModel(Model):
         x = x + pe.to(x.dtype)
         for li, lp in enumerate(unstack(params["decoder"], cfg.n_layers)):
             h = self._norm(lp["norm1"], x)
-            out, _ = attn_lib.attn_decode(
-                lp["self_attn"], h, {"k": cache["self_k"][li],
-                                     "v": cache["self_v"][li]},
-                pos, cfg, rope=False)
+            kv = {"k": cache["self_k"][li], "v": cache["self_v"][li]}
+            if "self_slots" in cache:
+                kv["slots"] = cache["self_slots"]
+            out, _ = attn_lib.attn_decode(lp["self_attn"], h, kv, pos, cfg,
+                                          rope=False, mesh=mesh,
+                                          cut=self_cut)
             x = x + out
             h = self._norm(lp["norm_x"], x)
-            x = x + attn_lib.cross_attn_forward(
+            x = x + attn_lib.cross_attn_decode(
                 lp["cross_attn"], h, cache["cross_k"][li],
-                cache["cross_v"][li], cfg)
+                cache["cross_v"][li], cfg, mesh=mesh, cut=cross_cut)
             x = x + self._mlp(lp["mlp"], self._norm(lp["norm2"], x))
         x = self._norm(params["final_norm"], x)
         return self._unembed(params, x)[:, 0], cache

@@ -23,9 +23,10 @@ qwen2-vl-72b and whisper-base in float32 at batch 1 and 32 tokens, on a
 - the nll, the ranks' shares summed, 1e-5 relative; its gradient summed
   over ``"data"`` and ``unshard``-ed 1e-4 of each leaf's largest;
 - on (4, 1), the greedy tokens of ``serve.generate`` (a 5-token prompt, 11
-  tokens; zamba2's shared attention's 16 slots split over the ranks, the
-  Mamba2 and xLSTM states and Whisper's caches whole on each) equal to the
-  reference's decode loop, and every step's logits 2e-5 of its;
+  tokens; zamba2's shared attention's 16 slots and Whisper's self- and
+  cross-attention slots split over the ranks, the Mamba2 and xLSTM states
+  whole on each) equal to the reference's decode loop, and every step's
+  logits 2e-5 of its;
 - the gathers, counted exactly: one ``gather_seq`` a ``mamba`` or
   ``xlstm_pair`` layer a forward, of B x S/n x D x 4 bytes, and one of K
   and V an attention layer, of B x S/n x 2 kv x hd x 4 bytes (kv the
@@ -279,6 +280,11 @@ for arch in spec["archs"]:
             out[tag + ".decode"] = res["tokens"].numpy()
             out[tag + ".decode_logits"] = decode_logits(
                 model, params, prompt, res["tokens"], audio)
+            if audio is not None:      # the slots of a rank's caches
+                cache = model.init_cache(
+                    1, prompt.shape[1] + spec["gen"], device="meta")
+                out[tag + ".slots"] = np.asarray(
+                    [cache["self_k"].shape[2], cache["cross_k"].shape[2]])
         if (arch, name) == tuple(spec["step"]):
             opt = sgd(spec["lr"])
             stepped, _, _ = make_train_step(model, opt)(
@@ -376,11 +382,16 @@ def test_loss_and_gradients_match_the_reference(world, arch, mesh):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_decode_matches_the_reference(world, arch):
     """A batch of one on (4, 1) under ``seq_axis``: zamba2's shared
-    attention's 16 slots split over the ranks, the carried states and
-    Whisper's caches whole on each; the tokens the reference's and every
-    step's logits within LOGIT_TOL of its."""
+    attention's 16 slots and Whisper's self- and cross-attention slots
+    split over the ranks (``cache_specs``' blocks), the carried states
+    whole on each; the tokens the reference's and every step's logits
+    within LOGIT_TOL of its."""
     port, ref = world
     tag = f"{arch}.{DECODE_MESH}"
+    if arch == "whisper-base":
+        cfg, n = _cfg(tconfigs, arch), MESHES[DECODE_MESH][0]
+        assert port[tag + ".slots"].tolist() == [
+            (PROMPT + GEN) // n, cfg.encoder_seq // n]
     np.testing.assert_array_equal(port[tag + ".decode"],
                                   ref[arch + ".decode"])
     np.testing.assert_allclose(port[tag + ".decode_logits"],

@@ -333,16 +333,23 @@ def _check_rank_cache(tcfg, model, whole_cache, split, mp, m):
             assert c["ssm"].shape[-3] == h // n
             assert c["conv_x"].shape[-1] == w["conv_x"].shape[-1] // n
         elif stage.kind != "xlstm_pair":
-            # kv heads over model where they divide (cache_specs'
-            # block); else the ones the rank's query heads read
-            kv = c["k"].shape[-2]
-            if not split or tcfg.n_heads % mp:
-                assert kv == tcfg.n_kv_heads
+            # cache_specs' block: kv heads over model where they divide,
+            # else head_dim; where neither does, the kv heads the rank's
+            # query heads read (all where wq is whole)
+            kv, hd = c["k"].shape[-2:]
+            whole = (tcfg.n_kv_heads, tcfg.resolved_head_dim)
+            if not split:
+                assert (kv, hd) == whole
             elif tcfg.n_kv_heads % mp == 0:
-                assert kv == tcfg.n_kv_heads // mp
+                assert (kv, hd) == (tcfg.n_kv_heads // mp, whole[1])
+            elif whole[1] % mp == 0:
+                assert (kv, hd) == (whole[0], whole[1] // mp)
+            elif tcfg.n_heads % mp:
+                assert (kv, hd) == whole
             else:
                 g = tcfg.n_heads // tcfg.n_kv_heads
                 q0 = m * (tcfg.n_heads // mp)
+                assert hd == whole[1]
                 assert kv == len({h // g for h in range(
                     q0, q0 + tcfg.n_heads // mp)}) or \
                     kv == tcfg.n_heads // mp
@@ -387,7 +394,10 @@ def test_kv_take_is_the_kv_heads_the_query_heads_read(heads, kv, tp):
     """``attention.kv_take``: the kv heads a rank's query heads read (global
     q head h reads h // G), in the order the rank's grouped attention reads
     them; ``rank_kv_heads`` counts them from the rank's blocks
-    (``Model.rank_blocks``) as its cache holds them."""
+    (``Model.rank_blocks``) where no cache cut applies, and under
+    ``sharding.kv_cache_cut`` gives the block its cache holds:
+    ``cache_specs``' kv heads over model where they divide, else its
+    ``head_dim``, else (tp 6 on head_dim 32) the heads its queries read."""
     from repro_torch.models.attention import kv_take, rank_kv_heads
     cfg = dataclasses.replace(tconfigs.get_smoke_config("stablelm-1.6b"),
                               n_heads=heads, n_kv_heads=kv)
@@ -400,8 +410,13 @@ def test_kv_take_is_the_kv_heads_the_query_heads_read(heads, kv, tp):
             [(r * hq + i) // g for i in range(hq)]
         mesh = _rank_mesh({"data": 1, "model": tp}, {"data": 0, "model": r})
         block = build_model(cfg, mesh=mesh).rank_blocks()["stages"][0]
+        hd = cfg.resolved_head_dim
         assert rank_kv_heads(block["attn"], cfg, mesh) == (
-            kv // tp if kv % tp == 0 else len(got))
+            kv // tp if kv % tp == 0 else len(got), hd)
+        cut = tsh.kv_cache_cut(cfg, None, None, mesh)
+        assert rank_kv_heads(block["attn"], cfg, mesh, cut) == (
+            (kv // tp, hd) if kv % tp == 0 else
+            (kv, hd // tp) if hd % tp == 0 else (len(got), hd))
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 4)],
@@ -412,9 +427,9 @@ def test_cache_sequence_split_matches_the_reference(arch, mesh_shape):
     slots (which divide the data axes) and 63 (which do not), each KV
     leaf's sequence entry of the reference's spec is
     ``sharding.cache_seq_axes``' answer, and the cache a rank of the
-    smoke config holds (``Model.init_cache(..., global_batch=1)``) has that
-    spec's block of slots. Whisper (``audio``) holds its caches whole, as
-    it does its heads, so only the rule is held for it."""
+    smoke config holds (``Model.init_cache(..., global_batch=1)``, and
+    ``WhisperModel.init_cache``'s four caches) has that spec's block of
+    slots, with the whole count beside it where they are cut."""
     jcfg, tcfg, jm, _, _, _ = _models(arch, True)
     dp, mp = mesh_shape
     shape = {"data": dp, "model": mp}
@@ -433,8 +448,6 @@ def test_cache_sequence_split_matches_the_reference(arch, mesh_shape):
                 kv.append((name, sdim, dims[sdim]))
                 got = tsh.cache_seq_axes(1, dims[sdim], _Mesh(shape))
                 assert (spec + (None,) * len(dims))[sdim] == got, name
-        if tcfg.family == "audio":
-            continue
         for d in range(dp):
             for m in range(mp):
                 mesh = _rank_mesh(shape, {"data": d, "model": m})
@@ -445,8 +458,72 @@ def test_cache_sequence_split_matches_the_reference(arch, mesh_shape):
                     split = tsh.cache_seq_axes(1, slots, _Mesh(shape))
                     want = slots // dp if split else slots
                     assert cache[name].shape[sdim] == want, name
-                    stage = name.rsplit("/", 1)[0] + "/slots"
-                    assert (stage in cache) == bool(split), name
+                    whole = (name.split("_")[0] + "_slots"
+                             if tcfg.family == "audio"
+                             else name.rsplit("/", 1)[0] + "/slots")
+                    assert (whole in cache) == bool(split), name
+                    if split:     # one a layer of a stacked stage
+                        assert bool((cache[whole] == slots).all()), name
+
+
+def _check_cache_blocks(arch, smoke, shape, rank, b, seq):
+    """Every KV leaf of the cache that rank ``rank`` of a ``shape`` mesh
+    holds (``init_cache`` with the global batch ``b``) is the block of
+    the reference's ``cache_specs`` on its whole cache, in bf16."""
+    jcfg, tcfg, jm, _, _, _ = _models(arch, smoke)
+    whole = jax.eval_shape(lambda: jm.init_cache(b, seq))
+    ref = _ref_flat(jsh.cache_specs(jcfg, whole, b, _Mesh(shape)))
+    dims = dict(_port_flat(jax.tree.map(lambda x: tuple(x.shape), whole)))
+    n = shape["data"] * shape.get("pod", 1)
+    rows = b // n if b % n == 0 else b
+    coords, left = {}, rank
+    for axis in reversed(list(shape)):
+        coords[axis], left = left % shape[axis], left // shape[axis]
+    mesh = _rank_mesh(shape, coords)
+    cache = dict(_port_flat(build_model(tcfg, mesh=mesh).init_cache(
+        rows, seq, device="meta", global_batch=b)))
+    kv = 0
+    for name, spec in ref:
+        last, d = name.split("/")[-1], dims[name]
+        # cache_specs' KV leaves: [.., B, S, KV, hd] after any stack axis
+        if ("k" in last or "v" in last) and b in d and \
+                len(d) >= d.index(b) + 4:
+            kv += 1
+            want = tuple(tsh.shard_of(torch.empty(d, device="meta"), spec,
+                                      mesh).shape)
+            assert tuple(cache[name].shape) == want, (name, spec, rank)
+            assert cache[name].dtype == torch.bfloat16
+    assert kv == 0 if tcfg.family == "xlstm" else kv > 0
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("mesh_name", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rank_cache_is_the_cache_specs_block(arch, mesh_name, shape_name):
+    """Rank 0 of a production mesh, the full config, on ``meta``: every KV
+    leaf of the cache ``Model.init_cache`` (``WhisperModel.init_cache``)
+    holds with the global batch is the block of the reference's
+    ``cache_specs`` on its whole cache (kv heads or ``head_dim`` over
+    model, the batch or, for a batch of one, the slots over the data
+    axes), and its bytes are that block's."""
+    s = tconfigs.INPUT_SHAPES[shape_name]
+    _check_cache_blocks(arch, False, MESHES[mesh_name], 0, s.global_batch,
+                        s.seq_len)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (1, 4)],
+                         ids=["2x2", "4x1", "1x4"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_rank_cache_is_the_cache_specs_block(arch, mesh_shape):
+    """``test_rank_cache_is_the_cache_specs_block`` on every rank of a
+    small mesh, for the smoke config at a batch of one and at a batch that
+    divides the data axes (4; no layer stack of the smoke configs has 4
+    layers, which ``cache_specs`` would read as the batch)."""
+    dp, mp = mesh_shape
+    for b in (1, 4):
+        for rank in range(dp * mp):
+            _check_cache_blocks(arch, True, {"data": dp, "model": mp}, rank,
+                                b, 64)
 
 
 @pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
